@@ -1,0 +1,147 @@
+// Montgomery field arithmetic on 32-bit limbs held in registers.
+//
+// Replaces the limb-plane formulas that montgomery_tpu/ops/field.py inlines
+// into every Pallas kernel (FieldOps.add/_sub_limbs/add_lazy/sub_lazy/sub/
+// reduce and the Montgomery product _mul_dot + _mont_reduce_wide). There a
+// field element was 30 rows of 13-bit limbs in int32 lanes; here it is NL = 12
+// words of 32 bits in one thread's registers, and R = 2^384 > 64p.
+//
+// Bound on this card: 32-bit integer multiply throughput (IMAD.WIDE / IMAD.HI)
+// and register pressure; one product is 2*NL*NL = 288 32x32->64 multiplies.
+// Design: CIOS with 64-bit products and the reduction interleaved per row, so
+// the working set is NL + 2 words; every loop is fully unrolled so the limbs
+// stay in registers and the modulus words are read from the kernel's
+// parameter bank. Carry chains through PTX add.cc/mad.cc are later work.
+//
+// Bounds match the plain versions (ops/field.py Plain16): inputs of fe_mul may
+// be up to 6p (the lazy sums of the curve formulas), outputs are in [0, 2p).
+#pragma once
+#include <cstdint>
+#include <cstring>
+#include <cuda_runtime.h>
+
+#define NL 12
+
+struct FieldParams {  // layout of FieldOps.field_words
+  uint32_t p[NL];
+  uint32_t p2[NL];
+  uint32_t p4[NL];
+  uint32_t mu;  // -p^-1 mod 2^32
+};
+
+struct Fe {
+  uint32_t v[NL];
+};
+
+__device__ __forceinline__ void fe_load(uint32_t r[NL], const int32_t* plane, int N, int i) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = (uint32_t)plane[(size_t)k * N + i];
+}
+
+__device__ __forceinline__ void fe_store(int32_t* plane, int N, int i, const uint32_t a[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) plane[(size_t)k * N + i] = (int32_t)a[k];
+}
+
+__device__ __forceinline__ void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = a[k];
+}
+
+// r = a + b mod 2^384; returns the carry out
+__device__ __forceinline__ uint32_t limbs_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  uint64_t c = 0;
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    uint64_t s = (uint64_t)a[k] + b[k] + c;
+    r[k] = (uint32_t)s;
+    c = s >> 32;
+  }
+  return (uint32_t)c;
+}
+
+// r = a - b mod 2^384; returns 1 on borrow (a < b)
+__device__ __forceinline__ uint32_t limbs_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  uint32_t br = 0;
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    uint64_t d = (uint64_t)a[k] - b[k] - br;
+    r[k] = (uint32_t)d;
+    br = (uint32_t)(d >> 63);
+  }
+  return br;
+}
+
+__device__ __forceinline__ void fe_select(uint32_t r[NL], bool c, const uint32_t a[NL], const uint32_t b[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = c ? a[k] : b[k];
+}
+
+// x + y reduced into [0, 2p) for x, y in [0, 2p)
+__device__ __forceinline__ void fe_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+  uint32_t z[NL], d[NL];
+  limbs_add(z, a, b);
+  uint32_t br = limbs_sub(d, z, F.p2);
+  fe_select(r, br, z, d);
+}
+
+// x + y, no reduction
+__device__ __forceinline__ void fe_add_lazy(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  limbs_add(r, a, b);
+}
+
+// x - y + 4p, no reduction; y < 4p
+__device__ __forceinline__ void fe_sub_lazy(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+  uint32_t t[NL];
+  limbs_add(t, a, F.p4);
+  limbs_sub(r, t, b);
+}
+
+// x - y mod 2p, in [0, 2p)
+__device__ __forceinline__ void fe_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+  uint32_t d[NL], d2[NL];
+  uint32_t br = limbs_sub(d, a, b);
+  limbs_add(d2, d, F.p2);
+  fe_select(r, br, d2, d);
+}
+
+// Montgomery product a b / R mod p (CIOS), in [0, 2p) for a, b < 6p
+__device__ __forceinline__ void fe_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+  uint32_t t[NL + 2];
+#pragma unroll
+  for (int k = 0; k < NL + 2; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; j++) {
+      uint64_t s = (uint64_t)t[j] + (uint64_t)a[j] * b[i] + c;
+      t[j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[NL] + c;
+    t[NL] = (uint32_t)s;
+    t[NL + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * F.mu;
+    c = ((uint64_t)t[0] + (uint64_t)m * F.p[0]) >> 32;
+#pragma unroll
+    for (int j = 1; j < NL; j++) {
+      uint64_t u = (uint64_t)t[j] + (uint64_t)m * F.p[j] + c;
+      t[j - 1] = (uint32_t)u;
+      c = u >> 32;
+    }
+    s = (uint64_t)t[NL] + c;
+    t[NL - 1] = (uint32_t)s;
+    t[NL] = t[NL + 1] + (uint32_t)(s >> 32);
+  }
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = t[k];
+}
+
+__device__ __forceinline__ int lane_index() {
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
+#define LANES_PER_BLOCK 128
+
+inline int grid_for(int N) { return (N + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK; }

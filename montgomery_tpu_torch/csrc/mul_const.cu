@@ -1,0 +1,35 @@
+// Kernel 1: Montgomery product of every lane by one constant.
+//
+// Replaces the Pallas kernel "mul_const" of montgomery_tpu/ops/field.py
+// (FieldOps.mul_const, :562-589), which baked the constant's limbs into the
+// traced formula. It serves to_montgomery (c = R^2), from_montgomery (c = 1)
+// and the GLV endomorphism phi(x, y) = (beta x, y).
+//
+// Bound on this card: one 12-word CIOS product per lane, so integer multiply
+// throughput; each lane reads and writes 48 bytes, far below the multiply
+// time. Design: one thread per lane with coalesced limb-plane loads
+// (limb k of lane i at k*N + i); the constant rides by value in the kernel's
+// parameter bank (no trace-time baking, one binary for every constant).
+#include "field.cuh"
+
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+mul_const_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, Fe c, FieldParams F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t a[NL], r[NL];
+  fe_load(a, x, N, i);
+  fe_mul(r, a, c.v, F);
+  fe_store(out, N, i, r);
+}
+
+extern "C" int msm_mul_const(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                             void* stream) {
+  Fe cc;
+  FieldParams F;
+  memcpy(cc.v, c, sizeof(cc.v));
+  memcpy(&F, field, sizeof(F));
+  if (N > 0)
+    mul_const_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, cc, F, N);
+  return (int)cudaGetLastError();
+}

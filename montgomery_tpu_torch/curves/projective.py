@@ -1,0 +1,220 @@
+"""Projective short-Weierstrass curve ops over limb planes (a = 0 curves).
+
+Counterpart of `montgomery_tpu/curves/projective.py`. Points are
+(X : Y : Z) in Montgomery form, each coordinate an (n, *B) int32 plane; the
+point at infinity is any lane with Z == 0. `add` and `double_n` run kernels 2
+and 3 (`csrc/proj_add_rcb.cu`, `csrc/proj_dbl_rcb.cu`) on CUDA tensors and
+their plain versions on CPU tensors.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..bigint.weierstrass import AffinePoint, CurveParams
+from ..ops import kernels
+from ..ops.field import FieldOps, from16, to16
+from ..ops.limbs import to_words
+
+_VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
+
+PROJ_ADD_RCB = kernels.Kernel(
+    "proj_add_rcb", "msm_proj_add_rcb", "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
+    "montgomery_tpu/curves/projective.py:156",
+    [_VP] * 9 + [_U32P, _U32P, _INT],
+)
+PROJ_DBL_RCB = kernels.Kernel(
+    "proj_dbl_rcb", "msm_proj_dbl_rcb", "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
+    "montgomery_tpu/curves/projective.py:258",
+    [_VP] * 6 + [_INT, _U32P, _U32P, _INT],
+)
+
+
+class ProjectiveBatch(NamedTuple):
+    """(X : Y : Z); the point at infinity is any lane with Z == 0."""
+
+    X: torch.Tensor
+    Y: torch.Tensor
+    Z: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.X.shape[-1]
+
+
+class AffineBatch(NamedTuple):
+    """Affine points in Montgomery form with an explicit infinity mask."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    inf: torch.Tensor  # bool (N,)
+
+    @property
+    def count(self) -> int:
+        return self.x.shape[-1]
+
+
+def normalize_host(X: list[int], Y: list[int], Z: list[int], p: int) -> list[AffinePoint]:
+    """Canonical projective ints -> affine points, with Montgomery's trick:
+    one modular inverse for the whole batch."""
+    zs = [z % p or 1 for z in Z]
+    prefix, acc = [], 1
+    for z in zs:
+        prefix.append(acc)
+        acc = acc * z % p
+    inv = pow(acc, -1, p)
+    out = [None] * len(zs)
+    for i in range(len(zs) - 1, -1, -1):
+        zi = inv * prefix[i] % p
+        inv = inv * zs[i] % p
+        if Z[i] % p == 0:
+            out[i] = AffinePoint.zero()
+        else:
+            out[i] = AffinePoint(X[i] * zi % p, Y[i] * zi % p)
+    return out
+
+
+class ProjectiveOps:
+    """Projective Weierstrass arithmetic for a = 0 (every concrete curve)."""
+
+    def __init__(self, fops: FieldOps, params: CurveParams):
+        p = fops.p
+        if params.a % p != 0:
+            raise NotImplementedError("curves with a != 0 (add_masked) are not ported")
+        self.f, self.params = fops, params
+        self.b3_mont = 3 * params.b % p * fops.R % p
+        beta = params.endomorphism.beta if params.endomorphism else 0
+        self.beta_mont = beta % p * fops.R % p
+        self._b3_words = kernels.words(to_words(self.b3_mont, fops.n))
+
+    # ------------------------------------------------------------- structure
+
+    def zero(self, N: int, device) -> ProjectiveBatch:
+        f = self.f
+        z = f.zeros((N,), device)
+        return ProjectiveBatch(z, f.const_plane(f.R_mod_p, z).contiguous(), z.clone())
+
+    def zero_like(self, P: ProjectiveBatch) -> ProjectiveBatch:
+        f = self.f
+        return ProjectiveBatch(torch.zeros_like(P.X), f.const_plane(f.R_mod_p, P.Y),
+                               torch.zeros_like(P.Z))
+
+    def neg(self, P: ProjectiveBatch) -> ProjectiveBatch:
+        return ProjectiveBatch(P.X, self.f.neg(P.Y), P.Z)
+
+    def select(self, mask, a: ProjectiveBatch, b: ProjectiveBatch) -> ProjectiveBatch:
+        s = self.f._sel
+        return ProjectiveBatch(s(mask, a.X, b.X), s(mask, a.Y, b.Y), s(mask, a.Z, b.Z))
+
+    def from_affine(self, A: AffineBatch) -> ProjectiveBatch:
+        P = ProjectiveBatch(A.x, A.y, self.f.const_plane(self.f.R_mod_p, A.x))
+        return self.select(torch.logical_not(A.inf), P, self.zero_like(P))
+
+    # ------------------------------------------------------------ group law
+
+    def add(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
+        """Complete RCB addition (valid for P == Q, P == -Q and zero)."""
+        ins = [*P, *Q]
+        if not kernels.on_cuda(*ins):
+            return self.add_plain(P, Q)
+        shape = P.X.shape
+        n = self.f.n
+        flat = [a.reshape(n, -1).contiguous() for a in ins]
+        N = kernels.check_planes(n, *flat)
+        outs = [torch.empty_like(flat[0]) for _ in range(3)]
+        if N:
+            PROJ_ADD_RCB.launch(*[kernels.ptr(t) for t in outs + flat],
+                                self._b3_words, self.f.field_words, N)
+        return ProjectiveBatch(*[o.reshape(shape) for o in outs])
+
+    def add_plain(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
+        """RCB add, 2015/1060 Alg. 7, as montgomery_tpu's _add_rcb_formula."""
+        F = self.f.plain
+        X1, Y1, Z1, X2, Y2, Z2 = [to16(a) for a in (*P, *Q)]
+        t0, t1, t2 = F.mul(X1, X2), F.mul(Y1, Y2), F.mul(Z1, Z2)
+        m0 = F.mul(F.add_lazy(X1, Y1), F.add_lazy(X2, Y2))
+        m1 = F.mul(F.add_lazy(Y1, Z1), F.add_lazy(Y2, Z2))
+        m2 = F.mul(F.add_lazy(X1, Z1), F.add_lazy(X2, Z2))
+        t3 = F.sub_lazy(m0, F.add_lazy(t0, t1))
+        t4 = F.sub_lazy(m1, F.add_lazy(t1, t2))
+        t5 = F.sub_lazy(m2, F.add_lazy(t0, t2))
+        t2b = F.mul_const(t2, self.b3_mont)
+        Y3b = F.mul_const(t5, self.b3_mont)
+        t0_3 = F.add_lazy(F.add_lazy(t0, t0), t0)
+        Z3s = F.add_lazy(t1, t2b)
+        t1m = F.sub_lazy(t1, t2b)
+        X3 = F.sub(F.mul(t3, t1m), F.mul(t4, Y3b))
+        Y3 = F.add(F.mul(t1m, Z3s), F.mul(Y3b, t0_3))
+        Z3 = F.add(F.mul(Z3s, t4), F.mul(t0_3, t3))
+        return ProjectiveBatch(from16(X3), from16(Y3), from16(Z3))
+
+    def double(self, P: ProjectiveBatch) -> ProjectiveBatch:
+        return self.double_n(P, 1)
+
+    def double_n(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:
+        """k complete RCB doublings in one launch (k at run time)."""
+        if k <= 0:
+            return P
+        if not kernels.on_cuda(*P):
+            return self.double_n_plain(P, k)
+        shape = P.X.shape
+        n = self.f.n
+        flat = [a.reshape(n, -1).contiguous() for a in P]
+        N = kernels.check_planes(n, *flat)
+        outs = [torch.empty_like(flat[0]) for _ in range(3)]
+        if N:
+            PROJ_DBL_RCB.launch(*[kernels.ptr(t) for t in outs + flat], int(k),
+                                self._b3_words, self.f.field_words, N)
+        return ProjectiveBatch(*[o.reshape(shape) for o in outs])
+
+    def double_n_plain(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:
+        """k RCB doublings, 2015/1060 Alg. 9, as montgomery_tpu's _dbl_rcb_formula."""
+        F = self.f.plain
+        X, Y, Z = [to16(a) for a in P]
+        for _ in range(k):
+            YY, ZZ, YZ, XY = F.mul(Y, Y), F.mul(Z, Z), F.mul(Y, Z), F.mul(X, Y)
+            Z3d = F.add(YY, YY)
+            Z3d = F.add(Z3d, Z3d)
+            Z3d = F.add_lazy(Z3d, Z3d)
+            t2 = F.mul_const(ZZ, self.b3_mont)
+            Y3t = F.add_lazy(YY, t2)
+            t0m = F.sub_lazy(YY, F.add(F.add(t2, t2), t2))
+            X3a, Z, Y3a = F.mul(t2, Z3d), F.mul(YZ, Z3d), F.mul(t0m, Y3t)
+            Y = F.add(X3a, Y3a)
+            X3b = F.mul(t0m, XY)
+            X = F.add(X3b, X3b)
+        return ProjectiveBatch(from16(X), from16(Y), from16(Z))
+
+    def endomorphism_affine(self, A: AffineBatch) -> AffineBatch:
+        """phi(x, y) = (beta x, y), through kernel 1 on a CUDA tensor."""
+        return AffineBatch(self.f.mul_const(A.x, self.beta_mont), A.y, A.inf)
+
+    # ------------------------------------------------------------------ I/O
+
+    def affine_to_device(self, points: list[AffinePoint], device="cpu") -> AffineBatch:
+        """Oracle affine points -> Montgomery-form AffineBatch on `device`."""
+        f = self.f
+        xs = [0 if P.is_zero else P.x for P in points]
+        ys = [0 if P.is_zero else P.y for P in points]
+        both = f.pack(xs + ys, device=device, to_mont=True)
+        N = len(points)
+        inf = torch.tensor([P.is_zero for P in points], dtype=torch.bool, device=device)
+        return AffineBatch(both[:, :N], both[:, N:], inf)
+
+    def affine_to_host(self, A: AffineBatch) -> list[AffinePoint]:
+        xs = self.f.unpack(A.x, from_mont=True)
+        ys = self.f.unpack(A.y, from_mont=True)
+        inf = A.inf.cpu().tolist()
+        return [AffinePoint.zero() if z else AffinePoint(x, y) for x, y, z in zip(xs, ys, inf)]
+
+    def to_host_raw(self, P: ProjectiveBatch) -> list[tuple[int, int, int]]:
+        """Canonical (X, Y, Z) ints, no inversion."""
+        f = self.f
+        return list(zip(*[f.unpack(a.reshape(f.n, -1), from_mont=True) for a in P]))
+
+    def to_host(self, P: ProjectiveBatch) -> list[AffinePoint]:
+        """Affine points, normalised on the host with one inversion."""
+        X, Y, Z = zip(*self.to_host_raw(P)) if P.X.numel() else ((), (), ())
+        return normalize_host(list(X), list(Y), list(Z), self.f.p)

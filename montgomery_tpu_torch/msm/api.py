@@ -1,0 +1,153 @@
+"""MSM API: a curve context holding the field, curve and GLV constants.
+
+Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, for the
+complete projective engine (affine=False). The batched-affine engine
+(affine=True, the JAX package's default) is not ported yet and raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..bigint.weierstrass import AffinePoint, CurveParams
+
+from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
+from ..ops.field import create_field_ops
+from ..ops.limbs import bytes_to_limbs
+from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np
+from ..scalar.glv import glv_params
+from ..utils.timing import PhaseLog
+from .adapters import ProjectiveAdapter
+from .pippenger import bucket_accumulate, msm_digits, reduce_buckets, window_size
+
+SCALAR_W = 13  # scalar limb size, as montgomery_tpu's (api.py:159)
+
+_AFFINE_MSG = ("the batched-affine engine (affine=True) is not ported yet; "
+               "use affine=False (the complete projective engine)")
+
+# one context per (params, device); an entry is added only once built
+_CTX_CACHE: dict = {}
+
+
+class WeierstrassMsm:
+    """MSM context for a short-Weierstrass curve with a = 0."""
+
+    def __new__(cls, params: CurveParams, device="cpu"):
+        key = (cls, params, torch.device(device))
+        inst = _CTX_CACHE.get(key)
+        if inst is None:
+            inst = super().__new__(cls)
+            inst._build(params, torch.device(device))
+            _CTX_CACHE[key] = inst
+        return inst
+
+    def _build(self, params: CurveParams, device: torch.device):
+        self.params, self.device = params, device
+        self.fops = create_field_ops(params.modulus)
+        self.proj = ProjectiveOps(self.fops, params)
+        self.adapter = ProjectiveAdapter(self.proj)
+        self.scalar_bits = params.order.bit_length()
+        self.glv = None
+        self.glv_dev = None
+        if params.endomorphism is not None:
+            self.glv = glv_params(params.order, params.endomorphism.lam)
+            self.glv_dev = glv_device(self.glv, w=SCALAR_W)
+
+    # ---------------------------------------------------------------- ingest
+
+    def scalars_to_limbs(self, scalars) -> torch.Tensor:
+        """Python ints or packed little-endian bytes -> (ns, N) int32 planes
+        of 13-bit limbs on the context's device. Scalars are reduced mod the
+        group order (bytes included)."""
+        bq = self.scalar_bits
+        ns = -(-bq // SCALAR_W)
+        if isinstance(scalars, (bytes, bytearray)):
+            nb = -(-bq // 8)
+            scalars = [int.from_bytes(scalars[i:i + nb], "little")
+                       for i in range(0, len(scalars), nb)]
+        L = ints_to_limbs_np([s % self.params.order for s in scalars], bq, SCALAR_W, ns)
+        return torch.from_numpy(L).to(self.device)
+
+    def points_from_bytes(self, data) -> AffineBatch:
+        """Packed little-endian bytes (x || y per point) -> Montgomery-form
+        AffineBatch; one to-Montgomery launch over both coordinates.
+        (0, 0) encodes the point at infinity."""
+        f = self.fops
+        nb = -(-f.p.bit_length() // 8)
+        B = np.frombuffer(bytes(data), dtype=np.uint8).reshape(-1, 2 * nb)
+        N = B.shape[0]
+        xl = bytes_to_limbs(B[:, :nb].tobytes(), nb, 32, f.n)
+        yl = bytes_to_limbs(B[:, nb:].tobytes(), nb, 32, f.n)
+        inf = ~((xl != 0).any(axis=0) | (yl != 0).any(axis=0))
+        both = torch.from_numpy(np.concatenate([xl, yl], axis=1)).to(self.device)
+        both = f.to_montgomery(both)
+        return AffineBatch(both[:, :N], both[:, N:], torch.from_numpy(inf).to(self.device))
+
+    def affine_to_device(self, points: list[AffinePoint]) -> AffineBatch:
+        return self.proj.affine_to_device(points, self.device)
+
+    # ------------------------------------------------------------- pipeline
+
+    def expand_points_glv(self, A: AffineBatch) -> AffineBatch:
+        """AffineBatch (N) -> AffineBatch (2N): [P..., phi(P)...]."""
+        E = self.proj.endomorphism_affine(A)
+        return AffineBatch(*[torch.cat([a, e], dim=-1) for a, e in zip(A, E)])
+
+    def digits(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+        """(ns, N) scalar limbs -> (K, 2N) GLV signed digits (kernel 4)."""
+        if self.glv_dev is None:
+            raise ValueError("curve has no endomorphism")
+        return digits_glv_device(self.glv_dev, scalar_limbs, c)
+
+    def msm_device(self, points_affine: AffineBatch, digits: torch.Tensor, c: int) -> ProjectiveBatch:
+        """sum_i s_i P_i from GLV-expanded points and their signed digits."""
+        P = self.adapter.from_points(points_affine)
+        return msm_digits(self.adapter, P, digits, c)
+
+    def msm_device_full(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
+                        affine: bool = False) -> ProjectiveBatch:
+        """GLV digits, GLV point expansion and the MSM, all on the device.
+        points_affine: AffineBatch (N); scalar_limbs: (ns, N)."""
+        if affine:
+            raise NotImplementedError(_AFFINE_MSG)
+        digits = self.digits(scalar_limbs, c)
+        return self.msm_device(self.expand_points_glv(points_affine), digits, c)
+
+    def msm_phases(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int):
+        """msm_device_full as separately synchronized stages; returns
+        (result, PhaseLog)."""
+        log = PhaseLog()
+        dev = self.device
+        with log.phase("digits (GLV+slice)", dev):
+            digits = self.digits(scalar_limbs, c)
+        with log.phase("expand (endo) + from_affine", dev):
+            P = self.adapter.from_points(self.expand_points_glv(points_affine))
+        with log.phase("accumulate", dev):
+            buckets, K, L = bucket_accumulate(self.adapter, P, digits, c)
+        with log.phase("reduce+combine", dev):
+            S = reduce_buckets(self.adapter, buckets, c, K, L)
+        return S, log
+
+    def default_c(self, N: int) -> int:
+        return window_size(max(1, N.bit_length() - 1))
+
+    def msm_full(self, scalars, points, c: int | None = None, affine: bool = False) -> AffinePoint:
+        """Host entry: scalars (ints, bytes or an (ns, N) limb tensor) and
+        points (oracle points or an AffineBatch) -> sum s_i P_i. `affine`
+        defaults to False here: the JAX package's default, the batched-affine
+        engine, is not ported yet and raises."""
+        if affine:
+            raise NotImplementedError(_AFFINE_MSG)
+        if isinstance(points, AffineBatch):
+            A, N = points, points.count
+        else:
+            N = len(points)
+            A = self.affine_to_device(points)
+        if N == 0:
+            raise ValueError("empty MSM")
+        limbs = scalars if isinstance(scalars, torch.Tensor) else self.scalars_to_limbs(scalars)
+        if limbs.shape[-1] != N:
+            raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
+        S = self.msm_device_full(A, limbs, c or self.default_c(N))
+        return self.proj.to_host(S)[0]

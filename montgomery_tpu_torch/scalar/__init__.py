@@ -1,0 +1,5 @@
+"""Scalar pipeline: GLV decomposition and signed window digits."""
+
+from .device import GlvDevice, digits_glv_device, glv_device, ints_to_limbs_np
+from .glv import GlvParams, glv_params
+from .slicing import num_windows, signed_digits

@@ -1,0 +1,227 @@
+"""Device scalar pipeline: scalar limbs -> GLV halves -> signed window digits.
+
+Counterpart of `montgomery_tpu/scalar/device.py`. Scalars keep that
+package's w = 13 limb planes (ns = 20 limbs for the 253-bit BLS12-377 group
+order), because the truncated most-significant-limb product that yields the
+lattice coefficients is defined on that limb grid: with the same limbs the
+digits equal the JAX digits integer for integer.
+
+`digits_glv_device` runs kernel 4 (`csrc/glv_digits.cu`) on a CUDA tensor and
+its plain version, `digits_glv_plain`, in int64 on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..bigint.util import ceil_div, to_limbs
+from ..ops import kernels
+from ..ops.limbs import bytes_to_limbs
+from .glv import GlvParams
+
+GLV_DIGITS = kernels.Kernel(
+    "glv_digits", "msm_glv_digits", "montgomery_tpu_torch/csrc/glv_digits.cu",
+    "montgomery_tpu/scalar/device.py:355",
+    [kernels.VP, kernels.VP, ctypes.POINTER(ctypes.c_int32), kernels.INT],
+)
+_MAXL = 24  # GLV_MAXL of csrc/glv_digits.cu
+
+
+def bytes_to_limbs_np(data, n_bytes: int, w: int, n_limbs: int) -> np.ndarray:
+    """Packed little-endian bytes -> (n_limbs, N) int32 planes of w-bit limbs."""
+    return bytes_to_limbs(data, n_bytes, w, n_limbs)
+
+
+def ints_to_limbs_np(values, bits: int, w: int, n_limbs: int | None = None) -> np.ndarray:
+    """Python ints -> (n_limbs, N) int32 planes of w-bit limbs."""
+    if n_limbs is None:
+        n_limbs = ceil_div(bits, w)
+    nb = ceil_div(bits, 8)
+    blob = b"".join(int(v).to_bytes(nb, "little") for v in values)
+    return bytes_to_limbs_np(blob, nb, w, n_limbs)
+
+
+@dataclass(frozen=True)
+class GlvDevice:
+    """Constants of the device GLV decomposition at limb size w."""
+
+    g: GlvParams
+    w: int
+    ns: int  # limbs of an input scalar
+    m_limbs: int  # fixed-point shift in limbs (m = m_limbs * w)
+    k0: int  # truncated product's first limb (m_limbs - 2 guard limbs)
+    nu: int  # limbs of the lattice coefficients u1, u2
+    nw: int  # limbs of the two's-complement residuals
+    g1_limbs: tuple  # floor(2^m |v11| / |det|)
+    g2_limbs: tuple  # floor(2^m |v10| / |det|)
+    coef0: tuple  # s0 = s + coef0[0] u1 + coef0[1] u2
+    coef1: tuple  # s1 = coef1[0] u1 + coef1[1] u2
+    max_bits_eff: int  # bound on |s0|, |s1| including the truncation slack
+
+    @property
+    def khi(self) -> int:
+        return self.m_limbs + self.nu
+
+    def num_windows(self, c: int) -> int:
+        return ceil_div(self.max_bits_eff + 1, c)
+
+    def kernel_words(self, c: int) -> np.ndarray:
+        """The GlvConst struct of csrc/glv_digits.cu as int32 words."""
+        pad = lambda xs: list(xs) + [0] * (_MAXL - len(xs))  # noqa: E731
+        coefs = [*self.coef0, *self.coef1]
+        limbs = [to_limbs(abs(q), self.w, ceil_div(abs(q).bit_length(), self.w) or 1)
+                 for q in coefs]
+        sizes = [self.ns, self.khi - self.k0, self.nu, self.nw, len(self.g1_limbs)]
+        sizes += [len(x) for x in limbs]
+        if max(sizes) > _MAXL:
+            raise ValueError("GLV limb counts exceed the kernel's arrays")
+        words = [self.ns, self.k0, self.khi, self.nu, self.nw, len(self.g1_limbs),
+                 self.w, c, self.num_windows(c), self.max_bits_eff]
+        words += pad(self.g1_limbs) + pad(self.g2_limbs)
+        words += [(q > 0) - (q < 0) for q in coefs]
+        words += [len(x) for x in limbs]
+        for x in limbs:
+            words += pad(x)
+        return np.asarray(words, dtype=np.int32)
+
+
+def glv_device(g: GlvParams, w: int = 13) -> GlvDevice:
+    """As `montgomery_tpu.scalar.device.glv_device` (same constants)."""
+    bq = g.q.bit_length()
+    ns = ceil_div(bq, w)
+    m_limbs = ns + 1
+    m = m_limbs * w
+    det = abs(g.det)
+    r1_num, r2_num = g.v11, -g.v10
+    if g.det < 0:
+        r1_num, r2_num = -r1_num, -r2_num
+    sgn1 = 1 if r1_num >= 0 else -1
+    sgn2 = 1 if r2_num >= 0 else -1
+    g1 = (1 << m) * abs(r1_num) // det
+    g2 = (1 << m) * abs(r2_num) // det
+    nu = ceil_div(g.max_bits + 4, w)
+    ng = ceil_div(max(g1.bit_length(), g2.bit_length(), 1), w)
+    b0 = (1 << g.max_bits) + 2 * (abs(g.v00) + abs(g.v01))
+    b1 = (1 << g.max_bits) + 2 * (abs(g.v10) + abs(g.v11))
+    max_bits_eff = max(b0.bit_length(), b1.bit_length())
+    nw = ceil_div(max_bits_eff + 2, w)
+    return GlvDevice(
+        g=g, w=w, ns=ns, m_limbs=m_limbs, k0=m_limbs - 2, nu=nu, nw=nw,
+        g1_limbs=tuple(to_limbs(g1, w, ng)),
+        g2_limbs=tuple(to_limbs(g2, w, ng)),
+        coef0=(-sgn1 * g.v00, -sgn2 * g.v01),
+        coef1=(-sgn1 * g.v10, -sgn2 * g.v11),
+        max_bits_eff=max_bits_eff,
+    )
+
+
+# ------------------------------------------------------------ plain version
+
+
+def _carry_mod(T: torch.Tensor, w: int) -> torch.Tensor:
+    """Signed int64 limbs -> limbs in [0, 2^w), value mod 2^(len w)."""
+    T = T.clone()
+    mask = (1 << w) - 1
+    for t in range(T.shape[0] - 1):
+        T[t + 1] += T[t] >> w
+        T[t] &= mask
+    T[-1] &= mask
+    return T
+
+
+def _conv(x: torch.Tensor, y_limbs, k_lo: int, k_hi: int) -> torch.Tensor:
+    """Limbs [k_lo, k_hi) of the schoolbook product of x (a, N) and constant
+    limbs y, before carrying; carries from below k_lo are dropped."""
+    a = x.shape[0]
+    T = torch.zeros((k_hi - k_lo, *x.shape[1:]), dtype=torch.int64, device=x.device)
+    for j, yj in enumerate(y_limbs):
+        i0, i1 = max(0, k_lo - j), min(a, k_hi - j)
+        if yj and i0 < i1:
+            T[i0 + j - k_lo: i1 + j - k_lo] += x[i0:i1] * int(yj)
+    return T
+
+
+def decompose_device(gd: GlvDevice, s_limbs: torch.Tensor):
+    """(ns, N) scalar limbs -> (|s0|, s0 < 0, |s1|, s1 < 0), magnitudes as
+    (nw, N) int64 limbs, with s0 + s1 lambda = s (mod q) (plain torch)."""
+    w, nw = gd.w, gd.nw
+    s = s_limbs.to(torch.int64)
+
+    def msb_mul(g):
+        T = _carry_mod(_conv(s, g, gd.k0, gd.khi), w)
+        return T[gd.m_limbs - gd.k0:]
+
+    u1, u2 = msb_mul(gd.g1_limbs), msb_mul(gd.g2_limbs)
+
+    def residual(coefs, include_s):
+        acc = torch.zeros((nw, *s.shape[1:]), dtype=torch.int64, device=s.device)
+        if include_s:
+            m = min(nw, gd.ns)
+            acc[:m] = s[:m]
+        for coef, u in zip(coefs, (u1, u2)):
+            if coef == 0:
+                continue
+            limbs = to_limbs(abs(coef), w, ceil_div(abs(coef).bit_length(), w) or 1)
+            T = _carry_mod(_conv(u, limbs, 0, nw), w)
+            acc += T if coef > 0 else -T
+        acc = _carry_mod(acc, w)
+        neg = (acc[-1] >> (w - 1)) > 0
+        comp = (1 << w) - 1 - acc
+        comp[0] += 1
+        return torch.where(neg[None], _carry_mod(comp, w), acc), neg
+
+    a0, n0 = residual(gd.coef0, True)
+    a1, n1 = residual(gd.coef1, False)
+    return a0, n0, a1, n1
+
+
+def _signed_windows(mag: torch.Tensor, neg: torch.Tensor, w: int, c: int, K: int) -> torch.Tensor:
+    """(nl, N) magnitude limbs -> (K, N) signed digits in [-2^(c-1), 2^(c-1)],
+    negated where `neg`."""
+    nl = mag.shape[0]
+    half, full = 1 << (c - 1), 1 << c
+    sgn = torch.where(neg, -1, 1)
+    carry = torch.zeros_like(mag[0])
+    rows = []
+    for k in range(K):
+        off = k * c
+        l0, sh = off // w, off % w
+        acc = torch.zeros_like(mag[0])
+        for t in range(4):
+            if l0 + t < nl:
+                acc |= mag[l0 + t] << (t * w)
+        dk = ((acc >> sh) & (full - 1)) + carry
+        over = (dk > half).to(torch.int64)
+        rows.append((dk - over * full) * sgn)
+        carry = over
+    return torch.stack(rows)
+
+
+def digits_glv_plain(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Tensor:
+    a0, n0, a1, n1 = decompose_device(gd, s_limbs)
+    K = gd.num_windows(c)
+    d0 = _signed_windows(a0, n0, gd.w, c, K)
+    d1 = _signed_windows(a1, n1, gd.w, c, K)
+    return torch.cat([d0, d1], dim=-1).to(torch.int32)
+
+
+def digits_glv_device(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Tensor:
+    """(ns, N) int32 scalar limbs -> (K, 2N) int32 signed digits for the
+    GLV-expanded point list [P..., phi(P)...]: column i holds the digits of
+    s0_i, column N + i those of s1_i. Kernel 4 on a CUDA tensor."""
+    if not 1 <= c <= 16:
+        raise ValueError("window size c must be in [1, 16]")
+    if not kernels.on_cuda(s_limbs):
+        return digits_glv_plain(gd, s_limbs, c)
+    s = s_limbs.contiguous()
+    N = kernels.check_planes(gd.ns, s)
+    out = torch.empty((gd.num_windows(c), 2 * N), dtype=torch.int32, device=s.device)
+    if N:
+        cfg = gd.kernel_words(c)
+        GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(s),
+                          cfg.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N)
+    return out

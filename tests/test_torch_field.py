@@ -1,0 +1,156 @@
+"""montgomery_tpu_torch field layer against montgomery_tpu and the oracle.
+
+Inputs are drawn from numpy with a fixed seed and passed to both packages
+through `montgomery_tpu_torch.interop`, so both see the same canonical
+values; results are compared as canonical integers (tolerance zero). The
+JAX side runs eagerly in the suite's callback kernel mode.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from montgomery_tpu.concrete import BLS12_377
+from montgomery_tpu.ops import limbs as jcodec
+from montgomery_tpu.ops.field import create_field_ops as jax_field_ops
+from montgomery_tpu.scalar.device import ints_to_limbs_np as jax_ints_to_limbs
+from montgomery_tpu_torch import interop
+from montgomery_tpu_torch.ops import limbs as codec
+from montgomery_tpu_torch.ops.field import create_field_ops
+from montgomery_tpu_torch.scalar.device import ints_to_limbs_np
+
+# several test workers share few cores; these small tensors gain nothing
+# from intra-op threads
+torch.set_num_threads(1)
+
+P = BLS12_377.modulus
+W_JAX = 13
+
+
+def _rand_below(rng: np.random.Generator, bound: int, n: int) -> list[int]:
+    nb = (bound.bit_length() + 7) // 8 + 8
+    raw = rng.bytes(n * nb)
+    return [int.from_bytes(raw[i * nb:(i + 1) * nb], "little") % bound for i in range(n)]
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    jf = jax_field_ops(P, w=W_JAX)
+    f = create_field_ops(P)
+    rng = np.random.default_rng(1234)
+    boundary = [0, 1, 2, P - 1, P, P + 1, 2 * P - 1]
+    xs = boundary + _rand_below(rng, 2 * P, 9)
+    ys = _rand_below(rng, 2 * P, len(boundary)) + boundary[::-1] + _rand_below(rng, 2 * P, 2)
+    return jf, f, xs, ys[: len(xs)]
+
+
+def _jax_planes(jf, values):
+    return jcodec.pack(values, jf.mp)
+
+
+def _jax_ints(arr):
+    return interop.planes_to_ints(np.asarray(arr), W_JAX)
+
+
+def test_codec_roundtrip(ctx):
+    _, f, xs, _ = ctx
+    planes = codec.pack(xs, f.n)
+    assert planes.dtype == np.int32 and planes.shape == (12, len(xs))
+    assert codec.unpack(planes) == xs
+    assert codec.unpack(torch.from_numpy(planes)) == xs
+    blob = codec.ints_to_bytes(xs, 48)
+    assert (codec.bytes_to_limbs(blob, 48, 32, 12) == planes).all()
+
+
+def test_scalar_limbs_match_jax():
+    rng = np.random.default_rng(5)
+    q = BLS12_377.order
+    vals = [0, 1, q - 1] + _rand_below(rng, q, 13)
+    bq = q.bit_length()
+    assert (ints_to_limbs_np(vals, bq, 13, 20) == jax_ints_to_limbs(vals, bq, 13, 20)).all()
+
+
+def test_interop_roundtrip(ctx):
+    jf, f, xs, _ = ctx
+    rj = 1 << (W_JAX * jf.n)
+    jplanes = _jax_planes(jf, [x % P * rj % P for x in xs])  # JAX Montgomery form
+    t = interop.field_from_jax(jplanes, f)
+    assert f.unpack(t, from_mont=True) == [x % P for x in xs]
+    back = interop.field_to_jax(t, f, jf.n)
+    assert [v * pow(rj, -1, P) % P for v in _jax_ints(back)] == [x % P for x in xs]
+    assert interop.ints_to_planes(xs, W_JAX, jf.n).tolist() == _jax_planes(jf, xs).tolist()
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "neg", "reduce", "add_lazy", "sub_lazy"])
+def test_add_sub_family(ctx, op):
+    """Raw (non-Montgomery) planes, values in [0, 2p): the same canonical
+    result in both packages, within the same bounds."""
+    jf, f, xs, ys = ctx
+    one = op in ("neg", "reduce")
+    jargs = [_jax_planes(jf, xs)] + ([] if one else [_jax_planes(jf, ys)])
+    targs = [torch.from_numpy(codec.pack(xs, f.n))] + ([] if one else [torch.from_numpy(codec.pack(ys, f.n))])
+    got_j = _jax_ints(getattr(jf, op)(*jargs))
+    got_t = codec.unpack(getattr(f, op)(*targs))
+    expect = {
+        "add": lambda x, y: x + y, "sub": lambda x, y: x - y, "neg": lambda x, y: -x,
+        "reduce": lambda x, y: x, "add_lazy": lambda x, y: x + y,
+        "sub_lazy": lambda x, y: x - y + 4 * P,
+    }[op]
+    bound = {"reduce": P, "add_lazy": 4 * P, "sub_lazy": 6 * P}.get(op, 2 * P)
+    for x, y, a, b in zip(xs, ys, got_t, got_j):
+        assert a % P == b % P == expect(x, y) % P
+        assert a < bound
+        if op in ("add_lazy", "sub_lazy", "reduce"):
+            assert a == b == expect(x, y) % (1 << 384) or op == "reduce"
+
+
+def test_mul_montgomery(ctx):
+    """x*y in Montgomery form in both packages -> the same canonical x*y."""
+    jf, f, xs, ys = ctx
+    rj = 1 << (W_JAX * jf.n)
+    jx = _jax_planes(jf, [x % P * rj % P for x in xs])
+    jy = _jax_planes(jf, [y % P * rj % P for y in ys])
+    tx, ty = interop.field_from_jax(jx, f), interop.field_from_jax(jy, f)
+    jz = np.asarray(jf.mul(jx, jy))
+    tz = f.mul(tx, ty)
+    via_jax = f.unpack(interop.field_from_jax(jz, f), from_mont=True)
+    assert f.unpack(tz, from_mont=True) == via_jax == [x * y % P for x, y in zip(xs, ys)]
+    assert all(v < 2 * P for v in codec.unpack(tz))
+    (tz2,) = f.mul_list([(tx, ty)])
+    assert torch.equal(tz2, tz)
+
+
+def test_mul_raw_boundary(ctx):
+    """Unreduced raw planes up to 6p: x*y/R mod p, output below 2p."""
+    _, f, xs, ys = ctx
+    big = [x + 4 * P if x < 2 * P else x for x in xs]
+    t = f.mul(torch.from_numpy(codec.pack(big, f.n)), torch.from_numpy(codec.pack(ys, f.n)))
+    out = codec.unpack(t)
+    assert [v % P for v in out] == [x * y * f.R_inv % P for x, y in zip(big, ys)]
+    assert all(v < 2 * P for v in out)
+
+
+@pytest.mark.parametrize("const", ["beta", "R2", "one"])
+def test_mul_const(ctx, const):
+    jf, f, xs, _ = ctx
+    rj = 1 << (W_JAX * jf.n)
+    beta = BLS12_377.endomorphism.beta
+    jx = _jax_planes(jf, xs)
+    tx = torch.from_numpy(codec.pack(xs, f.n))
+    if const == "beta":  # x times beta's Montgomery form: x * beta in both
+        jres = jf.mul_const(jx, jcodec.pack_scalar(beta * rj % P, jf.mp))
+        tres = f.mul_const(tx, beta * f.R % P)
+        got_j = [v % P for v in _jax_ints(jres)]
+        got_t = [v % P for v in codec.unpack(tres)]
+        expect = [x * beta % P for x in xs]
+    elif const == "R2":  # to_montgomery
+        got_j = [v * pow(rj, -1, P) % P for v in _jax_ints(jf.to_montgomery(jx))]
+        got_t = f.unpack(f.to_montgomery(tx), from_mont=True)
+        expect = [x % P for x in xs]
+    else:  # from_montgomery: mul_const by 1, then reduce
+        got_j = [v * rj % P for v in _jax_ints(jf.from_montgomery(jx))]
+        tres = f.from_montgomery(tx)
+        assert all(v < P for v in codec.unpack(tres))
+        got_t = [v * f.R % P for v in codec.unpack(tres)]
+        expect = [x % P for x in xs]
+    assert got_t == got_j == expect

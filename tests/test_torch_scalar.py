@@ -1,0 +1,66 @@
+"""montgomery_tpu_torch GLV digits against montgomery_tpu, integer for integer.
+
+Scalars are drawn from numpy with a fixed seed plus the edge values 0, 1
+and q - 1; the same (20, N) 13-bit limb planes go to both packages. The JAX
+side runs eagerly in the suite's callback kernel mode (its fused
+`glv_digits_{c}` formula).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from montgomery_tpu.concrete import BLS12_377
+from montgomery_tpu.scalar.device import digits_glv_device as jax_digits
+from montgomery_tpu.scalar.device import glv_device as jax_glv_device
+from montgomery_tpu.scalar.glv import glv_params as jax_glv_params
+from montgomery_tpu_torch import interop
+from montgomery_tpu_torch.scalar.device import digits_glv_device, glv_device, ints_to_limbs_np
+from montgomery_tpu_torch.scalar.glv import glv_params
+
+# several test workers share few cores; these small tensors gain nothing
+# from intra-op threads
+torch.set_num_threads(1)
+
+Q = BLS12_377.order
+LAM = BLS12_377.endomorphism.lam
+
+
+@pytest.fixture(scope="module")
+def ctx():
+    rng = np.random.default_rng(77)
+    raw = rng.integers(0, 256, size=13 * 32, dtype=np.uint8).tobytes()
+    scalars = [0, 1, Q - 1] + [int.from_bytes(raw[32 * i:32 * (i + 1)], "little") % Q for i in range(13)]
+    limbs = ints_to_limbs_np(scalars, Q.bit_length(), 13, 20)
+    gd = glv_device(glv_params(Q, LAM), w=13)
+    jgd = jax_glv_device(jax_glv_params(Q, LAM), w=13)
+    return scalars, limbs, gd, jgd
+
+
+def test_glv_constants_match_jax(ctx):
+    _, _, gd, jgd = ctx
+    for name in ("ns", "m_limbs", "k0", "nu", "nw", "g1_limbs", "g2_limbs", "coef0", "coef1", "max_bits_eff"):
+        assert getattr(gd, name) == getattr(jgd, name), name
+
+
+@pytest.mark.parametrize("c", [4, 13])
+def test_digits_match_jax(ctx, c):
+    scalars, limbs, gd, jgd = ctx
+    got = digits_glv_device(gd, interop.scalars_from_jax(limbs), c)
+    want = np.asarray(jax_digits(jgd, limbs, c))
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    assert (got.numpy() == want).all()
+    # the digits recombine to s0 + s1 lambda = s (mod q), each digit in range
+    d = got.numpy().astype(object)
+    N = len(scalars)
+    assert np.abs(got.numpy()).max() <= 1 << (c - 1)
+    for i, s in enumerate(scalars):
+        s0 = sum(int(d[k, i]) << (c * k) for k in range(d.shape[0]))
+        s1 = sum(int(d[k, N + i]) << (c * k) for k in range(d.shape[0]))
+        assert (s0 + s1 * LAM - s) % Q == 0
+
+
+def test_digits_reject_bad_window(ctx):
+    _, limbs, gd, _ = ctx
+    with pytest.raises(ValueError):
+        digits_glv_device(gd, torch.from_numpy(limbs), 17)
