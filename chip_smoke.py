@@ -2,31 +2,49 @@
 """GPU smoke run of montgomery_tpu_torch on one CUDA card.
 
 Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, runs BLS12-377 MSMs against
-the bigint oracle and against a closed form, and times the MSM.
+against its plain PyTorch version on the card, runs BLS12-377 MSMs on both
+engines against the bigint oracle and against a closed form, and times them.
 
     python3 chip_smoke.py
 
 Phases, each printed as it runs:
-  0. environment: torch, CUDA, nvcc, triton, card name and power limit,
-     kernel build time and register counts;
-  1. each kernel against its plain version at 2^16 and 2^16 + 17 lanes on
-     adversarial inputs (canonical values must be equal), with both times;
-  2. the MSM at N = 16 and N = 2^9 against the bigint oracle, with zero
-     scalars, duplicate points and the point at infinity;
-  3. the MSM at N = 2^16 and 2^20 (c from window_size) on
-     random_points_fast(seed=42) points, checked at full N against
-     S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t; launch counts of the
-     main-path run, median time of 5 runs, phase split and peak memory.
-The last two lines are a JSON object of per-kernel results and a JSON
-object {"ok": true, "device": {...}}. Any failure raises; without a CUDA
-device the script exits 1 before printing a result.
+  0. environment: torch, CUDA, nvcc, triton, card name, power limit and
+     maximum SM clock, kernel build time and register counts, and the
+     measured rates of the 32x32->64 and the low 32-bit multiply
+     (`montgomery_tpu_torch/csrc/rates/imad_rate.cu`, built beside the
+     kernels) that the operation bounds divide by;
+  1. each kernel against its plain version on the same tensors, with
+     adversarial values in the first lanes (canonical values must be equal):
+     at 2^16 and 2^16 + 17 lanes, and the batched-affine kernels also at the
+     widths the main path gives them (the first super-round level at 2^16 and
+     2^20 points, pre, post, mont_mul and the tree's halves; pack_glv at 2^20
+     points; divstep_inv_mont at 512, the batch-inversion root); each timed
+     (CUDA events) on the tensors it was checked on at the 2^16 path's
+     width, beside its plain version's time and a lower bound from bytes
+     moved or multiplies;
+  2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
+     engine with zero scalars, duplicate points and the point at infinity;
+     the batched-affine engine (affine=True, unsafe=True) on distinct random
+     points with zero scalars, at the default c (a pair round first) and at
+     c = 4 (the 8-way super-round first);
+  3. per path (affine-unsafe and projective) and size (N = 2^16, 2^20, c from
+     window_size) on random_points_fast(seed=42) points: launch counts of a
+     run with the counts set to 0 just before it (every kernel of the path
+     must launch), the check at full N against
+     S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs, phase
+     split, peak memory and the round plan.
+The last lines are a JSON object of per-kernel results, the card's name and
+power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
+raises; without a CUDA device the script exits 1 before printing a result.
 """
 
 from __future__ import annotations
 
+import ctypes
+import hashlib
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -36,8 +54,18 @@ ROOT = Path(__file__).resolve().parent
 SEED_POINTS = 42
 SEED_SCALARS = 7
 KERNEL_LANES = (1 << 16, (1 << 16) + 17)  # main-path width, and a ragged edge
+ROOT_LANES = 512  # FieldOps.BATCH_INV_STOP: the width of every divstep root
 MSM_LOG2N = (16, 20)
+PATHS = ("affine_unsafe", "projective")
 KERNEL_REPS = 200  # back-to-back launches per kernel timing (tens of ms on the card)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
+# kernels each path must launch (the affine path's bucket reduction is projective)
+PATH_KERNELS = {
+    "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"},
+    "affine_unsafe": {"glv_digits", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
+                      "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb"},
+}
 
 
 def say(*a):
@@ -49,6 +77,13 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout else "nvidia-smi unavailable"
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -70,7 +105,62 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
 # ----------------------------------------------------------------- phase 0
 
 
-def phase_env():
+def start_rate_build():
+    """Start nvcc on the multiply-rate microbenchmark, which is built apart
+    from the kernels' library; returns (process or None if built, path)."""
+    from montgomery_tpu_torch.ops import kernels
+
+    out = ROOT / "build" / "rates" / hashlib.sha256(RATE_SRC.read_bytes()).hexdigest()[:16]
+    lib = out / "libimad_rate.so"
+    if lib.exists():
+        return None, lib
+    out.mkdir(parents=True, exist_ok=True)
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(RATE_SRC)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def multiply_rates(lib_path: Path, clock_hz: float) -> dict:
+    """Multiplies per second of mad.wide.u32 and mad.lo.u32 on the card,
+    each timed over 10 launches that fill every SM; prints each per SM per
+    clock at the maximum SM clock and the SASS opcodes they compiled to."""
+    import torch
+
+    from montgomery_tpu_torch.ops import kernels
+
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.imad_rate
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    chains, threads = lib.imad_rate_chains(), lib.imad_rate_threads()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 8 * sms, 8192
+    out = torch.empty(blocks * threads, dtype=torch.int64, device="cuda")
+    rates = {}
+    for key, wide in (("wide", 1), ("lo", 0)):
+        def launch():
+            rc = fn(wide, blocks, iters, ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise RuntimeError(f"imad_rate launch failed, CUDA error {rc}")
+
+        ms = cuda_time_ms(launch, 10)
+        rates[key] = blocks * threads * chains * iters / (ms * 1e-3)
+        say(f"multiply rate {key}: {rates[key]:.4e} /s, {rates[key] / (sms * clock_hz):.2f} per SM "
+            f"per clock at the max clock ({ms:.3f} ms a launch, {sms} SMs)")
+    dump = subprocess.run([str(Path(kernels._nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True)
+    for sec in dump.stdout.split("Function : ")[1:]:
+        ops: dict[str, int] = {}
+        for op in re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sec):
+            ops[op] = ops.get(op, 0) + 1
+        say(f"  sass {sec.split()[0]}: {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
+    if dump.returncode:
+        say("  cuobjdump unavailable:", dump.stderr.strip()[-200:])
+    return rates
+
+
+def phase_env() -> dict:
+    """Returns the measured multiply rates."""
     import torch
 
     from montgomery_tpu_torch.ops import kernels
@@ -86,11 +176,78 @@ def phase_env():
     except ImportError:
         say("triton not importable")
     say("card:", smi_line())
+    clock = max_sm_clock_hz()
+    say(f"max SM clock: {clock / 1e6:.0f} MHz")
+    rate_build, rate_lib = start_rate_build()
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     for line in kernels.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip())
+    if rate_build is not None:
+        log, _ = rate_build.communicate()
+        if rate_build.returncode:
+            raise RuntimeError(f"nvcc failed on {RATE_SRC.name}:\n{log[-4000:]}")
+    return multiply_rates(rate_lib, clock)
+
+
+# ------------------------------------------------------- bounds per kernel
+
+
+def kernel_work(ctx, name: str) -> tuple[int, int, int]:
+    """(bytes, wide multiplies, low multiplies) per lane of one call: each
+    input read once, each output written once; the multiplies the formula
+    needs. A wide multiply is one 32x32->64 product (a product of two
+    factors below 2^32 in magnitude); one n-word CIOS Montgomery product
+    needs 2 n^2 of them and n low 32-bit products (the quotient digits)."""
+    from montgomery_tpu_torch.ops import divstep
+
+    n = ctx.fops.n
+    W = 4 * n
+
+    def products(k):
+        return k * 2 * n * n, k * n
+
+    if name == "glv_digits":  # per scalar, at c = 13 (the timed call)
+        gd = ctx.glv_dev
+        ng = len(gd.g1_limbs)
+        msb = sum(1 for a in range(gd.ns) for j in range(ng) if gd.k0 <= a + j < gd.khi)
+        res = sum(1 for q in (*gd.coef0, *gd.coef1) if q
+                  for a in range(gd.nu) for j in range(-(-abs(q).bit_length() // gd.w))
+                  if a + j < gd.nw)
+        return 4 * gd.ns + 8 * gd.num_windows(13), 2 * msb + res, 0
+    # per batch of divsteps: 130 + 2 products of factors below 2^31 in magnitude
+    per_batch = 2 * (10 * divstep.N_LIMBS + 2)
+    wide, lo = products(2)
+    return {
+        "mul_const": (2 * W, *products(1)),
+        "mont_mul": (3 * W, *products(1)),
+        "proj_add_rcb": (9 * W, *products(14)),
+        "proj_dbl_rcb": (6 * W, *products(9)),  # k = 1
+        "divstep_inv_mont": (2 * W, wide + ctx.fops.inv_params.n_batches * per_batch, lo),
+        "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
+        "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
+        "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, *products(3)),
+    }[name]
+
+
+def bound(ctx, name: str, lanes: int, rates: dict) -> tuple[float, str]:
+    """Least time (ms) for `lanes` lanes: bytes over the memory rate, or
+    the multiplies over the card's measured multiply rates, whichever is
+    larger."""
+    nbytes, wide, lo = kernel_work(ctx, name)
+    t_bytes = nbytes * lanes / HBM_BYTES_PER_S
+    t_ops = (wide / rates["wide"] + lo / rates["lo"]) * lanes
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def first_level_width(ctx, log2n: int) -> int:
+    """Lanes of the first add level of the affine path's super-round at
+    N = 2^log2n (window_size c): 4 (M0 / 8 + G + 2), M0 = K 2N, G = K 2^(c-1)."""
+    N = 1 << log2n
+    c = ctx.default_c(N)
+    K = ctx.glv_dev.num_windows(c)
+    return 4 * (K * 2 * N // 8 + K * (1 << (c - 1)) + 2)
 
 
 # ----------------------------------------------------------------- phase 1
@@ -143,7 +300,7 @@ def _scalar_inputs(q: int, N: int, rng: random.Random) -> list[int]:
     return adv + [rng.randrange(q) for _ in range(N - len(adv))]
 
 
-def phase_kernels(ctx, pts):
+def phase_kernels(ctx, pts, rates: dict):
     import torch
 
     from montgomery_tpu_torch.scalar.device import digits_glv_plain
@@ -153,9 +310,11 @@ def phase_kernels(ctx, pts):
     rng = random.Random(1)
     results = {}
 
-    def record(name, err, ms, plain_ms):
-        r = results.setdefault(name, {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms})
+    def record(name, err, ms=None, plain_ms=None, lanes=KERNEL_LANES[0]):
+        r = results.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        if ms is not None:
+            r.update(ms=ms, plain_ms=plain_ms, lanes=lanes)
 
     def diff(a, b):
         return int((a - b).abs().max()) if a.numel() else 0
@@ -195,10 +354,10 @@ def phase_kernels(ctx, pts):
             say(f"proj_dbl_rcb k={k} N={N}: max_abs_err {err}")
             if err:
                 raise AssertionError(f"proj_dbl_rcb k={k} disagrees with its plain version")
-            record("proj_dbl_rcb", err, None, None)
+            record("proj_dbl_rcb", err)
         if timed:
-            results["proj_dbl_rcb"]["ms"] = cuda_time_ms(lambda: proj.double_n(P, 1), KERNEL_REPS)
-            results["proj_dbl_rcb"]["plain_ms"] = cuda_time_ms(lambda: proj.double_n_plain(P, 1), 3, 1)
+            record("proj_dbl_rcb", 0, cuda_time_ms(lambda: proj.double_n(P, 1), KERNEL_REPS),
+                   cuda_time_ms(lambda: proj.double_n_plain(P, 1), 3, 1))
 
         # kernel 4: GLV digits at the main path's window sizes
         sl = ctx.scalars_to_limbs(_scalar_inputs(ctx.params.order, N, rng))
@@ -209,20 +368,131 @@ def phase_kernels(ctx, pts):
             say(f"glv_digits c={c} N={N}: shape {tuple(k_out.shape)} max_abs_err {err}")
             if err or k_out.shape != p_out.shape:
                 raise AssertionError(f"glv_digits c={c} disagrees with its plain version")
-            record("glv_digits", err, None, None)
+            record("glv_digits", err)
         if timed:
-            results["glv_digits"]["ms"] = cuda_time_ms(lambda: ctx.digits(sl, 13), KERNEL_REPS)
-            results["glv_digits"]["plain_ms"] = cuda_time_ms(
-                lambda: digits_glv_plain(ctx.glv_dev, sl, 13), 3, 1)
+            record("glv_digits", 0, cuda_time_ms(lambda: ctx.digits(sl, 13), KERNEL_REPS),
+                   cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, 13), 3, 1))
+
+    affine_kernels(ctx, record, diff)
+    torch.cuda.empty_cache()
     for name, r in results.items():
-        say(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms per call at {KERNEL_LANES[0]} lanes")
+        r["bound_ms"], r["bound_by"] = bound(ctx, name, r["lanes"], rates)
+        say(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) per call at {r['lanes']} lanes")
     return results
+
+
+def _packed_err(f, a, b, diff) -> int:
+    """Largest difference of canonical x and y rows and of the inf row."""
+    n = f.n
+    return max(diff(_canon(f, a[:n]), _canon(f, b[:n])),
+               diff(_canon(f, a[n:2 * n]), _canon(f, b[n:2 * n])),
+               diff(a[2 * n:].long(), b[2 * n:].long()))
+
+
+def _random_planes(f, rows: int, M: int, gen):
+    """Random int32 rows on the card, each 12-row field block below 2^377
+    (< 2p): the top word of every field element keeps 25 bits."""
+    import torch
+
+    t = torch.randint(-(1 << 31), 1 << 31, (rows, M), dtype=torch.int32, device=gen.device,
+                      generator=gen)
+    for top in range(f.n - 1, rows, f.n):
+        t[top] &= (1 << 25) - 1
+    return t
+
+
+def _field_plane(f, M: int, gen, adv: list[int]):
+    """(n, M) field values on the card: `adv` in the first lanes, then
+    random values below 2^377."""
+    t = _random_planes(f, f.n, M, gen)
+    k = min(len(adv), M)
+    t[:, :k] = f.pack_raw(adv[:k], gen.device)
+    return t
+
+
+def affine_kernels(ctx, record, diff):
+    """Kernels 5-9 of the batched-affine path against their plain versions
+    on the same tensors, with adversarial field values in the first lanes:
+    at 2^16 and 2^16 + 17 lanes, and at the widths the main path gives them
+    (the first super-round level at 2^16 and 2^20 points for pre, post,
+    mont_mul and the tree's halves; 2^20 points for pack_glv; the 512-lane
+    root for divstep_inv_mont). The operands are column slices of wider
+    planes, as the engine passes them. Each kernel is then timed on the
+    tensors it was checked on, at the 2^16 path's width (pack_glv at 2^16
+    points)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+    from montgomery_tpu_torch.ops import divstep
+
+    f, aff, dev = ctx.fops, ctx.affine, ctx.device
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p = f.p
+    adv = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p, f.R2]
+    every = {"divstep_inv_mont", "mont_mul", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u"}
+    level = {"mont_mul", "aff_pre_packed_u", "aff_post_packed_u"}
+    W16, W20 = first_level_width(ctx, 16), first_level_width(ctx, 20)
+    plan = ((KERNEL_LANES[0], every, {"pack_glv"}), (KERNEL_LANES[1], every, set()),
+            (ROOT_LANES, {"divstep_inv_mont"}, {"divstep_inv_mont"}),
+            (W16, level, level), (W20, level | {"pack_glv"}, set()))
+
+    def canon_err(a, b):
+        return diff(_canon(f, a), _canon(f, b))
+
+    def packed_err(a, b):
+        return _packed_err(f, a, b, diff)
+
+    def flags(*shape):
+        return torch.randint(0, 2, shape, dtype=torch.int32, device=dev, generator=gen)
+
+    for M, names, timed in plan:
+        x, y = _field_plane(f, M, gen, adv), _field_plane(f, M, gen, adv[::-1])
+        cases = {}
+        if "divstep_inv_mont" in names:
+            cases["divstep_inv_mont"] = (M, lambda: f.inv_root(x),
+                                         lambda: divstep.inv_mont_plain(f, x), canon_err)
+        if "mont_mul" in names:
+            h = M // 2
+            lo, hi = x[:, :h], x[:, h:2 * h]  # the tree's contiguous halves
+            cases["mont_mul"] = (M, lambda: f.mul(x, y), lambda: f.mul_plain(x, y), canon_err)
+            cases["mont_mul halves"] = (h, lambda: f.mul(lo, hi), lambda: f.mul_plain(lo, hi),
+                                        canon_err)
+        if "pack_glv" in names:
+            npts = min(M, 1 << max(MSM_LOG2N))
+            inf = torch.randint(0, 8, (npts,), device=dev, generator=gen) == 0
+            pts = AffineBatch(x[:, :npts].contiguous(), y[:, :npts].contiguous(), inf)
+            cases["pack_glv"] = (npts, lambda: aff.pack_rows_glv(pts),
+                                 lambda: aff.pack_rows_glv_plain(pts), packed_err)
+        if names & level:
+            inf = torch.randint(0, 8, (M,), device=dev, generator=gen) == 0
+            inf2 = torch.cat([inf, inf.flip(0)]).to(torch.int32)[None]
+            C = torch.cat([torch.cat([x, y], dim=-1), torch.cat([y, x], dim=-1), inf2])
+            A, B = C[:, :M], C[:, M:]  # a level's two halves
+            sg = flags(1, 2 * M)
+            sA, sB, hp = sg[:, :M], sg[:, M:], flags(1, M)
+            dinv = _field_plane(f, M, gen, adv)
+            cases["aff_pre_packed_u"] = (M, lambda: aff.pre_packed_u(A, B, hp),
+                                         lambda: aff.pre_packed_u_plain(A, B, hp), canon_err)
+            cases["aff_post_packed_u"] = (M, lambda: aff.post_packed_u(A, B, sA, sB, dinv, hp),
+                                          lambda: aff.post_packed_u_plain(A, B, sA, sB, dinv, hp),
+                                          packed_err)
+        for label, (lanes, kern, plain, err_of) in cases.items():
+            err = err_of(kern(), plain())
+            say(f"{label} N={lanes}: max_abs_err {err}")
+            if err:
+                raise AssertionError(f"{label} at {lanes} lanes disagrees with its plain version")
+            if label in timed:
+                record(label, err, cuda_time_ms(kern, KERNEL_REPS), cuda_time_ms(plain, 3, 1), lanes)
+            else:
+                record(label.split()[0], err)
+        del cases
 
 
 # ----------------------------------------------------------------- phase 2
 
 
-def phase_oracle(ctx):
+def phase_oracle(ctx, pts):
     from montgomery_tpu_torch.bigint import AffinePoint, WeierstrassCurve, msm as oracle_msm
 
     say("== phase 2: MSM against the bigint oracle")
@@ -231,18 +501,32 @@ def phase_oracle(ctx):
     rng = random.Random(2)
     base = [E.random_point(rng) for _ in range(24)]
     for N in (16, 1 << 9):
-        pts = [base[(5 * i) % len(base)] for i in range(N)]  # duplicates
-        pts[1] = AffinePoint.zero()
+        pts_adv = [base[(5 * i) % len(base)] for i in range(N)]  # duplicates
+        pts_adv[1] = AffinePoint.zero()
         sc = [rng.randrange(q) for _ in range(N)]
         sc[0] = sc[3] = 0
         sc[2], sc[4] = 1, q - 1
         t0 = time.perf_counter()
-        got = ctx.msm_full(sc, pts)
+        got = ctx.msm_full(sc, pts_adv)
         dt = time.perf_counter() - t0
-        exp = oracle_msm(E, sc, pts)
-        if not E.equal(got, exp):
-            raise AssertionError(f"MSM at N={N} differs from the oracle")
-        say(f"N={N}: equal to the oracle ({dt:.2f} s incl. first calls)")
+        if not E.equal(got, oracle_msm(E, sc, pts_adv)):
+            raise AssertionError(f"projective MSM at N={N} differs from the oracle")
+        say(f"projective N={N}: equal to the oracle ({dt:.2f} s incl. first calls)")
+    # the unsafe engine's contract: distinct random points, no infinity
+    for N, c, first in ((16, None, "pair"), (1 << 9, 4, "super")):
+        sc = [rng.randrange(q) for _ in range(N)]
+        sc[0] = sc[3] = 0
+        sc[2], sc[4] = 1, q - 1
+        t0 = time.perf_counter()
+        got = ctx.msm_full(sc, pts[:N], c=c, affine=True, unsafe=True)
+        dt = time.perf_counter() - t0
+        rounds = list(ctx.aff_adapter_unsafe.rounds)
+        if rounds[0][0] != first:
+            raise AssertionError(f"affine MSM at N={N}: first round {rounds[0]}, expected {first}")
+        if not E.equal(got, oracle_msm(E, sc, pts[:N])):
+            raise AssertionError(f"affine-unsafe MSM at N={N} differs from the oracle")
+        say(f"affine-unsafe N={N} c={c or ctx.default_c(N)}: equal to the oracle, first round "
+            f"{rounds[0]} ({dt:.2f} s incl. first calls)")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -274,27 +558,30 @@ def bench_scalars(q: int, N: int) -> list[int]:
     return [int.from_bytes(raw[32 * i: 32 * (i + 1)], "little") % q for i in range(N)]
 
 
-def phase_msm(ctx, log2n: int, pts_full):
+def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
+    """One path at N = 2^log2n: launch counts of a run with the counts set
+    to 0 just before it, the full-N check, 5 timed runs, peak memory and the
+    phase split. Returns the launch counts."""
     import torch
 
     from montgomery_tpu_torch.bigint import WeierstrassCurve
     from montgomery_tpu_torch.curves.projective import AffineBatch
     from montgomery_tpu_torch.ops import kernels
-    from montgomery_tpu_torch.scalar.slicing import num_windows
     from montgomery_tpu_torch.utils.timing import timeit
 
     N = 1 << log2n
     c = ctx.default_c(N)
-    K = num_windows(ctx.glv_dev.max_bits_eff, c)
-    say(f"== phase 3: BLS12-377 MSM N=2^{log2n}, c={c}, K={K} (GLV halves), "
-        f"projective engine, n={ctx.fops.n} limbs of 32 bits")
+    K = ctx.glv_dev.num_windows(c)
+    affine = path == "affine_unsafe"
+    say(f"== phase 3: BLS12-377 MSM N=2^{log2n}, c={c}, K={K} (GLV halves), path {path}, "
+        f"n={ctx.fops.n} limbs of 32 bits")
     A = AffineBatch(*[a[..., :N] for a in pts_full])
     scalars = bench_scalars(ctx.params.order, N)
     limbs = ctx.scalars_to_limbs(scalars)
     dev = ctx.device
 
     def run():
-        return ctx.msm_device_full(A, limbs, c)
+        return ctx.msm_device_full(A, limbs, c, affine=affine, unsafe=affine)
 
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
@@ -303,16 +590,19 @@ def phase_msm(ctx, log2n: int, pts_full):
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    say(f"main-path launches: {counts} (first run {first:.3f} s)")
-    for name, n in counts.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    say(f"{path} launches: {counts} (first run {first:.3f} s)")
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched on the {path} path")
+    if affine:
+        say(f"rounds: {ctx.aff_adapter_unsafe.rounds}")
     got = ctx.proj.to_host(S)[0]
     E = WeierstrassCurve(ctx.params)
     t0 = time.perf_counter()
-    exp = closed_form(ctx.params, scalars, SEED_POINTS, pts_full.count)
-    if got.is_zero or not E.equal(got, exp):
-        raise AssertionError(f"MSM at N=2^{log2n} differs from the closed form")
+    if N not in expected:
+        expected[N] = closed_form(ctx.params, scalars, SEED_POINTS, pts_full.count)
+    if got.is_zero or not E.equal(got, expected[N]):
+        raise AssertionError(f"{path} MSM at N=2^{log2n} differs from the closed form")
     say(f"full-N check: equal to the closed form ({time.perf_counter() - t0:.1f} s on the host)")
 
     med, times = timeit(run, device=dev, reps=5, warmup=1)
@@ -320,14 +610,15 @@ def phase_msm(ctx, log2n: int, pts_full):
     run()
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
-    _, log = ctx.msm_phases(A, limbs, c)
-    say(f"msm N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
+    _, log = ctx.msm_phases(A, limbs, c, affine=affine, unsafe=affine)
+    say(f"msm {path} N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
-    return counts, med
+    return counts
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -342,7 +633,7 @@ def main() -> int:
     from montgomery_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
-    phase_env()
+    rates = phase_env()
     ctx = WeierstrassMsm(BLS12_377, device=dev)
     t0 = time.perf_counter()
     pts = random_points_fast(ctx.proj, 1 << max(MSM_LOG2N), seed=SEED_POINTS, device=dev,
@@ -350,16 +641,22 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"points: 2^{max(MSM_LOG2N)} from random_points_fast(seed={SEED_POINTS}) in {time.perf_counter() - t0:.1f} s")
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
-    kres = phase_kernels(ctx, host_pts)
-    phase_oracle(ctx)
-    counts = {}
-    for log2n in MSM_LOG2N:
-        counts, _ = phase_msm(ctx, log2n, pts)
+    kres = phase_kernels(ctx, host_pts, rates)
+    phase_oracle(ctx, host_pts)
+    launches, expected = {}, {}
+    for path in PATHS:
+        for log2n in MSM_LOG2N:
+            launches[f"{path}_2^{log2n}"] = phase_msm(ctx, log2n, pts, path, expected)
+    main_run = f"{PATHS[0]}_2^{max(MSM_LOG2N)}"  # bench.py's configuration
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": counts[name], "max_abs_err": kres[name]["max_abs_err"],
-         "ms": kres[name]["ms"], "plain_ms": kres[name]["plain_ms"]}
+         "launches": launches[main_run][name],
+         "launches_by_path": {run: c[name] for run, c in launches.items()},
+         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
+         "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
+         "bound_by": kres[name]["bound_by"], "library_ms": None, "lanes": kres[name]["lanes"]}
         for name, k in kernels.REGISTRY.items()]}
+    say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))
     say(smi_line())
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,206 @@
+// Kernel 6: Montgomery-form inverse by constant-iteration safegcd
+// (Bernstein-Yang divsteps), 0 -> 0.
+//
+// Replaces the Pallas kernel "divstep_inv_mont" of montgomery_tpu/ops/field.py
+// (FieldOps.inv_root, :724-761, over ops/divstep.py _inv_formula): the root of
+// every batch inversion, at most 512 lanes. Per lane: leave Montgomery form
+// (a product by 1, then reduce into [0, p)), run the divsteps, re-enter
+// Montgomery form (a product by R^2 with this port's R = 2^384).
+//
+// The safegcd state (f, g) and the mod-p coefficients (d, e) are signed
+// numbers of DS_L = 13 limbs of 30 bits (390 bits; limbs below the top in
+// [0, 2^30), the top limb signed) in int64 registers. Divsteps run in batches
+// of 30 on the low 64 bits of f and g, building a transition matrix with
+// |u| + |v| <= 2^30; each batch then applies the matrix to the full-width
+// numbers with exact division by 2^30 (f, g) or a Montgomery-style shift mod
+// p (d, e: add m p so that the low 30 bits vanish). 30 x 30-bit products and
+// their 3-term sums stay below 2^62, so int64 holds them. The batch count is
+// ceil(iterations(377) / 30) = 37 (1110 divsteps, BY19 Thm 11.2 bound 1091;
+// ops/divstep.py computes it). |d|, |e| grow by at most p per batch, so the
+// end value lies in (-38p, 38p): add 2^6 p and subtract 2^j p, j = 6..0,
+// where each fits. The plain version (ops/divstep.py inv_plain) runs the
+// same algorithm in torch int64, and the inverse is unique, so both agree.
+//
+// Bound on this card: a serial chain of 1110 divsteps per lane (a few
+// dependent integer operations each) and 37 matrix applications of about
+// 130 64-bit products; 512 lanes fill 4 blocks on 4 of the 132 SMs, so the
+// launch is latency bound, not throughput bound. It runs once per batch
+// inversion. Design: one thread per lane, everything in registers; the
+// batched matrix form touches the 390-bit numbers once per 30 divsteps.
+#include "field.cuh"
+
+#define DS_L 13
+#define DS_BITS 30
+#define DS_MASK ((1ll << DS_BITS) - 1)
+#define DS_SHIFTS 7
+
+struct DivstepConst {  // layout of ops/divstep.py DivstepParams.kernel_words
+  int32_t p[DS_L];                // p in 30-bit limbs
+  int32_t pk[DS_SHIFTS][DS_L];    // 2^j p, j < DS_SHIFTS
+  uint32_t r2[NL];                // R^2 mod p in 32-bit words
+  uint32_t pinv;                  // -p^-1 mod 2^30
+  int32_t n_batches;
+};
+
+// canonical 32-bit words (value < 2^384) -> 30-bit limbs
+__device__ __forceinline__ void words_to_l30(int64_t L[DS_L], const uint32_t w[NL]) {
+#pragma unroll
+  for (int i = 0; i < DS_L; i++) {
+    int bit = DS_BITS * i, k = bit / 32, s = bit % 32;
+    uint64_t v = (uint64_t)w[k] >> s;
+    if (k + 1 < NL) v |= (uint64_t)w[k + 1] << (32 - s);
+    L[i] = (int64_t)(v & DS_MASK);
+  }
+}
+
+// non-negative 30-bit limbs (value < 2^384) -> 32-bit words
+__device__ __forceinline__ void l30_to_words(uint32_t w[NL], const int64_t L[DS_L]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) {
+    int bit = 32 * k, i = bit / DS_BITS, s = bit % DS_BITS;
+    uint64_t v = (uint64_t)L[i] >> s;
+    if (i + 1 < DS_L) v |= (uint64_t)L[i + 1] << (DS_BITS - s);
+    w[k] = (uint32_t)v;
+  }
+}
+
+// signed limbs -> limbs below the top in [0, 2^30), the top limb signed
+__device__ __forceinline__ void ds_normalize(int64_t L[DS_L]) {
+  int64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < DS_L - 1; i++) {
+    int64_t v = L[i] + c;
+    L[i] = v & DS_MASK;
+    c = v >> DS_BITS;
+  }
+  L[DS_L - 1] += c;
+}
+
+// 30 divsteps on the low words of f and g: returns delta; (u, v, q, r) with
+// 2^30 (f', g') = (u f + v g, q f + r g)
+__device__ __forceinline__ int ds_divsteps(int delta, uint64_t fw, uint64_t gw, int64_t& u, int64_t& v,
+                                           int64_t& q, int64_t& r) {
+  u = 1, v = 0, q = 0, r = 1;
+#pragma unroll 6
+  for (int k = 0; k < DS_BITS; k++) {
+    bool odd = gw & 1;
+    bool swap = delta > 0 && odd;
+    int64_t nu = swap ? 2 * q : 2 * u;
+    int64_t nv = swap ? 2 * r : 2 * v;
+    int64_t nq = swap ? q - u : (odd ? q + u : q);
+    int64_t nr = swap ? r - v : (odd ? r + v : r);
+    uint64_t ng = swap ? (gw - fw) >> 1 : (odd ? gw + fw : gw) >> 1;
+    fw = swap ? gw : fw;
+    gw = ng;
+    delta = swap ? 1 - delta : 1 + delta;
+    u = nu, v = nv, q = nq, r = nr;
+  }
+  return delta;
+}
+
+// (f, g) <- (u f + v g, q f + r g) / 2^30, exact
+__device__ __forceinline__ void ds_update_fg(int64_t f[DS_L], int64_t g[DS_L], int64_t u, int64_t v,
+                                             int64_t q, int64_t r) {
+  int64_t cf = (u * f[0] + v * g[0]) >> DS_BITS;
+  int64_t cg = (q * f[0] + r * g[0]) >> DS_BITS;
+#pragma unroll
+  for (int i = 1; i < DS_L; i++) {
+    cf += u * f[i] + v * g[i];
+    cg += q * f[i] + r * g[i];
+    f[i - 1] = cf & DS_MASK;
+    g[i - 1] = cg & DS_MASK;
+    cf >>= DS_BITS;
+    cg >>= DS_BITS;
+  }
+  f[DS_L - 1] = cf;
+  g[DS_L - 1] = cg;
+}
+
+// (d, e) <- (u d + v e, q d + r e) / 2^30 mod p: each gets m p added, with m
+// chosen so that the low 30 bits vanish
+__device__ __forceinline__ void ds_update_de(int64_t d[DS_L], int64_t e[DS_L], int64_t u, int64_t v,
+                                             int64_t q, int64_t r, const DivstepConst& C) {
+  int64_t cd = u * d[0] + v * e[0];
+  int64_t ce = q * d[0] + r * e[0];
+  int64_t md = (int64_t)((((uint64_t)cd & DS_MASK) * C.pinv) & DS_MASK);
+  int64_t me = (int64_t)((((uint64_t)ce & DS_MASK) * C.pinv) & DS_MASK);
+  cd = (cd + md * C.p[0]) >> DS_BITS;
+  ce = (ce + me * C.p[0]) >> DS_BITS;
+#pragma unroll
+  for (int i = 1; i < DS_L; i++) {
+    cd += u * d[i] + v * e[i] + md * C.p[i];
+    ce += q * d[i] + r * e[i] + me * C.p[i];
+    d[i - 1] = cd & DS_MASK;
+    e[i - 1] = ce & DS_MASK;
+    cd >>= DS_BITS;
+    ce >>= DS_BITS;
+  }
+  d[DS_L - 1] = cd;
+  e[DS_L - 1] = ce;
+}
+
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+divstep_inv_mont_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, DivstepConst C,
+                        FieldParams F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t a[NL], t[NL], one[NL];
+  fe_load(a, x, sx, i);
+#pragma unroll
+  for (int k = 0; k < NL; k++) one[k] = k == 0;
+  fe_mul(t, a, one, F);  // out of Montgomery form, in [0, p]
+  uint32_t br = limbs_sub(a, t, F.p);
+  fe_select(t, br, t, a);  // [0, p)
+  bool zero = true;
+#pragma unroll
+  for (int k = 0; k < NL; k++) zero = zero && t[k] == 0;
+
+  int64_t f[DS_L], g[DS_L], d[DS_L], e[DS_L];
+  words_to_l30(g, t);
+#pragma unroll
+  for (int k = 0; k < DS_L; k++) {
+    f[k] = C.p[k];
+    d[k] = 0;
+    e[k] = k == 0;
+  }
+  int delta = 1;
+  for (int b = 0; b < C.n_batches; b++) {
+    uint64_t fw = (uint64_t)f[0] | ((uint64_t)f[1] << DS_BITS);
+    uint64_t gw = (uint64_t)g[0] | ((uint64_t)g[1] << DS_BITS);
+    int64_t u, v, q, r;
+    delta = ds_divsteps(delta, fw, gw, u, v, q, r);
+    ds_update_fg(f, g, u, v, q, r);
+    ds_update_de(d, e, u, v, q, r, C);
+  }
+  // f = +-1 and f = d x mod p: the inverse is sign(f) d, in (-38p, 38p)
+  bool fneg = f[DS_L - 1] < 0;
+#pragma unroll
+  for (int k = 0; k < DS_L; k++) d[k] = (fneg ? -d[k] : d[k]) + C.pk[DS_SHIFTS - 1][k];
+  ds_normalize(d);
+  for (int j = DS_SHIFTS - 1; j >= 0; j--) {
+    int64_t s[DS_L];
+#pragma unroll
+    for (int k = 0; k < DS_L; k++) s[k] = d[k] - C.pk[j][k];
+    ds_normalize(s);
+    bool ge = s[DS_L - 1] >= 0;
+#pragma unroll
+    for (int k = 0; k < DS_L; k++) d[k] = ge ? s[k] : d[k];
+  }
+  l30_to_words(t, d);
+#pragma unroll
+  for (int k = 0; k < NL; k++) t[k] = zero ? 0u : t[k];
+  fe_mul(a, t, C.r2, F);  // back to Montgomery form, in [0, 2p)
+  fe_store(out, N, i, a);
+}
+
+extern "C" int msm_divstep_inv_mont(void* out, const void* x, int sx, const int32_t* cfg, const uint32_t* field,
+                                    int N, void* stream) {
+  DivstepConst C;
+  FieldParams F;
+  memcpy(&C, cfg, sizeof(C));
+  memcpy(&F, field, sizeof(F));
+  if (N > 0)
+    divstep_inv_mont_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, C, F, N);
+  return (int)cudaGetLastError();
+}

@@ -33,14 +33,16 @@ struct Fe {
   uint32_t v[NL];
 };
 
-__device__ __forceinline__ void fe_load(uint32_t r[NL], const int32_t* plane, int N, int i) {
+// limb k of lane i sits at plane[k * stride + i]; stride is the lane count
+// N for a whole plane, or the parent's for a column slice of a wider plane
+__device__ __forceinline__ void fe_load(uint32_t r[NL], const int32_t* plane, int stride, int i) {
 #pragma unroll
-  for (int k = 0; k < NL; k++) r[k] = (uint32_t)plane[(size_t)k * N + i];
+  for (int k = 0; k < NL; k++) r[k] = (uint32_t)plane[(size_t)k * stride + i];
 }
 
-__device__ __forceinline__ void fe_store(int32_t* plane, int N, int i, const uint32_t a[NL]) {
+__device__ __forceinline__ void fe_store(int32_t* plane, int stride, int i, const uint32_t a[NL]) {
 #pragma unroll
-  for (int k = 0; k < NL; k++) plane[(size_t)k * N + i] = (int32_t)a[k];
+  for (int k = 0; k < NL; k++) plane[(size_t)k * stride + i] = (int32_t)a[k];
 }
 
 __device__ __forceinline__ void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
@@ -103,6 +105,14 @@ __device__ __forceinline__ void fe_sub(uint32_t r[NL], const uint32_t a[NL], con
   uint32_t br = limbs_sub(d, a, b);
   limbs_add(d2, d, F.p2);
   fe_select(r, br, d2, d);
+}
+
+// 2p - x reduced into [0, 2p) for x in [0, 2p); zero stays zero
+__device__ __forceinline__ void fe_neg(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+  uint32_t d[NL], d2[NL];
+  limbs_sub(d, F.p2, a);
+  uint32_t br = limbs_sub(d2, d, F.p2);
+  fe_select(r, br, d, d2);
 }
 
 // Montgomery product a b / R mod p (CIOS), in [0, 2p) for a, b < 6p

@@ -1,0 +1,170 @@
+"""Batched affine Weierstrass additions in the packed-row form, one shared
+batch inversion per batch.
+
+Counterpart of the packed part of `montgomery_tpu/curves/affine.py`
+(`AffineOps`, :25-50 and :196-359). The MSM engine keeps points as ONE int32
+array of rows [x (n) | y (n) | inf (1)], so every pair round gathers one
+column per operand. The JAX package packed two 13-bit limbs into each int32
+row; this port's limbs are whole 32-bit words, so a packed point is
+2n + 1 = 25 rows for BLS12-377 and there is no 16-bit packing.
+
+Kernels (`csrc/`): `pack_glv` writes the packed rows of [P..., phi(P)...];
+`aff_pre_packed_u` and `aff_post_packed_u` sit around `FieldOps.batch_inv`
+in the unsafe packed add. Each wrapper runs its kernel on CUDA tensors and
+its plain version on CPU tensors. Only the unsafe add is ported: the safe
+packed add (`aff_pre_packed`/`aff_post_packed`) is the next slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..bigint.weierstrass import CurveParams
+from ..ops import kernels
+from ..ops.field import FieldOps, from16, to16
+from ..ops.limbs import to_words
+from .projective import AffineBatch
+
+_VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
+
+PACK_GLV = kernels.Kernel(
+    "pack_glv", "msm_pack_glv", "montgomery_tpu_torch/csrc/pack_glv.cu",
+    "montgomery_tpu/curves/affine.py:261",
+    [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
+)
+AFF_PRE_PACKED_U = kernels.Kernel(
+    "aff_pre_packed_u", "msm_aff_pre_packed_u", "montgomery_tpu_torch/csrc/aff_pre_packed_u.cu",
+    "montgomery_tpu/curves/affine.py:341",
+    [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
+)
+AFF_POST_PACKED_U = kernels.Kernel(
+    "aff_post_packed_u", "msm_aff_post_packed_u", "montgomery_tpu_torch/csrc/aff_post_packed_u.cu",
+    "montgomery_tpu/curves/affine.py:345",
+    [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _U32P, _INT],
+)
+
+SAFE_ADD_MSG = ("the safe packed add (aff_pre_packed/aff_post_packed), which the "
+                "batched-affine engine needs for unsafe=False, is not ported yet (the "
+                "next slice); use unsafe=True on distinct random points, or affine=False")
+
+
+class AffineOps:
+    """Packed batched-affine group ops for y^2 = x^3 + b."""
+
+    def __init__(self, fops: FieldOps, params: CurveParams):
+        p = fops.p
+        self.f, self.params = fops, params
+        beta = params.endomorphism.beta if params.endomorphism else 0
+        self.beta_mont = beta % p * fops.R % p
+        self._beta_words = kernels.words(to_words(self.beta_mont, fops.n))
+        self._one_words = kernels.words(to_words(fops.R_mod_p, fops.n))
+
+    # ------------------------------------------------------------ packed form
+
+    @property
+    def packed_rows(self) -> int:
+        return 2 * self.f.n + 1
+
+    def pack_rows(self, A: AffineBatch) -> torch.Tensor:
+        """AffineBatch (M) -> (2n+1, M) int32 packed rows."""
+        return torch.cat([A.x, A.y, A.inf.to(torch.int32)[None]], dim=0)
+
+    def unpack_rows(self, P: torch.Tensor) -> AffineBatch:
+        n = self.f.n
+        return AffineBatch(P[:n], P[n:2 * n], P[2 * n] != 0)
+
+    def pack_rows_glv(self, A: AffineBatch) -> torch.Tensor:
+        """AffineBatch (N) -> packed rows (2n+1, 2N) of [P..., phi(P)...],
+        phi(x, y) = (beta x, y): kernel `pack_glv` on CUDA tensors."""
+        if not kernels.on_cuda(A.x, A.y, A.inf):
+            return self.pack_rows_glv_plain(A)
+        n, N = self.f.n, A.count
+        xv, sx = kernels.lane_view(A.x, n, N)
+        yv, sy = kernels.lane_view(A.y, n, N)
+        inf = A.inf.to(torch.bool).contiguous()
+        out = torch.empty((self.packed_rows, 2 * N), dtype=torch.int32, device=A.x.device)
+        if N:
+            if 2 * N >= 1 << 31:
+                raise ValueError("lane count exceeds the kernels' int range")
+            PACK_GLV.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
+                            kernels.ptr(inf), self._beta_words, self.f.field_words, N)
+        return out
+
+    def pack_rows_glv_plain(self, A: AffineBatch) -> torch.Tensor:
+        xb = self.f.mul_const_plain(A.x, self.beta_mont)
+        E = AffineBatch(xb, A.y, A.inf)
+        return torch.cat([self.pack_rows(A), self.pack_rows(E)], dim=-1)
+
+    def _split_signed(self, P: torch.Tensor, s: torch.Tensor):
+        """Packed rows + sign plane -> (x, y sign-applied, inf plane), as
+        16-bit limbs of the plain field arithmetic."""
+        F, n = self.f.plain, self.f.n
+        x, y = to16(P[:n]), to16(P[n:2 * n])
+        y = torch.where(s[0][None] != 0, F.neg(y), y)
+        return x, y, P[2 * n:2 * n + 1]
+
+    # ----------------------------------------------------------- packed add
+
+    def add_packed(self, A: torch.Tensor, B: torch.Tensor, sA: torch.Tensor, sB: torch.Tensor,
+                   valid: torch.Tensor, unsafe: bool = False) -> torch.Tensor:
+        """Lane-wise packed add with pass-through: out[i] = sgn(A[i]) +
+        sgn(B[i]) where valid[i], else sgn(A[i]). sA, sB, valid are int32
+        (1, M) planes. Unsafe contract: no paired lanes share x and none is
+        infinite (one zero denominator poisons every lane of the batch).
+        The safe add is not ported: unsafe=False raises."""
+        if not unsafe:
+            raise NotImplementedError(SAFE_ADD_MSG)
+        denom = self.pre_packed_u(A, B, valid)
+        dinv = self.f.batch_inv(denom)
+        return self.post_packed_u(A, B, sA, sB, dinv, valid)
+
+    def pre_packed_u(self, A, B, hp) -> torch.Tensor:
+        """(n, M) denominators x_B - x_A, R mod p where hp == 0: kernel
+        `aff_pre_packed_u` on CUDA tensors."""
+        if not kernels.on_cuda(A, B, hp):
+            return self.pre_packed_u_plain(A, B, hp)
+        n, R, M = self.f.n, self.packed_rows, A.shape[-1]
+        Av, sa = kernels.lane_view(A, R, M)
+        Bv, sb = kernels.lane_view(B, R, M)
+        hv, _ = kernels.lane_view(hp, 1, M)
+        out = torch.empty((n, M), dtype=torch.int32, device=A.device)
+        if M:
+            AFF_PRE_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
+                                    kernels.ptr(hv), self._one_words, self.f.field_words, M)
+        return out
+
+    def pre_packed_u_plain(self, A, B, hp) -> torch.Tensor:
+        F, n = self.f.plain, self.f.n
+        d = F.sub(to16(B[:n]), to16(A[:n]))
+        one = F.const(self.f.R_mod_p, d).expand_as(d)
+        return from16(torch.where(hp[0][None] != 0, d, one))
+
+    def post_packed_u(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
+        """(2n+1, M) packed sums (pass-through where hp == 0): kernel
+        `aff_post_packed_u` on CUDA tensors."""
+        if not kernels.on_cuda(A, B, sA, sB, dinv, hp):
+            return self.post_packed_u_plain(A, B, sA, sB, dinv, hp)
+        n, R, M = self.f.n, self.packed_rows, A.shape[-1]
+        Av, sa = kernels.lane_view(A, R, M)
+        Bv, sb = kernels.lane_view(B, R, M)
+        dv, sd = kernels.lane_view(dinv, n, M)
+        sAv, sBv, hv = [kernels.lane_view(t, 1, M)[0] for t in (sA, sB, hp)]
+        out = torch.empty((R, M), dtype=torch.int32, device=A.device)
+        if M:
+            AFF_POST_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
+                                     kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
+                                     kernels.ptr(hv), self.f.field_words, M)
+        return out
+
+    def post_packed_u_plain(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
+        F = self.f.plain
+        x1, y1, inf1 = self._split_signed(A, sA)
+        x2, y2, _ = self._split_signed(B, sB)
+        lam = F.mul(F.sub(y2, y1), to16(dinv))
+        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
+        y3 = F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+        paired = hp[0][None] != 0
+        out_x = from16(torch.where(paired, x3, x1))
+        out_y = from16(torch.where(paired, y3, y1))
+        out_inf = torch.where(hp != 0, torch.zeros_like(inf1), inf1)
+        return torch.cat([out_x, out_y, out_inf], dim=0)

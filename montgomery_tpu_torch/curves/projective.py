@@ -193,7 +193,7 @@ class ProjectiveOps:
 
     # ------------------------------------------------------------------ I/O
 
-    def affine_to_device(self, points: list[AffinePoint], device="cpu") -> AffineBatch:
+    def affine_to_device(self, points: list[AffinePoint], device="cuda") -> AffineBatch:
         """Oracle affine points -> Montgomery-form AffineBatch on `device`."""
         f = self.f
         xs = [0 if P.is_zero else P.x for P in points]

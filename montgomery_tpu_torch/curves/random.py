@@ -47,7 +47,7 @@ def _build_tables(proj: ProjectiveOps, B: ProjectiveBatch, table_size: int) -> P
     return ProjectiveBatch(*[a[..., :table_size] for a in T])
 
 
-def random_points_fast(proj: ProjectiveOps, N: int, seed: int = 0, device="cpu",
+def random_points_fast(proj: ProjectiveOps, N: int, seed: int = 0, device="cuda",
                        n_tables: int = 8, table_size: int = 512,
                        cache_dir: str | Path | None = None) -> AffineBatch:
     """N random subgroup points as a Montgomery-form AffineBatch on `device`.

@@ -37,7 +37,7 @@ def ints_to_planes(values, w: int, n: int) -> np.ndarray:
     return codec.bytes_to_limbs(codec.ints_to_bytes(values, nb), nb, w, n)
 
 
-def field_from_jax(arr, f: FieldOps, w: int = 13, device="cpu") -> torch.Tensor:
+def field_from_jax(arr, f: FieldOps, w: int = 13, device="cuda") -> torch.Tensor:
     """JAX Montgomery planes -> this port's Montgomery planes (canonical)."""
     a = np.asarray(arr)
     p = f.p
@@ -54,15 +54,15 @@ def field_to_jax(t: torch.Tensor, f: FieldOps, n_jax: int, w: int = 13) -> np.nd
     return ints_to_planes(vals, w, n_jax)
 
 
-def affine_from_jax(x, y, inf, f: FieldOps, w: int = 13, device="cpu") -> AffineBatch:
+def affine_from_jax(x, y, inf, f: FieldOps, w: int = 13, device="cuda") -> AffineBatch:
     return AffineBatch(field_from_jax(x, f, w, device), field_from_jax(y, f, w, device),
-                       torch.from_numpy(np.asarray(inf, dtype=bool)).to(device))
+                       torch.from_numpy(np.array(inf, dtype=bool)).to(device))
 
 
-def projective_from_jax(X, Y, Z, f: FieldOps, w: int = 13, device="cpu") -> ProjectiveBatch:
+def projective_from_jax(X, Y, Z, f: FieldOps, w: int = 13, device="cuda") -> ProjectiveBatch:
     return ProjectiveBatch(*[field_from_jax(a, f, w, device) for a in (X, Y, Z)])
 
 
-def scalars_from_jax(arr, device="cpu") -> torch.Tensor:
+def scalars_from_jax(arr, device="cuda") -> torch.Tensor:
     """(ns, N) 13-bit scalar limb planes: the same in both packages."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(arr, dtype=np.int32))).to(device)

@@ -1,13 +1,16 @@
-"""Group adapter: the batched-group interface the MSM engine needs.
+"""Group adapters: the batched-group interfaces the MSM engine needs.
 
-Counterpart of `ProjectiveAdapter` in `montgomery_tpu/msm/adapters.py`.
-Point batches are ProjectiveBatch tuples whose planes have shape (n, *batch).
+Counterpart of `ProjectiveAdapter` and the packed members of
+`AffineAccumAdapter` in `montgomery_tpu/msm/adapters.py`. Projective point
+batches are ProjectiveBatch tuples whose planes have shape (n, *batch);
+the batched-affine accumulation keeps points as packed (2n+1, M) rows.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..curves.affine import AffineOps
 from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
 
 
@@ -37,3 +40,35 @@ class ProjectiveAdapter:
 
     def gather(self, P, idx):
         return ProjectiveBatch(*[a.index_select(a.dim() - 1, idx) for a in P])
+
+
+class AffineAccumAdapter:
+    """Batched-affine bucket accumulation on packed rows (one shared batch
+    inversion per pair round); the bucket sums leave as projective points.
+    Only the unsafe add is ported (`unsafe=False` raises in `add_packed`)."""
+
+    def __init__(self, aff: AffineOps, proj: ProjectiveOps, unsafe: bool = False):
+        self.aff, self.proj, self.unsafe = aff, proj, unsafe
+        self.f = aff.f
+        self.rounds: list[tuple[str, int, int]] = []  # of the last accumulation
+
+    @property
+    def packed_rows(self) -> int:
+        return self.aff.packed_rows
+
+    def pack_rows(self, A: AffineBatch) -> torch.Tensor:
+        return self.aff.pack_rows(A)
+
+    def unpack_rows(self, P: torch.Tensor) -> AffineBatch:
+        return self.aff.unpack_rows(P)
+
+    def add_packed(self, A, B, sA, sB, valid) -> torch.Tensor:
+        return self.aff.add_packed(A, B, sA, sB, valid, unsafe=self.unsafe)
+
+    def buckets_from_packed(self, Bp: torch.Tensor, valid: torch.Tensor) -> AffineBatch:
+        """Gathered packed buckets -> points; empty buckets become infinity."""
+        ub = self.unpack_rows(Bp)
+        return AffineBatch(ub.x, ub.y, ub.inf | torch.logical_not(valid))
+
+    def to_projective(self, A: AffineBatch) -> ProjectiveBatch:
+        return self.proj.from_affine(A)

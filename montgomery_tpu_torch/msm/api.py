@@ -1,44 +1,51 @@
 """MSM API: a curve context holding the field, curve and GLV constants.
 
-Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, for the
-complete projective engine (affine=False). The batched-affine engine
-(affine=True, the JAX package's default) is not ported yet and raises.
+Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, with two
+engines: the complete projective engine (affine=False) and the batched-affine
+engine with the unsafe packed add (affine=True, unsafe=True: `bench.py`'s
+configuration). The safe packed add (affine=True, unsafe=False, the JAX
+package's `msm_full` default) is not ported yet and raises.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
 from ..bigint.weierstrass import AffinePoint, CurveParams
 
+from ..curves.affine import SAFE_ADD_MSG, AffineOps
 from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
 from ..ops.field import create_field_ops
 from ..ops.limbs import bytes_to_limbs
 from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np
 from ..scalar.glv import glv_params
 from ..utils.timing import PhaseLog
-from .adapters import ProjectiveAdapter
+from .adapters import AffineAccumAdapter, ProjectiveAdapter
 from .pippenger import bucket_accumulate, msm_digits, reduce_buckets, window_size
 
 SCALAR_W = 13  # scalar limb size, as montgomery_tpu's (api.py:159)
 
-_AFFINE_MSG = ("the batched-affine engine (affine=True) is not ported yet; "
-               "use affine=False (the complete projective engine)")
 
 # one context per (params, device); an entry is added only once built
 _CTX_CACHE: dict = {}
 
 
 class WeierstrassMsm:
-    """MSM context for a short-Weierstrass curve with a = 0."""
+    """MSM context for a short-Weierstrass curve with a = 0, on `device`
+    (the card unless the caller asks for the CPU)."""
 
-    def __new__(cls, params: CurveParams, device="cpu"):
-        key = (cls, params, torch.device(device))
+    def __new__(cls, params: CurveParams, device="cuda"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+        key = (cls, params, device)
         inst = _CTX_CACHE.get(key)
         if inst is None:
             inst = super().__new__(cls)
-            inst._build(params, torch.device(device))
+            inst._build(params, device)
             _CTX_CACHE[key] = inst
         return inst
 
@@ -47,6 +54,8 @@ class WeierstrassMsm:
         self.fops = create_field_ops(params.modulus)
         self.proj = ProjectiveOps(self.fops, params)
         self.adapter = ProjectiveAdapter(self.proj)
+        self.affine = AffineOps(self.fops, params)
+        self.aff_adapter_unsafe = AffineAccumAdapter(self.affine, self.proj, unsafe=True)
         self.scalar_bits = params.order.bit_length()
         self.glv = None
         self.glv_dev = None
@@ -106,39 +115,60 @@ class WeierstrassMsm:
         return msm_digits(self.adapter, P, digits, c)
 
     def msm_device_full(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
-                        affine: bool = False) -> ProjectiveBatch:
+                        affine: bool = False, unsafe: bool = False) -> ProjectiveBatch:
         """GLV digits, GLV point expansion and the MSM, all on the device.
-        points_affine: AffineBatch (N); scalar_limbs: (ns, N)."""
-        if affine:
-            raise NotImplementedError(_AFFINE_MSG)
-        digits = self.digits(scalar_limbs, c)
-        return self.msm_device(self.expand_points_glv(points_affine), digits, c)
+        points_affine: AffineBatch (N); scalar_limbs: (ns, N). With affine,
+        the expansion is fused with the packed-row layout (kernel `pack_glv`)
+        and the buckets accumulate with the unsafe batched-affine add, whose
+        contract is the caller's: within a bucket no two operands share x,
+        and no point is infinite (distinct random points meet it)."""
+        return self._stages(points_affine, scalar_limbs, c, affine, unsafe)
 
-    def msm_phases(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int):
-        """msm_device_full as separately synchronized stages; returns
+    def msm_phases(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
+                   affine: bool = False, unsafe: bool = False):
+        """msm_device_full as four separately synchronized stages; returns
         (result, PhaseLog)."""
         log = PhaseLog()
+        return self._stages(points_affine, scalar_limbs, c, affine, unsafe, log), log
+
+    def _stages(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
+                affine: bool, unsafe: bool, log: PhaseLog | None = None) -> ProjectiveBatch:
+        """The MSM's four stages; each is synchronized and timed into `log`
+        when one is given."""
+        if affine and not unsafe:
+            raise NotImplementedError(SAFE_ADD_MSG)
         dev = self.device
-        with log.phase("digits (GLV+slice)", dev):
+
+        def phase(label):
+            return log.phase(label, dev) if log is not None else nullcontext()
+
+        group = self.aff_adapter_unsafe if affine else self.adapter
+        with phase("digits (GLV+slice)"):
             digits = self.digits(scalar_limbs, c)
-        with log.phase("expand (endo) + from_affine", dev):
-            P = self.adapter.from_points(self.expand_points_glv(points_affine))
-        with log.phase("accumulate", dev):
-            buckets, K, L = bucket_accumulate(self.adapter, P, digits, c)
-        with log.phase("reduce+combine", dev):
-            S = reduce_buckets(self.adapter, buckets, c, K, L)
-        return S, log
+        if affine:
+            with phase("expand (pack_glv)"):
+                P = self.affine.pack_rows_glv(points_affine)
+        else:
+            with phase("expand (endo) + from_affine"):
+                P = self.adapter.from_points(self.expand_points_glv(points_affine))
+        with phase("accumulate"):
+            buckets, K, L = bucket_accumulate(group, P, digits, c)
+        with phase("reduce+combine"):
+            if affine:
+                buckets = group.to_projective(buckets)
+            return reduce_buckets(self.adapter, buckets, c, K, L)
 
     def default_c(self, N: int) -> int:
         return window_size(max(1, N.bit_length() - 1))
 
-    def msm_full(self, scalars, points, c: int | None = None, affine: bool = False) -> AffinePoint:
+    def msm_full(self, scalars, points, c: int | None = None, affine: bool = False,
+                 unsafe: bool = False) -> AffinePoint:
         """Host entry: scalars (ints, bytes or an (ns, N) limb tensor) and
         points (oracle points or an AffineBatch) -> sum s_i P_i. `affine`
-        defaults to False here: the JAX package's default, the batched-affine
-        engine, is not ported yet and raises."""
-        if affine:
-            raise NotImplementedError(_AFFINE_MSG)
+        defaults to False here, the complete projective engine, until the
+        safe packed add is ported: the JAX package's default (affine=True,
+        unsafe=False) raises. affine=True, unsafe=True is the batched-affine
+        engine under the unsafe contract (see `msm_device_full`)."""
         if isinstance(points, AffineBatch):
             A, N = points, points.count
         else:
@@ -149,5 +179,5 @@ class WeierstrassMsm:
         limbs = scalars if isinstance(scalars, torch.Tensor) else self.scalars_to_limbs(scalars)
         if limbs.shape[-1] != N:
             raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
-        S = self.msm_device_full(A, limbs, c or self.default_c(N))
+        S = self.msm_device_full(A, limbs, c or self.default_c(N), affine=affine, unsafe=unsafe)
         return self.proj.to_host(S)[0]

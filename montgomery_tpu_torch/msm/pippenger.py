@@ -1,8 +1,11 @@
 """Single-device Pippenger MSM engine (sort + pair-halving + two-level
-bucket reduction + log-depth window combine), tree-of-planes path.
+bucket reduction + log-depth window combine).
 
-Counterpart of `montgomery_tpu/msm/pippenger.py` for the complete projective
-group (`ProjectiveAdapter`):
+Counterpart of `montgomery_tpu/msm/pippenger.py`, with its two accumulation
+paths: the tree-of-planes path of the complete projective group
+(`ProjectiveAdapter`) and the packed batched-affine path
+(`AffineAccumAdapter`, `msm_digits_affine`: one packed array per round, an
+8-way super-round first where the buckets are full enough). Both:
 
 - Each window's (bucket, point, sign) keys are sorted with one `torch.sort`
   of int64 keys; bucket counts come from `torch.bincount`.
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-from ..curves.projective import ProjectiveBatch
+from ..curves.projective import AffineBatch, ProjectiveBatch
 
 
 def window_size(log2_n: int) -> int:
@@ -75,41 +78,23 @@ def msm_digits(group, points: ProjectiveBatch, digits: torch.Tensor, c: int) -> 
     return reduce_buckets(group, buckets, c, K, L)
 
 
-def bucket_accumulate(group, points: ProjectiveBatch, digits: torch.Tensor, c: int):
-    """Sort and pair-halving bucket accumulation over all K windows at
-    once. Returns (buckets with planes (n, K, L), K, L); position j of a
-    window is bucket j+1."""
+def msm_digits_affine(aff_group, proj_group, rows: torch.Tensor, digits: torch.Tensor,
+                      c: int) -> ProjectiveBatch:
+    """MSM with batched-affine accumulation on packed rows (2n+1, N)
+    (`AffineAccumAdapter`); the bucket reduction runs in projective
+    coordinates (`proj_group`)."""
+    buckets, K, L = bucket_accumulate(aff_group, rows, digits, c)
+    return reduce_buckets(proj_group, aff_group.to_projective(buckets), c, K, L)
+
+
+def _sort_slots(digits: torch.Tensor, L: int):
+    """Per-window sort of (bucket, point, sign) keys. Returns the sorted
+    (point << 1 | sign) values flattened over windows, and each bucket slot's
+    count and start; window k's bucket j+1 is slot k (L+1) + j, and slot
+    k (L+1) + L holds the zero digits, which never pair (count 0)."""
     K, N = digits.shape
-    L = 1 << (c - 1)
     dev = digits.device
-
-    G = K * L  # live buckets
-    Gd = K * (L + 1)  # slots: + one dead slot per window for zero digits
-    M0 = K * N
-    sizes = _round_sizes(M0, G)
     nb = max((N - 1).bit_length(), 1)
-    slot_loc = torch.arange(Gd, device=dev) % (L + 1)
-    # points and their negations: round 0 reads both through the sort order
-    negY = group.f.neg(points.Y)
-
-    def pair_indices(counts, starts, size_out):
-        new_counts = (counts + 1) // 2
-        new_starts = _excl_cumsum(new_counts)
-        ends = starts + counts
-        delta = starts - 2 * new_starts
-        j = torch.arange(size_out, device=dev)
-        bid = (torch.searchsorted(new_starts, j, right=True) - 1).clamp(0, Gd - 1)
-        src = (2 * j + delta[bid]).clamp(min=0)
-        has_pair = (src + 1) < ends[bid]
-        return src, has_pair, new_counts, new_starts
-
-    def pair_round(counts, starts, size_out, read):
-        src, has_pair, new_counts, new_starts = pair_indices(counts, starts, size_out)
-        A = read(src)
-        B = read(torch.where(has_pair, src + 1, src))
-        P_new = group.select(has_pair, group.add(A, B), A)
-        return P_new, new_counts, new_starts
-
     d = digits.to(torch.int64)
     b = d.abs()
     loc = torch.where(b > 0, b - 1, L)
@@ -117,10 +102,57 @@ def bucket_accumulate(group, points: ProjectiveBatch, digits: torch.Tensor, c: i
     key = (loc << (nb + 1)) | (idx << 1) | (d < 0).to(torch.int64)
     key_s, _ = torch.sort(key, dim=1)
     perm_flat = (key_s & ((1 << (nb + 1)) - 1)).reshape(-1)
+    Gd = K * (L + 1)
     slot = (loc + torch.arange(K, device=dev)[:, None] * (L + 1)).reshape(-1)
     counts = torch.bincount(slot, minlength=Gd)
     starts = _excl_cumsum(counts)
-    counts = torch.where(slot_loc == L, 0, counts)  # dead slots never pair
+    slot_loc = torch.arange(Gd, device=dev) % (L + 1)
+    return perm_flat, torch.where(slot_loc == L, 0, counts), starts
+
+
+def _fan_in(counts, starts, size_out: int, F: int):
+    """A round that merges up to F adjacent elements of every bucket run:
+    for each output slot j, the position of its first source element and
+    the end of its bucket's run; and the buckets' new counts and starts."""
+    new_counts = (counts + F - 1) // F
+    new_starts = _excl_cumsum(new_counts)
+    j = torch.arange(size_out, device=counts.device)
+    bid = (torch.searchsorted(new_starts, j, right=True) - 1).clamp(0, counts.numel() - 1)
+    src0 = F * j + (starts - F * new_starts)[bid]
+    return src0, (starts + counts)[bid], new_counts, new_starts
+
+
+def _bucket_slots(counts, starts, K: int, L: int):
+    """(valid, position) of every bucket (window k, bucket j+1 at k L + j)."""
+    dev = counts.device
+    gid = (torch.arange(K, device=dev)[:, None] * (L + 1)
+           + torch.arange(L, device=dev)[None, :]).reshape(-1)
+    return counts[gid] == 1, starts[gid]
+
+
+def bucket_accumulate(group, points, digits: torch.Tensor, c: int):
+    """Sort and pair-halving bucket accumulation over all K windows at
+    once. Returns (buckets with planes (n, K, L), K, L); position j of a
+    window is bucket j+1. A group with `add_packed` takes the packed path,
+    with `points` its packed rows."""
+    if hasattr(group, "add_packed"):
+        return _accumulate_packed(group, points, digits, c)
+    K, N = digits.shape
+    L = 1 << (c - 1)
+    dev = digits.device
+    M0 = K * N
+    sizes = _round_sizes(M0, K * L)
+    perm_flat, counts, starts = _sort_slots(digits, L)
+    # points and their negations: round 0 reads both through the sort order
+    negY = group.f.neg(points.Y)
+
+    def pair_round(counts, starts, size_out, read):
+        src0, end, new_counts, new_starts = _fan_in(counts, starts, size_out, 2)
+        src = src0.clamp(min=0)
+        has_pair = (src + 1) < end
+        A = read(src)
+        B = read(torch.where(has_pair, src + 1, src))
+        return group.select(has_pair, group.add(A, B), A), new_counts, new_starts
 
     def read_points(src):
         # round 0 reads the points through the sort order, negated by sign
@@ -141,12 +173,99 @@ def bucket_accumulate(group, points: ProjectiveBatch, digits: torch.Tensor, c: i
         P_cur, counts, starts = pair_round(
             counts, starts, sizes[-1], lambda s, P=P_cur: read_cur(s, P))
 
-    gid = (torch.arange(K, device=dev)[:, None] * (L + 1)
-           + torch.arange(L, device=dev)[None, :]).reshape(-1)
-    valid = counts[gid] == 1
-    Bpt = group.gather(P_cur, starts[gid].clamp(max=P_cur.count - 1))
+    valid, pos = _bucket_slots(counts, starts, K, L)
+    Bpt = group.gather(P_cur, pos.clamp(max=P_cur.count - 1))
     Bpt = group.select(valid, Bpt, group.zero_like((K * L,), dev))
     return _map(lambda a: a.reshape(a.shape[0], K, L), Bpt), K, L
+
+
+def _bitrev_order(F: int) -> list[int]:
+    """0..F-1 in bit-reversed order: with the operand blocks laid out so,
+    every level's pairs are the two contiguous halves of the level before."""
+    lv = F.bit_length() - 1
+    return sorted(range(F), key=lambda t: int(f"{t:0{lv}b}"[::-1], 2))
+
+
+def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
+    """Packed path of `bucket_accumulate` (montgomery_tpu's, :136-395):
+    points stay one (2n+1, M) array, so a round is one column gather and
+    one `add_packed` (pre kernel, shared batch inversion, post kernel) that
+    folds in the signs and the pass-through of unpaired lanes. Once a window
+    holds 64 or more points per bucket, the first round is an 8-way
+    super-round: ONE gather of its 8 operand blocks, then three add levels
+    on contiguous halves. The rounds are recorded in `group.rounds` as
+    (kind, fan-in, output width), kind "super", "pair" (a shrinking round)
+    or "tail" (a round of the fixed-width loop). Returns (AffineBatch with
+    planes (n, K, L) and inf (K, L), K, L)."""
+    K, N = digits.shape
+    L = 1 << (c - 1)
+    dev = digits.device
+    G = K * L
+    M0 = K * N
+    perm_flat, counts, starts = _sort_slots(digits, L)
+    group.rounds.clear()
+
+    def read_sorted(pos):
+        # round-0 operands: the points through the sort order, and their signs
+        pv = perm_flat[pos.clamp(0, M0 - 1)]
+        return rows.index_select(1, pv >> 1), (pv & 1).to(torch.int32)[None]
+
+    def pair_round(P_cur, counts, starts, size_out, kind="pair"):
+        src0, end, new_counts, new_starts = _fan_in(counts, starts, size_out, 2)
+        src = src0.clamp(min=0)
+        has_pair = (src + 1) < end
+        both = torch.cat([src, torch.where(has_pair, src + 1, src)])
+        if P_cur is None:
+            AB, sg = read_sorted(both)
+            sA, sB = sg[:, :size_out], sg[:, size_out:]
+        else:
+            AB = P_cur.index_select(1, both.clamp(max=P_cur.shape[1] - 1))
+            sA = sB = torch.zeros((1, size_out), dtype=torch.int32, device=dev)
+        hp = has_pair.to(torch.int32)[None]
+        group.rounds.append((kind, 2, size_out))
+        out = group.add_packed(AB[:, :size_out], AB[:, size_out:], sA, sB, hp)
+        return out, new_counts, new_starts
+
+    def super_round(counts, starts, size_out, F):
+        # output slot j merges run elements [src0, src0 + F); r of them exist.
+        # Level pairs (first t, second t') merge iff r > t'; a pass-through
+        # keeps the first operand, whose block id the survivor carries.
+        src0, end, new_counts, new_starts = _fan_in(counts, starts, size_out, F)
+        r = end - src0
+        blocks = _bitrev_order(F)
+        C, sg = read_sorted(torch.cat([src0 + t for t in blocks]))
+        half = (F // 2) * size_out
+        sA, sB = sg[:, :half], sg[:, half:]
+        group.rounds.append(("super", F, size_out))
+        while len(blocks) > 1:
+            nblk = len(blocks) // 2
+            hp = torch.cat([r > t2 for t2 in blocks[nblk:]]).to(torch.int32)[None]
+            w = nblk * size_out
+            if nblk < F // 2:
+                sA = sB = torch.zeros((1, w), dtype=torch.int32, device=dev)
+            C = group.add_packed(C[:, :w], C[:, w:], sA, sB, hp)
+            blocks = blocks[:nblk]
+        return C, new_counts, new_starts
+
+    # the 8-way first round pays G extra output slots per level; it wins once
+    # the points per bucket make that negligible (montgomery_tpu's threshold)
+    if M0 >= 64 * G:
+        size_s = M0 // 8 + G + 2
+        P_cur, counts, starts = super_round(counts, starts, size_s, 8)
+        sizes = _round_sizes(size_s, G)
+    else:
+        sizes = _round_sizes(M0, G)
+        sizes = [sizes[1] if len(sizes) > 1 else M0, *sizes[2:]]
+        P_cur, counts, starts = pair_round(None, counts, starts, sizes[0])
+    for size_out in sizes[1:]:
+        P_cur, counts, starts = pair_round(P_cur, counts, starts, size_out)
+    while int(counts.max()) > 1:  # tail rounds at a fixed size
+        P_cur, counts, starts = pair_round(P_cur, counts, starts, sizes[-1], "tail")
+
+    valid, pos = _bucket_slots(counts, starts, K, L)
+    B = group.buckets_from_packed(P_cur.index_select(1, pos.clamp(max=P_cur.shape[1] - 1)), valid)
+    n = group.f.n
+    return AffineBatch(B.x.reshape(n, K, L), B.y.reshape(n, K, L), B.inf.reshape(K, L)), K, L
 
 
 def _suffix_scan(group, P, size: int, batch_shape):

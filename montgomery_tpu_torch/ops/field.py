@@ -1,7 +1,7 @@
 """Montgomery field arithmetic over (n, N) planes of 32-bit limbs.
 
 Counterpart of the subset of `montgomery_tpu/ops/field.py` that the
-projective MSM slice uses. Elements live lazily reduced in [0, 2p) in
+MSM slices use. Elements live lazily reduced in [0, 2p) in
 Montgomery form with R = 2^(32n) > 64p (the rule of the JAX package's
 `create_field_ops`), so the lazy sums of the curve formulas, up to 6p, may
 feed `mul` and still give a result in [0, 2p).
@@ -20,7 +20,7 @@ import functools
 import numpy as np
 import torch
 
-from . import kernels
+from . import divstep, kernels
 from . import limbs as codec
 
 _M16 = 0xFFFF
@@ -29,6 +29,11 @@ MUL_CONST = kernels.Kernel(
     "mul_const", "msm_mul_const", "montgomery_tpu_torch/csrc/mul_const.cu",
     "montgomery_tpu/ops/field.py:581",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.U32P, kernels.INT],
+)
+MONT_MUL = kernels.Kernel(
+    "mont_mul", "msm_mont_mul", "montgomery_tpu_torch/csrc/mont_mul.cu",
+    "montgomery_tpu/ops/field.py:443",
+    [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 
 
@@ -191,7 +196,25 @@ class FieldOps:
     # --------------------------------------------------- montgomery multiply
 
     def mul(self, x, y):
-        """x y / R mod p, in [0, 2p) for x, y < 6p (plain torch)."""
+        """x y / R mod p, in [0, 2p) for x, y < 6p: kernel `mont_mul` on CUDA
+        tensors, `mul_plain` on CPU tensors. As in the JAX package the kernel
+        takes operands of one shape; a broadcast operand is expanded (and
+        copied where its lanes are not contiguous)."""
+        if not kernels.on_cuda(x, y):
+            return self.mul_plain(x, y)
+        x, y = torch.broadcast_tensors(x, y)
+        shape = x.shape
+        N = x[0].numel()
+        xv, sx = kernels.lane_view(x.reshape(self.n, N), self.n, N)
+        yv, sy = kernels.lane_view(y.reshape(self.n, N), self.n, N)
+        out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
+        if N:
+            MONT_MUL.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
+                            self.field_words, N)
+        return out.reshape(shape)
+
+    def mul_plain(self, x, y):
+        """x y / R mod p (plain torch, any device)."""
         return self._apply(self.plain.mul, x, y)
 
     def mul_list(self, pairs):
@@ -229,14 +252,63 @@ class FieldOps:
         """x R -> x, in [0, p)."""
         return self.reduce(self.mul_const(x, 1))
 
+    # -------------------------------------------------------------- inversion
+
+    def inv_root(self, x: torch.Tensor) -> torch.Tensor:
+        """Montgomery-form inverse of every lane of (n, M) planes, 0 -> 0:
+        kernel `divstep_inv_mont` on CUDA tensors (the root of `batch_inv`,
+        at most 512 lanes), its plain version on CPU tensors."""
+        return divstep.inv_mont(self, x)
+
+    @functools.cached_property
+    def inv_params(self) -> divstep.DivstepParams:
+        return divstep.divstep_params(self)
+
+    # the tree stops at this width and inverts it in one root launch (the JAX
+    # package's value, kept for parity)
+    BATCH_INV_STOP = 512
+
+    def batch_inv(self, x: torch.Tensor, handle_zero: bool = False) -> torch.Tensor:
+        """Inverse of every lane of (n, M) Montgomery planes: a product tree
+        over contiguous halves (an odd level carries its last element
+        through), one root inversion of at most BATCH_INV_STOP lanes, and the
+        descent; one `mul` launch per level each way. With handle_zero, zeros
+        map to zero; without it a zero lane poisons every lane."""
+        if x.dim() != 2:
+            raise ValueError("batch_inv expects (n, M) planes")
+        zmask = None
+        if handle_zero:
+            zmask = self.is_zero(x)
+            x = self._sel(zmask, self.const_plane(self.R_mod_p, x), x)
+        levels = [x]
+        while levels[-1].shape[-1] > self.BATCH_INV_STOP:
+            v = levels[-1]
+            h = v.shape[-1] // 2
+            prod = self.mul(v[:, :h], v[:, h:2 * h])
+            if v.shape[-1] & 1:
+                prod = torch.cat([prod, v[:, 2 * h:]], dim=-1)
+            levels.append(prod)
+        inv = self.inv_root(levels[-1])
+        for v in reversed(levels[:-1]):
+            h = v.shape[-1] // 2
+            # inverse of the left half = parent inverse * right half, and back
+            swapped = torch.cat([v[:, h:2 * h], v[:, :h]], dim=-1)
+            out = self.mul(inv[:, :h].repeat(1, 2), swapped)
+            if v.shape[-1] & 1:
+                out = torch.cat([out, inv[:, h:h + 1]], dim=-1)
+            inv = out
+        if handle_zero:
+            inv = self._sel(zmask, torch.zeros_like(inv), inv)
+        return inv
+
     # -------------------------------------------------------------------- I/O
 
-    def pack(self, values, device="cpu", to_mont: bool = False) -> torch.Tensor:
+    def pack(self, values, device="cuda", to_mont: bool = False) -> torch.Tensor:
         """Ints -> planes of their values mod p (optionally to Montgomery form)."""
         x = self.pack_raw([v % self.p for v in values], device)
         return self.to_montgomery(x) if to_mont else x
 
-    def pack_raw(self, values, device="cpu") -> torch.Tensor:
+    def pack_raw(self, values, device="cuda") -> torch.Tensor:
         """Ints in [0, R) -> planes, unreduced."""
         return torch.from_numpy(codec.pack(values, self.n)).to(device)
 

@@ -4,7 +4,8 @@ Counterpart of `montgomery_tpu/ops/kernels.py` (`fused`, `pallas_map`,
 `_build_call`), which ran each limb-plane formula as one Pallas kernel on the
 TPU. Here every kernel is CUDA C++ under `montgomery_tpu_torch/csrc/`, built
 by `nvcc` for sm_90a into a shared library with a plain C interface, keyed by
-a hash of the sources, and called through `ctypes`.
+a hash of the sources, and called through `ctypes`. Each `.cu` file compiles
+in its own `nvcc` process, all started together, and one link joins them.
 
 Dispatch rule, shared by every wrapper: tensors on the CPU go to the kernel's
 plain PyTorch version (which lives beside the wrapper); tensors on a CUDA
@@ -28,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libmsm_kernels.so"
 
@@ -74,20 +75,44 @@ class _Library:
         t0 = time.perf_counter()
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                   *[str(s) for s in srcs if s.suffix == ".cu"]]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            (out_dir / "build.log").write_text(res.stdout + res.stderr)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-            os.replace(tmp, lib_path)
+            self._compile(out_dir, [s for s in srcs if s.suffix == ".cu"], lib_path)
         self.build_seconds = time.perf_counter() - t0
         log = out_dir / "build.log"
         self.build_log = log.read_text() if log.exists() else ""
         self.path = lib_path
         return ctypes.CDLL(str(lib_path))
+
+    @staticmethod
+    def _compile(out_dir: Path, cus: list[Path], lib_path: Path) -> None:
+        """One nvcc process per source, all running at once, then one link."""
+        nvcc, tag = _nvcc(), os.getpid()
+        jobs = []
+        for cu in cus:
+            obj = out_dir / f"{cu.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)]
+            jobs.append((cu, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for cu, _, proc in jobs:  # wait for every process, failed or not
+            out, _ = proc.communicate()
+            logs.append(f"== {cu.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{cu.name} ({proc.returncode}):\n{out[-4000:]}")
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        if not failed:
+            res = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]],
+                capture_output=True, text=True)
+            logs.append(f"== link\n{res.stdout}{res.stderr}")
+            if res.returncode != 0:
+                failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
+        (out_dir / "build.log").write_text("\n".join(logs))
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(tmp, lib_path)
 
 
 LIBRARY = _Library()
@@ -156,6 +181,20 @@ def check_planes(rows: int, *tensors: torch.Tensor) -> int:
     if N >= 1 << 31:
         raise ValueError("lane count exceeds the kernels' int range")
     return N
+
+
+def lane_view(t: torch.Tensor, rows: int, N: int) -> tuple[torch.Tensor, int]:
+    """An int32 (rows, N) plane whose lanes are contiguous, as (view, row
+    stride in elements). Column slices of a wider plane pass without a copy;
+    anything else (a broadcast, a transposed view) is copied."""
+    if t.dtype != torch.int32 or t.dim() != 2 or tuple(t.shape) != (rows, N):
+        raise ValueError(f"expected int32 ({rows}, {N}), got {t.dtype} {tuple(t.shape)}")
+    if N > 1 and t.stride(1) != 1 or rows > 1 and t.stride(0) < N:
+        t = t.contiguous()
+    stride = t.stride(0) if rows > 1 else N
+    if N >= 1 << 31 or stride >= 1 << 31:
+        raise ValueError("lane count exceeds the kernels' int range")
+    return t, stride
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

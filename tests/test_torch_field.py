@@ -74,7 +74,7 @@ def test_interop_roundtrip(ctx):
     jf, f, xs, _ = ctx
     rj = 1 << (W_JAX * jf.n)
     jplanes = _jax_planes(jf, [x % P * rj % P for x in xs])  # JAX Montgomery form
-    t = interop.field_from_jax(jplanes, f)
+    t = interop.field_from_jax(jplanes, f, device="cpu")
     assert f.unpack(t, from_mont=True) == [x % P for x in xs]
     back = interop.field_to_jax(t, f, jf.n)
     assert [v * pow(rj, -1, P) % P for v in _jax_ints(back)] == [x % P for x in xs]
@@ -110,10 +110,10 @@ def test_mul_montgomery(ctx):
     rj = 1 << (W_JAX * jf.n)
     jx = _jax_planes(jf, [x % P * rj % P for x in xs])
     jy = _jax_planes(jf, [y % P * rj % P for y in ys])
-    tx, ty = interop.field_from_jax(jx, f), interop.field_from_jax(jy, f)
+    tx, ty = interop.field_from_jax(jx, f, device="cpu"), interop.field_from_jax(jy, f, device="cpu")
     jz = np.asarray(jf.mul(jx, jy))
     tz = f.mul(tx, ty)
-    via_jax = f.unpack(interop.field_from_jax(jz, f), from_mont=True)
+    via_jax = f.unpack(interop.field_from_jax(jz, f, device="cpu"), from_mont=True)
     assert f.unpack(tz, from_mont=True) == via_jax == [x * y % P for x, y in zip(xs, ys)]
     assert all(v < 2 * P for v in codec.unpack(tz))
     (tz2,) = f.mul_list([(tx, ty)])

@@ -32,7 +32,7 @@ Q = BLS12_377.order
 
 @pytest.fixture(scope="module")
 def ctx():
-    return WeierstrassMsm(BLS12_377), WeierstrassCurve(BLS12_377)
+    return WeierstrassMsm(BLS12_377, device="cpu"), WeierstrassCurve(BLS12_377)
 
 
 def _inputs(E, N: int, seed: int):
@@ -76,9 +76,9 @@ def test_random_points_fast_closed_form():
     """Point i = sum_t (idx[t, i] + 3) B_t, with the JAX package's seed scheme:
     bases from random.Random(seed), indices from numpy default_rng(seed)."""
     E = WeierstrassCurve(BLS12_377)
-    msm = WeierstrassMsm(BLS12_377)
+    msm = WeierstrassMsm(BLS12_377, device="cpu")
     N, seed = 16, 42
-    got = msm.proj.affine_to_host(random_points_fast(msm.proj, N, seed=seed))
+    got = msm.proj.affine_to_host(random_points_fast(msm.proj, N, seed=seed, device="cpu"))
     rng = random.Random(seed)
     bases = [E.random_point(rng) for _ in range(8)]
     assert [(b.x, b.y) for b in bases] == [(b.x, b.y) for b in table_bases(BLS12_377, seed)]
@@ -106,8 +106,11 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     kernels.reset_launch_counts()
     sc, pts = _inputs(E, 4, seed=9)
     msm.msm_full(sc, pts, c=3)
+    distinct = [E.scale(k, E.generator) for k in (3, 5, 7, 11)]
+    msm.msm_full(sc, distinct, c=5, affine=True, unsafe=True)
     counts = kernels.launch_counts()
-    assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"}
+    assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
+                           "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u"}
     assert all(v == 0 for v in counts.values()), counts
 
 
@@ -121,14 +124,20 @@ def test_no_fallback_for_other_devices(ctx):
 
 
 def test_affine_engine_raises(ctx):
+    """The safe batched-affine engine (affine=True, unsafe=False) is not
+    ported: it raises, at every entry point."""
     msm, E = ctx
     sc, pts = _inputs(E, 2, seed=1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="safe packed add"):
         msm.msm_full(sc, pts, affine=True)
+    A, limbs = msm.affine_to_device(pts), msm.scalars_to_limbs(sc)
+    for fn in (msm.msm_device_full, msm.msm_phases):
+        with pytest.raises(NotImplementedError, match="safe packed add"):
+            fn(A, limbs, 3, affine=True, unsafe=False)
 
 
 def test_failed_context_is_not_cached():
     bad = dataclasses.replace(BLS12_377, a=1)
     for _ in range(2):
         with pytest.raises(NotImplementedError):
-            WeierstrassMsm(bad)
+            WeierstrassMsm(bad, device="cpu")

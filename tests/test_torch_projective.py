@@ -61,7 +61,7 @@ def _jax_projective(jf, pts, zs):
 
 
 def _to_port(f, JP):
-    return interop.projective_from_jax(*[np.asarray(a) for a in JP], f)
+    return interop.projective_from_jax(*[np.asarray(a) for a in JP], f, device="cpu")
 
 
 def test_add_matches_jax_and_oracle(ctx):
@@ -96,16 +96,17 @@ def test_endomorphism_matches_jax(ctx):
     JA = JAffineBatch(jcodec.pack(xs, jf.mp), jcodec.pack(ys, jf.mp),
                       np.array([p.is_zero for p in lhs]))
     JE = jproj.endomorphism_affine(JA)
-    TA = interop.affine_from_jax(JA.x, JA.y, JA.inf, f)
+    TA = interop.affine_from_jax(JA.x, JA.y, JA.inf, f, device="cpu")
     got = proj.affine_to_host(proj.endomorphism_affine(TA))
-    via_jax = proj.affine_to_host(interop.affine_from_jax(np.asarray(JE.x), np.asarray(JE.y), JE.inf, f))
+    via_jax = proj.affine_to_host(interop.affine_from_jax(np.asarray(JE.x), np.asarray(JE.y), JE.inf, f,
+                                                              device="cpu"))
     for g, j, a in zip(got, via_jax, lhs):
         assert E.equal(g, E.endomorphism(a)) and E.equal(j, g)
 
 
 def test_from_affine_and_host_io(ctx):
     _, _, f, proj, E, lhs, _, _ = ctx
-    A = proj.affine_to_device(lhs)
+    A = proj.affine_to_device(lhs, device="cpu")
     assert all(E.equal(a, p) for a, p in zip(proj.affine_to_host(A), lhs))
     raw = proj.to_host_raw(proj.from_affine(A))
     for (X, Y, Z), p in zip(raw, lhs):
