@@ -2,8 +2,9 @@
 """GPU smoke run of montgomery_tpu_torch on one CUDA card.
 
 Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, runs BLS12-377 MSMs on both
-engines against the bigint oracle and against a closed form, and times them.
+against its plain PyTorch version on the card, runs BLS12-377 MSMs on every
+engine and through `serve.compute_msm` against the bigint oracle and against
+a closed form, and times them.
 
     python3 chip_smoke.py
 
@@ -14,25 +15,38 @@ Phases, each printed as it runs:
      (`montgomery_tpu_torch/csrc/rates/imad_rate.cu`, built beside the
      kernels) that the operation bounds divide by;
   1. each kernel against its plain version on the same tensors, with
-     adversarial values in the first lanes (canonical values must be equal):
-     at 2^16 and 2^16 + 17 lanes, and the batched-affine kernels also at the
-     widths the main path gives them (the first super-round level at 2^16 and
-     2^20 points, pre, post, mont_mul and the tree's halves; pack_glv at 2^20
-     points; divstep_inv_mont at 512, the batch-inversion root); each timed
-     (CUDA events) on the tensors it was checked on at the 2^16 path's
-     width, beside its plain version's time and a lower bound from bytes
-     moved or multiplies;
+     adversarial values in the first lanes (canonical values must be equal;
+     the packed adds' first lanes cover every flag class of the safe add:
+     doubling, cancellation, each infinite operand, unpaired lanes, unreduced
+     representatives and the order-2 point (p - 1, 0)): at 2^16 and 2^16 + 17
+     lanes, and the batched-affine kernels also at the widths the main path
+     gives them (the first super-round level at 2^16 and 2^20 points and its
+     halves for mont_mul and both packed adds; pack_glv at 2^20 points;
+     mont_sqr at 2^20 lanes, the on-curve check of compute_msm;
+     divstep_inv_mont at 512, the batch-inversion root); each timed (CUDA
+     events) on the tensors it was checked on, at the 2^16 path's width
+     (mont_sqr at 2^20), beside its plain version's time and a lower bound
+     from bytes moved or multiplies;
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
-     engine with zero scalars, duplicate points and the point at infinity;
-     the batched-affine engine (affine=True, unsafe=True) on distinct random
-     points with zero scalars, at the default c (a pair round first) and at
-     c = 4 (the 8-way super-round first);
-  3. per path (affine-unsafe and projective) and size (N = 2^16, 2^20, c from
-     window_size) on random_points_fast(seed=42) points: launch counts of a
-     run with the counts set to 0 just before it (every kernel of the path
-     must launch), the check at full N against
-     S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs, phase
-     split, peak memory and the round plan.
+     and the safe batched-affine engine with zero scalars, duplicate and
+     negated duplicate points and the point at infinity; the unsafe engine
+     (affine=True, unsafe=True) on distinct random points with zero scalars;
+     the affine engines at the default c (a pair round first) and at c = 4
+     (the 8-way super-round first); serve.compute_msm from ints and from
+     bytes, and its ValueError on an off-curve point, misaligned bytes and a
+     length mismatch;
+  3. per path (affine-unsafe, affine-safe and projective) and size (N = 2^16,
+     2^20, c from window_size) on random_points_fast(seed=42) points: launch
+     counts of a run with the counts set to 0 just before it (every kernel of
+     the path must launch, and no kernel of another add), the check at full N
+     against S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5
+     runs, phase split, peak memory and the round plan; the unsafe and the
+     safe add timed in turns at both sizes; then the safe engine
+     at 2^16 on 2^12 bench points each used 16 times under one scalar, some
+     negated, some infinite, some scalars 0 (against the projective engine
+     and the closed form); then serve.compute_msm at 2^20 from packed bytes
+     with the on-curve check, against the closed form, with its ingestion
+     and on-curve check timed apart.
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
 raises; without a CUDA device the script exits 1 before printing a result.
@@ -56,16 +70,22 @@ SEED_SCALARS = 7
 KERNEL_LANES = (1 << 16, (1 << 16) + 17)  # main-path width, and a ragged edge
 ROOT_LANES = 512  # FieldOps.BATCH_INV_STOP: the width of every divstep root
 MSM_LOG2N = (16, 20)
-PATHS = ("affine_unsafe", "projective")
+PATHS = ("affine_unsafe", "affine_safe", "projective")
 KERNEL_REPS = 200  # back-to-back launches per kernel timing (tens of ms on the card)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
-# kernels each path must launch (the affine path's bucket reduction is projective)
+# kernels each path must launch (the affine paths' bucket reduction is
+# projective), and those of the other packed add, which it must not
+_AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb"}
+_UNSAFE, _SAFE = {"aff_pre_packed_u", "aff_post_packed_u"}, {"aff_pre_packed", "aff_post_packed"}
 PATH_KERNELS = {
     "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"},
-    "affine_unsafe": {"glv_digits", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
-                      "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb"},
+    "affine_unsafe": _AFFINE | _UNSAFE,
+    "affine_safe": _AFFINE | _SAFE,
+    "serve": _AFFINE | _SAFE | {"mul_const", "mont_sqr"},
 }
+PATH_FORBIDDEN = {"projective": _UNSAFE | _SAFE, "affine_unsafe": _SAFE,
+                  "affine_safe": _UNSAFE, "serve": _UNSAFE}
 
 
 def say(*a):
@@ -208,6 +228,11 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
     def products(k):
         return k * 2 * n * n, k * n
 
+    # a square shares its cross terms: n (n + 1) / 2 products, then the
+    # n-row reduction; a packed column is 2n + 1 words
+    sqr = (n * (n + 1) // 2 + n * n, n)
+    col = 2 * W + 4
+
     if name == "glv_digits":  # per scalar, at c = 13 (the timed call)
         gd = ctx.glv_dev
         ng = len(gd.g1_limbs)
@@ -228,6 +253,12 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
         "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
         "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
         "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, *products(3)),
+        "mont_sqr": (2 * W, *sqr),
+        # in: A, B, two signs, hp; out: denom, numer, flags
+        "aff_pre_packed": (2 * col + 12 + 2 * W + 4, *sqr),
+        # in: A, B, two signs, dinv, numer, flags, hp; out: one packed column
+        "aff_post_packed": (2 * col + 8 + 2 * W + 8 + col,
+                            products(2)[0] + sqr[0], products(2)[1] + sqr[1]),
     }[name]
 
 
@@ -373,7 +404,7 @@ def phase_kernels(ctx, pts, rates: dict):
             record("glv_digits", 0, cuda_time_ms(lambda: ctx.digits(sl, 13), KERNEL_REPS),
                    cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, 13), 3, 1))
 
-    affine_kernels(ctx, record, diff)
+    affine_kernels(ctx, pts, record, diff)
     torch.cuda.empty_cache()
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = bound(ctx, name, r["lanes"], rates)
@@ -411,16 +442,66 @@ def _field_plane(f, M: int, gen, adv: list[int]):
     return t
 
 
-def affine_kernels(ctx, record, diff):
-    """Kernels 5-9 of the batched-affine path against their plain versions
-    on the same tensors, with adversarial field values in the first lanes:
-    at 2^16 and 2^16 + 17 lanes, and at the widths the main path gives them
-    (the first super-round level at 2^16 and 2^20 points for pre, post,
-    mont_mul and the tree's halves; 2^20 points for pack_glv; the 512-lane
-    root for divstep_inv_mont). The operands are column slices of wider
-    planes, as the engine passes them. Each kernel is then timed on the
-    tensors it was checked on, at the 2^16 path's width (pack_glv at 2^16
-    points)."""
+# flag classes of the safe packed add, cycled over the first lanes of its
+# kernels' inputs; T = (p - 1, 0) is the point of order 2 (y = 0), and an
+# "unreduced" lane's B holds the representative v + p of A's value v
+FLAG_CLASSES = ("ordinary", "double", "cancel", "inf_a", "inf_b", "inf_both", "unpaired",
+                "t_double", "t_minus_t", "unpaired_same", "double_unreduced", "cancel_unreduced")
+
+
+def _flag_lanes(ctx, pts, K: int):
+    """K packed columns A and B (Montgomery form) and their sign and pair
+    planes on the card, lane i of class FLAG_CLASSES[i % 12], A's sign
+    alternating between the cycles."""
+    import torch
+
+    f = ctx.fops
+    p, R = f.p, f.R
+    xa, ya, ia, xb, yb, ib, sa, sb, hp = ([] for _ in range(9))
+    for i in range(K):
+        cls = FLAG_CLASSES[i % len(FLAG_CLASSES)]
+        a, b = pts[i % len(pts)], pts[(7 * i + 3) % len(pts)]
+        (ax, ay), (bx, by) = (a.x, a.y), (b.x, b.y)
+        s1 = (i // len(FLAG_CLASSES)) % 2
+        s2 = 1 - s1
+        if cls in ("double", "unpaired_same", "double_unreduced"):
+            bx, by, s2 = ax, ay, s1
+        elif cls in ("cancel", "cancel_unreduced"):
+            bx, by = ax, ay
+        elif cls in ("t_double", "t_minus_t"):
+            ax, ay = bx, by = p - 1, 0
+            s2 = s1 if cls == "t_double" else s2
+        up = p if cls.endswith("unreduced") else 0
+        xa.append(ax * R % p)
+        ya.append(ay * R % p)
+        xb.append(bx * R % p + up)
+        yb.append(by * R % p + up)
+        ia.append(int(cls in ("inf_a", "inf_both")))
+        ib.append(int(cls in ("inf_b", "inf_both")))
+        sa.append(s1)
+        sb.append(s2)
+        hp.append(0 if cls.startswith("unpaired") else 1)
+    dev = ctx.device
+
+    def rows(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    A = torch.cat([f.pack_raw(xa, dev), f.pack_raw(ya, dev), rows(ia)])
+    B = torch.cat([f.pack_raw(xb, dev), f.pack_raw(yb, dev), rows(ib)])
+    return A, B, rows(sa), rows(sb), rows(hp)
+
+
+def affine_kernels(ctx, pts, record, diff):
+    """Kernels 5-12 of the batched-affine paths against their plain versions
+    on the same tensors, with adversarial field values in the first lanes
+    (and, for the packed adds, the flag classes of `_flag_lanes` on oracle
+    points `pts`): at 2^16 and 2^16 + 17 lanes, and at the widths the main
+    path gives them (the first super-round level at 2^16 and 2^20 points and
+    its halves for mont_mul and both packed adds; 2^20 points for pack_glv;
+    2^20 lanes for mont_sqr; the 512-lane root for divstep_inv_mont). The
+    operands are column slices of wider planes, as the engine passes them.
+    Each kernel is then timed on the tensors it was checked on, at the 2^16
+    path's width (pack_glv at 2^16 points, mont_sqr at 2^20 lanes)."""
     import torch
 
     from montgomery_tpu_torch.curves.projective import AffineBatch
@@ -430,11 +511,13 @@ def affine_kernels(ctx, record, diff):
     gen = torch.Generator(device=dev).manual_seed(3)
     p = f.p
     adv = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p, f.R2]
-    every = {"divstep_inv_mont", "mont_mul", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u"}
-    level = {"mont_mul", "aff_pre_packed_u", "aff_post_packed_u"}
+    level = {"mont_mul", "aff_pre_packed_u", "aff_post_packed_u", "aff_pre_packed",
+             "aff_post_packed"}
+    every = level | {"divstep_inv_mont", "pack_glv", "mont_sqr"}
     W16, W20 = first_level_width(ctx, 16), first_level_width(ctx, 20)
     plan = ((KERNEL_LANES[0], every, {"pack_glv"}), (KERNEL_LANES[1], every, set()),
             (ROOT_LANES, {"divstep_inv_mont"}, {"divstep_inv_mont"}),
+            (1 << 20, {"mont_sqr"}, {"mont_sqr"}),
             (W16, level, level), (W20, level | {"pack_glv"}, set()))
 
     def canon_err(a, b):
@@ -442,6 +525,9 @@ def affine_kernels(ctx, record, diff):
 
     def packed_err(a, b):
         return _packed_err(f, a, b, diff)
+
+    def pre_err(a, b):  # (denom, numer, flags)
+        return max(canon_err(a[0], b[0]), canon_err(a[1], b[1]), diff(a[2].long(), b[2].long()))
 
     def flags(*shape):
         return torch.randint(0, 2, shape, dtype=torch.int32, device=dev, generator=gen)
@@ -452,6 +538,11 @@ def affine_kernels(ctx, record, diff):
         if "divstep_inv_mont" in names:
             cases["divstep_inv_mont"] = (M, lambda: f.inv_root(x),
                                          lambda: divstep.inv_mont_plain(f, x), canon_err)
+        if "mont_sqr" in names:
+            xs = x[:, 5:]  # a column slice
+            cases["mont_sqr"] = (M, lambda: f.square(x), lambda: f.square_plain(x), canon_err)
+            cases["mont_sqr slice"] = (M - 5, lambda: f.square(xs), lambda: f.square_plain(xs),
+                                       canon_err)
         if "mont_mul" in names:
             h = M // 2
             lo, hi = x[:, :h], x[:, h:2 * h]  # the tree's contiguous halves
@@ -461,22 +552,38 @@ def affine_kernels(ctx, record, diff):
         if "pack_glv" in names:
             npts = min(M, 1 << max(MSM_LOG2N))
             inf = torch.randint(0, 8, (npts,), device=dev, generator=gen) == 0
-            pts = AffineBatch(x[:, :npts].contiguous(), y[:, :npts].contiguous(), inf)
-            cases["pack_glv"] = (npts, lambda: aff.pack_rows_glv(pts),
-                                 lambda: aff.pack_rows_glv_plain(pts), packed_err)
+            pts_ = AffineBatch(x[:, :npts].contiguous(), y[:, :npts].contiguous(), inf)
+            cases["pack_glv"] = (npts, lambda: aff.pack_rows_glv(pts_),
+                                 lambda: aff.pack_rows_glv_plain(pts_), packed_err)
         if names & level:
             inf = torch.randint(0, 8, (M,), device=dev, generator=gen) == 0
             inf2 = torch.cat([inf, inf.flip(0)]).to(torch.int32)[None]
             C = torch.cat([torch.cat([x, y], dim=-1), torch.cat([y, x], dim=-1), inf2])
+            sg, hp = flags(1, 2 * M), flags(1, M)
+            K = min(M, 1200)
+            FA, FB, fsa, fsb, fhp = _flag_lanes(ctx, pts, K)
+            C[:, :K], C[:, M:M + K] = FA, FB
+            sg[:, :K], sg[:, M:M + K], hp[:, :K] = fsa, fsb, fhp
             A, B = C[:, :M], C[:, M:]  # a level's two halves
-            sg = flags(1, 2 * M)
-            sA, sB, hp = sg[:, :M], sg[:, M:], flags(1, M)
+            sA, sB = sg[:, :M], sg[:, M:]
             dinv = _field_plane(f, M, gen, adv)
             cases["aff_pre_packed_u"] = (M, lambda: aff.pre_packed_u(A, B, hp),
                                          lambda: aff.pre_packed_u_plain(A, B, hp), canon_err)
             cases["aff_post_packed_u"] = (M, lambda: aff.post_packed_u(A, B, sA, sB, dinv, hp),
                                           lambda: aff.post_packed_u_plain(A, B, sA, sB, dinv, hp),
                                           packed_err)
+            h = M // 2
+            for tag, ops in (("", (A, B, sA, sB, hp)),
+                             (" halves", (A[:, :h], B[:, :h], sA[:, :h], sB[:, :h], hp[:, :h]))):
+                lanes = ops[0].shape[-1]
+                _, numer, fl = aff.pre_packed(*ops)
+                d = dinv[:, :lanes]
+                cases["aff_pre_packed" + tag] = (lanes, lambda o=ops: aff.pre_packed(*o),
+                                                 lambda o=ops: aff.pre_packed_plain(*o), pre_err)
+                cases["aff_post_packed" + tag] = (
+                    lanes, lambda o=ops, d=d, u=numer, g=fl: aff.post_packed(*o[:4], d, u, g, o[4]),
+                    lambda o=ops, d=d, u=numer, g=fl: aff.post_packed_plain(*o[:4], d, u, g, o[4]),
+                    packed_err)
         for label, (lanes, kern, plain, err_of) in cases.items():
             err = err_of(kern(), plain())
             say(f"{label} N={lanes}: max_abs_err {err}")
@@ -492,26 +599,49 @@ def affine_kernels(ctx, record, diff):
 # ----------------------------------------------------------------- phase 2
 
 
+def _adversarial_inputs(E, base, N: int, rng: random.Random):
+    """Points with duplicates (equal scalars on (P, P) pairs, so a bucket
+    doubles), negated duplicates ((P, -P) under one scalar, so it cancels),
+    the point at infinity, and scalars 0, 1 and q - 1."""
+    from montgomery_tpu_torch.bigint import AffinePoint
+
+    q = E.params.order
+    pts = [base[(5 * i) % len(base)] for i in range(N)]
+    sc = [rng.randrange(q) for _ in range(N)]
+    for i in range(8, N, 4):
+        pts[i + 1], sc[i + 1] = (pts[i] if i % 8 else E.neg(pts[i])), sc[i]
+    pts[1] = pts[6] = AffinePoint.zero()
+    sc[0] = sc[3] = 0
+    sc[2], sc[4] = 1, q - 1
+    return pts, sc
+
+
 def phase_oracle(ctx, pts):
-    from montgomery_tpu_torch.bigint import AffinePoint, WeierstrassCurve, msm as oracle_msm
+    from montgomery_tpu_torch import serve
+    from montgomery_tpu_torch.bigint import WeierstrassCurve, msm as oracle_msm
 
     say("== phase 2: MSM against the bigint oracle")
     E = WeierstrassCurve(ctx.params)
     q = ctx.params.order
     rng = random.Random(2)
     base = [E.random_point(rng) for _ in range(24)]
-    for N in (16, 1 << 9):
-        pts_adv = [base[(5 * i) % len(base)] for i in range(N)]  # duplicates
-        pts_adv[1] = AffinePoint.zero()
-        sc = [rng.randrange(q) for _ in range(N)]
-        sc[0] = sc[3] = 0
-        sc[2], sc[4] = 1, q - 1
-        t0 = time.perf_counter()
-        got = ctx.msm_full(sc, pts_adv)
-        dt = time.perf_counter() - t0
-        if not E.equal(got, oracle_msm(E, sc, pts_adv)):
-            raise AssertionError(f"projective MSM at N={N} differs from the oracle")
-        say(f"projective N={N}: equal to the oracle ({dt:.2f} s incl. first calls)")
+    for N, c, first in ((16, None, "pair"), (1 << 9, 4, "super")):
+        pts_adv, sc = _adversarial_inputs(E, base, N, rng)
+        want = oracle_msm(E, sc, pts_adv)
+        for engine, kw in (("projective", dict(affine=False)), ("affine-safe", {})):
+            t0 = time.perf_counter()
+            got = ctx.msm_full(sc, pts_adv, c=c, **kw)
+            dt = time.perf_counter() - t0
+            if not E.equal(got, want):
+                raise AssertionError(f"{engine} MSM at N={N} differs from the oracle")
+            note = ""
+            if engine == "affine-safe":
+                rounds = list(ctx.aff_adapter.rounds)
+                if rounds[0][0] != first:
+                    raise AssertionError(f"affine-safe MSM at N={N}: first round {rounds[0]}")
+                note = f", first round {rounds[0]}"
+            say(f"{engine} N={N} c={c or ctx.default_c(N)} (duplicates, negations, infinity, "
+                f"zero scalars): equal to the oracle{note} ({dt:.2f} s incl. first calls)")
     # the unsafe engine's contract: distinct random points, no infinity
     for N, c, first in ((16, None, "pair"), (1 << 9, 4, "super")):
         sc = [rng.randrange(q) for _ in range(N)]
@@ -527,6 +657,31 @@ def phase_oracle(ctx, pts):
             raise AssertionError(f"affine-unsafe MSM at N={N} differs from the oracle")
         say(f"affine-unsafe N={N} c={c or ctx.default_c(N)}: equal to the oracle, first round "
             f"{rounds[0]} ({dt:.2f} s incl. first calls)")
+    # serve.compute_msm on the card, from ints and from bytes
+    pts_adv, sc = _adversarial_inputs(E, base, 16, rng)
+    want = oracle_msm(E, sc, pts_adv)
+    want = (0, 0) if want.is_zero else (want.x, want.y)
+    xy = [(0, 0) if P.is_zero else (P.x, P.y) for P in pts_adv]
+    pbytes = b"".join(x.to_bytes(48, "little") + y.to_bytes(48, "little") for x, y in xy)
+    sbytes = b"".join((s + q if s + q < 1 << 256 else s).to_bytes(32, "little") for s in sc)
+    for label, args in (("ints", (xy, sc)), ("bytes", (pbytes, sbytes))):
+        if serve.compute_msm(*args) != want:
+            raise AssertionError(f"compute_msm from {label} differs from the oracle")
+        say(f"serve.compute_msm from {label}, N=16: equal to the oracle")
+    bad_xy = list(xy)
+    bad_xy[3] = (xy[3][0], (xy[3][1] + 1) % ctx.fops.p)
+    for label, args, match in (("off-curve point", (bad_xy, sc), "not on curve"),
+                               ("misaligned point bytes", (pbytes[:-1], sbytes), "multiple"),
+                               ("misaligned scalar bytes", (pbytes, sbytes[:-1]), "multiple"),
+                               ("length mismatch", (xy, sc[:-1]), "length mismatch")):
+        try:
+            serve.compute_msm(*args)
+        except ValueError as e:
+            if match not in str(e):
+                raise AssertionError(f"compute_msm on a {label}: {e}") from e
+            say(f"serve.compute_msm on a {label}: ValueError ({e})")
+        else:
+            raise AssertionError(f"compute_msm accepted a {label}")
 
 
 # ----------------------------------------------------------------- phase 3
@@ -558,6 +713,30 @@ def bench_scalars(q: int, N: int) -> list[int]:
     return [int.from_bytes(raw[32 * i: 32 * (i + 1)], "little") % q for i in range(N)]
 
 
+def counted(fn, path: str):
+    """Run fn once with every launch count set to 0 just before it; check
+    that each kernel of `path` launched and none of its forbidden ones did.
+    Returns (counts, seconds, result)."""
+    import torch
+
+    from montgomery_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels {missing} were not launched on the {path} path")
+    stray = [k for k in PATH_FORBIDDEN[path] if counts[k]]
+    if stray:
+        raise AssertionError(f"kernels {stray} were launched on the {path} path")
+    return counts, seconds, out
+
+
 def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     """One path at N = 2^log2n: launch counts of a run with the counts set
     to 0 just before it, the full-N check, 5 timed runs, peak memory and the
@@ -566,13 +745,13 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
 
     from montgomery_tpu_torch.bigint import WeierstrassCurve
     from montgomery_tpu_torch.curves.projective import AffineBatch
-    from montgomery_tpu_torch.ops import kernels
     from montgomery_tpu_torch.utils.timing import timeit
 
     N = 1 << log2n
     c = ctx.default_c(N)
     K = ctx.glv_dev.num_windows(c)
-    affine = path == "affine_unsafe"
+    affine, unsafe = path != "projective", path == "affine_unsafe"
+    adapter = ctx.aff_adapter_unsafe if unsafe else ctx.aff_adapter
     say(f"== phase 3: BLS12-377 MSM N=2^{log2n}, c={c}, K={K} (GLV halves), path {path}, "
         f"n={ctx.fops.n} limbs of 32 bits")
     A = AffineBatch(*[a[..., :N] for a in pts_full])
@@ -581,21 +760,12 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     dev = ctx.device
 
     def run():
-        return ctx.msm_device_full(A, limbs, c, affine=affine, unsafe=affine)
+        return ctx.msm_device_full(A, limbs, c, affine=affine, unsafe=unsafe)
 
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    S = run()
-    torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts, first, S = counted(run, path)
     say(f"{path} launches: {counts} (first run {first:.3f} s)")
-    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"kernels {missing} were not launched on the {path} path")
     if affine:
-        say(f"rounds: {ctx.aff_adapter_unsafe.rounds}")
+        say(f"rounds: {adapter.rounds}")
     got = ctx.proj.to_host(S)[0]
     E = WeierstrassCurve(ctx.params)
     t0 = time.perf_counter()
@@ -610,10 +780,127 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     run()
     torch.cuda.synchronize(dev)
     peak = torch.cuda.max_memory_allocated(dev)
-    _, log = ctx.msm_phases(A, limbs, c, affine=affine, unsafe=affine)
+    _, log = ctx.msm_phases(A, limbs, c, affine=affine, unsafe=unsafe)
     say(f"msm {path} N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
+    return counts
+
+
+def phase_ab(ctx, pts_full, log2n: int, turns: int = 5):
+    """The unsafe and the safe add on the same inputs at N = 2^log2n, timed
+    in turns (unsafe, safe, safe, unsafe) so that drift on the card falls on
+    both; prints each one's median of 2 * turns runs."""
+    import statistics
+
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    N = 1 << log2n
+    c = ctx.default_c(N)
+    A = AffineBatch(*[a[..., :N] for a in pts_full])
+    limbs = ctx.scalars_to_limbs(bench_scalars(ctx.params.order, N))
+    times = {True: [], False: []}
+    for _ in range(turns):
+        for unsafe in (True, False, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctx.msm_device_full(A, limbs, c, affine=True, unsafe=unsafe)
+            torch.cuda.synchronize()
+            times[unsafe].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    say(f"== phase 3: unsafe vs safe add at N=2^{log2n}, in turns: median unsafe {med[True]:.6f} s, "
+        f"safe {med[False]:.6f} s (safe / unsafe {med[False] / med[True]:.3f}); "
+        f"unsafe {['%.6f' % t for t in times[True]]}, safe {['%.6f' % t for t in times[False]]}")
+
+
+def phase_adversarial(ctx, pts_full, log2n: int = 16, log2base: int = 12):
+    """The safe engine at N = 2^log2n on 2^log2base bench points, each used
+    2^(log2n - log2base) times under one scalar: copy k of point j is
+    negated where (j + k) % 5 == 1 and infinite where (j + k) % 7 == 3, and
+    point j's scalar is 0 where j % 11 == 0. Equal to the projective engine
+    and to the closed form with point j's coefficient sum_k sign_k s_j."""
+    import torch
+
+    from montgomery_tpu_torch.bigint import WeierstrassCurve
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    N, nb = 1 << log2n, 1 << log2base
+    c = ctx.default_c(N)
+    q = ctx.params.order
+    say(f"== phase 3: adversarial safe MSM N=2^{log2n} on 2^{log2base} bench points, c={c}")
+    f, dev = ctx.fops, ctx.device
+    base = bench_scalars(q, nb)
+    base = [0 if j % 11 == 0 else s for j, s in enumerate(base)]
+    j = torch.arange(N, device=dev) % nb
+    k = torch.arange(N, device=dev) // nb
+    neg = (j + k) % 5 == 1
+    inf = (j + k) % 7 == 3
+    x, y = pts_full.x.index_select(1, j), pts_full.y.index_select(1, j)
+    y = torch.where(neg[None], f.neg(y), y)
+    zero = torch.zeros_like(x)
+    A = AffineBatch(torch.where(inf[None], zero, x), torch.where(inf[None], zero, y), inf)
+    scalars = [base[i % nb] for i in range(N)]
+    sign = torch.where(inf, 0, torch.where(neg, -1, 1)).cpu().tolist()
+    coef = [0] * nb
+    for i, sg in enumerate(sign):
+        coef[i % nb] += sg
+    limbs = ctx.scalars_to_limbs(scalars)
+    counts, first, S = counted(lambda: ctx.msm_device_full(A, limbs, c, affine=True), "affine_safe")
+    say(f"affine_safe adversarial launches: {counts} (first run {first:.3f} s); rounds "
+        f"{ctx.aff_adapter.rounds}")
+    E = WeierstrassCurve(ctx.params)
+    got = ctx.proj.to_host(S)[0]
+    want = closed_form(ctx.params, [s * cf % q for s, cf in zip(base, coef)], SEED_POINTS,
+                       pts_full.count)
+    proj = ctx.proj.to_host(ctx.msm_device_full(A, limbs, c, affine=False))[0]
+    if not (E.equal(got, want) and E.equal(proj, want)):
+        raise AssertionError("adversarial safe MSM differs from the closed form or the projective engine")
+    say(f"adversarial safe MSM: equal to the closed form and to the projective engine "
+        f"({sum(neg.tolist())} negated, {sum(inf.tolist())} infinite, "
+        f"{sum(1 for s in base if s == 0)} of {nb} scalars 0)")
+
+
+def phase_serve(ctx, pts_full, log2n: int, expected: dict):
+    """serve.compute_msm at N = 2^log2n from packed bytes with the on-curve
+    check, against the closed form; ingestion and the on-curve check timed
+    apart, then the whole call with its launch counts."""
+    import numpy as np
+    import torch
+
+    from montgomery_tpu_torch import serve
+    from montgomery_tpu_torch.bigint import WeierstrassCurve
+
+    N = 1 << log2n
+    say(f"== phase 3: serve.compute_msm N=2^{log2n} from packed bytes, validate=True")
+    f, q = ctx.fops, ctx.params.order
+    # canonical coordinates of the bench points as little-endian bytes
+    xy = [np.ascontiguousarray(f.from_montgomery(a[:, :N]).cpu().numpy().T).view("<u4")
+          for a in pts_full[:2]]
+    pbytes = np.concatenate(xy, axis=1).tobytes()
+    raw = np.random.default_rng(SEED_SCALARS).integers(0, 256, size=N * 32, dtype=np.uint8)
+    sbytes = raw.tobytes()  # unreduced: compute_msm reduces mod q, as bench_scalars does
+    sctx = serve.get_curve("bls12-377")
+    t0 = time.perf_counter()
+    batch = serve._points_to_batch(sctx, pbytes)
+    limbs = sctx.scalars_to_limbs(sbytes)
+    torch.cuda.synchronize()
+    t_in = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ok = bool(sctx.affine.is_on_curve(batch).all())
+    t_chk = time.perf_counter() - t0
+    if not ok:
+        raise AssertionError("bench points failed the on-curve check")
+    counts, t_all, got = counted(lambda: serve.compute_msm(pbytes, sbytes), "serve")
+    say(f"serve launches: {counts}")
+    if N not in expected:
+        expected[N] = closed_form(ctx.params, bench_scalars(q, N), SEED_POINTS, pts_full.count)
+    want = expected[N]
+    if got != (want.x, want.y):
+        raise AssertionError("compute_msm at full N differs from the closed form")
+    say(f"compute_msm N=2^{log2n}: equal to the closed form; host ingestion {t_in:.3f} s, "
+        f"on-curve check {t_chk:.4f} s, whole call {t_all:.3f} s")
     return counts
 
 
@@ -647,6 +934,10 @@ def main() -> int:
     for path in PATHS:
         for log2n in MSM_LOG2N:
             launches[f"{path}_2^{log2n}"] = phase_msm(ctx, log2n, pts, path, expected)
+    for log2n in MSM_LOG2N:
+        phase_ab(ctx, pts, log2n)
+    phase_adversarial(ctx, pts)
+    launches[f"serve_2^{max(MSM_LOG2N)}"] = phase_serve(ctx, pts, max(MSM_LOG2N), expected)
     main_run = f"{PATHS[0]}_2^{max(MSM_LOG2N)}"  # bench.py's configuration
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,

@@ -14,17 +14,8 @@
 // against 256 bytes read and 100 written; the multiply and the memory bounds
 // are about equal (0.088 and 0.089 ms at 835,592 lanes on an H100). Design: one thread per lane,
 // operands read in place through their row strides; neg/sub/select are the
-// branch-free helpers of field.cuh.
-#include "field.cuh"
-
-__device__ __forceinline__ void load_signed(uint32_t x[NL], uint32_t y[NL], const int32_t* P, int s, int i,
-                                            bool neg, const FieldParams& F) {
-  uint32_t t[NL];
-  fe_load(x, P, s, i);
-  fe_load(t, P + (size_t)NL * s, s, i);
-  fe_neg(y, t, F);
-  fe_select(y, neg, y, t);
-}
+// branch-free helpers of field.cuh, load_signed that of affine.cuh.
+#include "affine.cuh"
 
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,

@@ -1,0 +1,48 @@
+// Kernel 11: edge-case triage of the safe packed batched-affine add.
+//
+// Replaces the Pallas kernel "aff_pre_packed" of
+// montgomery_tpu/curves/affine.py (AffineOps.add_packed, safe branch, over
+// _pre_packed_formula, :303-312). Per lane, with the signs folded into y
+// before the triage (so A and -A cancel): aff_triage of affine.cuh gives the
+// denominator, the slope numerator and the flags; a lane without a pair
+// (hp == 0) gets denominator 1 (R mod p), so nothing it holds, an unpaired
+// lane reading A twice included, reaches the shared inversion.
+// Outputs: denom (NL, N), numer (NL, N), flags (1, N).
+//
+// Bound on this card: memory; per lane 212 bytes read (two packed columns,
+// two signs, the pair flag) and 100 written against one square. Design: one
+// thread per lane; A and B are column ranges of the packed (2NL+1, *) arrays
+// and are read in place through their row strides.
+#include "affine.cuh"
+
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+aff_pre_packed_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, int32_t* __restrict__ flags,
+                      const int32_t* __restrict__ A, int sa, const int32_t* __restrict__ B, int sb,
+                      const int32_t* __restrict__ sA, const int32_t* __restrict__ sB,
+                      const int32_t* __restrict__ hp, Fe one, FieldParams F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], u[NL];
+  load_signed(x1, y1, A, sa, i, sA[i] != 0, F);
+  load_signed(x2, y2, B, sb, i, sB[i] != 0, F);
+  bool inf1 = A[(size_t)2 * NL * sa + i] != 0, inf2 = B[(size_t)2 * NL * sb + i] != 0;
+  int fl = aff_triage(d, u, x1, y1, x2, y2, inf1, inf2, one.v, F);
+  fe_select(d, hp[i] != 0, d, one.v);
+  fe_store(denom, N, i, d);
+  fe_store(numer, N, i, u);
+  flags[i] = fl;
+}
+
+extern "C" int msm_aff_pre_packed(void* denom, void* numer, void* flags, const void* A, int sa, const void* B,
+                                  int sb, const void* sA, const void* sB, const void* hp, const uint32_t* one,
+                                  const uint32_t* field, int N, void* stream) {
+  Fe o;
+  FieldParams F;
+  memcpy(o.v, one, sizeof(o.v));
+  memcpy(&F, field, sizeof(F));
+  if (N > 0)
+    aff_pre_packed_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)A, sa, (const int32_t*)B, sb,
+        (const int32_t*)sA, (const int32_t*)sB, (const int32_t*)hp, o, F, N);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,81 @@
+// The complete affine add around a shared batch inversion, for y^2 = x^3 + b.
+//
+// Replaces the formulas that montgomery_tpu/curves/affine.py inlines into its
+// safe batched-affine kernels: _pre_inv_formula (:76-99), the edge-case
+// triage before the inversion, and _post_inv_formula (:101-121), the chord or
+// tangent completion after it, with _slope_numer_dbl (:67-74) for a = 0.
+// The packed kernels (aff_pre_packed.cu, aff_post_packed.cu) call them per
+// lane; a planar add can call the same functions.
+//
+// Flags of a lane: bit 1 is_dbl (both finite, x1 == x2, y1 == y2), bit 2
+// cancel (both finite, x1 == x2, y1 != y2), bit 4 y1_zero. A lane whose
+// denominator would be 0 or meaningless (cancel, a tangent at y = 0, any
+// infinite operand) gets the Montgomery form of 1 instead, so that no lane
+// brings a zero into the shared inversion.
+#pragma once
+#include "field.cuh"
+
+#define AFF_DBL 1
+#define AFF_CANCEL 2
+#define AFF_Y1_ZERO 4
+
+// x and the sign-applied y (y -> -y where neg) of column i of packed rows
+// [x (NL) | y (NL) | inf (1)] with row stride s
+__device__ __forceinline__ void load_signed(uint32_t x[NL], uint32_t y[NL], const int32_t* P, int s, int i,
+                                            bool neg, const FieldParams& F) {
+  uint32_t t[NL];
+  fe_load(x, P, s, i);
+  fe_load(t, P + (size_t)NL * s, s, i);
+  fe_neg(y, t, F);
+  fe_select(y, neg, y, t);
+}
+
+// denominator (2 y1 for a doubling, x2 - x1 otherwise, 1 where poisoned),
+// slope numerator (3 x1^2 for a doubling, y2 - y1 otherwise) and flags
+__device__ __forceinline__ int aff_triage(uint32_t denom[NL], uint32_t numer[NL], const uint32_t x1[NL],
+                                          const uint32_t y1[NL], const uint32_t x2[NL], const uint32_t y2[NL],
+                                          bool inf1, bool inf2, const uint32_t one[NL], const FieldParams& F) {
+  bool xeq = fe_is_equal(x1, x2, F), yeq = fe_is_equal(y1, y2, F);
+  bool finite = !inf1 && !inf2;
+  bool is_dbl = xeq && yeq && finite;
+  bool cancel = xeq && !yeq && finite;
+  bool y1_zero = fe_is_zero(y1, F);
+  uint32_t a[NL], b[NL];
+  fe_add(a, y1, y1, F);
+  fe_sub(b, x2, x1, F);
+  fe_select(denom, is_dbl, a, b);
+  bool poisoned = cancel || (is_dbl && y1_zero) || !finite;
+  fe_select(denom, poisoned, one, denom);
+  // both numerators are computed on every lane, as the formula does
+  uint32_t xx[NL];
+  fe_sqr(xx, x1, F);
+  fe_add(a, xx, xx, F);
+  fe_add(a, a, xx, F);
+  fe_sub(b, y2, y1, F);
+  fe_select(numer, is_dbl, a, b);
+  return (is_dbl ? AFF_DBL : 0) | (cancel ? AFF_CANCEL : 0) | (y1_zero ? AFF_Y1_ZERO : 0);
+}
+
+// lambda = numer dinv, x3 = lambda^2 - x1 - x2, y3 = lambda (x1 - x3) - y1,
+// then the edge cases: the sum is infinite on cancel, on a tangent at y = 0
+// and when both operands are; one infinite operand passes the other through.
+// Returns whether the sum is infinite.
+__device__ __forceinline__ bool aff_complete(uint32_t x3[NL], uint32_t y3[NL], const uint32_t x1[NL],
+                                             const uint32_t y1[NL], const uint32_t x2[NL], const uint32_t y2[NL],
+                                             const uint32_t dinv[NL], const uint32_t numer[NL], int flags,
+                                             bool inf1, bool inf2, const FieldParams& F) {
+  uint32_t lam[NL], t[NL];
+  fe_mul(lam, numer, dinv, F);
+  fe_sqr(t, lam, F);
+  fe_sub(t, t, x1, F);
+  fe_sub(x3, t, x2, F);
+  fe_sub(t, x1, x3, F);
+  fe_mul(t, lam, t, F);
+  fe_sub(y3, t, y1, F);
+  bool only1 = inf1 && !inf2, only2 = inf2 && !inf1;
+  fe_select(x3, only1, x2, x3);
+  fe_select(y3, only1, y2, y3);
+  fe_select(x3, only2, x1, x3);
+  fe_select(y3, only2, y1, y3);
+  return (flags & AFF_CANCEL) || ((flags & AFF_DBL) && (flags & AFF_Y1_ZERO)) || (inf1 && inf2);
+}

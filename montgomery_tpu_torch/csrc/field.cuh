@@ -148,6 +148,88 @@ __device__ __forceinline__ void fe_mul(uint32_t r[NL], const uint32_t a[NL], con
   for (int k = 0; k < NL; k++) r[k] = t[k];
 }
 
+// [0, 2p) -> [0, p) by one conditional subtract
+__device__ __forceinline__ void fe_reduce(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+  uint32_t d[NL];
+  uint32_t br = limbs_sub(d, a, F.p);
+  fe_select(r, br, a, d);
+}
+
+// x == y as field elements, for x, y in [0, 2p)
+__device__ __forceinline__ bool fe_is_equal(const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+  uint32_t ra[NL], rb[NL];
+  fe_reduce(ra, a, F);
+  fe_reduce(rb, b, F);
+  uint32_t diff = 0;
+#pragma unroll
+  for (int k = 0; k < NL; k++) diff |= ra[k] ^ rb[k];
+  return diff == 0;
+}
+
+__device__ __forceinline__ bool fe_is_zero(const uint32_t a[NL], const FieldParams& F) {
+  uint32_t ra[NL];
+  fe_reduce(ra, a, F);
+  uint32_t acc = 0;
+#pragma unroll
+  for (int k = 0; k < NL; k++) acc |= ra[k];
+  return acc == 0;
+}
+
+// Montgomery square a^2 / R mod p, equal to fe_mul(a, a) bit for bit (the
+// quotient m < R with a^2 + m p = 0 mod R is unique, and neither ends in a
+// conditional subtract). The product shares its cross terms: NL(NL-1)/2
+// products a_i a_j (i < j), doubled, plus NL squares a_i^2, 78 in all against
+// 144 for fe_mul's; then the NL-row Montgomery reduction (SOS), whose carry
+// out of each row rides in `extra` into the next row's top word. In [0, 2p)
+// for a < 6p.
+__device__ __forceinline__ void fe_sqr(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+  uint32_t t[2 * NL];
+#pragma unroll
+  for (int k = 0; k < 2 * NL; k++) t[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = i + 1; j < NL; j++) {
+      uint64_t s = (uint64_t)t[i + j] + (uint64_t)a[i] * a[j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    t[i + NL] = (uint32_t)c;
+  }
+  // double the cross terms (their sum is below a^2 / 2 < 2^(64 NL - 1))
+#pragma unroll
+  for (int k = 2 * NL - 1; k > 0; k--) t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  t[0] <<= 1;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint64_t sq = (uint64_t)a[i] * a[i];
+    uint64_t s = (uint64_t)t[2 * i] + (uint32_t)sq + c;
+    t[2 * i] = (uint32_t)s;
+    s = (uint64_t)t[2 * i + 1] + (sq >> 32) + (s >> 32);
+    t[2 * i + 1] = (uint32_t)s;
+    c = s >> 32;
+  }
+  uint32_t extra = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    uint32_t m = t[i] * F.mu;
+    c = 0;
+#pragma unroll
+    for (int j = 0; j < NL; j++) {
+      uint64_t s = (uint64_t)t[i + j] + (uint64_t)m * F.p[j] + c;
+      t[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    uint64_t s = (uint64_t)t[i + NL] + c + extra;
+    t[i + NL] = (uint32_t)s;
+    extra = (uint32_t)(s >> 32);
+  }
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = t[NL + k];
+}
+
 __device__ __forceinline__ int lane_index() {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }

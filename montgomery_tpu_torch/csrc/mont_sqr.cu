@@ -1,0 +1,33 @@
+// Kernel 10: Montgomery square of a plane, lane by lane.
+//
+// Replaces the Pallas kernel "mont_sqr" of montgomery_tpu/ops/field.py
+// (FieldOps.square, :525-535, over _sqr_dot, :383-399). On the MSM path it
+// runs in the on-curve check of serve.compute_msm (two launches: x^2, y^2).
+//
+// Bound on this card: per lane 96 bytes moved against one square, 78 + 144
+// 32x32->64 products and 12 low ones (fe_sqr in field.cuh); at 2^20 lanes
+// that is about 30 us of memory against about 28 us of multiplies at the
+// rates csrc/rates/imad_rate.cu measures, so the two are close. Design: one
+// thread per lane, coalesced limb-plane loads through the input's row stride
+// (a column slice is read in place); the result equals mont_mul(x, x) bit
+// for bit.
+#include "field.cuh"
+
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+mont_sqr_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, FieldParams F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t a[NL], r[NL];
+  fe_load(a, x, sx, i);
+  fe_sqr(r, a, F);
+  fe_store(out, N, i, r);
+}
+
+extern "C" int msm_mont_sqr(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  FieldParams F;
+  memcpy(&F, field, sizeof(F));
+  if (N > 0)
+    mont_sqr_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, F, N);
+  return (int)cudaGetLastError();
+}

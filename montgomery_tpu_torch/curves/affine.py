@@ -2,17 +2,17 @@
 batch inversion per batch.
 
 Counterpart of the packed part of `montgomery_tpu/curves/affine.py`
-(`AffineOps`, :25-50 and :196-359). The MSM engine keeps points as ONE int32
+(`AffineOps`, :25-50 and :196-380). The MSM engine keeps points as ONE int32
 array of rows [x (n) | y (n) | inf (1)], so every pair round gathers one
 column per operand. The JAX package packed two 13-bit limbs into each int32
 row; this port's limbs are whole 32-bit words, so a packed point is
 2n + 1 = 25 rows for BLS12-377 and there is no 16-bit packing.
 
 Kernels (`csrc/`): `pack_glv` writes the packed rows of [P..., phi(P)...];
-`aff_pre_packed_u` and `aff_post_packed_u` sit around `FieldOps.batch_inv`
-in the unsafe packed add. Each wrapper runs its kernel on CUDA tensors and
-its plain version on CPU tensors. Only the unsafe add is ported: the safe
-packed add (`aff_pre_packed`/`aff_post_packed`) is the next slice.
+`aff_pre_packed` and `aff_post_packed` sit around `FieldOps.batch_inv` in the
+safe (complete) packed add, `aff_pre_packed_u` and `aff_post_packed_u` in
+the unsafe one. Each wrapper runs its kernel on CUDA tensors and its plain
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -42,10 +42,19 @@ AFF_POST_PACKED_U = kernels.Kernel(
     "montgomery_tpu/curves/affine.py:345",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _U32P, _INT],
 )
+AFF_PRE_PACKED = kernels.Kernel(
+    "aff_pre_packed", "msm_aff_pre_packed", "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
+    "montgomery_tpu/curves/affine.py:350",
+    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
+)
+AFF_POST_PACKED = kernels.Kernel(
+    "aff_post_packed", "msm_aff_post_packed", "montgomery_tpu_torch/csrc/aff_post_packed.cu",
+    "montgomery_tpu/curves/affine.py:355",
+    [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _INT],
+)
 
-SAFE_ADD_MSG = ("the safe packed add (aff_pre_packed/aff_post_packed), which the "
-                "batched-affine engine needs for unsafe=False, is not ported yet (the "
-                "next slice); use unsafe=True on distinct random points, or affine=False")
+# flag bits of the safe pre stage (csrc/affine.cuh)
+DBL, CANCEL, Y1_ZERO = 1, 2, 4
 
 
 class AffineOps:
@@ -54,6 +63,7 @@ class AffineOps:
     def __init__(self, fops: FieldOps, params: CurveParams):
         p = fops.p
         self.f, self.params = fops, params
+        self.b_mont = params.b % p * fops.R % p
         beta = params.endomorphism.beta if params.endomorphism else 0
         self.beta_mont = beta % p * fops.R % p
         self._beta_words = kernels.words(to_words(self.beta_mont, fops.n))
@@ -109,14 +119,98 @@ class AffineOps:
                    valid: torch.Tensor, unsafe: bool = False) -> torch.Tensor:
         """Lane-wise packed add with pass-through: out[i] = sgn(A[i]) +
         sgn(B[i]) where valid[i], else sgn(A[i]). sA, sB, valid are int32
-        (1, M) planes. Unsafe contract: no paired lanes share x and none is
-        infinite (one zero denominator poisons every lane of the batch).
-        The safe add is not ported: unsafe=False raises."""
-        if not unsafe:
-            raise NotImplementedError(SAFE_ADD_MSG)
-        denom = self.pre_packed_u(A, B, valid)
-        dinv = self.f.batch_inv(denom)
-        return self.post_packed_u(A, B, sA, sB, dinv, valid)
+        (1, M) planes. The safe add is complete: doubling, cancellation,
+        y = 0 and infinite operands. Unsafe contract: no paired lanes share x
+        and none is infinite (one zero denominator poisons every lane of the
+        batch)."""
+        if unsafe:
+            denom = self.pre_packed_u(A, B, valid)
+            dinv = self.f.batch_inv(denom)
+            return self.post_packed_u(A, B, sA, sB, dinv, valid)
+        denom, numer, flags = self.pre_packed(A, B, sA, sB, valid)
+        dinv = self.f.batch_inv(denom)  # no zero: poisoned and unpaired lanes hold 1
+        return self.post_packed(A, B, sA, sB, dinv, numer, flags, valid)
+
+    def pre_packed(self, A, B, sA, sB, hp):
+        """Triage of the safe add: (denom (n, M), numer (n, M), flags (1, M)),
+        denom 1 where poisoned or hp == 0: kernel `aff_pre_packed` on CUDA
+        tensors."""
+        if not kernels.on_cuda(A, B, sA, sB, hp):
+            return self.pre_packed_plain(A, B, sA, sB, hp)
+        n, R, M = self.f.n, self.packed_rows, A.shape[-1]
+        Av, sa = kernels.lane_view(A, R, M)
+        Bv, sb = kernels.lane_view(B, R, M)
+        sAv, sBv, hv = [kernels.lane_view(t, 1, M)[0] for t in (sA, sB, hp)]
+        denom = torch.empty((n, M), dtype=torch.int32, device=A.device)
+        numer = torch.empty_like(denom)
+        flags = torch.empty((1, M), dtype=torch.int32, device=A.device)
+        if M:
+            AFF_PRE_PACKED.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags),
+                                  kernels.ptr(Av), sa, kernels.ptr(Bv), sb, kernels.ptr(sAv),
+                                  kernels.ptr(sBv), kernels.ptr(hv), self._one_words,
+                                  self.f.field_words, M)
+        return denom, numer, flags
+
+    def pre_packed_plain(self, A, B, sA, sB, hp):
+        """aff_triage of csrc/affine.cuh on 16-bit limbs, then the hp select."""
+        F = self.f.plain
+        x1, y1, inf1 = self._split_signed(A, sA)
+        x2, y2, inf2 = self._split_signed(B, sB)
+        sel = FieldOps._sel
+
+        def eq(a, b):
+            return (F.reduce(a) == F.reduce(b)).all(dim=0)
+
+        xeq, yeq = eq(x1, x2), eq(y1, y2)
+        finite = (inf1[0] == 0) & (inf2[0] == 0)
+        is_dbl = xeq & yeq & finite
+        cancel = xeq & ~yeq & finite
+        y1_zero = (F.reduce(y1) == 0).all(dim=0)
+        one = F.const(self.f.R_mod_p, x1).expand_as(x1)
+        denom = sel(is_dbl, F.add(y1, y1), F.sub(x2, x1))
+        denom = sel(cancel | (is_dbl & y1_zero) | ~finite, one, denom)
+        denom = sel(hp[0] != 0, denom, one)
+        xx = F.mul(x1, x1)
+        numer = sel(is_dbl, F.add(F.add(xx, xx), xx), F.sub(y2, y1))
+        flags = DBL * is_dbl.int() + CANCEL * cancel.int() + Y1_ZERO * y1_zero.int()
+        return from16(denom), from16(numer), flags[None]
+
+    def post_packed(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
+        """(2n+1, M) packed sums of the safe add, inf row live (pass-through
+        where hp == 0): kernel `aff_post_packed` on CUDA tensors."""
+        if not kernels.on_cuda(A, B, sA, sB, dinv, numer, flags, hp):
+            return self.post_packed_plain(A, B, sA, sB, dinv, numer, flags, hp)
+        n, R, M = self.f.n, self.packed_rows, A.shape[-1]
+        Av, sa = kernels.lane_view(A, R, M)
+        Bv, sb = kernels.lane_view(B, R, M)
+        dv, sd = kernels.lane_view(dinv, n, M)
+        nv, sn = kernels.lane_view(numer, n, M)
+        sAv, sBv, fv, hv = [kernels.lane_view(t, 1, M)[0] for t in (sA, sB, flags, hp)]
+        out = torch.empty((R, M), dtype=torch.int32, device=A.device)
+        if M:
+            AFF_POST_PACKED.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
+                                   kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
+                                   kernels.ptr(nv), sn, kernels.ptr(fv), kernels.ptr(hv),
+                                   self.f.field_words, M)
+        return out
+
+    def post_packed_plain(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
+        """aff_complete of csrc/affine.cuh on 16-bit limbs, then the hp select."""
+        F = self.f.plain
+        x1, y1, inf1 = self._split_signed(A, sA)
+        x2, y2, inf2 = self._split_signed(B, sB)
+        i1, i2, fl = inf1[0] != 0, inf2[0] != 0, flags[0]
+        sel = FieldOps._sel
+        lam = F.mul(to16(numer), to16(dinv))
+        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
+        y3 = F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+        only1, only2 = i1 & ~i2, i2 & ~i1
+        x3, y3 = sel(only1, x2, x3), sel(only1, y2, y3)
+        x3, y3 = sel(only2, x1, x3), sel(only2, y1, y3)
+        inf3 = ((fl & CANCEL) != 0) | (((fl & DBL) != 0) & ((fl & Y1_ZERO) != 0)) | (i1 & i2)
+        paired = hp[0] != 0
+        out_inf = torch.where(paired[None], inf3.to(torch.int32)[None], inf1)
+        return torch.cat([from16(sel(paired, x3, x1)), from16(sel(paired, y3, y1)), out_inf])
 
     def pre_packed_u(self, A, B, hp) -> torch.Tensor:
         """(n, M) denominators x_B - x_A, R mod p where hp == 0: kernel
@@ -168,3 +262,25 @@ class AffineOps:
         out_y = from16(torch.where(paired, y3, y1))
         out_inf = torch.where(hp != 0, torch.zeros_like(inf1), inf1)
         return torch.cat([out_x, out_y, out_inf], dim=0)
+
+    # ------------------------------------------------------------ planar ops
+
+    def batch_double(self, G: AffineBatch) -> AffineBatch:
+        """Lane-wise 2 G[i] with one shared inversion; infinity and y = 0
+        give infinity."""
+        f = self.f
+        bad = G.inf | f.is_zero(G.y)
+        denom = f._sel(bad, f.const_plane(f.R_mod_p, G.x), f.add(G.y, G.y))
+        dinv = f.batch_inv(denom)
+        xx = f.square(G.x)
+        lam = f.mul(f.add(f.add(xx, xx), xx), dinv)
+        x3 = f.sub(f.sub(f.square(lam), G.x), G.x)
+        y3 = f.sub(f.mul(lam, f.sub(G.x, x3)), G.y)
+        return AffineBatch(x3, y3, bad)
+
+    def is_on_curve(self, A: AffineBatch) -> torch.Tensor:
+        """Bool (N,): y^2 == x^3 + b; the point at infinity passes. Two
+        `mont_sqr` launches and one `mont_mul` on CUDA tensors."""
+        f = self.f
+        rhs = f.add(f.mul(f.square(A.x), A.x), f.const_plane(self.b_mont, A.x))
+        return f.is_equal(f.square(A.y), rhs) | A.inf

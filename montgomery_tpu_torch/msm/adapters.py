@@ -44,8 +44,10 @@ class ProjectiveAdapter:
 
 class AffineAccumAdapter:
     """Batched-affine bucket accumulation on packed rows (one shared batch
-    inversion per pair round); the bucket sums leave as projective points.
-    Only the unsafe add is ported (`unsafe=False` raises in `add_packed`)."""
+    inversion per pair round) with the safe add, or with unsafe the unsafe
+    one; the bucket sums leave as projective points. A bucket whose sum is
+    infinite (P + (-P), a tangent at y = 0) keeps its inf row through the
+    rounds and the extraction."""
 
     def __init__(self, aff: AffineOps, proj: ProjectiveOps, unsafe: bool = False):
         self.aff, self.proj, self.unsafe = aff, proj, unsafe

@@ -1,10 +1,10 @@
 """MSM API: a curve context holding the field, curve and GLV constants.
 
-Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, with two
+Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, with its
 engines: the complete projective engine (affine=False) and the batched-affine
-engine with the unsafe packed add (affine=True, unsafe=True: `bench.py`'s
-configuration). The safe packed add (affine=True, unsafe=False, the JAX
-package's `msm_full` default) is not ported yet and raises.
+engine, with the safe packed add (affine=True, unsafe=False: `msm_full`'s
+default, as in the JAX package) or the unsafe one (affine=True, unsafe=True:
+`bench.py`'s configuration).
 """
 
 from __future__ import annotations
@@ -16,10 +16,11 @@ import torch
 
 from ..bigint.weierstrass import AffinePoint, CurveParams
 
-from ..curves.affine import SAFE_ADD_MSG, AffineOps
+from ..curves.affine import AffineOps
 from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
+from ..ops import kernels
 from ..ops.field import create_field_ops
-from ..ops.limbs import bytes_to_limbs
+from ..ops.limbs import bytes_to_words, words_to_limbs
 from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np
 from ..scalar.glv import glv_params
 from ..utils.timing import PhaseLog
@@ -35,12 +36,15 @@ _CTX_CACHE: dict = {}
 
 class WeierstrassMsm:
     """MSM context for a short-Weierstrass curve with a = 0, on `device`
-    (the card unless the caller asks for the CPU)."""
+    (the card unless the caller asks for the CPU). On the card the field
+    must have the kernels' limb count (BLS12-377)."""
 
     def __new__(cls, params: CurveParams, device="cuda"):
         device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+        if device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+            kernels.check_limbs(create_field_ops(params.modulus).n)
         key = (cls, params, device)
         inst = _CTX_CACHE.get(key)
         if inst is None:
@@ -55,6 +59,7 @@ class WeierstrassMsm:
         self.proj = ProjectiveOps(self.fops, params)
         self.adapter = ProjectiveAdapter(self.proj)
         self.affine = AffineOps(self.fops, params)
+        self.aff_adapter = AffineAccumAdapter(self.affine, self.proj)
         self.aff_adapter_unsafe = AffineAccumAdapter(self.affine, self.proj, unsafe=True)
         self.scalar_bits = params.order.bit_length()
         self.glv = None
@@ -66,17 +71,26 @@ class WeierstrassMsm:
     # ---------------------------------------------------------------- ingest
 
     def scalars_to_limbs(self, scalars) -> torch.Tensor:
-        """Python ints or packed little-endian bytes -> (ns, N) int32 planes
-        of 13-bit limbs on the context's device. Scalars are reduced mod the
-        group order (bytes included)."""
-        bq = self.scalar_bits
+        """Python ints or packed little-endian bytes (ceil(bits(q) / 8) a
+        scalar) -> (ns, N) int32 planes of 13-bit limbs on the context's
+        device. Scalars are reduced mod the group order q, bytes included
+        (vectorised: conditional subtractions of 2^j q on the limb planes)."""
+        q, bq = self.params.order, self.scalar_bits
         ns = -(-bq // SCALAR_W)
-        if isinstance(scalars, (bytes, bytearray)):
-            nb = -(-bq // 8)
-            scalars = [int.from_bytes(scalars[i:i + nb], "little")
-                       for i in range(0, len(scalars), nb)]
-        L = ints_to_limbs_np([s % self.params.order for s in scalars], bq, SCALAR_W, ns)
-        return torch.from_numpy(L).to(self.device)
+        if not isinstance(scalars, (bytes, bytearray)):
+            L = ints_to_limbs_np([s % q for s in scalars], bq, SCALAR_W, ns)
+            return torch.from_numpy(L).to(self.device)
+        nb = -(-bq // 8)
+        if len(scalars) == 0 or len(scalars) % nb:
+            raise ValueError(f"scalar bytes must be a nonzero multiple of {nb}; "
+                             f"got {len(scalars)}")
+        words = bytes_to_words(np.frombuffer(scalars, dtype=np.uint8).reshape(-1, nb))
+        # raw < (top + 1) q <= 2^k q with k = bits(top): subtracting 2^j q
+        # where it fits, j = k-1 .. 0, leaves raw mod q
+        top = (1 << (8 * nb)) // q
+        for j in range(top.bit_length() - 1, -1, -1):
+            words = _sub_if_ge(words, q << j)
+        return torch.from_numpy(words_to_limbs(words, SCALAR_W, ns)).to(self.device)
 
     def points_from_bytes(self, data) -> AffineBatch:
         """Packed little-endian bytes (x || y per point) -> Montgomery-form
@@ -84,10 +98,12 @@ class WeierstrassMsm:
         (0, 0) encodes the point at infinity."""
         f = self.fops
         nb = -(-f.p.bit_length() // 8)
-        B = np.frombuffer(bytes(data), dtype=np.uint8).reshape(-1, 2 * nb)
+        if len(data) == 0 or len(data) % (2 * nb):
+            raise ValueError(f"point bytes must be a nonzero multiple of {2 * nb} "
+                             f"(2 coordinates x {nb} bytes); got {len(data)}")
+        B = np.frombuffer(data, dtype=np.uint8).reshape(-1, 2 * nb)
         N = B.shape[0]
-        xl = bytes_to_limbs(B[:, :nb].tobytes(), nb, 32, f.n)
-        yl = bytes_to_limbs(B[:, nb:].tobytes(), nb, 32, f.n)
+        xl, yl = (words_to_limbs(bytes_to_words(h), 32, f.n) for h in (B[:, :nb], B[:, nb:]))
         inf = ~((xl != 0).any(axis=0) | (yl != 0).any(axis=0))
         both = torch.from_numpy(np.concatenate([xl, yl], axis=1)).to(self.device)
         both = f.to_montgomery(both)
@@ -119,13 +135,14 @@ class WeierstrassMsm:
         """GLV digits, GLV point expansion and the MSM, all on the device.
         points_affine: AffineBatch (N); scalar_limbs: (ns, N). With affine,
         the expansion is fused with the packed-row layout (kernel `pack_glv`)
-        and the buckets accumulate with the unsafe batched-affine add, whose
-        contract is the caller's: within a bucket no two operands share x,
-        and no point is infinite (distinct random points meet it)."""
+        and the buckets accumulate with the batched-affine add: the safe one
+        (any input), or with unsafe the unsafe one, whose contract is the
+        caller's: within a bucket no two operands share x, and no point is
+        infinite (distinct random points meet it)."""
         return self._stages(points_affine, scalar_limbs, c, affine, unsafe)
 
     def msm_phases(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
-                   affine: bool = False, unsafe: bool = False):
+                   affine: bool = True, unsafe: bool = False):
         """msm_device_full as four separately synchronized stages; returns
         (result, PhaseLog)."""
         log = PhaseLog()
@@ -135,14 +152,14 @@ class WeierstrassMsm:
                 affine: bool, unsafe: bool, log: PhaseLog | None = None) -> ProjectiveBatch:
         """The MSM's four stages; each is synchronized and timed into `log`
         when one is given."""
-        if affine and not unsafe:
-            raise NotImplementedError(SAFE_ADD_MSG)
         dev = self.device
 
         def phase(label):
             return log.phase(label, dev) if log is not None else nullcontext()
 
-        group = self.aff_adapter_unsafe if affine else self.adapter
+        group = self.adapter
+        if affine:
+            group = self.aff_adapter_unsafe if unsafe else self.aff_adapter
         with phase("digits (GLV+slice)"):
             digits = self.digits(scalar_limbs, c)
         if affine:
@@ -161,14 +178,14 @@ class WeierstrassMsm:
     def default_c(self, N: int) -> int:
         return window_size(max(1, N.bit_length() - 1))
 
-    def msm_full(self, scalars, points, c: int | None = None, affine: bool = False,
+    def msm_full(self, scalars, points, c: int | None = None, affine: bool = True,
                  unsafe: bool = False) -> AffinePoint:
         """Host entry: scalars (ints, bytes or an (ns, N) limb tensor) and
-        points (oracle points or an AffineBatch) -> sum s_i P_i. `affine`
-        defaults to False here, the complete projective engine, until the
-        safe packed add is ported: the JAX package's default (affine=True,
-        unsafe=False) raises. affine=True, unsafe=True is the batched-affine
-        engine under the unsafe contract (see `msm_device_full`)."""
+        points (oracle points or an AffineBatch) -> sum s_i P_i. The default
+        is the JAX package's: the batched-affine engine with the safe add,
+        which takes any input; affine=False is the projective engine,
+        unsafe=True the unsafe add under its contract (see
+        `msm_device_full`)."""
         if isinstance(points, AffineBatch):
             A, N = points, points.count
         else:
@@ -181,3 +198,15 @@ class WeierstrassMsm:
             raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
         S = self.msm_device_full(A, limbs, c or self.default_c(N), affine=affine, unsafe=unsafe)
         return self.proj.to_host(S)[0]
+
+
+def _sub_if_ge(words: np.ndarray, v: int) -> np.ndarray:
+    """words - v where words >= v, else words, lane by lane; words: (nw, N)
+    uint64, v below 2^(64 nw)."""
+    out = np.empty_like(words)
+    borrow = np.zeros(words.shape[1], dtype=bool)
+    for k, a in enumerate(words):
+        vk = np.uint64((v >> (64 * k)) & 0xFFFFFFFFFFFFFFFF)
+        out[k] = a - vk - borrow.astype(np.uint64)
+        borrow = (a < vk) | ((a == vk) & borrow)
+    return np.where(borrow[None], words, out)

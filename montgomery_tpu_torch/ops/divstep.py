@@ -105,6 +105,9 @@ def _words_to_l30(w: torch.Tensor) -> torch.Tensor:
     out = []
     for i in range(N_LIMBS):
         k, s = divmod(LIMB_BITS * i, 32)
+        if k >= n:  # a field narrower than the limbs (n = 9 for Pallas)
+            out.append(torch.zeros_like(w[0]))
+            continue
         v = w[k] >> s
         if k + 1 < n:
             v = v | (w[k + 1] << (32 - s))

@@ -35,6 +35,11 @@ MONT_MUL = kernels.Kernel(
     "montgomery_tpu/ops/field.py:443",
     [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
+MONT_SQR = kernels.Kernel(
+    "mont_sqr", "msm_mont_sqr", "montgomery_tpu_torch/csrc/mont_sqr.cu",
+    "montgomery_tpu/ops/field.py:533",
+    [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
+)
 
 
 def to16(x: torch.Tensor) -> torch.Tensor:
@@ -73,13 +78,10 @@ class Plain16:
     def carry(t: torch.Tensor):
         """Propagate carries of signed limbs: (limbs in [0, 2^16), carry out).
         The value is kept mod 2^(16L); a negative carry out means it was < 0."""
-        out = []
-        c = torch.zeros_like(t[0])
-        for i in range(t.shape[0]):
-            v = t[i] + c
-            out.append(v & _M16)
-            c = v >> 16
-        return torch.stack(out), c
+        t = t.clone()
+        for i in range(t.shape[0] - 1):
+            t[i + 1] += t[i] >> 16
+        return t & _M16, t[-1] >> 16
 
     def add_lazy(self, x, y):
         return self.carry(x + y)[0]
@@ -109,19 +111,20 @@ class Plain16:
         return torch.where((c < 0)[None], x, d)
 
     def mul(self, x, y):
-        """CIOS Montgomery product (x y + m p) / R, radix 2^16."""
+        """CIOS Montgomery product (x y + m p) / R, radix 2^16: row i adds
+        x_i y and m_i p at limb offset i and carries limb i into limb i+1
+        (a limb sums at most 2L products below 2^32, far below 2^63)."""
         L = self.L
-        y = y.expand_as(x) if y.shape != x.shape else y
+        x, y = torch.broadcast_tensors(x, y)
         pl = self.const(self.p, x)
-        T = torch.zeros((L + 1, *x.shape[1:]), dtype=torch.int64, device=x.device)
+        T = torch.zeros((2 * L, *x.shape[1:]), dtype=torch.int64, device=x.device)
         for i in range(L):
-            T[:L] += x[i] * y
-            m = ((T[0] & _M16) * self.mu) & _M16
-            T[:L] += m * pl
-            c = T[0] >> 16
-            T = torch.cat([T[1:], torch.zeros_like(T[:1])])
-            T[0] += c
-        return self.carry(T)[0][:L]
+            row = T[i:i + L]
+            row.addcmul_(x[i:i + 1], y)
+            m = ((T[i] & _M16) * self.mu) & _M16
+            row.addcmul_(m[None], pl)
+            T[i + 1] += T[i] >> 16
+        return self.carry(T[L:])[0]
 
     def mul_const(self, x, value: int):
         return self.mul(x, self.const(value, x))
@@ -142,10 +145,11 @@ class FieldOps:
         self.R_mod_p = self.R % p
         self.R_inv = pow(self.R, -1, p)
         self.plain = Plain16(p, 2 * n)
-        # FieldParams of csrc/field.cuh: p, 2p, 4p, mu
-        self.field_words = kernels.words(
-            codec.to_words(p, n) + codec.to_words(2 * p, n)
-            + codec.to_words(4 * p, n) + [self.mu])
+
+    @functools.cached_property
+    def field_words(self):
+        """The kernels' FieldParams; raises unless n is the kernels' limb count."""
+        return kernels.field_params(self.p, self.n, self.mu)
 
     # -------------------------------------------------------------- structure
 
@@ -190,6 +194,10 @@ class FieldOps:
         """[0, 2p) -> [0, p)."""
         return self._apply(self.plain.reduce, x)
 
+    def is_equal(self, x, y) -> torch.Tensor:
+        """Bool over the batch: x == y as field elements (x, y in [0, 2p))."""
+        return (self.reduce(x) == self.reduce(y)).all(dim=0)
+
     def is_zero(self, x) -> torch.Tensor:
         return (self.reduce(x) == 0).all(dim=0)
 
@@ -216,6 +224,23 @@ class FieldOps:
     def mul_plain(self, x, y):
         """x y / R mod p (plain torch, any device)."""
         return self._apply(self.plain.mul, x, y)
+
+    def square(self, x):
+        """x^2 / R mod p, in [0, 2p) for x < 6p, equal to mul(x, x) bit for
+        bit: kernel `mont_sqr` on CUDA tensors, `square_plain` on CPU tensors."""
+        if not kernels.on_cuda(x):
+            return self.square_plain(x)
+        shape = x.shape
+        N = x[0].numel()
+        xv, sx = kernels.lane_view(x.reshape(self.n, N), self.n, N)
+        out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
+        if N:
+            MONT_SQR.launch(kernels.ptr(out), kernels.ptr(xv), sx, self.field_words, N)
+        return out.reshape(shape)
+
+    def square_plain(self, x):
+        """x^2 / R mod p (plain torch, any device)."""
+        return self.mul_plain(x, x)
 
     def mul_list(self, pairs):
         """Several independent products as one batched product."""

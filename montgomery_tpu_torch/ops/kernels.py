@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from .limbs import to_words
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -32,6 +34,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libmsm_kernels.so"
+NL = 12  # 32-bit limbs of a field element in every kernel (csrc/field.cuh)
 
 
 def _sources() -> list[Path]:
@@ -204,6 +207,23 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def words(values) -> ctypes.Array:
     """Host array of uint32 words (constants passed by value to a kernel)."""
     return (ctypes.c_uint32 * len(values))(*values)
+
+
+def check_limbs(n: int) -> None:
+    """Raise unless field elements of n limbs fit the kernels' NL."""
+    if n != NL:
+        raise NotImplementedError(
+            f"the CUDA kernels are compiled for {NL} limbs of 32 bits (BLS12-377); this field "
+            f"needs {n}: other curves on the card are ROADMAP item 12 (on the CPU, pass "
+            f"device='cpu' to run the plain versions)")
+
+
+def field_params(p: int, n: int, mu: int) -> ctypes.Array:
+    """FieldParams of csrc/field.cuh (p, 2p, 4p, mu), which every field
+    kernel's launch takes: so no launch hands planes of n != NL limbs to a
+    kernel."""
+    check_limbs(n)
+    return words(to_words(p, n) + to_words(2 * p, n) + to_words(4 * p, n) + [mu])
 
 
 U32P = ctypes.POINTER(ctypes.c_uint32)

@@ -16,27 +16,38 @@ import torch
 W = 32
 
 
-def bytes_to_limbs(data, n_bytes: int, w: int, n_limbs: int) -> np.ndarray:
-    """Packed little-endian bytes (N elements of n_bytes each) -> (n_limbs, N)
-    int32 planes of w-bit limbs, w <= 32 (vectorised over N). Limbs of
-    w = 32 come back as int32 bit patterns."""
-    B = np.frombuffer(bytes(data), dtype=np.uint8).reshape(-1, n_bytes)
-    out = np.zeros((n_limbs, B.shape[0]), dtype=np.uint64)
+def bytes_to_words(B: np.ndarray) -> np.ndarray:
+    """(N, n_bytes) uint8 rows of little-endian elements -> (nw, N) uint64
+    words, nw = ceil(n_bytes / 8)."""
+    N, nb = B.shape
+    nw = -(-nb // 8)
+    P = np.zeros((N, 8 * nw), dtype=np.uint8)
+    P[:, :nb] = B
+    return np.ascontiguousarray(P.view("<u8").T)
+
+
+def words_to_limbs(words: np.ndarray, w: int, n_limbs: int) -> np.ndarray:
+    """(nw, N) uint64 words -> (n_limbs, N) int32 planes of w-bit limbs,
+    w <= 32; limbs of w = 32 come back as int32 bit patterns."""
+    nw, N = words.shape
+    out = np.zeros((n_limbs, N), dtype=np.uint64)
     mask = np.uint64((1 << w) - 1)
     for j in range(n_limbs):
-        off = j * w
-        s, r = off // 8, off % 8
-        if s >= n_bytes:
+        k, s = divmod(w * j, 64)
+        if k >= nw:
             break
-        val = B[:, s].astype(np.uint64) >> np.uint64(r)
-        have = 8 - r
-        t = 1
-        while have < w and s + t < n_bytes:
-            val |= B[:, s + t].astype(np.uint64) << np.uint64(have)
-            have += 8
-            t += 1
-        out[j] = val & mask
+        v = words[k] >> np.uint64(s)
+        if s + w > 64 and k + 1 < nw:
+            v |= words[k + 1] << np.uint64(64 - s)
+        out[j] = v & mask
     return out.astype(np.uint32).view(np.int32)
+
+
+def bytes_to_limbs(data, n_bytes: int, w: int, n_limbs: int) -> np.ndarray:
+    """Packed little-endian bytes (N elements of n_bytes each) -> (n_limbs, N)
+    int32 planes of w-bit limbs, w <= 32 (vectorised over N)."""
+    B = np.frombuffer(data, dtype=np.uint8).reshape(-1, n_bytes)
+    return words_to_limbs(bytes_to_words(B), w, n_limbs)
 
 
 def ints_to_bytes(values, n_bytes: int) -> bytes:

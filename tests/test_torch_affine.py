@@ -24,7 +24,7 @@ from montgomery_tpu.bigint import msm as oracle_msm
 from montgomery_tpu.bigint.weierstrass import AffinePoint
 from montgomery_tpu.concrete import BLS12_377
 from montgomery_tpu.msm import WeierstrassMsm as JaxMsm
-from montgomery_tpu_torch import interop
+from montgomery_tpu_torch import interop, serve
 from montgomery_tpu_torch.curves.projective import ProjectiveBatch, ProjectiveOps
 from montgomery_tpu_torch.curves.random import random_points_fast
 from montgomery_tpu_torch.msm import WeierstrassMsm
@@ -106,16 +106,20 @@ def test_add_packed_unsafe_matches_jax(ctx, jax_side):
     via_jax = msm.proj.affine_to_host(_to_port(msm, jadd))
     aff = msm.affine
     tA, tB, th = (_plane(v)[1] for v in (SA, SB, HP))
-    out = aff.add_packed(aff.pack_rows(_to_port(msm, JG)), aff.pack_rows(_to_port(msm, JH)),
-                         tA, tB, th, unsafe=True)
+    A, B = aff.pack_rows(_to_port(msm, JG)), aff.pack_rows(_to_port(msm, JH))
+    out = aff.add_packed(A, B, tA, tB, th, unsafe=True)
     got = msm.proj.affine_to_host(aff.unpack_rows(out))
     for i in range(len(g)):
         a = E.neg(g[i]) if SA[i] else g[i]
         b = E.neg(h[i]) if SB[i] else h[i]
         want = E.add(a, b) if HP[i] else a
         assert E.equal(got[i], want) and E.equal(via_jax[i], want), f"lane {i}"
-    with pytest.raises(NotImplementedError, match="safe packed add"):
-        aff.add_packed(out, out, tA, tB, th)
+    # the safe add on the same lanes gives the same sums
+    safe = aff.unpack_rows(aff.add_packed(A, B, tA, tB, th))
+    unsafe, f = aff.unpack_rows(out), aff.f
+    assert torch.equal(f.reduce(safe.x), f.reduce(unsafe.x))
+    assert torch.equal(f.reduce(safe.y), f.reduce(unsafe.y))
+    assert torch.equal(safe.inf, unsafe.inf)
 
 
 @pytest.mark.parametrize("N,c,first", [(16, None, ("pair", 2)), (512, 4, ("super", 8))])
@@ -154,12 +158,18 @@ def test_entry_points_default_to_the_card():
     CPU is asked for explicitly); checked without touching a device."""
     entry = [WeierstrassMsm.__new__, random_points_fast, ProjectiveOps.affine_to_device,
              FieldOps.pack, FieldOps.pack_raw, interop.field_from_jax, interop.affine_from_jax,
-             interop.projective_from_jax, interop.scalars_from_jax]
+             interop.projective_from_jax, interop.scalars_from_jax, serve.get_curve,
+             serve.compute_msm]
     for fn in entry:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
-    for name in ("msm_full", "msm_device_full", "msm_phases"):
+    # the engine defaults are the JAX package's (montgomery_tpu/msm/api.py)
+    for name, affine in (("msm_full", True), ("msm_device_full", False), ("msm_phases", True)):
         params = inspect.signature(getattr(WeierstrassMsm, name)).parameters
-        assert params["affine"].default is False and params["unsafe"].default is False, name
+        assert params["affine"].default is affine and params["unsafe"].default is False, name
+        jparams = inspect.signature(getattr(JaxMsm, name)).parameters
+        assert jparams["affine"].default is affine and jparams["unsafe"].default is False, name
     if not torch.cuda.is_available():  # no fallback to the CPU
         with pytest.raises(RuntimeError, match="no CUDA device"):
             WeierstrassMsm(BLS12_377)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.compute_msm(b"", b"")

@@ -93,7 +93,7 @@ def test_random_points_fast_closed_form():
 
 def test_import_leaves_jax_out():
     code = ("import sys, montgomery_tpu_torch.msm, montgomery_tpu_torch.interop, "
-            "montgomery_tpu_torch.curves.random; "
+            "montgomery_tpu_torch.curves.random, montgomery_tpu_torch.serve; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'montgomery_tpu' or m.startswith('montgomery_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -105,12 +105,15 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     msm, E = ctx
     kernels.reset_launch_counts()
     sc, pts = _inputs(E, 4, seed=9)
-    msm.msm_full(sc, pts, c=3)
+    msm.msm_full(sc, pts, c=3, affine=False)
     distinct = [E.scale(k, E.generator) for k in (3, 5, 7, 11)]
     msm.msm_full(sc, distinct, c=5, affine=True, unsafe=True)
+    msm.msm_full(sc, pts, c=4)  # the safe batched-affine engine
+    assert msm.affine.is_on_curve(msm.affine_to_device(pts)).all()  # mont_sqr
     counts = kernels.launch_counts()
     assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
-                           "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u"}
+                           "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
+                           "mont_sqr", "aff_pre_packed", "aff_post_packed"}
     assert all(v == 0 for v in counts.values()), counts
 
 
@@ -124,16 +127,23 @@ def test_no_fallback_for_other_devices(ctx):
 
 
 def test_affine_engine_raises(ctx):
-    """The safe batched-affine engine (affine=True, unsafe=False) is not
-    ported: it raises, at every entry point."""
+    """The safe batched-affine engine (affine=True, unsafe=False), which used
+    to raise, runs at every entry point and equals the oracle at N = 2 on a
+    duplicated point: `msm_full`'s default, `msm_device_full` and
+    `msm_phases`."""
     msm, E = ctx
     sc, pts = _inputs(E, 2, seed=1)
-    with pytest.raises(NotImplementedError, match="safe packed add"):
-        msm.msm_full(sc, pts, affine=True)
+    pts = [pts[0], pts[0]]
+    want = oracle_msm(E, sc, pts)
+    assert E.equal(msm.msm_full(sc, pts), want)
+    assert msm.aff_adapter.rounds  # the safe adapter ran
     A, limbs = msm.affine_to_device(pts), msm.scalars_to_limbs(sc)
-    for fn in (msm.msm_device_full, msm.msm_phases):
-        with pytest.raises(NotImplementedError, match="safe packed add"):
-            fn(A, limbs, 3, affine=True, unsafe=False)
+    S = msm.msm_device_full(A, limbs, 3, affine=True, unsafe=False)
+    S2, log = msm.msm_phases(A, limbs, 3, affine=True, unsafe=False)
+    for R in (S, S2):
+        assert E.equal(msm.proj.to_host(R)[0], want)
+    assert [label for label, _ in log.entries] == [
+        "digits (GLV+slice)", "expand (pack_glv)", "accumulate", "reduce+combine"]
 
 
 def test_failed_context_is_not_cached():
