@@ -3,8 +3,9 @@
 
 Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
 against its plain PyTorch version on the card, runs BLS12-377 MSMs on every
-engine and through `serve.compute_msm` against the bigint oracle and against
-a closed form, and times them.
+engine and ed-on-bls12-377 (Twisted Edwards) MSMs, directly and through
+`serve.compute_msm`, against the bigint oracle and against a closed form, and
+times them.
 
     python3 chip_smoke.py
 
@@ -26,7 +27,12 @@ Phases, each printed as it runs:
      divstep_inv_mont at 512, the batch-inversion root); each timed (CUDA
      events) on the tensors it was checked on, at the 2^16 path's width
      (mont_sqr at 2^20), beside its plain version's time and a lower bound
-     from bytes moved or multiplies;
+     from bytes moved or multiplies. Then the Twisted Edwards path's kernels
+     the same way (`phase_te_kernels`): mont_mul, mul_const and
+     divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
+     combine's 208) and ed_add_packed up to the first super-round level at
+     2^20 points, with the identity on either side, P + P, P + (-P),
+     unreduced values and every sign and pair flag in the first lanes;
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
      and the safe batched-affine engine with zero scalars, duplicate and
      negated duplicate points and the point at infinity; the unsafe engine
@@ -34,19 +40,25 @@ Phases, each printed as it runs:
      the affine engines at the default c (a pair round first) and at c = 4
      (the 8-way super-round first); serve.compute_msm from ints and from
      bytes, and its ValueError on an off-curve point, misaligned bytes and a
-     length mismatch;
+     length mismatch. Then the same for the Twisted Edwards engine
+     (EdwardsMsm, 9 limbs; the identity in place of infinity) and
+     compute_msm(curve="ed-on-bls12-377");
   3. per path (affine-unsafe, affine-safe and projective) and size (N = 2^16,
      2^20, c from window_size) on random_points_fast(seed=42) points: launch
      counts of a run with the counts set to 0 just before it (every kernel of
-     the path must launch, and no kernel of another add), the check at full N
-     against S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5
-     runs, phase split, peak memory and the round plan; the unsafe and the
-     safe add timed in turns at both sizes; then the safe engine
-     at 2^16 on 2^12 bench points each used 16 times under one scalar, some
-     negated, some infinite, some scalars 0 (against the projective engine
-     and the closed form); then serve.compute_msm at 2^20 from packed bytes
-     with the on-curve check, against the closed form, with its ingestion
-     and on-curve check timed apart.
+     the path must launch, no kernel of another add or curve may, and every
+     launch must be at the path's limb count), the check at full N against
+     S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs,
+     phase split, peak memory and the round plan; the unsafe and the safe
+     add timed in turns at both sizes; then the safe engine at 2^16 on 2^12
+     bench points each used 16 times under one scalar, some negated, some
+     infinite, some scalars 0 (against the projective engine and the closed
+     form); then serve.compute_msm at 2^20 from packed bytes with the
+     on-curve check, against the closed form, with its ingestion and
+     on-curve check timed apart. Then the Twisted Edwards MSM the same way at
+     2^16 and 2^20 on random_points_fast_edwards(seed=42) points (msm_full,
+     so to_host's kernels count too), and compute_msm(curve=
+     "ed-on-bls12-377") at 2^20 from packed bytes.
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
 raises; without a CUDA device the script exits 1 before printing a result.
@@ -78,14 +90,24 @@ RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
 # projective), and those of the other packed add, which it must not
 _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb"}
 _UNSAFE, _SAFE = {"aff_pre_packed_u", "aff_post_packed_u"}, {"aff_pre_packed", "aff_post_packed"}
+_EDWARDS = {"ed_add", "ed_dbl", "ed_add_packed"}
+_WEIERSTRASS = _AFFINE | _UNSAFE | _SAFE | {"mont_sqr"}
 PATH_KERNELS = {
     "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"},
     "affine_unsafe": _AFFINE | _UNSAFE,
     "affine_safe": _AFFINE | _SAFE,
     "serve": _AFFINE | _SAFE | {"mul_const", "mont_sqr"},
+    # msm_full: the MSM, then to_host (a batch inversion of Z and a product)
+    "te": _EDWARDS | {"mont_mul", "divstep_inv_mont"},
+    "te_serve": _EDWARDS | {"mont_mul", "divstep_inv_mont", "mul_const"},
 }
-PATH_FORBIDDEN = {"projective": _UNSAFE | _SAFE, "affine_unsafe": _SAFE,
-                  "affine_safe": _UNSAFE, "serve": _UNSAFE}
+PATH_FORBIDDEN = {"projective": _UNSAFE | _SAFE | _EDWARDS, "affine_unsafe": _SAFE | _EDWARDS,
+                  "affine_safe": _UNSAFE | _EDWARDS, "serve": _UNSAFE | _EDWARDS,
+                  "te": _WEIERSTRASS - {"mont_mul", "divstep_inv_mont"},
+                  "te_serve": _WEIERSTRASS - {"mont_mul", "divstep_inv_mont", "mul_const"}}
+TE_CURVE = "ed-on-bls12-377"
+TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
+TE_COMBINE_K = 208  # ed_dbl's k on the 2^20 path's first combine level: c 16 = 13 x 16
 
 
 def say(*a):
@@ -241,8 +263,8 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
                   for a in range(gd.nu) for j in range(-(-abs(q).bit_length() // gd.w))
                   if a + j < gd.nw)
         return 4 * gd.ns + 8 * gd.num_windows(13), 2 * msb + res, 0
-    # per batch of divsteps: 130 + 2 products of factors below 2^31 in magnitude
-    per_batch = 2 * (10 * divstep.N_LIMBS + 2)
+    # per batch of divsteps: 10 products per limb + 2 of factors below 2^31
+    per_batch = 2 * (10 * divstep.kernel_limbs(n) + 2)
     wide, lo = products(2)
     return {
         "mul_const": (2 * W, *products(1)),
@@ -259,6 +281,12 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
         # in: A, B, two signs, dinv, numer, flags, hp; out: one packed column
         "aff_post_packed": (2 * col + 8 + 2 * W + 8 + col,
                             products(2)[0] + sqr[0], products(2)[1] + sqr[1]),
+        # Twisted Edwards (8 products and 1 by k = 2d per add): 8 points
+        # moved by the add, 2 by k = 1 doublings, and for the packed add two
+        # packed columns, two signs and hp in, one column out
+        "ed_add": (12 * W, *products(9)),
+        "ed_dbl": (8 * W, *products(9)),
+        "ed_add_packed": (2 * 4 * W + 12 + 4 * W, *products(9)),
     }[name]
 
 
@@ -273,12 +301,18 @@ def bound(ctx, name: str, lanes: int, rates: dict) -> tuple[float, str]:
 
 
 def first_level_width(ctx, log2n: int) -> int:
-    """Lanes of the first add level of the affine path's super-round at
-    N = 2^log2n (window_size c): 4 (M0 / 8 + G + 2), M0 = K 2N, G = K 2^(c-1)."""
+    """Lanes of the first add level of a packed path's super-round at
+    N = 2^log2n (window_size c): 4 (M0 / 8 + G + 2), G = K 2^(c-1), with
+    M0 = K 2N on the GLV-expanded affine path and K N on the Edwards one."""
     N = 1 << log2n
     c = ctx.default_c(N)
-    K = ctx.glv_dev.num_windows(c)
-    return 4 * (K * 2 * N // 8 + K * (1 << (c - 1)) + 2)
+    if hasattr(ctx, "glv_dev"):
+        K = ctx.glv_dev.num_windows(c)
+        M0 = K * 2 * N
+    else:
+        K = ctx.num_windows(c)
+        M0 = K * N
+    return 4 * (M0 // 8 + K * (1 << (c - 1)) + 2)
 
 
 # ----------------------------------------------------------------- phase 1
@@ -422,14 +456,19 @@ def _packed_err(f, a, b, diff) -> int:
 
 
 def _random_planes(f, rows: int, M: int, gen):
-    """Random int32 rows on the card, each 12-row field block below 2^377
-    (< 2p): the top word of every field element keeps 25 bits."""
+    """Random int32 rows on the card, each n-row field block below
+    2^bits(p) (< 2p): word k of a field element keeps bits(p) - 32 k bits
+    (25 of the top word at BLS12-377's 12 limbs; 29 of word 7 and none of
+    word 8 at ed-on-bls12-377's 9)."""
     import torch
 
     t = torch.randint(-(1 << 31), 1 << 31, (rows, M), dtype=torch.int32, device=gen.device,
                       generator=gen)
-    for top in range(f.n - 1, rows, f.n):
-        t[top] &= (1 << 25) - 1
+    bits = f.p.bit_length()
+    for r in range(rows):
+        keep = bits - 32 * (r % f.n)
+        if keep < 32:
+            t[r] &= (1 << max(keep, 0)) - 1
     return t
 
 
@@ -602,15 +641,14 @@ def affine_kernels(ctx, pts, record, diff):
 def _adversarial_inputs(E, base, N: int, rng: random.Random):
     """Points with duplicates (equal scalars on (P, P) pairs, so a bucket
     doubles), negated duplicates ((P, -P) under one scalar, so it cancels),
-    the point at infinity, and scalars 0, 1 and q - 1."""
-    from montgomery_tpu_torch.bigint import AffinePoint
-
+    the zero point (infinity, or the Edwards identity), and scalars 0, 1
+    and q - 1."""
     q = E.params.order
     pts = [base[(5 * i) % len(base)] for i in range(N)]
     sc = [rng.randrange(q) for _ in range(N)]
     for i in range(8, N, 4):
         pts[i + 1], sc[i + 1] = (pts[i] if i % 8 else E.neg(pts[i])), sc[i]
-    pts[1] = pts[6] = AffinePoint.zero()
+    pts[1] = pts[6] = type(base[0]).zero()
     sc[0] = sc[3] = 0
     sc[2], sc[4] = 1, q - 1
     return pts, sc
@@ -687,13 +725,19 @@ def phase_oracle(ctx, pts):
 # ----------------------------------------------------------------- phase 3
 
 
+def oracle_curve(params):
+    from montgomery_tpu_torch.bigint import EdwardsParams, TwistedEdwardsCurve, WeierstrassCurve
+
+    return TwistedEdwardsCurve(params) if isinstance(params, EdwardsParams) else WeierstrassCurve(params)
+
+
 def closed_form(params, scalars, seed: int, n_drawn: int):
     """sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t with Python ints, for the
-    first len(scalars) of n_drawn points of random_points_fast(seed)."""
-    from montgomery_tpu_torch.bigint import WeierstrassCurve
+    first len(scalars) of n_drawn points of random_points_fast(seed) or
+    random_points_fast_edwards(seed)."""
     from montgomery_tpu_torch.curves.random import table_bases, table_indices
 
-    E = WeierstrassCurve(params)
+    E = oracle_curve(params)
     q = params.order
     idx = table_indices(seed, n_drawn)[:, :len(scalars)]
     acc = E.scale(0, E.generator)
@@ -704,6 +748,15 @@ def closed_form(params, scalars, seed: int, n_drawn: int):
         coef = sum(v * (j + 3) for j, v in enumerate(per)) % q
         acc = E.add(acc, E.scale(coef, B))
     return acc
+
+
+def expected_sum(expected: dict, params, N: int, n_drawn: int):
+    """The closed form of the bench scalars' MSM on the first N of n_drawn
+    bench points, computed once per curve and N."""
+    key = (params.label, N)
+    if key not in expected:
+        expected[key] = closed_form(params, bench_scalars(params.order, N), SEED_POINTS, n_drawn)
+    return expected[key]
 
 
 def bench_scalars(q: int, N: int) -> list[int]:
@@ -734,6 +787,12 @@ def counted(fn, path: str):
     stray = [k for k in PATH_FORBIDDEN[path] if counts[k]]
     if stray:
         raise AssertionError(f"kernels {stray} were launched on the {path} path")
+    by_n = kernels.launch_counts_by_n()
+    te = path.startswith("te")
+    wrong = {k: v for k, v in by_n.items() if set(v) - ({TE_LIMBS} if te else {12, None})}
+    if wrong:
+        raise AssertionError(f"launches at another limb count on the {path} path: {wrong}")
+    say(f"{path} launches by limb count: {by_n}")
     return counts, seconds, out
 
 
@@ -769,9 +828,7 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     got = ctx.proj.to_host(S)[0]
     E = WeierstrassCurve(ctx.params)
     t0 = time.perf_counter()
-    if N not in expected:
-        expected[N] = closed_form(ctx.params, scalars, SEED_POINTS, pts_full.count)
-    if got.is_zero or not E.equal(got, expected[N]):
+    if got.is_zero or not E.equal(got, expected_sum(expected, ctx.params, N, pts_full.count)):
         raise AssertionError(f"{path} MSM at N=2^{log2n} differs from the closed form")
     say(f"full-N check: equal to the closed form ({time.perf_counter() - t0:.1f} s on the host)")
 
@@ -862,46 +919,344 @@ def phase_adversarial(ctx, pts_full, log2n: int = 16, log2base: int = 12):
         f"{sum(1 for s in base if s == 0)} of {nb} scalars 0)")
 
 
-def phase_serve(ctx, pts_full, log2n: int, expected: dict):
-    """serve.compute_msm at N = 2^log2n from packed bytes with the on-curve
-    check, against the closed form; ingestion and the on-curve check timed
-    apart, then the whole call with its launch counts."""
+def phase_serve(ctx, pts_full, log2n: int, expected: dict, curve: str = "bls12-377",
+                path: str = "serve"):
+    """serve.compute_msm(curve=curve) at N = 2^log2n from packed bytes with
+    the on-curve check, against the closed form; ingestion and the on-curve
+    check timed apart, then the whole call with its launch counts (checked
+    against `path`'s kernels)."""
     import numpy as np
     import torch
 
     from montgomery_tpu_torch import serve
-    from montgomery_tpu_torch.bigint import WeierstrassCurve
 
     N = 1 << log2n
-    say(f"== phase 3: serve.compute_msm N=2^{log2n} from packed bytes, validate=True")
-    f, q = ctx.fops, ctx.params.order
-    # canonical coordinates of the bench points as little-endian bytes
-    xy = [np.ascontiguousarray(f.from_montgomery(a[:, :N]).cpu().numpy().T).view("<u4")
+    say(f"== phase 3: serve.compute_msm(curve={curve!r}) N=2^{log2n} from packed bytes, "
+        f"validate=True")
+    f = ctx.fops
+    # canonical coordinates of the bench points as little-endian bytes: the
+    # first ceil(bits(p) / 32) words of each (12 of 12 limbs, 8 of 9)
+    nw = -(-f.p.bit_length() // 32)
+    xy = [np.ascontiguousarray(f.from_montgomery(a[:, :N]).cpu().numpy().T)[:, :nw].view("<u4")
           for a in pts_full[:2]]
     pbytes = np.concatenate(xy, axis=1).tobytes()
     raw = np.random.default_rng(SEED_SCALARS).integers(0, 256, size=N * 32, dtype=np.uint8)
     sbytes = raw.tobytes()  # unreduced: compute_msm reduces mod q, as bench_scalars does
-    sctx = serve.get_curve("bls12-377")
+    sctx = serve.get_curve(curve)
     t0 = time.perf_counter()
     batch = serve._points_to_batch(sctx, pbytes)
-    limbs = sctx.scalars_to_limbs(sbytes)
+    sctx.scalars_to_limbs(sbytes)
     torch.cuda.synchronize()
     t_in = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ok = bool(sctx.affine.is_on_curve(batch).all())
+    ok = bool(sctx.is_on_curve(batch).all())
     t_chk = time.perf_counter() - t0
     if not ok:
-        raise AssertionError("bench points failed the on-curve check")
-    counts, t_all, got = counted(lambda: serve.compute_msm(pbytes, sbytes), "serve")
-    say(f"serve launches: {counts}")
-    if N not in expected:
-        expected[N] = closed_form(ctx.params, bench_scalars(q, N), SEED_POINTS, pts_full.count)
-    want = expected[N]
+        raise AssertionError(f"{curve} bench points failed the on-curve check")
+    counts, t_all, got = counted(lambda: serve.compute_msm(pbytes, sbytes, curve=curve), path)
+    say(f"{path} launches: {counts}")
+    want = expected_sum(expected, ctx.params, N, pts_full.count)
     if got != (want.x, want.y):
-        raise AssertionError("compute_msm at full N differs from the closed form")
-    say(f"compute_msm N=2^{log2n}: equal to the closed form; host ingestion {t_in:.3f} s, "
-        f"on-curve check {t_chk:.4f} s, whole call {t_all:.3f} s")
+        raise AssertionError(f"compute_msm({curve!r}) at full N differs from the closed form")
+    say(f"compute_msm({curve!r}) N=2^{log2n}: equal to the closed form; host ingestion "
+        f"{t_in:.3f} s, on-curve check {t_chk:.4f} s, whole call {t_all:.3f} s")
     return counts
+
+
+# ------------------------------------------------- Twisted Edwards phases
+
+# classes of the Edwards adds' first lanes; an "unreduced" lane holds the
+# representatives v + p of its coordinates
+TE_CLASSES = ("ordinary", "double", "minus", "id_a", "id_b", "id_both", "unreduced",
+              "double_unreduced")
+
+
+def _te_flag_lanes(te, pts, K: int, rng: random.Random):
+    """K packed columns A and B [X | Y | Z | T] (Montgomery form, a random Z
+    a lane) and their sign and pair planes on the card: lane i of class
+    TE_CLASSES[i % 8], with (sA, sB, hp) running through all 8 combinations
+    over the cycles."""
+    import torch
+
+    from montgomery_tpu_torch.bigint import EdwardsPoint
+
+    f = te.fops
+    p, R = f.p, f.R
+    cols = [[] for _ in range(8)]
+    sa, sb, hp = [], [], []
+    for i in range(K):
+        cls = TE_CLASSES[i % len(TE_CLASSES)]
+        a, b = pts[i % len(pts)], pts[(7 * i + 3) % len(pts)]
+        if cls.startswith("double"):
+            b = a
+        elif cls == "minus":
+            b = EdwardsPoint((-a.x) % p, a.y)
+        if cls in ("id_a", "id_both"):
+            a = EdwardsPoint.zero()
+        if cls in ("id_b", "id_both"):
+            b = EdwardsPoint.zero()
+        up = p if cls.endswith("unreduced") else 0
+        for side, pt in enumerate((a, b)):
+            z = rng.randrange(1, p)
+            for k, v in enumerate((pt.x * z, pt.y * z, z, pt.x * pt.y * z)):
+                cols[4 * side + k].append(v % p * R % p + up)
+        j = i // len(TE_CLASSES)
+        sa.append(j & 1)
+        sb.append((j >> 1) & 1)
+        hp.append(1 - ((j >> 2) & 1))
+    dev = te.device
+
+    def rows(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    A = torch.cat([f.pack_raw(c, dev) for c in cols[:4]])
+    B = torch.cat([f.pack_raw(c, dev) for c in cols[4:]])
+    return A, B, rows(sa), rows(sb), rows(hp)
+
+
+def phase_te_kernels(te, pts, rates: dict) -> dict:
+    """The Twisted Edwards path's kernels against their plain versions on
+    the same tensors: the 9-limb mont_mul, mul_const (by R^2 and by 2d) and
+    divstep_inv_mont at 2^16, 2^16 + 17 and 512 lanes; ed_add at 2^16,
+    2^16 + 17 and the 2^20 path's first bucket-reduction level (K L / 2
+    lanes); ed_dbl with k = 1 and 13, and k = 208 on 16 lanes (the 2^20
+    combine's first level); ed_add_packed at 2^16, 2^16 + 17 and the first
+    super-round level at 2^16 and 2^20 points, and its halves. The first
+    lanes hold the classes of `_te_flag_lanes` (oracle points `pts`), the
+    field kernels' first lanes 0, 1, p - 1, [p, 2p) and R mod p. The field
+    kernels are also checked at the widths compute_msm's 2^20 ingestion
+    gives them: mont_mul at 2^20 lanes (T = x y), mul_const at 2^21 (both
+    coordinates to Montgomery form). Each is timed on the tensors it was
+    checked on: mont_mul at 2^20 lanes, mul_const at 2^21, divstep_inv_mont
+    at 512, ed_add and ed_dbl (k = 1) at 2^16 (like proj_add_rcb and
+    proj_dbl_rcb), ed_add_packed at the 2^16 path's first level. The planar
+    kernels get contiguous planes, as their wrappers hand them to the
+    kernel (a strided view is copied first)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
+    from montgomery_tpu_torch.ops import divstep
+
+    say("== phase 1: Twisted Edwards kernels (9 limbs) against their plain versions")
+    f, ed, dev = te.fops, te.ed, te.device
+    n = f.n
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rng = random.Random(6)
+    p = f.p
+    adv = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p, f.R2]
+    results = {}
+
+    def diff(a, b):
+        return int((a - b).abs().max()) if a.numel() else 0
+
+    def canon_err(a, b):
+        return diff(_canon(f, a), _canon(f, b))
+
+    def point_err(a, b):  # EdwardsBatch or packed rows: canonical, coordinate by coordinate
+        a = a if isinstance(a, EdwardsBatch) else ed.unpack_rows(a)
+        b = b if isinstance(b, EdwardsBatch) else ed.unpack_rows(b)
+        return max(canon_err(u, v) for u, v in zip(a, b))
+
+    c20 = te.default_c(1 << 20)
+    red20 = te.num_windows(c20) * (1 << (c20 - 1)) // 2
+    W16, W20 = first_level_width(te, 16), first_level_width(te, 20)
+    field = {"divstep_inv_mont", "mont_mul", "mul_const"}
+    plan = ((KERNEL_LANES[0], field | {"ed_add", "ed_dbl", "ed_add_packed"}, {"ed_add", "ed_dbl"}),
+            (KERNEL_LANES[1], field | {"ed_add", "ed_dbl", "ed_add_packed"}, set()),
+            (ROOT_LANES, {"divstep_inv_mont"}, {"divstep_inv_mont"}),
+            (1 << 20, {"mont_mul"}, {"mont_mul"}), (1 << 21, {"mul_const"}, {"mul_const"}),
+            (red20, {"ed_add"}, set()), (16, {"ed_dbl_combine"}, set()),
+            (W16, {"ed_add_packed"}, {"ed_add_packed"}), (W20, {"ed_add_packed"}, set()))
+    for M, names, timed in plan:
+        cases = {}
+        if names & field:
+            x, y = _field_plane(f, M, gen, adv), _field_plane(f, M, gen, adv[::-1])
+        if "divstep_inv_mont" in names:
+            cases["divstep_inv_mont"] = (min(M, ROOT_LANES), lambda x=x: f.inv_root(x[:, :ROOT_LANES]),
+                                         lambda x=x: divstep.inv_mont_plain(f, x[:, :ROOT_LANES]),
+                                         canon_err)
+        if "mont_mul" in names:
+            xs = x[:, 3:]  # a column slice
+            cases["mont_mul"] = (M, lambda: f.mul(x, y), lambda: f.mul_plain(x, y), canon_err)
+            cases["mont_mul slice"] = (M - 3, lambda: f.mul(xs, y[:, :-3]),
+                                       lambda: f.mul_plain(xs, y[:, :-3]), canon_err)
+        if "mul_const" in names:
+            for tag, cst in (("", f.R2), (" 2d", ed.k_mont)):
+                cases["mul_const" + tag] = (M, lambda c=cst: f.mul_const(x, c),
+                                            lambda c=cst: f.mul_const_plain(x, c), canon_err)
+        if names & {"ed_add", "ed_dbl", "ed_add_packed", "ed_dbl_combine"}:
+            C = _random_planes(f, 4 * n, 2 * M, gen)
+            sg = torch.randint(0, 2, (1, 2 * M), dtype=torch.int32, device=dev, generator=gen)
+            hp = torch.randint(0, 2, (1, M), dtype=torch.int32, device=dev, generator=gen)
+            K = min(M, 1200)
+            FA, FB, fsa, fsb, fhp = _te_flag_lanes(te, pts, K, rng)
+            C[:, :K], C[:, M:M + K] = FA, FB
+            sg[:, :K], sg[:, M:M + K], hp[:, :K] = fsa, fsb, fhp
+            A, B = C[:, :M], C[:, M:]  # a level's two halves
+            sA, sB = sg[:, :M], sg[:, M:]
+            PA, PB = (EdwardsBatch(*[a.contiguous() for a in ed.unpack_rows(t)]) for t in (A, B))
+        if "ed_add" in names:
+            cases["ed_add"] = (M, lambda: ed.add(PA, PB), lambda: ed.add_plain(PA, PB), point_err)
+        if "ed_dbl" in names:
+            for k in (1, 13):
+                cases[f"ed_dbl k={k}"] = (M, lambda k=k: ed.double_n(PA, k),
+                                          lambda k=k: ed.double_n_plain(PA, k), point_err)
+        if "ed_dbl_combine" in names:
+            cases[f"ed_dbl k={TE_COMBINE_K}"] = (M, lambda: ed.double_n(PA, TE_COMBINE_K),
+                                                lambda: ed.double_n_plain(PA, TE_COMBINE_K),
+                                                point_err)
+        if "ed_add_packed" in names:
+            h = M // 2
+            for tag, ops in (("", (A, B, sA, sB, hp)),
+                             (" halves", (A[:, :h], B[:, :h], sA[:, :h], sB[:, :h], hp[:, :h]))):
+                cases["ed_add_packed" + tag] = (ops[0].shape[-1], lambda o=ops: ed.add_packed(*o),
+                                                lambda o=ops: ed.add_packed_plain(*o), point_err)
+        for label, (lanes, kern, plain, err_of) in cases.items():
+            err = err_of(kern(), plain())
+            say(f"{label} n={n} N={lanes}: max_abs_err {err}")
+            if err:
+                raise AssertionError(f"{label} at {n} limbs and {lanes} lanes disagrees with its "
+                                     f"plain version")
+            name = label.split()[0]
+            r = results.setdefault(name, {"max_abs_err": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if label in timed or label == "ed_dbl k=1" and "ed_dbl" in timed:
+                r.update(ms=cuda_time_ms(kern, KERNEL_REPS), plain_ms=cuda_time_ms(plain, 3, 1),
+                         lanes=lanes)
+            elif label == "ed_add_packed" and M == W20:  # the kernel alone at the 2^20 level
+                r["ms_2^20_level"] = cuda_time_ms(kern, 20)
+                r["bound_ms_2^20_level"] = bound(te, name, lanes, rates)[0]
+                say(f"ed_add_packed at the 2^20 path's first level ({lanes} lanes): kernel "
+                    f"{r['ms_2^20_level']:.4f} ms, bound {r['bound_ms_2^20_level']:.4f} ms")
+        del cases
+        torch.cuda.empty_cache()
+    for name, r in results.items():
+        r["bound_ms"], r["bound_by"] = bound(te, name, r["lanes"], rates)
+        say(f"{name} (n={n}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) per call at {r['lanes']} lanes")
+    return results
+
+
+def phase_te_oracle(te):
+    """EdwardsMsm and compute_msm(curve="ed-on-bls12-377") against the
+    bigint oracle: N = 16 (default c, a pair round first) and N = 512 (c = 4,
+    the super-round first); compute_msm from ints and bytes, byte scalars
+    above q, and its ValueErrors."""
+    from montgomery_tpu_torch import serve
+    from montgomery_tpu_torch.bigint import msm as oracle_msm
+
+    say("== phase 2: Twisted Edwards MSM against the bigint oracle")
+    E = oracle_curve(te.params)
+    q, p = te.params.order, te.fops.p
+    rng = random.Random(4)
+    base = [E.random_point(rng) for _ in range(24)]
+    for N, c, first in ((16, None, "pair"), (1 << 9, 4, "super")):
+        pts, sc = _adversarial_inputs(E, base, N, rng)
+        t0 = time.perf_counter()
+        got = te.msm_full(sc, pts, c=c)
+        dt = time.perf_counter() - t0
+        rounds = list(te.adapter.rounds)
+        if rounds[0][0] != first:
+            raise AssertionError(f"Edwards MSM at N={N}: first round {rounds[0]}, expected {first}")
+        if not E.equal(got, oracle_msm(E, sc, pts)):
+            raise AssertionError(f"Edwards MSM at N={N} differs from the oracle")
+        say(f"edwards N={N} c={c or te.default_c(N)} (duplicates, negations, identity, zero "
+            f"scalars): equal to the oracle, first round {rounds[0]} ({dt:.2f} s incl. first calls)")
+    pts, sc = _adversarial_inputs(E, base, 16, rng)
+    w = oracle_msm(E, sc, pts)
+    xy = [(P.x, P.y) for P in pts]
+    pbytes = b"".join(x.to_bytes(32, "little") + y.to_bytes(32, "little") for x, y in xy)
+    # each scalar as s + k q for the largest k that fits in 32 bytes (>= q)
+    sbytes = b"".join((s + ((1 << 256) - 1 - s) // q * q).to_bytes(32, "little") for s in sc)
+    for label, args in (("ints", (xy, sc)), ("bytes, scalars above q", (pbytes, sbytes))):
+        if serve.compute_msm(*args, curve=TE_CURVE) != (w.x, w.y):
+            raise AssertionError(f"Edwards compute_msm from {label} differs from the oracle")
+        say(f"serve.compute_msm(curve={TE_CURVE!r}) from {label}, N=16: equal to the oracle")
+    bad_xy = list(xy)
+    bad_xy[3] = (xy[3][0], (xy[3][1] + 1) % p)
+    for label, args, match in (("off-curve point", (bad_xy, sc), "not on curve"),
+                               ("misaligned point bytes", (pbytes[:-1], sc), "multiple of 64"),
+                               ("length mismatch", (xy, sc[:-1]), "length mismatch")):
+        try:
+            serve.compute_msm(*args, curve=TE_CURVE)
+        except ValueError as e:
+            if match not in str(e):
+                raise AssertionError(f"Edwards compute_msm on a {label}: {e}") from e
+            say(f"serve.compute_msm(curve={TE_CURVE!r}) on a {label}: ValueError ({e})")
+        else:
+            raise AssertionError(f"Edwards compute_msm accepted a {label}")
+
+
+def phase_te_msm(te, log2n: int, pts_full, expected: dict):
+    """The Twisted Edwards MSM at N = 2^log2n: launch counts of msm_full (the
+    MSM and to_host) with the counts set to 0 just before it, the full-N
+    check, 5 timed runs of msm_device_full, peak memory, the phase split and
+    the round plan. Returns the launch counts."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
+    from montgomery_tpu_torch.utils.timing import timeit
+
+    N = 1 << log2n
+    c = te.default_c(N)
+    say(f"== phase 3: Twisted Edwards MSM N=2^{log2n}, c={c}, K={te.num_windows(c)}, "
+        f"n={te.fops.n} limbs of 32 bits")
+    P = EdwardsBatch(*[a[..., :N] for a in pts_full])
+    scalars = bench_scalars(te.params.order, N)
+    limbs = te.scalars_to_limbs(scalars)
+    dev = te.device
+    counts, first, got = counted(lambda: te.msm_full(limbs, P, c=c), "te")
+    say(f"te launches: {counts} (first run {first:.3f} s)")
+    say(f"rounds: {te.adapter.rounds}")
+    t0 = time.perf_counter()
+    E = oracle_curve(te.params)
+    if got.is_zero or not E.equal(got, expected_sum(expected, te.params, N, pts_full.count)):
+        raise AssertionError(f"Edwards MSM at N=2^{log2n} differs from the closed form")
+    say(f"full-N check: equal to the closed form ({time.perf_counter() - t0:.1f} s on the host)")
+
+    def run():
+        return te.msm_device_full(P, limbs, c)
+
+    med, times = timeit(run, device=dev, reps=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _, log = te.msm_phases(P, limbs, c)
+    say(f"msm te N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
+        f"peak memory {peak / 2**20:.1f} MiB")
+    say("phase split:\n" + log.report())
+    return counts
+
+
+def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
+    """The {"kernels": [...]} line: one entry per registered kernel, its
+    launches read from the first run of `home_runs` that runs it (bench.py's
+    configuration, then the Twisted Edwards MSM, then the others at 2^20),
+    with every run's count beside them; a kernel instantiated at 12 and at 9
+    limbs carries its 9-limb measurements under "n9"."""
+    from montgomery_tpu_torch.ops import kernels
+
+    top = max(MSM_LOG2N)
+    home_runs = [f"{run}_2^{top}" for run in (PATHS[0], "te", *PATHS[1:], "serve", "te_serve")]
+
+    def entry(name, k):
+        home = next((run for run in home_runs if launches[run][name]), home_runs[0])
+        res = kres.get(name) or te_kres[name]
+        e = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
+             "launches": launches[home][name], "launches_run": home,
+             "launches_by_path": {run: c[name] for run, c in launches.items()},
+             "max_abs_err": max(r[name]["max_abs_err"] for r in (kres, te_kres) if name in r),
+             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+             "bound_by": res["bound_by"], "library_ms": None, "lanes": res["lanes"],
+             "limbs": sorted(n for n in k.symbols if n is not None)}
+        if name in kres and name in te_kres:  # instantiated at 12 and at 9 limbs
+            e["n9"] = {key: te_kres[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                           "lanes", "max_abs_err")}
+        e.update({key: v for key, v in res.items() if key.endswith("_level")})
+        return e
+
+    return {"kernels": [entry(name, k) for name, k in kernels.REGISTRY.items()]}
 
 
 def main() -> int:
@@ -914,22 +1269,34 @@ def main() -> int:
     if not torch.cuda.is_available():
         say("no CUDA device: this run needs one GPU")
         return 1
-    from montgomery_tpu_torch.concrete import BLS12_377
-    from montgomery_tpu_torch.curves.random import random_points_fast
-    from montgomery_tpu_torch.msm import WeierstrassMsm
+    from montgomery_tpu_torch.concrete import BLS12_377, ED_ON_BLS12_377
+    from montgomery_tpu_torch.curves.random import random_points_fast, random_points_fast_edwards
+    from montgomery_tpu_torch.msm import EdwardsMsm, WeierstrassMsm
     from montgomery_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
     rates = phase_env()
     ctx = WeierstrassMsm(BLS12_377, device=dev)
+    te = EdwardsMsm(ED_ON_BLS12_377, device=dev)
+    npts = 1 << max(MSM_LOG2N)
     t0 = time.perf_counter()
-    pts = random_points_fast(ctx.proj, 1 << max(MSM_LOG2N), seed=SEED_POINTS, device=dev,
+    pts = random_points_fast(ctx.proj, npts, seed=SEED_POINTS, device=dev,
                              cache_dir=ROOT / "build" / "points")
     torch.cuda.synchronize()
-    say(f"points: 2^{max(MSM_LOG2N)} from random_points_fast(seed={SEED_POINTS}) in {time.perf_counter() - t0:.1f} s")
+    say(f"points: 2^{max(MSM_LOG2N)} from random_points_fast(seed={SEED_POINTS}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    te_pts = random_points_fast_edwards(te.ed, npts, seed=SEED_POINTS, device=dev,
+                                        cache_dir=ROOT / "build" / "points")
+    torch.cuda.synchronize()
+    say(f"points: 2^{max(MSM_LOG2N)} from random_points_fast_edwards(seed={SEED_POINTS}) in "
+        f"{time.perf_counter() - t0:.1f} s")
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
+    te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
     kres = phase_kernels(ctx, host_pts, rates)
+    te_kres = phase_te_kernels(te, te_host, rates)
     phase_oracle(ctx, host_pts)
+    phase_te_oracle(te)
     launches, expected = {}, {}
     for path in PATHS:
         for log2n in MSM_LOG2N:
@@ -938,15 +1305,11 @@ def main() -> int:
         phase_ab(ctx, pts, log2n)
     phase_adversarial(ctx, pts)
     launches[f"serve_2^{max(MSM_LOG2N)}"] = phase_serve(ctx, pts, max(MSM_LOG2N), expected)
-    main_run = f"{PATHS[0]}_2^{max(MSM_LOG2N)}"  # bench.py's configuration
-    line = {"kernels": [
-        {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-         "launches": launches[main_run][name],
-         "launches_by_path": {run: c[name] for run, c in launches.items()},
-         "max_abs_err": kres[name]["max_abs_err"], "ms": kres[name]["ms"],
-         "plain_ms": kres[name]["plain_ms"], "bound_ms": kres[name]["bound_ms"],
-         "bound_by": kres[name]["bound_by"], "library_ms": None, "lanes": kres[name]["lanes"]}
-        for name, k in kernels.REGISTRY.items()]}
+    for log2n in MSM_LOG2N:
+        launches[f"te_2^{log2n}"] = phase_te_msm(te, log2n, te_pts, expected)
+    launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
+                                                           TE_CURVE, "te_serve")
+    line = kernels_line(kres, te_kres, launches)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))
     say(smi_line())

@@ -1,11 +1,12 @@
-"""Concrete Weierstrass curve parameter records.
+"""Concrete curve parameter records.
 
-A copy of the Weierstrass curves of `montgomery_tpu/concrete/params.py`
-(public curve standards: BLS12-377, BLS12-381, Pallas).
+A copy of the curves of `montgomery_tpu/concrete/params.py` (public curve
+standards: BLS12-377, BLS12-381, Pallas, ed-on-bls12-377).
 """
 
 from __future__ import annotations
 
+from ..bigint.twisted_edwards import EdwardsParams
 from ..bigint.weierstrass import CurveParams, Endomorphism
 
 # --- BLS12-377 (reference concrete/bls12-377.params.ts) ---
@@ -109,4 +110,20 @@ PALLAS = CurveParams(
     endomorphism=Endomorphism(beta=_PALLAS_BETA, lam=_PALLAS_LAMBDA),
 )
 
+# --- ed-on-bls12-377 (reference concrete/ed-on-bls12-377.params.ts) ---
+# base field = BLS12-377 scalar field
+
+ED_ON_BLS12_377 = EdwardsParams(
+    label="ed-on-bls12-377",
+    modulus=BLS12_377_Q,
+    order=0x4AAD957A68B2955982D1347970DEC005293A3AFC43C8AFEB95AEE9AC33FD9FF,
+    cofactor=4,
+    d=3021,
+    generator=(
+        0x9F1B5A5BAF6ACF06FED91C9AE9EBFA06068DD2835790980894E2328F3EBCA05,
+        0x9A20DF36571AC3CD906B256080BA8454453C177AAF3131BB50A67BF1A806781,
+    ),
+)
+
 WEIERSTRASS_CURVES = {c.label: c for c in (BLS12_377, BLS12_381, PALLAS)}
+EDWARDS_CURVES = {ED_ON_BLS12_377.label: ED_ON_BLS12_377}

@@ -16,12 +16,13 @@
 // its row stride; neg/sub/select are the branch-free helpers of field.cuh.
 #include "affine.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 aff_post_packed_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,
                        const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ sA,
                        const int32_t* __restrict__ sB, const int32_t* __restrict__ dinv, int sd,
                        const int32_t* __restrict__ numer, int sn, const int32_t* __restrict__ flags,
-                       const int32_t* __restrict__ hp, FieldParams F, int N) {
+                       const int32_t* __restrict__ hp, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], u[NL], x3[NL], y3[NL];
@@ -44,11 +45,10 @@ extern "C" int msm_aff_post_packed(void* out, const void* A, int sa, const void*
                                    const void* sB, const void* dinv, int sd, const void* numer, int sn,
                                    const void* flags, const void* hp, const uint32_t* field, int N,
                                    void* stream) {
-  FieldParams F;
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    aff_post_packed_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    aff_post_packed_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
-        (const int32_t*)dinv, sd, (const int32_t*)numer, sn, (const int32_t*)flags, (const int32_t*)hp, F, N);
+        (const int32_t*)dinv, sd, (const int32_t*)numer, sn, (const int32_t*)flags, (const int32_t*)hp,
+        field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

@@ -17,11 +17,12 @@
 // branch-free helpers of field.cuh, load_signed that of affine.cuh.
 #include "affine.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,
                          const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ sA,
                          const int32_t* __restrict__ sB, const int32_t* __restrict__ dinv, int sd,
-                         const int32_t* __restrict__ hp, FieldParams F, int N) {
+                         const int32_t* __restrict__ hp, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], lam[NL], t[NL], x3[NL], y3[NL];
@@ -48,11 +49,9 @@ aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ 
 extern "C" int msm_aff_post_packed_u(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
                                      const void* sB, const void* dinv, int sd, const void* hp,
                                      const uint32_t* field, int N, void* stream) {
-  FieldParams F;
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    aff_post_packed_u_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    aff_post_packed_u_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
-        (const int32_t*)dinv, sd, (const int32_t*)hp, F, N);
+        (const int32_t*)dinv, sd, (const int32_t*)hp, field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

@@ -15,11 +15,12 @@
 // and are read in place through their row strides.
 #include "affine.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 aff_pre_packed_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, int32_t* __restrict__ flags,
                       const int32_t* __restrict__ A, int sa, const int32_t* __restrict__ B, int sb,
                       const int32_t* __restrict__ sA, const int32_t* __restrict__ sB,
-                      const int32_t* __restrict__ hp, Fe one, FieldParams F, int N) {
+                      const int32_t* __restrict__ hp, Fe<NL> one, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], u[NL];
@@ -36,13 +37,10 @@ aff_pre_packed_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, 
 extern "C" int msm_aff_pre_packed(void* denom, void* numer, void* flags, const void* A, int sa, const void* B,
                                   int sb, const void* sA, const void* sB, const void* hp, const uint32_t* one,
                                   const uint32_t* field, int N, void* stream) {
-  Fe o;
-  FieldParams F;
-  memcpy(o.v, one, sizeof(o.v));
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    aff_pre_packed_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    aff_pre_packed_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)A, sa, (const int32_t*)B, sb,
-        (const int32_t*)sA, (const int32_t*)sB, (const int32_t*)hp, o, F, N);
+        (const int32_t*)sA, (const int32_t*)sB, (const int32_t*)hp, fe_from<12>(one),
+        field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

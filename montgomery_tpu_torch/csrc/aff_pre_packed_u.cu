@@ -12,10 +12,11 @@
 // read in place through their row strides.
 #include "field.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 aff_pre_packed_u_kernel(int32_t* __restrict__ denom, const int32_t* __restrict__ A, int sa,
-                        const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ hp, Fe one,
-                        FieldParams F, int N) {
+                        const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ hp, Fe<NL> one,
+                        FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], x2[NL], d[NL];
@@ -28,12 +29,9 @@ aff_pre_packed_u_kernel(int32_t* __restrict__ denom, const int32_t* __restrict__
 
 extern "C" int msm_aff_pre_packed_u(void* denom, const void* A, int sa, const void* B, int sb, const void* hp,
                                     const uint32_t* one, const uint32_t* field, int N, void* stream) {
-  Fe o;
-  FieldParams F;
-  memcpy(o.v, one, sizeof(o.v));
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    aff_pre_packed_u_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)denom, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)hp, o, F, N);
+    aff_pre_packed_u_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)hp, fe_from<12>(one),
+        field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

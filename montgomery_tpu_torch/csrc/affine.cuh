@@ -5,7 +5,9 @@
 // triage before the inversion, and _post_inv_formula (:101-121), the chord or
 // tangent completion after it, with _slope_numer_dbl (:67-74) for a = 0.
 // The packed kernels (aff_pre_packed.cu, aff_post_packed.cu) call them per
-// lane; a planar add can call the same functions.
+// lane; a planar add can call the same functions. Templates over the limb
+// count like field.cuh; the kernels instantiate them at 12 limbs only
+// (BLS12-377), the one Weierstrass field on the card.
 //
 // Flags of a lane: bit 1 is_dbl (both finite, x1 == x2, y1 == y2), bit 2
 // cancel (both finite, x1 == x2, y1 != y2), bit 4 y1_zero. A lane whose
@@ -21,8 +23,9 @@
 
 // x and the sign-applied y (y -> -y where neg) of column i of packed rows
 // [x (NL) | y (NL) | inf (1)] with row stride s
-__device__ __forceinline__ void load_signed(uint32_t x[NL], uint32_t y[NL], const int32_t* P, int s, int i,
-                                            bool neg, const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void load_signed(uint32_t (&x)[NL], uint32_t (&y)[NL], const int32_t* P, int s,
+                                            int i, bool neg, const FieldParams<NL>& F) {
   uint32_t t[NL];
   fe_load(x, P, s, i);
   fe_load(t, P + (size_t)NL * s, s, i);
@@ -32,9 +35,11 @@ __device__ __forceinline__ void load_signed(uint32_t x[NL], uint32_t y[NL], cons
 
 // denominator (2 y1 for a doubling, x2 - x1 otherwise, 1 where poisoned),
 // slope numerator (3 x1^2 for a doubling, y2 - y1 otherwise) and flags
-__device__ __forceinline__ int aff_triage(uint32_t denom[NL], uint32_t numer[NL], const uint32_t x1[NL],
-                                          const uint32_t y1[NL], const uint32_t x2[NL], const uint32_t y2[NL],
-                                          bool inf1, bool inf2, const uint32_t one[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ int aff_triage(uint32_t (&denom)[NL], uint32_t (&numer)[NL],
+                                          const uint32_t (&x1)[NL], const uint32_t (&y1)[NL],
+                                          const uint32_t (&x2)[NL], const uint32_t (&y2)[NL], bool inf1,
+                                          bool inf2, const uint32_t (&one)[NL], const FieldParams<NL>& F) {
   bool xeq = fe_is_equal(x1, x2, F), yeq = fe_is_equal(y1, y2, F);
   bool finite = !inf1 && !inf2;
   bool is_dbl = xeq && yeq && finite;
@@ -60,10 +65,12 @@ __device__ __forceinline__ int aff_triage(uint32_t denom[NL], uint32_t numer[NL]
 // then the edge cases: the sum is infinite on cancel, on a tangent at y = 0
 // and when both operands are; one infinite operand passes the other through.
 // Returns whether the sum is infinite.
-__device__ __forceinline__ bool aff_complete(uint32_t x3[NL], uint32_t y3[NL], const uint32_t x1[NL],
-                                             const uint32_t y1[NL], const uint32_t x2[NL], const uint32_t y2[NL],
-                                             const uint32_t dinv[NL], const uint32_t numer[NL], int flags,
-                                             bool inf1, bool inf2, const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ bool aff_complete(uint32_t (&x3)[NL], uint32_t (&y3)[NL],
+                                             const uint32_t (&x1)[NL], const uint32_t (&y1)[NL],
+                                             const uint32_t (&x2)[NL], const uint32_t (&y2)[NL],
+                                             const uint32_t (&dinv)[NL], const uint32_t (&numer)[NL], int flags,
+                                             bool inf1, bool inf2, const FieldParams<NL>& F) {
   uint32_t lam[NL], t[NL];
   fe_mul(lam, numer, dinv, F);
   fe_sqr(t, lam, F);

@@ -5,20 +5,26 @@
 // (FieldOps.inv_root, :724-761, over ops/divstep.py _inv_formula): the root of
 // every batch inversion, at most 512 lanes. Per lane: leave Montgomery form
 // (a product by 1, then reduce into [0, p)), run the divsteps, re-enter
-// Montgomery form (a product by R^2 with this port's R = 2^384).
+// Montgomery form (a product by R^2 with this port's R = 2^(32 NL)). Entry
+// points: msm_divstep_inv_mont (NL = 12, BLS12-377) and
+// msm_divstep_inv_mont_n9 (NL = 9, ed-on-bls12-377: the root of to_host's
+// batch inversion).
 //
 // The safegcd state (f, g) and the mod-p coefficients (d, e) are signed
-// numbers of DS_L = 13 limbs of 30 bits (390 bits; limbs below the top in
-// [0, 2^30), the top limb signed) in int64 registers. Divsteps run in batches
+// numbers of DS_L = ceil(32 NL / 30) limbs of 30 bits (13 limbs, 390 bits at
+// NL = 12; 10 limbs, 300 bits at NL = 9; limbs below the top in [0, 2^30),
+// the top limb signed) in int64 registers. Divsteps run in batches
 // of 30 on the low 64 bits of f and g, building a transition matrix with
 // |u| + |v| <= 2^30; each batch then applies the matrix to the full-width
 // numbers with exact division by 2^30 (f, g) or a Montgomery-style shift mod
 // p (d, e: add m p so that the low 30 bits vanish). 30 x 30-bit products and
-// their 3-term sums stay below 2^62, so int64 holds them. The batch count is
-// ceil(iterations(377) / 30) = 37 (1110 divsteps, BY19 Thm 11.2 bound 1091;
-// ops/divstep.py computes it). |d|, |e| grow by at most p per batch, so the
-// end value lies in (-38p, 38p): add 2^6 p and subtract 2^j p, j = 6..0,
-// where each fits. The plain version (ops/divstep.py inv_plain) runs the
+// their 3-term sums stay below 2^62, so int64 holds them. The batch count
+// comes from ops/divstep.py: ceil(iterations(bits(p)) / 30), 37 for the
+// 377-bit BLS12-377 base field (1110 divsteps, BY19 Thm 11.2 bound 1091), 25
+// for the 253-bit ed-on-bls12-377 base field (bound 733). |d|, |e| grow by
+// at most p per batch, so the end value lies in (-38p, 38p): add 2^6 p and
+// subtract 2^j p, j = 6..0, where each fits (2^7 p < 2^(30 DS_L - 1) at both
+// limb counts). The plain version (ops/divstep.py inv_plain) runs the
 // same algorithm in torch int64, and the inverse is unique, so both agree.
 //
 // Bound on this card: a serial chain of 1110 divsteps per lane (a few
@@ -29,21 +35,25 @@
 // batched matrix form touches the 390-bit numbers once per 30 divsteps.
 #include "field.cuh"
 
-#define DS_L 13
 #define DS_BITS 30
 #define DS_MASK ((1ll << DS_BITS) - 1)
 #define DS_SHIFTS 7
 
+// 30-bit limbs that hold NL words of 32 bits
+__host__ __device__ constexpr int ds_limbs(int NL) { return (32 * NL + DS_BITS - 1) / DS_BITS; }
+
+template <int NL>
 struct DivstepConst {  // layout of ops/divstep.py DivstepParams.kernel_words
-  int32_t p[DS_L];                // p in 30-bit limbs
-  int32_t pk[DS_SHIFTS][DS_L];    // 2^j p, j < DS_SHIFTS
-  uint32_t r2[NL];                // R^2 mod p in 32-bit words
-  uint32_t pinv;                  // -p^-1 mod 2^30
+  int32_t p[ds_limbs(NL)];                // p in 30-bit limbs
+  int32_t pk[DS_SHIFTS][ds_limbs(NL)];    // 2^j p, j < DS_SHIFTS
+  uint32_t r2[NL];                        // R^2 mod p in 32-bit words
+  uint32_t pinv;                          // -p^-1 mod 2^30
   int32_t n_batches;
 };
 
-// canonical 32-bit words (value < 2^384) -> 30-bit limbs
-__device__ __forceinline__ void words_to_l30(int64_t L[DS_L], const uint32_t w[NL]) {
+// canonical 32-bit words (value < 2^(32 NL)) -> 30-bit limbs
+template <int NL, int DS_L>
+__device__ __forceinline__ void words_to_l30(int64_t (&L)[DS_L], const uint32_t (&w)[NL]) {
 #pragma unroll
   for (int i = 0; i < DS_L; i++) {
     int bit = DS_BITS * i, k = bit / 32, s = bit % 32;
@@ -53,8 +63,9 @@ __device__ __forceinline__ void words_to_l30(int64_t L[DS_L], const uint32_t w[N
   }
 }
 
-// non-negative 30-bit limbs (value < 2^384) -> 32-bit words
-__device__ __forceinline__ void l30_to_words(uint32_t w[NL], const int64_t L[DS_L]) {
+// non-negative 30-bit limbs (value < 2^(32 NL)) -> 32-bit words
+template <int NL, int DS_L>
+__device__ __forceinline__ void l30_to_words(uint32_t (&w)[NL], const int64_t (&L)[DS_L]) {
 #pragma unroll
   for (int k = 0; k < NL; k++) {
     int bit = 32 * k, i = bit / DS_BITS, s = bit % DS_BITS;
@@ -65,7 +76,8 @@ __device__ __forceinline__ void l30_to_words(uint32_t w[NL], const int64_t L[DS_
 }
 
 // signed limbs -> limbs below the top in [0, 2^30), the top limb signed
-__device__ __forceinline__ void ds_normalize(int64_t L[DS_L]) {
+template <int DS_L>
+__device__ __forceinline__ void ds_normalize(int64_t (&L)[DS_L]) {
   int64_t c = 0;
 #pragma unroll
   for (int i = 0; i < DS_L - 1; i++) {
@@ -99,7 +111,8 @@ __device__ __forceinline__ int ds_divsteps(int delta, uint64_t fw, uint64_t gw, 
 }
 
 // (f, g) <- (u f + v g, q f + r g) / 2^30, exact
-__device__ __forceinline__ void ds_update_fg(int64_t f[DS_L], int64_t g[DS_L], int64_t u, int64_t v,
+template <int DS_L>
+__device__ __forceinline__ void ds_update_fg(int64_t (&f)[DS_L], int64_t (&g)[DS_L], int64_t u, int64_t v,
                                              int64_t q, int64_t r) {
   int64_t cf = (u * f[0] + v * g[0]) >> DS_BITS;
   int64_t cg = (q * f[0] + r * g[0]) >> DS_BITS;
@@ -118,8 +131,9 @@ __device__ __forceinline__ void ds_update_fg(int64_t f[DS_L], int64_t g[DS_L], i
 
 // (d, e) <- (u d + v e, q d + r e) / 2^30 mod p: each gets m p added, with m
 // chosen so that the low 30 bits vanish
-__device__ __forceinline__ void ds_update_de(int64_t d[DS_L], int64_t e[DS_L], int64_t u, int64_t v,
-                                             int64_t q, int64_t r, const DivstepConst& C) {
+template <int NL, int DS_L>
+__device__ __forceinline__ void ds_update_de(int64_t (&d)[DS_L], int64_t (&e)[DS_L], int64_t u, int64_t v,
+                                             int64_t q, int64_t r, const DivstepConst<NL>& C) {
   int64_t cd = u * d[0] + v * e[0];
   int64_t ce = q * d[0] + r * e[0];
   int64_t md = (int64_t)((((uint64_t)cd & DS_MASK) * C.pinv) & DS_MASK);
@@ -139,9 +153,11 @@ __device__ __forceinline__ void ds_update_de(int64_t d[DS_L], int64_t e[DS_L], i
   e[DS_L - 1] = ce;
 }
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
-divstep_inv_mont_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, DivstepConst C,
-                        FieldParams F, int N) {
+divstep_inv_mont_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, DivstepConst<NL> C,
+                        FieldParams<NL> F, int N) {
+  constexpr int DS_L = ds_limbs(NL);
   int i = lane_index();
   if (i >= N) return;
   uint32_t a[NL], t[NL], one[NL];
@@ -193,14 +209,23 @@ divstep_inv_mont_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x
   fe_store(out, N, i, a);
 }
 
+template <int NL>
+static int launch(void* out, const void* x, int sx, const int32_t* cfg, const uint32_t* field, int N,
+                  void* stream) {
+  DivstepConst<NL> C;
+  memcpy(&C, cfg, sizeof(C));
+  if (N > 0)
+    divstep_inv_mont_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, C, field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int msm_divstep_inv_mont(void* out, const void* x, int sx, const int32_t* cfg, const uint32_t* field,
                                     int N, void* stream) {
-  DivstepConst C;
-  FieldParams F;
-  memcpy(&C, cfg, sizeof(C));
-  memcpy(&F, field, sizeof(F));
-  if (N > 0)
-    divstep_inv_mont_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, C, F, N);
-  return (int)cudaGetLastError();
+  return launch<12>(out, x, sx, cfg, field, N, stream);
+}
+
+extern "C" int msm_divstep_inv_mont_n9(void* out, const void* x, int sx, const int32_t* cfg,
+                                       const uint32_t* field, int N, void* stream) {
+  return launch<9>(out, x, sx, cfg, field, N, stream);
 }

@@ -3,25 +3,31 @@
 // Replaces the limb-plane formulas that montgomery_tpu/ops/field.py inlines
 // into every Pallas kernel (FieldOps.add/_sub_limbs/add_lazy/sub_lazy/sub/
 // reduce and the Montgomery product _mul_dot + _mont_reduce_wide). There a
-// field element was 30 rows of 13-bit limbs in int32 lanes; here it is NL = 12
-// words of 32 bits in one thread's registers, and R = 2^384 > 64p.
+// field element was rows of 13-bit limbs in int32 lanes; here it is NL words
+// of 32 bits in one thread's registers, and R = 2^(32 NL) > 64p. Everything
+// is a template over the limb count NL: NL = 12 for the BLS12-377 base field
+// (R = 2^384, R/p about 2^7), NL = 9 for ed-on-bls12-377's base field, the
+// 253-bit BLS12-377 scalar field (R = 2^288, R/p about 2^35). A kernel file
+// instantiates the counts its entry points serve.
 //
 // Bound on this card: 32-bit integer multiply throughput (IMAD.WIDE / IMAD.HI)
-// and register pressure; one product is 2*NL*NL = 288 32x32->64 multiplies.
-// Design: CIOS with 64-bit products and the reduction interleaved per row, so
-// the working set is NL + 2 words; every loop is fully unrolled so the limbs
-// stay in registers and the modulus words are read from the kernel's
-// parameter bank. Carry chains through PTX add.cc/mad.cc are later work.
+// and register pressure; one product is 2 NL^2 32x32->64 multiplies (288 at
+// NL = 12, 162 at NL = 9). Design: CIOS with 64-bit products and the
+// reduction interleaved per row, so the working set is NL + 2 words; every
+// loop is fully unrolled so the limbs stay in registers and the modulus words
+// are read from the kernel's parameter bank. Carry chains through PTX
+// add.cc/mad.cc are later work.
 //
-// Bounds match the plain versions (ops/field.py Plain16): inputs of fe_mul may
-// be up to 6p (the lazy sums of the curve formulas), outputs are in [0, 2p).
+// Bounds match the plain versions (ops/field.py Plain16): fe_mul's result is
+// (a b + m p) / R < a b / R + p, so it lies in [0, 2p) whenever a b < R p;
+// with R > 64p that holds for inputs up to 8p (the lazy sums of the curve
+// formulas stay below it). Other outputs are in [0, 2p) as noted.
 #pragma once
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
 
-#define NL 12
-
+template <int NL>
 struct FieldParams {  // layout of FieldOps.field_words
   uint32_t p[NL];
   uint32_t p2[NL];
@@ -29,29 +35,29 @@ struct FieldParams {  // layout of FieldOps.field_words
   uint32_t mu;  // -p^-1 mod 2^32
 };
 
+template <int NL>
 struct Fe {
   uint32_t v[NL];
 };
 
 // limb k of lane i sits at plane[k * stride + i]; stride is the lane count
 // N for a whole plane, or the parent's for a column slice of a wider plane
-__device__ __forceinline__ void fe_load(uint32_t r[NL], const int32_t* plane, int stride, int i) {
+template <int NL>
+__device__ __forceinline__ void fe_load(uint32_t (&r)[NL], const int32_t* plane, int stride, int i) {
 #pragma unroll
   for (int k = 0; k < NL; k++) r[k] = (uint32_t)plane[(size_t)k * stride + i];
 }
 
-__device__ __forceinline__ void fe_store(int32_t* plane, int stride, int i, const uint32_t a[NL]) {
+template <int NL>
+__device__ __forceinline__ void fe_store(int32_t* plane, int stride, int i, const uint32_t (&a)[NL]) {
 #pragma unroll
   for (int k = 0; k < NL; k++) plane[(size_t)k * stride + i] = (int32_t)a[k];
 }
 
-__device__ __forceinline__ void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
-#pragma unroll
-  for (int k = 0; k < NL; k++) r[k] = a[k];
-}
-
-// r = a + b mod 2^384; returns the carry out
-__device__ __forceinline__ uint32_t limbs_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+// r = a + b mod 2^(32 NL); returns the carry out
+template <int NL>
+__device__ __forceinline__ uint32_t limbs_add(uint32_t (&r)[NL], const uint32_t (&a)[NL],
+                                              const uint32_t (&b)[NL]) {
   uint64_t c = 0;
 #pragma unroll
   for (int k = 0; k < NL; k++) {
@@ -62,8 +68,10 @@ __device__ __forceinline__ uint32_t limbs_add(uint32_t r[NL], const uint32_t a[N
   return (uint32_t)c;
 }
 
-// r = a - b mod 2^384; returns 1 on borrow (a < b)
-__device__ __forceinline__ uint32_t limbs_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+// r = a - b mod 2^(32 NL); returns 1 on borrow (a < b)
+template <int NL>
+__device__ __forceinline__ uint32_t limbs_sub(uint32_t (&r)[NL], const uint32_t (&a)[NL],
+                                              const uint32_t (&b)[NL]) {
   uint32_t br = 0;
 #pragma unroll
   for (int k = 0; k < NL; k++) {
@@ -74,13 +82,17 @@ __device__ __forceinline__ uint32_t limbs_sub(uint32_t r[NL], const uint32_t a[N
   return br;
 }
 
-__device__ __forceinline__ void fe_select(uint32_t r[NL], bool c, const uint32_t a[NL], const uint32_t b[NL]) {
+template <int NL>
+__device__ __forceinline__ void fe_select(uint32_t (&r)[NL], bool c, const uint32_t (&a)[NL],
+                                          const uint32_t (&b)[NL]) {
 #pragma unroll
   for (int k = 0; k < NL; k++) r[k] = c ? a[k] : b[k];
 }
 
 // x + y reduced into [0, 2p) for x, y in [0, 2p)
-__device__ __forceinline__ void fe_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void fe_add(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                       const FieldParams<NL>& F) {
   uint32_t z[NL], d[NL];
   limbs_add(z, a, b);
   uint32_t br = limbs_sub(d, z, F.p2);
@@ -88,19 +100,25 @@ __device__ __forceinline__ void fe_add(uint32_t r[NL], const uint32_t a[NL], con
 }
 
 // x + y, no reduction
-__device__ __forceinline__ void fe_add_lazy(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+template <int NL>
+__device__ __forceinline__ void fe_add_lazy(uint32_t (&r)[NL], const uint32_t (&a)[NL],
+                                            const uint32_t (&b)[NL]) {
   limbs_add(r, a, b);
 }
 
 // x - y + 4p, no reduction; y < 4p
-__device__ __forceinline__ void fe_sub_lazy(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void fe_sub_lazy(uint32_t (&r)[NL], const uint32_t (&a)[NL],
+                                            const uint32_t (&b)[NL], const FieldParams<NL>& F) {
   uint32_t t[NL];
   limbs_add(t, a, F.p4);
   limbs_sub(r, t, b);
 }
 
 // x - y mod 2p, in [0, 2p)
-__device__ __forceinline__ void fe_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void fe_sub(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                       const FieldParams<NL>& F) {
   uint32_t d[NL], d2[NL];
   uint32_t br = limbs_sub(d, a, b);
   limbs_add(d2, d, F.p2);
@@ -108,15 +126,18 @@ __device__ __forceinline__ void fe_sub(uint32_t r[NL], const uint32_t a[NL], con
 }
 
 // 2p - x reduced into [0, 2p) for x in [0, 2p); zero stays zero
-__device__ __forceinline__ void fe_neg(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void fe_neg(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
   uint32_t d[NL], d2[NL];
   limbs_sub(d, F.p2, a);
   uint32_t br = limbs_sub(d2, d, F.p2);
   fe_select(r, br, d, d2);
 }
 
-// Montgomery product a b / R mod p (CIOS), in [0, 2p) for a, b < 6p
-__device__ __forceinline__ void fe_mul(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+// Montgomery product a b / R mod p (CIOS), in [0, 2p) for a b < R p
+template <int NL>
+__device__ __forceinline__ void fe_mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                       const FieldParams<NL>& F) {
   uint32_t t[NL + 2];
 #pragma unroll
   for (int k = 0; k < NL + 2; k++) t[k] = 0;
@@ -149,14 +170,18 @@ __device__ __forceinline__ void fe_mul(uint32_t r[NL], const uint32_t a[NL], con
 }
 
 // [0, 2p) -> [0, p) by one conditional subtract
-__device__ __forceinline__ void fe_reduce(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void fe_reduce(uint32_t (&r)[NL], const uint32_t (&a)[NL],
+                                          const FieldParams<NL>& F) {
   uint32_t d[NL];
   uint32_t br = limbs_sub(d, a, F.p);
   fe_select(r, br, a, d);
 }
 
 // x == y as field elements, for x, y in [0, 2p)
-__device__ __forceinline__ bool fe_is_equal(const uint32_t a[NL], const uint32_t b[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ bool fe_is_equal(const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                            const FieldParams<NL>& F) {
   uint32_t ra[NL], rb[NL];
   fe_reduce(ra, a, F);
   fe_reduce(rb, b, F);
@@ -166,7 +191,8 @@ __device__ __forceinline__ bool fe_is_equal(const uint32_t a[NL], const uint32_t
   return diff == 0;
 }
 
-__device__ __forceinline__ bool fe_is_zero(const uint32_t a[NL], const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ bool fe_is_zero(const uint32_t (&a)[NL], const FieldParams<NL>& F) {
   uint32_t ra[NL];
   fe_reduce(ra, a, F);
   uint32_t acc = 0;
@@ -178,11 +204,12 @@ __device__ __forceinline__ bool fe_is_zero(const uint32_t a[NL], const FieldPara
 // Montgomery square a^2 / R mod p, equal to fe_mul(a, a) bit for bit (the
 // quotient m < R with a^2 + m p = 0 mod R is unique, and neither ends in a
 // conditional subtract). The product shares its cross terms: NL(NL-1)/2
-// products a_i a_j (i < j), doubled, plus NL squares a_i^2, 78 in all against
-// 144 for fe_mul's; then the NL-row Montgomery reduction (SOS), whose carry
-// out of each row rides in `extra` into the next row's top word. In [0, 2p)
-// for a < 6p.
-__device__ __forceinline__ void fe_sqr(uint32_t r[NL], const uint32_t a[NL], const FieldParams& F) {
+// products a_i a_j (i < j), doubled, plus NL squares a_i^2 (78 in all at
+// NL = 12, against 144 for fe_mul's); then the NL-row Montgomery reduction
+// (SOS), whose carry out of each row rides in `extra` into the next row's top
+// word. In [0, 2p) for a^2 < R p.
+template <int NL>
+__device__ __forceinline__ void fe_sqr(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
   uint32_t t[2 * NL];
 #pragma unroll
   for (int k = 0; k < 2 * NL; k++) t[k] = 0;
@@ -237,3 +264,18 @@ __device__ __forceinline__ int lane_index() {
 #define LANES_PER_BLOCK 128
 
 inline int grid_for(int N) { return (N + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK; }
+
+// the FieldParams<NL> a launch receives from Python as NL * 3 + 1 words
+template <int NL>
+inline FieldParams<NL> field_from(const uint32_t* words) {
+  FieldParams<NL> F;
+  memcpy(&F, words, sizeof(F));
+  return F;
+}
+
+template <int NL>
+inline Fe<NL> fe_from(const uint32_t* words) {
+  Fe<NL> c;
+  memcpy(c.v, words, sizeof(c.v));
+  return c;
+}

@@ -5,19 +5,25 @@
 // path it runs every level of the batch-inversion tree (FieldOps.batch_inv),
 // up and down: up to 30 launches per batched-affine add (248 per MSM at 2^20).
 //
-// Bound on this card: one 12-word CIOS product per lane, 288 32x32->64
-// multiplies, against 96 bytes read and 48 written; at 1 M lanes that is
+// Entry points: msm_mont_mul (12 limbs, BLS12-377's base field) and
+// msm_mont_mul_n9 (9 limbs, ed-on-bls12-377's base field; the T = x y of the
+// point ingestion, the on-curve check and the inversion tree of to_host).
+//
+// Bound on this card: one NL-word CIOS product per lane, 2 NL^2 32x32->64
+// multiplies, against 12 NL bytes moved; at NL = 12 and 1 M lanes that is
 // 0.3 G wide multiplies (about 36 us at the 32 per SM per clock that
 // csrc/rates/imad_rate.cu measures) against 144 MB (about 43 us at
-// 3.35 TB/s), so the two bounds are close. Design: one
+// 3.35 TB/s), so the two bounds are close; at NL = 9 the multiplies shrink
+// by (9/12)^2 and the bytes by 9/12, so memory bounds it. Design: one
 // thread per lane, coalesced limb-plane loads; each operand carries its own
 // row stride, so the tree's contiguous halves (column slices of one plane)
 // are read in place, with no copy, as the TPU read its halves.
 #include "field.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 mont_mul_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx,
-                const int32_t* __restrict__ y, int sy, FieldParams F, int N) {
+                const int32_t* __restrict__ y, int sy, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t a[NL], b[NL], r[NL];
@@ -27,12 +33,21 @@ mont_mul_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx
   fe_store(out, N, i, r);
 }
 
+template <int NL>
+static int launch(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field, int N,
+                  void* stream) {
+  if (N > 0)
+    mont_mul_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int msm_mont_mul(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
                             int N, void* stream) {
-  FieldParams F;
-  memcpy(&F, field, sizeof(F));
-  if (N > 0)
-    mont_mul_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, F, N);
-  return (int)cudaGetLastError();
+  return launch<12>(out, x, sx, y, sy, field, N, stream);
+}
+
+extern "C" int msm_mont_mul_n9(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<9>(out, x, sx, y, sy, field, N, stream);
 }

@@ -13,8 +13,9 @@
 // for bit.
 #include "field.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
-mont_sqr_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, FieldParams F, int N) {
+mont_sqr_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t a[NL], r[NL];
@@ -24,10 +25,8 @@ mont_sqr_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx
 }
 
 extern "C" int msm_mont_sqr(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
-  FieldParams F;
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    mont_sqr_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, F, N);
+    mont_sqr_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

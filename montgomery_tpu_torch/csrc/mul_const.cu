@@ -3,17 +3,21 @@
 // Replaces the Pallas kernel "mul_const" of montgomery_tpu/ops/field.py
 // (FieldOps.mul_const, :562-589), which baked the constant's limbs into the
 // traced formula. It serves to_montgomery (c = R^2), from_montgomery (c = 1)
-// and the GLV endomorphism phi(x, y) = (beta x, y).
+// and the GLV endomorphism phi(x, y) = (beta x, y). Entry points:
+// msm_mul_const (12 limbs, BLS12-377) and msm_mul_const_n9 (9 limbs,
+// ed-on-bls12-377: to Montgomery form in EdwardsMsm.points_from_bytes).
 //
-// Bound on this card: one 12-word CIOS product per lane, so integer multiply
-// throughput; each lane reads and writes 48 bytes, far below the multiply
+// Bound on this card: one NL-word CIOS product per lane, so integer multiply
+// throughput; each lane reads and writes 4 NL bytes, far below the multiply
 // time. Design: one thread per lane with coalesced limb-plane loads
 // (limb k of lane i at k*N + i); the constant rides by value in the kernel's
 // parameter bank (no trace-time baking, one binary for every constant).
 #include "field.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
-mul_const_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, Fe c, FieldParams F, int N) {
+mul_const_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, Fe<NL> c, FieldParams<NL> F,
+                 int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t a[NL], r[NL];
@@ -22,14 +26,20 @@ mul_const_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, Fe c,
   fe_store(out, N, i, r);
 }
 
+template <int NL>
+static int launch(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    mul_const_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, fe_from<NL>(c), field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int msm_mul_const(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
                              void* stream) {
-  Fe cc;
-  FieldParams F;
-  memcpy(cc.v, c, sizeof(cc.v));
-  memcpy(&F, field, sizeof(F));
-  if (N > 0)
-    mul_const_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, cc, F, N);
-  return (int)cudaGetLastError();
+  return launch<12>(out, x, c, field, N, stream);
+}
+
+extern "C" int msm_mul_const_n9(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                                void* stream) {
+  return launch<9>(out, x, c, field, N, stream);
 }

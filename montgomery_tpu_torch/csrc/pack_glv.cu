@@ -14,9 +14,10 @@
 // (column i and column N + i), so no concatenation follows the launch.
 #include "field.cuh"
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 pack_glv_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, const int32_t* __restrict__ y,
-                int sy, const uint8_t* __restrict__ inf, Fe beta, FieldParams F, int N) {
+                int sy, const uint8_t* __restrict__ inf, Fe<NL> beta, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t a[NL], b[NL], ab[NL];
@@ -35,12 +36,9 @@ pack_glv_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx
 
 extern "C" int msm_pack_glv(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
                             const uint32_t* beta, const uint32_t* field, int N, void* stream) {
-  Fe b;
-  FieldParams F;
-  memcpy(b.v, beta, sizeof(b.v));
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    pack_glv_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, (const uint8_t*)inf, b, F, N);
+    pack_glv_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, (const uint8_t*)inf, fe_from<12>(beta),
+        field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

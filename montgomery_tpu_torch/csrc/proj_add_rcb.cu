@@ -14,10 +14,12 @@
 // no reduction runs between products, exactly as in the JAX formula.
 #include "field.cuh"
 
-__device__ __forceinline__ void rcb_add(uint32_t X3[NL], uint32_t Y3[NL], uint32_t Z3[NL],
-                                        const uint32_t X1[NL], const uint32_t Y1[NL], const uint32_t Z1[NL],
-                                        const uint32_t X2[NL], const uint32_t Y2[NL], const uint32_t Z2[NL],
-                                        const Fe& b3, const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void rcb_add(uint32_t (&X3)[NL], uint32_t (&Y3)[NL], uint32_t (&Z3)[NL],
+                                        const uint32_t (&X1)[NL], const uint32_t (&Y1)[NL],
+                                        const uint32_t (&Z1)[NL], const uint32_t (&X2)[NL],
+                                        const uint32_t (&Y2)[NL], const uint32_t (&Z2)[NL], const Fe<NL>& b3,
+                                        const FieldParams<NL>& F) {
   uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], t5[NL], u[NL], v[NL];
   fe_mul(t0, X1, X2, F);
   fe_mul(t1, Y1, Y2, F);
@@ -56,12 +58,13 @@ __device__ __forceinline__ void rcb_add(uint32_t X3[NL], uint32_t Y3[NL], uint32
   fe_add(Z3, u, v, F);
 }
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 proj_add_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t* __restrict__ Z3,
                     const int32_t* __restrict__ X1, const int32_t* __restrict__ Y1,
                     const int32_t* __restrict__ Z1, const int32_t* __restrict__ X2,
-                    const int32_t* __restrict__ Y2, const int32_t* __restrict__ Z2, Fe b3, FieldParams F,
-                    int N) {
+                    const int32_t* __restrict__ Y2, const int32_t* __restrict__ Z2, Fe<NL> b3,
+                    FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], y1[NL], z1[NL], x2[NL], y2[NL], z2[NL], x3[NL], y3[NL], z3[NL];
@@ -80,13 +83,9 @@ proj_add_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t*
 extern "C" int msm_proj_add_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
                                 const void* X2, const void* Y2, const void* Z2, const uint32_t* b3,
                                 const uint32_t* field, int N, void* stream) {
-  Fe b;
-  FieldParams F;
-  memcpy(b.v, b3, sizeof(b.v));
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    proj_add_rcb_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    proj_add_rcb_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1,
-        (const int32_t*)X2, (const int32_t*)Y2, (const int32_t*)Z2, b, F, N);
+        (const int32_t*)X2, (const int32_t*)Y2, (const int32_t*)Z2, fe_from<12>(b3), field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

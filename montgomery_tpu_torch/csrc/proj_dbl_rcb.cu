@@ -13,8 +13,9 @@
 // thread per lane, a run-time loop over the doubling body.
 #include "field.cuh"
 
-__device__ __forceinline__ void rcb_dbl(uint32_t X[NL], uint32_t Y[NL], uint32_t Z[NL], const Fe& b3,
-                                        const FieldParams& F) {
+template <int NL>
+__device__ __forceinline__ void rcb_dbl(uint32_t (&X)[NL], uint32_t (&Y)[NL], uint32_t (&Z)[NL],
+                                        const Fe<NL>& b3, const FieldParams<NL>& F) {
   uint32_t YY[NL], ZZ[NL], YZ[NL], XY[NL], Z3d[NL], t2[NL], u[NL], v[NL];
   fe_mul(YY, Y, Y, F);
   fe_mul(ZZ, Z, Z, F);
@@ -36,10 +37,11 @@ __device__ __forceinline__ void rcb_dbl(uint32_t X[NL], uint32_t Y[NL], uint32_t
   fe_add(X, v, v, F);          // X3 = 2 X3b
 }
 
+template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 proj_dbl_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t* __restrict__ Z3,
                     const int32_t* __restrict__ X1, const int32_t* __restrict__ Y1,
-                    const int32_t* __restrict__ Z1, int k, Fe b3, FieldParams F, int N) {
+                    const int32_t* __restrict__ Z1, int k, Fe<NL> b3, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x[NL], y[NL], z[NL];
@@ -54,13 +56,9 @@ proj_dbl_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t*
 
 extern "C" int msm_proj_dbl_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
                                 int k, const uint32_t* b3, const uint32_t* field, int N, void* stream) {
-  Fe b;
-  FieldParams F;
-  memcpy(b.v, b3, sizeof(b.v));
-  memcpy(&F, field, sizeof(F));
   if (N > 0)
-    proj_dbl_rcb_kernel<<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    proj_dbl_rcb_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
-        b, F, N);
+        fe_from<12>(b3), field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

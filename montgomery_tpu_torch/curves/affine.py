@@ -28,27 +28,29 @@ from .projective import AffineBatch
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
 PACK_GLV = kernels.Kernel(
-    "pack_glv", "msm_pack_glv", "montgomery_tpu_torch/csrc/pack_glv.cu",
+    "pack_glv", {12: "msm_pack_glv"}, "montgomery_tpu_torch/csrc/pack_glv.cu",
     "montgomery_tpu/curves/affine.py:261",
     [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
 )
 AFF_PRE_PACKED_U = kernels.Kernel(
-    "aff_pre_packed_u", "msm_aff_pre_packed_u", "montgomery_tpu_torch/csrc/aff_pre_packed_u.cu",
+    "aff_pre_packed_u", {12: "msm_aff_pre_packed_u"},
+    "montgomery_tpu_torch/csrc/aff_pre_packed_u.cu",
     "montgomery_tpu/curves/affine.py:341",
     [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST_PACKED_U = kernels.Kernel(
-    "aff_post_packed_u", "msm_aff_post_packed_u", "montgomery_tpu_torch/csrc/aff_post_packed_u.cu",
+    "aff_post_packed_u", {12: "msm_aff_post_packed_u"},
+    "montgomery_tpu_torch/csrc/aff_post_packed_u.cu",
     "montgomery_tpu/curves/affine.py:345",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _U32P, _INT],
 )
 AFF_PRE_PACKED = kernels.Kernel(
-    "aff_pre_packed", "msm_aff_pre_packed", "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
+    "aff_pre_packed", {12: "msm_aff_pre_packed"}, "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
     "montgomery_tpu/curves/affine.py:350",
     [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST_PACKED = kernels.Kernel(
-    "aff_post_packed", "msm_aff_post_packed", "montgomery_tpu_torch/csrc/aff_post_packed.cu",
+    "aff_post_packed", {12: "msm_aff_post_packed"}, "montgomery_tpu_torch/csrc/aff_post_packed.cu",
     "montgomery_tpu/curves/affine.py:355",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _INT],
 )
@@ -97,7 +99,8 @@ class AffineOps:
             if 2 * N >= 1 << 31:
                 raise ValueError("lane count exceeds the kernels' int range")
             PACK_GLV.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
-                            kernels.ptr(inf), self._beta_words, self.f.field_words, N)
+                            kernels.ptr(inf), self._beta_words, self.f.field_words(PACK_GLV), N,
+                            n=self.f.n)
         return out
 
     def pack_rows_glv_plain(self, A: AffineBatch) -> torch.Tensor:
@@ -148,7 +151,7 @@ class AffineOps:
             AFF_PRE_PACKED.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags),
                                   kernels.ptr(Av), sa, kernels.ptr(Bv), sb, kernels.ptr(sAv),
                                   kernels.ptr(sBv), kernels.ptr(hv), self._one_words,
-                                  self.f.field_words, M)
+                                  self.f.field_words(AFF_PRE_PACKED), M, n=self.f.n)
         return denom, numer, flags
 
     def pre_packed_plain(self, A, B, sA, sB, hp):
@@ -191,7 +194,7 @@ class AffineOps:
             AFF_POST_PACKED.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                    kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
                                    kernels.ptr(nv), sn, kernels.ptr(fv), kernels.ptr(hv),
-                                   self.f.field_words, M)
+                                   self.f.field_words(AFF_POST_PACKED), M, n=self.f.n)
         return out
 
     def post_packed_plain(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
@@ -224,7 +227,8 @@ class AffineOps:
         out = torch.empty((n, M), dtype=torch.int32, device=A.device)
         if M:
             AFF_PRE_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
-                                    kernels.ptr(hv), self._one_words, self.f.field_words, M)
+                                    kernels.ptr(hv), self._one_words,
+                                    self.f.field_words(AFF_PRE_PACKED_U), M, n=self.f.n)
         return out
 
     def pre_packed_u_plain(self, A, B, hp) -> torch.Tensor:
@@ -247,7 +251,8 @@ class AffineOps:
         if M:
             AFF_POST_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                      kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
-                                     kernels.ptr(hv), self.f.field_words, M)
+                                     kernels.ptr(hv), self.f.field_words(AFF_POST_PACKED_U), M,
+                                     n=self.f.n)
         return out
 
     def post_packed_u_plain(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:

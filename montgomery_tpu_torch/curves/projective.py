@@ -21,12 +21,12 @@ from ..ops.limbs import to_words
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
 PROJ_ADD_RCB = kernels.Kernel(
-    "proj_add_rcb", "msm_proj_add_rcb", "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
+    "proj_add_rcb", {12: "msm_proj_add_rcb"}, "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
     "montgomery_tpu/curves/projective.py:156",
     [_VP] * 9 + [_U32P, _U32P, _INT],
 )
 PROJ_DBL_RCB = kernels.Kernel(
-    "proj_dbl_rcb", "msm_proj_dbl_rcb", "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
+    "proj_dbl_rcb", {12: "msm_proj_dbl_rcb"}, "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
     "montgomery_tpu/curves/projective.py:258",
     [_VP] * 6 + [_INT, _U32P, _U32P, _INT],
 )
@@ -126,7 +126,7 @@ class ProjectiveOps:
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
         if N:
             PROJ_ADD_RCB.launch(*[kernels.ptr(t) for t in outs + flat],
-                                self._b3_words, self.f.field_words, N)
+                                self._b3_words, self.f.field_words(PROJ_ADD_RCB), N, n=self.f.n)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def add_plain(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
@@ -166,7 +166,7 @@ class ProjectiveOps:
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
         if N:
             PROJ_DBL_RCB.launch(*[kernels.ptr(t) for t in outs + flat], int(k),
-                                self._b3_words, self.f.field_words, N)
+                                self._b3_words, self.f.field_words(PROJ_DBL_RCB), N, n=self.f.n)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def double_n_plain(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:

@@ -1,9 +1,9 @@
 """State exchange with the JAX package, through canonical integers.
 
 `montgomery_tpu` keeps a field element as (n_jax, N) int32 planes of w-bit
-limbs (w = 13, n_jax = 30 for BLS12-377) in Montgomery form with
-R_jax = 2^(w n_jax); this port keeps (n, N) planes of 32-bit limbs with
-R = 2^(32 n). The functions here take numpy arrays (what `np.asarray` of a
+limbs (w = 13, n_jax = 30 for BLS12-377, 20 for ed-on-bls12-377's base
+field) in Montgomery form with R_jax = 2^(w n_jax); this port keeps (n, N)
+planes of 32-bit limbs with R = 2^(32 n). The functions here take numpy arrays (what `np.asarray` of a
 JAX array gives) and return torch tensors, and back. Limb regrouping is
 vectorised with numpy; only the Montgomery change of radix is per element.
 Scalar limb planes use the same 13-bit limbs in both packages and pass
@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .curves.edwards import EdwardsBatch
 from .curves.projective import AffineBatch, ProjectiveBatch
 from .ops import limbs as codec
 from .ops.field import FieldOps
@@ -61,6 +62,11 @@ def affine_from_jax(x, y, inf, f: FieldOps, w: int = 13, device="cuda") -> Affin
 
 def projective_from_jax(X, Y, Z, f: FieldOps, w: int = 13, device="cuda") -> ProjectiveBatch:
     return ProjectiveBatch(*[field_from_jax(a, f, w, device) for a in (X, Y, Z)])
+
+
+def edwards_from_jax(X, Y, Z, T, f: FieldOps, w: int = 13, device="cuda") -> EdwardsBatch:
+    """JAX extended Twisted Edwards planes -> this port's EdwardsBatch."""
+    return EdwardsBatch(*[field_from_jax(a, f, w, device) for a in (X, Y, Z, T)])
 
 
 def scalars_from_jax(arr, device="cuda") -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Pippenger MSM engine and the curve context."""
 
-from .adapters import ProjectiveAdapter
-from .api import WeierstrassMsm
+from .adapters import EdwardsAdapter, ProjectiveAdapter
+from .api import EdwardsMsm, WeierstrassMsm
 from .pippenger import msm_digits, window_size

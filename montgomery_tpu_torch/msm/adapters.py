@@ -1,9 +1,10 @@
 """Group adapters: the batched-group interfaces the MSM engine needs.
 
-Counterpart of `ProjectiveAdapter` and the packed members of
-`AffineAccumAdapter` in `montgomery_tpu/msm/adapters.py`. Projective point
-batches are ProjectiveBatch tuples whose planes have shape (n, *batch);
-the batched-affine accumulation keeps points as packed (2n+1, M) rows.
+Counterpart of `ProjectiveAdapter`, the packed members of
+`AffineAccumAdapter` and `EdwardsAdapter` in `montgomery_tpu/msm/adapters.py`.
+Projective point batches are ProjectiveBatch tuples whose planes have shape
+(n, *batch); the batched-affine accumulation keeps points as packed (2n+1, M)
+rows, the Twisted Edwards one as packed (4n, M) rows.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from ..curves.affine import AffineOps
+from ..curves.edwards import EdwardsBatch, EdwardsOps
 from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
 
 
@@ -74,3 +76,52 @@ class AffineAccumAdapter:
 
     def to_projective(self, A: AffineBatch) -> ProjectiveBatch:
         return self.proj.from_affine(A)
+
+
+class EdwardsAdapter:
+    """Twisted Edwards MSM in extended coordinates: packed accumulation
+    rounds (one `ed_add_packed` launch each, no inversion) and the bucket
+    reduction and window combine in the same coordinates (`ed_add`, and
+    `ed_dbl` for double_n). The unified add needs no masks: an empty bucket
+    is the identity (0 : 1 : 1 : 0)."""
+
+    def __init__(self, ed: EdwardsOps):
+        self.ed = ed
+        self.f = ed.f
+        self.rounds: list[tuple[str, int, int]] = []  # of the last accumulation
+
+    def zero_like(self, shape, device) -> EdwardsBatch:
+        f = self.f
+        z = torch.zeros((f.n, *shape), dtype=torch.int32, device=device)
+        one = f.const_plane(f.R_mod_p, z)
+        return EdwardsBatch(z, one, one, z)
+
+    def add(self, P, Q):
+        return self.ed.add(P, Q)
+
+    def double_n(self, P, k: int):
+        return self.ed.double_n(P, k)
+
+    def select(self, mask, a, b):
+        return self.ed.select(mask, a, b)
+
+    def gather(self, P, idx):
+        return EdwardsBatch(*[a.index_select(a.dim() - 1, idx) for a in P])
+
+    @property
+    def packed_rows(self) -> int:
+        return self.ed.packed_rows
+
+    def pack_rows(self, P: EdwardsBatch) -> torch.Tensor:
+        return self.ed.pack_rows(P)
+
+    def unpack_rows(self, A: torch.Tensor) -> EdwardsBatch:
+        return self.ed.unpack_rows(A)
+
+    def add_packed(self, A, B, sA, sB, valid) -> torch.Tensor:
+        return self.ed.add_packed(A, B, sA, sB, valid)
+
+    def buckets_from_packed(self, Bp: torch.Tensor, valid: torch.Tensor) -> EdwardsBatch:
+        """Gathered packed buckets -> points; empty buckets become the identity."""
+        ub = self.unpack_rows(Bp)
+        return self.ed.select(valid, ub, self.ed.zero_like(ub))

@@ -1,10 +1,13 @@
-"""MSM API: a curve context holding the field, curve and GLV constants.
+"""MSM API: curve contexts holding the field, curve and scalar constants.
 
-Counterpart of `WeierstrassMsm` in `montgomery_tpu/msm/api.py`, with its
-engines: the complete projective engine (affine=False) and the batched-affine
-engine, with the safe packed add (affine=True, unsafe=False: `msm_full`'s
-default, as in the JAX package) or the unsafe one (affine=True, unsafe=True:
-`bench.py`'s configuration).
+Counterpart of `WeierstrassMsm` and `EdwardsMsm` in
+`montgomery_tpu/msm/api.py`. `WeierstrassMsm` has the JAX package's engines:
+the complete projective engine (affine=False) and the batched-affine engine,
+with the safe packed add (affine=True, unsafe=False: `msm_full`'s default, as
+in the JAX package) or the unsafe one (affine=True, unsafe=True: `bench.py`'s
+configuration). `EdwardsMsm` is the Twisted Edwards engine: non-GLV signed
+digits, packed accumulation rounds of the unified add, and the bucket
+reduction in extended coordinates.
 """
 
 from __future__ import annotations
@@ -14,44 +17,92 @@ from contextlib import nullcontext
 import numpy as np
 import torch
 
+from ..bigint.twisted_edwards import EdwardsParams, EdwardsPoint
 from ..bigint.weierstrass import AffinePoint, CurveParams
-
 from ..curves.affine import AffineOps
-from ..curves.projective import AffineBatch, ProjectiveBatch, ProjectiveOps
+from ..curves.edwards import ED_ADD_PACKED, EdwardsBatch, EdwardsOps
+from ..curves.projective import PROJ_ADD_RCB, AffineBatch, ProjectiveBatch, ProjectiveOps
 from ..ops import kernels
-from ..ops.field import create_field_ops
+from ..ops.field import FieldOps, create_field_ops
 from ..ops.limbs import bytes_to_words, words_to_limbs
-from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np
+from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np, signed_digits_device
 from ..scalar.glv import glv_params
+from ..scalar.slicing import num_windows
 from ..utils.timing import PhaseLog
-from .adapters import AffineAccumAdapter, ProjectiveAdapter
+from .adapters import AffineAccumAdapter, EdwardsAdapter, ProjectiveAdapter
 from .pippenger import bucket_accumulate, msm_digits, reduce_buckets, window_size
 
 SCALAR_W = 13  # scalar limb size, as montgomery_tpu's (api.py:159)
 
 
-# one context per (params, device); an entry is added only once built
+# one context per (class, params, device); an entry is added only once built
 _CTX_CACHE: dict = {}
+
+
+def _context(cls, params, device, kernel: kernels.Kernel):
+    """The cached context of `cls` for `params` on `device`, built on first
+    use. On a CUDA device there must be a card, and `kernel` (one that the
+    engine launches on every MSM) must be instantiated at the field's limb
+    count; no context falls back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+        kernels.check_limbs(kernel, create_field_ops(params.modulus).n)
+    key = (cls, params, device)
+    inst = _CTX_CACHE.get(key)
+    if inst is None:
+        inst = object.__new__(cls)
+        inst._build(params, device)
+        _CTX_CACHE[key] = inst
+    return inst
+
+
+def _scalars_to_limbs(q: int, scalars, device) -> torch.Tensor:
+    """Python ints or packed little-endian bytes (ceil(bits(q) / 8) a
+    scalar) -> (ns, N) int32 planes of 13-bit limbs on `device`. Scalars are
+    reduced mod q, bytes included (vectorised: conditional subtractions of
+    2^j q on the limb planes)."""
+    bq = q.bit_length()
+    ns = -(-bq // SCALAR_W)
+    if not isinstance(scalars, (bytes, bytearray)):
+        L = ints_to_limbs_np([s % q for s in scalars], bq, SCALAR_W, ns)
+        return torch.from_numpy(L).to(device)
+    nb = -(-bq // 8)
+    if len(scalars) == 0 or len(scalars) % nb:
+        raise ValueError(f"scalar bytes must be a nonzero multiple of {nb}; "
+                         f"got {len(scalars)}")
+    words = bytes_to_words(np.frombuffer(scalars, dtype=np.uint8).reshape(-1, nb))
+    # raw < (top + 1) q <= 2^k q with k = bits(top): subtracting 2^j q
+    # where it fits, j = k-1 .. 0, leaves raw mod q
+    top = (1 << (8 * nb)) // q
+    for j in range(top.bit_length() - 1, -1, -1):
+        words = _sub_if_ge(words, q << j)
+    return torch.from_numpy(words_to_limbs(words, SCALAR_W, ns)).to(device)
+
+
+def _point_planes(f: FieldOps, data) -> tuple[np.ndarray, np.ndarray]:
+    """Packed little-endian bytes (x || y per point, ceil(bits(p) / 8)
+    bytes each) -> (n, N) int32 planes of the raw x and y; ValueError unless
+    the length is a nonzero multiple of a point's bytes."""
+    nb = -(-f.p.bit_length() // 8)
+    if len(data) == 0 or len(data) % (2 * nb):
+        raise ValueError(f"point bytes must be a nonzero multiple of {2 * nb} "
+                         f"(2 coordinates x {nb} bytes); got {len(data)}")
+    B = np.frombuffer(data, dtype=np.uint8).reshape(-1, 2 * nb)
+    xl, yl = (words_to_limbs(bytes_to_words(h), 32, f.n) for h in (B[:, :nb], B[:, nb:]))
+    return xl, yl
 
 
 class WeierstrassMsm:
     """MSM context for a short-Weierstrass curve with a = 0, on `device`
     (the card unless the caller asks for the CPU). On the card the field
-    must have the kernels' limb count (BLS12-377)."""
+    must have the Weierstrass kernels' limb count (BLS12-377)."""
+
+    identity_xy = (0, 0)  # the affine encoding of the point at infinity
 
     def __new__(cls, params: CurveParams, device="cuda"):
-        device = torch.device(device)
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
-            kernels.check_limbs(create_field_ops(params.modulus).n)
-        key = (cls, params, device)
-        inst = _CTX_CACHE.get(key)
-        if inst is None:
-            inst = super().__new__(cls)
-            inst._build(params, device)
-            _CTX_CACHE[key] = inst
-        return inst
+        return _context(cls, params, device, PROJ_ADD_RCB)
 
     def _build(self, params: CurveParams, device: torch.device):
         self.params, self.device = params, device
@@ -73,37 +124,16 @@ class WeierstrassMsm:
     def scalars_to_limbs(self, scalars) -> torch.Tensor:
         """Python ints or packed little-endian bytes (ceil(bits(q) / 8) a
         scalar) -> (ns, N) int32 planes of 13-bit limbs on the context's
-        device. Scalars are reduced mod the group order q, bytes included
-        (vectorised: conditional subtractions of 2^j q on the limb planes)."""
-        q, bq = self.params.order, self.scalar_bits
-        ns = -(-bq // SCALAR_W)
-        if not isinstance(scalars, (bytes, bytearray)):
-            L = ints_to_limbs_np([s % q for s in scalars], bq, SCALAR_W, ns)
-            return torch.from_numpy(L).to(self.device)
-        nb = -(-bq // 8)
-        if len(scalars) == 0 or len(scalars) % nb:
-            raise ValueError(f"scalar bytes must be a nonzero multiple of {nb}; "
-                             f"got {len(scalars)}")
-        words = bytes_to_words(np.frombuffer(scalars, dtype=np.uint8).reshape(-1, nb))
-        # raw < (top + 1) q <= 2^k q with k = bits(top): subtracting 2^j q
-        # where it fits, j = k-1 .. 0, leaves raw mod q
-        top = (1 << (8 * nb)) // q
-        for j in range(top.bit_length() - 1, -1, -1):
-            words = _sub_if_ge(words, q << j)
-        return torch.from_numpy(words_to_limbs(words, SCALAR_W, ns)).to(self.device)
+        device, reduced mod the group order q."""
+        return _scalars_to_limbs(self.params.order, scalars, self.device)
 
     def points_from_bytes(self, data) -> AffineBatch:
         """Packed little-endian bytes (x || y per point) -> Montgomery-form
         AffineBatch; one to-Montgomery launch over both coordinates.
         (0, 0) encodes the point at infinity."""
         f = self.fops
-        nb = -(-f.p.bit_length() // 8)
-        if len(data) == 0 or len(data) % (2 * nb):
-            raise ValueError(f"point bytes must be a nonzero multiple of {2 * nb} "
-                             f"(2 coordinates x {nb} bytes); got {len(data)}")
-        B = np.frombuffer(data, dtype=np.uint8).reshape(-1, 2 * nb)
-        N = B.shape[0]
-        xl, yl = (words_to_limbs(bytes_to_words(h), 32, f.n) for h in (B[:, :nb], B[:, nb:]))
+        xl, yl = _point_planes(f, data)
+        N = xl.shape[1]
         inf = ~((xl != 0).any(axis=0) | (yl != 0).any(axis=0))
         both = torch.from_numpy(np.concatenate([xl, yl], axis=1)).to(self.device)
         both = f.to_montgomery(both)
@@ -111,6 +141,10 @@ class WeierstrassMsm:
 
     def affine_to_device(self, points: list[AffinePoint]) -> AffineBatch:
         return self.proj.affine_to_device(points, self.device)
+
+    def is_on_curve(self, A: AffineBatch) -> torch.Tensor:
+        """Bool (N,): each point is on the curve or at infinity."""
+        return self.affine.is_on_curve(A)
 
     # ------------------------------------------------------------- pipeline
 
@@ -198,6 +232,113 @@ class WeierstrassMsm:
             raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
         S = self.msm_device_full(A, limbs, c or self.default_c(N), affine=affine, unsafe=unsafe)
         return self.proj.to_host(S)[0]
+
+
+class EdwardsMsm:
+    """MSM context for a twisted Edwards curve with a = -1 (reference
+    createTwistedEdwards), on `device` (the card unless the caller asks for
+    the CPU). On the card the field must have the Edwards kernels' limb count
+    (ed-on-bls12-377: 9 limbs of 32 bits). The curve has no endomorphism
+    here, so the digits are plain signed c-bit windows of the full scalar."""
+
+    identity_xy = (0, 1)  # the affine identity, an ordinary point
+
+    def __new__(cls, params: EdwardsParams, device="cuda"):
+        return _context(cls, params, device, ED_ADD_PACKED)
+
+    def _build(self, params: EdwardsParams, device: torch.device):
+        self.params, self.device = params, device
+        self.fops = create_field_ops(params.modulus)
+        self.ed = EdwardsOps(self.fops, params)
+        self.adapter = EdwardsAdapter(self.ed)
+        self.scalar_bits = params.order.bit_length()
+
+    # ---------------------------------------------------------------- ingest
+
+    def scalars_to_limbs(self, scalars) -> torch.Tensor:
+        """Python ints or packed little-endian bytes (ceil(bits(q) / 8) = 32
+        a scalar) -> (ns, N) int32 planes of 13-bit limbs on the context's
+        device, reduced mod the group order q (the JAX package's serve path
+        left byte scalars >= q unreduced)."""
+        return _scalars_to_limbs(self.params.order, scalars, self.device)
+
+    def points_from_bytes(self, data) -> EdwardsBatch:
+        """Packed little-endian affine bytes (x || y per point, 32 bytes each)
+        -> Montgomery-form extended points: one to-Montgomery launch over both
+        coordinates, then T = x y (one `mul`)."""
+        xl, yl = _point_planes(self.fops, data)
+        N = xl.shape[1]
+        both = torch.from_numpy(np.concatenate([xl, yl], axis=1)).to(self.device)
+        both = self.fops.to_montgomery(both)
+        return self.ed.from_affine_arrays(both[:, :N], both[:, N:])
+
+    def to_device(self, points: list[EdwardsPoint]) -> EdwardsBatch:
+        return self.ed.to_device(points, self.device)
+
+    def is_on_curve(self, P: EdwardsBatch) -> torch.Tensor:
+        """Bool (N,): each point is on the curve (T Z == X Y included)."""
+        return self.ed.is_on_curve(P)
+
+    # ------------------------------------------------------------- pipeline
+
+    def num_windows(self, c: int) -> int:
+        return num_windows(self.scalar_bits, c)
+
+    def digits(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+        """(ns, N) scalar limbs -> (K, N) signed c-bit digits (no GLV)."""
+        return signed_digits_device(scalar_limbs, SCALAR_W, self.scalar_bits, c)
+
+    def msm_device(self, points: EdwardsBatch, digits: torch.Tensor, c: int) -> EdwardsBatch:
+        """sum_i s_i P_i from extended points and their signed digits."""
+        return msm_digits(self.adapter, self.adapter.pack_rows(points), digits, c)
+
+    def msm_device_full(self, points: EdwardsBatch, scalar_limbs: torch.Tensor,
+                        c: int) -> EdwardsBatch:
+        """Digits and the MSM, all on the device. points: EdwardsBatch (N);
+        scalar_limbs: (ns, N). Returns an EdwardsBatch of one point."""
+        return self._stages(points, scalar_limbs, c)
+
+    def msm_phases(self, points: EdwardsBatch, scalar_limbs: torch.Tensor, c: int):
+        """msm_device_full as four separately synchronized stages; returns
+        (result, PhaseLog)."""
+        log = PhaseLog()
+        return self._stages(points, scalar_limbs, c, log=log), log
+
+    def _stages(self, points: EdwardsBatch, scalar_limbs: torch.Tensor, c: int,
+                log: PhaseLog | None = None) -> EdwardsBatch:
+        """The MSM's four stages; each is synchronized and timed into `log`
+        when one is given."""
+        def phase(label):
+            return log.phase(label, self.device) if log is not None else nullcontext()
+
+        with phase("digits (signed windows)"):
+            digits = self.digits(scalar_limbs, c)
+        with phase("pack rows"):
+            rows = self.adapter.pack_rows(points)
+        with phase("accumulate"):
+            buckets, K, L = bucket_accumulate(self.adapter, rows, digits, c)
+        with phase("reduce+combine"):
+            return reduce_buckets(self.adapter, buckets, c, K, L)
+
+    def default_c(self, N: int) -> int:
+        return window_size(max(1, N.bit_length() - 1))
+
+    def msm_full(self, scalars, points, c: int | None = None) -> EdwardsPoint:
+        """Host entry: scalars (ints, bytes or an (ns, N) limb tensor) and
+        points (oracle points or an EdwardsBatch) -> sum s_i P_i, normalised
+        on the device."""
+        if isinstance(points, EdwardsBatch):
+            P, N = points, points.count
+        else:
+            N = len(points)
+            P = self.to_device(points)
+        if N == 0:
+            raise ValueError("empty MSM")
+        limbs = scalars if isinstance(scalars, torch.Tensor) else self.scalars_to_limbs(scalars)
+        if limbs.shape[-1] != N:
+            raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
+        S = self.msm_device_full(P, limbs, c or self.default_c(N))
+        return self.ed.to_host(S)[0]
 
 
 def _sub_if_ge(words: np.ndarray, v: int) -> np.ndarray:

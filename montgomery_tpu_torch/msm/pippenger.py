@@ -3,9 +3,13 @@ bucket reduction + log-depth window combine).
 
 Counterpart of `montgomery_tpu/msm/pippenger.py`, with its two accumulation
 paths: the tree-of-planes path of the complete projective group
-(`ProjectiveAdapter`) and the packed batched-affine path
-(`AffineAccumAdapter`, `msm_digits_affine`: one packed array per round, an
-8-way super-round first where the buckets are full enough). Both:
+(`ProjectiveAdapter`) and the packed path of any group with `add_packed`
+(`AffineAccumAdapter`, whose buckets leave as affine points for a projective
+reduction, and `EdwardsAdapter`, whose reduction stays in the same group):
+one packed array per round, an 8-way super-round first where the buckets are
+full enough. Point batches are NamedTuples of planes (ProjectiveBatch,
+AffineBatch, EdwardsBatch); the engine rebuilds whatever type it is given.
+Both paths:
 
 - Each window's (bucket, point, sign) keys are sorted with one `torch.sort`
   of int64 keys; bucket counts come from `torch.bincount`.
@@ -22,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from ..curves.projective import AffineBatch, ProjectiveBatch
+from ..curves.projective import ProjectiveBatch
 
 
 def window_size(log2_n: int) -> int:
@@ -37,8 +41,8 @@ def window_size(log2_n: int) -> int:
     return max(1, min(c, 16))
 
 
-def _map(fn, P: ProjectiveBatch) -> ProjectiveBatch:
-    return ProjectiveBatch(*[fn(a) for a in P])
+def _map(fn, P):
+    return type(P)(*[fn(a) for a in P])
 
 
 def _excl_cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -55,7 +59,7 @@ def _pad_pow2(group, P, size: int, batch_shape):
     if target == size:
         return P
     ident = group.zero_like((*batch_shape, target - size), P.X.device)
-    return ProjectiveBatch(*[torch.cat([a, z], -1) for a, z in zip(P, ident)])
+    return type(P)(*[torch.cat([a, z], -1) for a, z in zip(P, ident)])
 
 
 def _round_sizes(M0: int, G: int, max_python_rounds: int = 8):
@@ -71,9 +75,10 @@ def _round_sizes(M0: int, G: int, max_python_rounds: int = 8):
     return sizes
 
 
-def msm_digits(group, points: ProjectiveBatch, digits: torch.Tensor, c: int) -> ProjectiveBatch:
+def msm_digits(group, points, digits: torch.Tensor, c: int):
     """sum_i s_i P_i from signed digits (K, N) in [-2^(c-1), 2^(c-1)];
-    returns a batch with trailing shape (1,)."""
+    returns a batch of the group's type with trailing shape (1,). `points`
+    is the group's point batch, or its packed rows for a packed group."""
     buckets, K, L = bucket_accumulate(group, points, digits, c)
     return reduce_buckets(group, buckets, c, K, L)
 
@@ -134,7 +139,8 @@ def bucket_accumulate(group, points, digits: torch.Tensor, c: int):
     """Sort and pair-halving bucket accumulation over all K windows at
     once. Returns (buckets with planes (n, K, L), K, L); position j of a
     window is bucket j+1. A group with `add_packed` takes the packed path,
-    with `points` its packed rows."""
+    with `points` its packed rows (the JAX package packs inside; here the
+    caller does, so a fused packing kernel can feed it)."""
     if hasattr(group, "add_packed"):
         return _accumulate_packed(group, points, digits, c)
     K, N = digits.shape
@@ -195,8 +201,9 @@ def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
     super-round: ONE gather of its 8 operand blocks, then three add levels
     on contiguous halves. The rounds are recorded in `group.rounds` as
     (kind, fan-in, output width), kind "super", "pair" (a shrinking round)
-    or "tail" (a round of the fixed-width loop). Returns (AffineBatch with
-    planes (n, K, L) and inf (K, L), K, L)."""
+    or "tail" (a round of the fixed-width loop). Returns (the batch that
+    `group.buckets_from_packed` gives, each plane reshaped from (..., K L) to
+    (..., K, L), K, L)."""
     K, N = digits.shape
     L = 1 << (c - 1)
     dev = digits.device
@@ -264,8 +271,7 @@ def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
 
     valid, pos = _bucket_slots(counts, starts, K, L)
     B = group.buckets_from_packed(P_cur.index_select(1, pos.clamp(max=P_cur.shape[1] - 1)), valid)
-    n = group.f.n
-    return AffineBatch(B.x.reshape(n, K, L), B.y.reshape(n, K, L), B.inf.reshape(K, L)), K, L
+    return _map(lambda a: a.reshape(*a.shape[:-1], K, L), B), K, L
 
 
 def _suffix_scan(group, P, size: int, batch_shape):
@@ -336,7 +342,7 @@ def combine_windows(group, W, c: int, K: int):
     K2 = _next_pow2(K)
     if K2 != K:
         ident = group.zero_like((K2 - K,), W.X.device)
-        W = ProjectiveBatch(*[torch.cat([a, z], -1) for a, z in zip(W, ident)])
+        W = type(W)(*[torch.cat([a, z], -1) for a, z in zip(W, ident)])
     m = K2
     while m > 1:
         h = m // 2

@@ -14,9 +14,11 @@ full-width (f, g) (exact division by 2^BATCH) and to the mod-p coefficients
 The batch size and the limb grid differ from the JAX package's (16 steps on
 13-bit int32 limbs): here BATCH = 30 steps act on signed 30-bit limbs in int64,
 where a matrix entry times a limb and their 3-term sums stay below 2^62. The
-plain version below (torch int64, vectorised over lanes) and kernel
-`divstep_inv_mont` (`csrc/divstep_inv_mont.cu`) run this same algorithm; the
-inverse is unique, so both agree with the JAX package exactly.
+plain version below (torch int64, vectorised over lanes, N_LIMBS limbs for
+every field) and kernel `divstep_inv_mont` (`csrc/divstep_inv_mont.cu`,
+`kernel_limbs(n)` limbs for a field of n 32-bit words) run this same
+algorithm; the inverse is unique, so both agree with the JAX package
+exactly.
 """
 
 from __future__ import annotations
@@ -31,13 +33,14 @@ from . import kernels
 from . import limbs as codec
 
 LIMB_BITS = 30
-N_LIMBS = 13  # DS_L of the kernel: 390 signed bits
+N_LIMBS = 13  # limbs of the plain version: 390 signed bits, enough for n <= 12
 BATCH = 30  # divsteps per transition matrix
 SHIFTS = 7  # DS_SHIFTS: the end value is brought into [0, p) by 2^j p, j < SHIFTS
 _MASK = (1 << LIMB_BITS) - 1
 
 DIVSTEP_INV_MONT = kernels.Kernel(
-    "divstep_inv_mont", "msm_divstep_inv_mont", "montgomery_tpu_torch/csrc/divstep_inv_mont.cu",
+    "divstep_inv_mont", {12: "msm_divstep_inv_mont", 9: "msm_divstep_inv_mont_n9"},
+    "montgomery_tpu_torch/csrc/divstep_inv_mont.cu",
     "montgomery_tpu/ops/field.py:761",
     [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.U32P, kernels.INT],
 )
@@ -48,8 +51,14 @@ def iterations(d: int) -> int:
     return (49 * d + 57) // 17 if d < 46 else (49 * d + 80) // 17
 
 
-def _limbs30(value: int) -> list[int]:
-    return [(value >> (LIMB_BITS * i)) & _MASK for i in range(N_LIMBS)]
+def kernel_limbs(n: int) -> int:
+    """30-bit limbs of the kernel's numbers for a field of n 32-bit words
+    (ds_limbs of csrc/divstep_inv_mont.cu): 13 at n = 12, 10 at n = 9."""
+    return -(-32 * n // LIMB_BITS)
+
+
+def _limbs30(value: int, count: int = N_LIMBS) -> list[int]:
+    return [(value >> (LIMB_BITS * i)) & _MASK for i in range(count)]
 
 
 @dataclass(frozen=True, eq=False)
@@ -58,22 +67,24 @@ class DivstepParams:
     iters: int
     n_batches: int
     pinv: int  # -p^-1 mod 2^30
-    kernel_words: ctypes.Array  # the DivstepConst struct of the kernel
+    kernel_words: ctypes.Array  # the DivstepConst<n> struct of the kernel
 
 
 def divstep_params(f) -> DivstepParams:
     """Constants for the field `f` (a FieldOps). Raises ValueError where
     the end value (|d| < (n_batches + 1) p) does not fit the bias 2^(SHIFTS-1) p
-    or 2^SHIFTS p does not fit the signed limbs."""
+    or 2^SHIFTS p does not fit the signed limbs of the plain version or the
+    kernel."""
     p = f.p
     it = iterations(p.bit_length())
     nb = -(-it // BATCH)
-    if nb + 1 >= 1 << (SHIFTS - 1) or (p << SHIFTS).bit_length() >= LIMB_BITS * N_LIMBS:
+    dl = kernel_limbs(f.n)
+    if nb + 1 >= 1 << (SHIFTS - 1) or (p << SHIFTS).bit_length() >= LIMB_BITS * min(N_LIMBS, dl):
         raise ValueError(f"divstep limbs too narrow for a {p.bit_length()}-bit modulus")
     pinv = (-pow(p, -1, 1 << LIMB_BITS)) & _MASK
-    words = _limbs30(p)
+    words = _limbs30(p, dl)
     for j in range(SHIFTS):
-        words += _limbs30(p << j)
+        words += _limbs30(p << j, dl)
     words += codec.to_words(f.R2, f.n) + [pinv, nb]
     arr = np.asarray([w & 0xFFFFFFFF for w in words], dtype=np.uint32).view(np.int32)
     return DivstepParams(p=p, iters=it, n_batches=nb, pinv=pinv,
@@ -202,5 +213,5 @@ def inv_mont(f, x_mont: torch.Tensor) -> torch.Tensor:
     out = torch.empty((f.n, M), dtype=torch.int32, device=x_mont.device)
     if M:
         DIVSTEP_INV_MONT.launch(kernels.ptr(out), kernels.ptr(xv), sx, f.inv_params.kernel_words,
-                                f.field_words, M)
+                                f.field_words(DIVSTEP_INV_MONT), M, n=f.n)
     return out

@@ -3,8 +3,8 @@
 Counterpart of the subset of `montgomery_tpu/ops/field.py` that the
 MSM slices use. Elements live lazily reduced in [0, 2p) in
 Montgomery form with R = 2^(32n) > 64p (the rule of the JAX package's
-`create_field_ops`), so the lazy sums of the curve formulas, up to 6p, may
-feed `mul` and still give a result in [0, 2p).
+`create_field_ops`), so the lazy sums of the curve formulas, up to 8p, may
+feed `mul` and still give a result in [0, 2p) ((xy + mp)/R < xy/R + p).
 
 The plain versions work on 16-bit halves held in int64 (`Plain16`): a 32x32
 bit product does not fit torch's signed int64, a 16x16 bit one does with room
@@ -26,17 +26,18 @@ from . import limbs as codec
 _M16 = 0xFFFF
 
 MUL_CONST = kernels.Kernel(
-    "mul_const", "msm_mul_const", "montgomery_tpu_torch/csrc/mul_const.cu",
+    "mul_const", {12: "msm_mul_const", 9: "msm_mul_const_n9"},
+    "montgomery_tpu_torch/csrc/mul_const.cu",
     "montgomery_tpu/ops/field.py:581",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.U32P, kernels.INT],
 )
 MONT_MUL = kernels.Kernel(
-    "mont_mul", "msm_mont_mul", "montgomery_tpu_torch/csrc/mont_mul.cu",
+    "mont_mul", {12: "msm_mont_mul", 9: "msm_mont_mul_n9"}, "montgomery_tpu_torch/csrc/mont_mul.cu",
     "montgomery_tpu/ops/field.py:443",
     [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 MONT_SQR = kernels.Kernel(
-    "mont_sqr", "msm_mont_sqr", "montgomery_tpu_torch/csrc/mont_sqr.cu",
+    "mont_sqr", {12: "msm_mont_sqr"}, "montgomery_tpu_torch/csrc/mont_sqr.cu",
     "montgomery_tpu/ops/field.py:533",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
@@ -146,10 +147,10 @@ class FieldOps:
         self.R_inv = pow(self.R, -1, p)
         self.plain = Plain16(p, 2 * n)
 
-    @functools.cached_property
-    def field_words(self):
-        """The kernels' FieldParams; raises unless n is the kernels' limb count."""
-        return kernels.field_params(self.p, self.n, self.mu)
+    def field_words(self, kernel: kernels.Kernel):
+        """The FieldParams that `kernel` takes; raises NotImplementedError
+        unless the kernel was instantiated at this field's limb count."""
+        return kernels.field_params(kernel, self.p, self.n, self.mu)
 
     # -------------------------------------------------------------- structure
 
@@ -204,7 +205,7 @@ class FieldOps:
     # --------------------------------------------------- montgomery multiply
 
     def mul(self, x, y):
-        """x y / R mod p, in [0, 2p) for x, y < 6p: kernel `mont_mul` on CUDA
+        """x y / R mod p, in [0, 2p) for x, y < 8p: kernel `mont_mul` on CUDA
         tensors, `mul_plain` on CPU tensors. As in the JAX package the kernel
         takes operands of one shape; a broadcast operand is expanded (and
         copied where its lanes are not contiguous)."""
@@ -218,7 +219,7 @@ class FieldOps:
         out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
         if N:
             MONT_MUL.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
-                            self.field_words, N)
+                            self.field_words(MONT_MUL), N, n=self.n)
         return out.reshape(shape)
 
     def mul_plain(self, x, y):
@@ -226,7 +227,7 @@ class FieldOps:
         return self._apply(self.plain.mul, x, y)
 
     def square(self, x):
-        """x^2 / R mod p, in [0, 2p) for x < 6p, equal to mul(x, x) bit for
+        """x^2 / R mod p, in [0, 2p) for x < 8p, equal to mul(x, x) bit for
         bit: kernel `mont_sqr` on CUDA tensors, `square_plain` on CPU tensors."""
         if not kernels.on_cuda(x):
             return self.square_plain(x)
@@ -235,7 +236,8 @@ class FieldOps:
         xv, sx = kernels.lane_view(x.reshape(self.n, N), self.n, N)
         out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
         if N:
-            MONT_SQR.launch(kernels.ptr(out), kernels.ptr(xv), sx, self.field_words, N)
+            MONT_SQR.launch(kernels.ptr(out), kernels.ptr(xv), sx, self.field_words(MONT_SQR), N,
+                            n=self.n)
         return out.reshape(shape)
 
     def square_plain(self, x):
@@ -266,7 +268,7 @@ class FieldOps:
         if N:
             MUL_CONST.launch(kernels.ptr(out), kernels.ptr(xf),
                              kernels.words(codec.to_words(c_mont, self.n)),
-                             self.field_words, N)
+                             self.field_words(MUL_CONST), N, n=self.n)
         return out.reshape(shape)
 
     def to_montgomery(self, x):

@@ -10,11 +10,19 @@ in its own `nvcc` process, all started together, and one link joins them.
 Dispatch rule, shared by every wrapper: tensors on the CPU go to the kernel's
 plain PyTorch version (which lives beside the wrapper); tensors on a CUDA
 device go to the kernel, or the call raises. Nothing falls back.
+
+The device code is templated over the limb count of a field element
+(`csrc/field.cuh`), and each kernel's source instantiates the counts its
+callers need: 12 limbs of 32 bits for BLS12-377's base field, 9 for
+ed-on-bls12-377's. A `Kernel` maps each limb count it was built for to its C
+symbol, and a launch at any other count raises `NotImplementedError` before
+it reaches the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +42,6 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libmsm_kernels.so"
-NL = 12  # 32-bit limbs of a field element in every kernel (csrc/field.cuh)
 
 
 def _sources() -> list[Path]:
@@ -125,40 +132,55 @@ REGISTRY: dict[str, "Kernel"] = {}
 
 
 class Kernel:
-    """One CUDA kernel's C entry point plus its launch count.
+    """One CUDA kernel's C entry points plus its launch counts.
 
-    `argtypes` lists the C arguments before the trailing stream argument;
-    every entry point returns `cudaGetLastError()` of its launch."""
+    `symbols` maps each limb count the kernel was instantiated at to its C
+    symbol (None for a kernel without field elements); `argtypes` lists the
+    C arguments before the trailing stream argument, the same at every
+    count; every entry point returns `cudaGetLastError()` of its launch.
+    `launches` counts every launch, `launches_by_n` splits them by limb
+    count."""
 
-    def __init__(self, name: str, symbol: str, source: str, replaces: str,
+    def __init__(self, name: str, symbols: dict, source: str, replaces: str,
                  argtypes: list):
-        self.name, self.symbol = name, symbol
+        self.name, self.symbols = name, dict(symbols)
         self.source, self.replaces = source, replaces
         self.argtypes = argtypes
         self.launches = 0
-        self._fn = None
+        self.launches_by_n: dict = {}
+        self._fns: dict = {}
         REGISTRY[name] = self
 
-    def launch(self, *args) -> None:
-        if self._fn is None:
-            fn = getattr(LIBRARY.get(), self.symbol)
+    def launch(self, *args, n: int | None = None) -> None:
+        """Launch the entry point for n limbs on the current stream."""
+        check_limbs(self, n)
+        fn = self._fns.get(n)
+        if fn is None:
+            fn = getattr(LIBRARY.get(), self.symbols[n])
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            self._fn = fn
+            self._fns[n] = fn
         stream = torch.cuda.current_stream().cuda_stream
-        rc = self._fn(*args, stream)
+        rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"kernel {self.name}: launch failed, CUDA error {rc}")
         self.launches += 1
+        self.launches_by_n[n] = self.launches_by_n.get(n, 0) + 1
 
 
 def reset_launch_counts() -> None:
     for k in REGISTRY.values():
         k.launches = 0
+        k.launches_by_n = {}
 
 
 def launch_counts() -> dict[str, int]:
     return {name: k.launches for name, k in REGISTRY.items()}
+
+
+def launch_counts_by_n() -> dict[str, dict]:
+    """Each kernel's launches split by limb count (kernels that launched)."""
+    return {name: dict(k.launches_by_n) for name, k in REGISTRY.items() if k.launches}
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -209,21 +231,27 @@ def words(values) -> ctypes.Array:
     return (ctypes.c_uint32 * len(values))(*values)
 
 
-def check_limbs(n: int) -> None:
-    """Raise unless field elements of n limbs fit the kernels' NL."""
-    if n != NL:
+def check_limbs(kernel: Kernel, n: int | None) -> None:
+    """Raise unless `kernel` was instantiated for field elements of n limbs."""
+    if n not in kernel.symbols:
+        have = sorted(k for k in kernel.symbols if k is not None)
         raise NotImplementedError(
-            f"the CUDA kernels are compiled for {NL} limbs of 32 bits (BLS12-377); this field "
-            f"needs {n}: other curves on the card are ROADMAP item 12 (on the CPU, pass "
+            f"kernel {kernel.name} is compiled for {have} limbs of 32 bits; this field needs "
+            f"{n}: other curves on the card are ROADMAP item 12 (on the CPU, pass "
             f"device='cpu' to run the plain versions)")
 
 
-def field_params(p: int, n: int, mu: int) -> ctypes.Array:
-    """FieldParams of csrc/field.cuh (p, 2p, 4p, mu), which every field
-    kernel's launch takes: so no launch hands planes of n != NL limbs to a
-    kernel."""
-    check_limbs(n)
+@functools.lru_cache(maxsize=None)
+def _field_words(p: int, n: int, mu: int) -> ctypes.Array:
     return words(to_words(p, n) + to_words(2 * p, n) + to_words(4 * p, n) + [mu])
+
+
+def field_params(kernel: Kernel, p: int, n: int, mu: int) -> ctypes.Array:
+    """FieldParams<n> of csrc/field.cuh (p, 2p, 4p, mu), which every field
+    kernel's launch takes; raises unless `kernel` was instantiated at n
+    limbs, so no launch hands planes of another width to a kernel."""
+    check_limbs(kernel, n)
+    return _field_words(p, n, mu)
 
 
 U32P = ctypes.POINTER(ctypes.c_uint32)

@@ -7,7 +7,9 @@ lattice coefficients is defined on that limb grid: with the same limbs the
 digits equal the JAX digits integer for integer.
 
 `digits_glv_device` runs kernel 4 (`csrc/glv_digits.cu`) on a CUDA tensor and
-its plain version, `digits_glv_plain`, in int64 on a CPU tensor.
+its plain version, `digits_glv_plain`, in int64 on a CPU tensor. The non-GLV
+digits of the Twisted Edwards MSM (`extract_windows`, `signed_digits_device`)
+are plain torch on every device, as they were plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..ops.limbs import bytes_to_limbs
 from .glv import GlvParams
 
 GLV_DIGITS = kernels.Kernel(
-    "glv_digits", "msm_glv_digits", "montgomery_tpu_torch/csrc/glv_digits.cu",
+    "glv_digits", {None: "msm_glv_digits"}, "montgomery_tpu_torch/csrc/glv_digits.cu",
     "montgomery_tpu/scalar/device.py:355",
     [kernels.VP, kernels.VP, ctypes.POINTER(ctypes.c_int32), kernels.INT],
 )
@@ -225,3 +227,47 @@ def digits_glv_device(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Ten
         GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(s),
                           cfg.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N)
     return out
+
+
+# ------------------------------------------------- non-GLV signed digits
+
+
+def extract_windows(limbs: torch.Tensor, w: int, b_bits: int, c: int) -> torch.Tensor:
+    """(nl, N) w-bit limbs -> (K, N) unsigned c-bit windows, K = ceil((b+1)/c)
+    (montgomery_tpu's extract_windows)."""
+    nl = limbs.shape[0]
+    K = ceil_div(b_bits + 1, c)
+    cmask = (1 << c) - 1
+    rows = []
+    for k in range(K):
+        l0, sh = divmod(k * c, w)
+        if l0 >= nl:
+            rows.append(torch.zeros_like(limbs[0]))
+            continue
+        val = limbs[l0] >> sh
+        have, t = w - sh, 1
+        while have < c and l0 + t < nl:
+            val = val | ((limbs[l0 + t] & ((1 << min(w, c - have)) - 1)) << have)
+            have += w
+            t += 1
+        rows.append(val & cmask)
+    return torch.stack(rows)
+
+
+def signed_digits_device(limbs: torch.Tensor, w: int, b_bits: int, c: int) -> torch.Tensor:
+    """(nl, N) int32 w-bit scalar limbs -> (K, N) int32 signed digits in
+    [-2^(c-1), 2^(c-1)] (montgomery_tpu's signed_digits_device, the digits of
+    the non-GLV MSM): a digit above 2^(c-1) becomes d - 2^c and carries one
+    into the next window; K = ceil((b+1)/c) windows leave no carry for
+    b-bit scalars. Plain torch on any device."""
+    if not 1 <= c <= 16:
+        raise ValueError("window size c must be in [1, 16]")
+    d = extract_windows(limbs.to(torch.int32), w, b_bits, c)
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros_like(d[0])
+    rows = []
+    for dk in d:
+        dk = dk + carry
+        carry = (dk > half).to(dk.dtype)
+        rows.append(dk - carry * full)
+    return torch.stack(rows)

@@ -93,7 +93,9 @@ def test_random_points_fast_closed_form():
 
 def test_import_leaves_jax_out():
     code = ("import sys, montgomery_tpu_torch.msm, montgomery_tpu_torch.interop, "
-            "montgomery_tpu_torch.curves.random, montgomery_tpu_torch.serve; "
+            "montgomery_tpu_torch.curves.random, montgomery_tpu_torch.serve, "
+            "montgomery_tpu_torch.curves.edwards, montgomery_tpu_torch.bigint.twisted_edwards, "
+            "montgomery_tpu_torch.concrete; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'montgomery_tpu' or m.startswith('montgomery_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -113,7 +115,8 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     counts = kernels.launch_counts()
     assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
-                           "mont_sqr", "aff_pre_packed", "aff_post_packed"}
+                           "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
+                           "ed_add_packed"}
     assert all(v == 0 for v in counts.values()), counts
 
 

@@ -33,7 +33,7 @@ from montgomery_tpu_torch.curves.affine import CANCEL, DBL, Y1_ZERO
 from montgomery_tpu_torch.msm import WeierstrassMsm
 from montgomery_tpu_torch.ops import kernels
 from montgomery_tpu_torch.ops import limbs as codec
-from montgomery_tpu_torch.ops.field import FieldOps
+from montgomery_tpu_torch.ops.field import MONT_MUL, FieldOps
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -277,8 +277,8 @@ def test_cuda_limb_guard(monkeypatch):
     """On the card, a field whose limb count is not the kernels' (BLS12-381:
     13) raises before any launch; checked without a device."""
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
-        FieldOps(BLS12_381.modulus).field_words  # noqa: B018
-    kernels.check_limbs(FieldOps(P).n)
+        FieldOps(BLS12_381.modulus).field_words(MONT_MUL)
+    kernels.check_limbs(MONT_MUL, FieldOps(P).n)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
         WeierstrassMsm(BLS12_381, device="cuda")

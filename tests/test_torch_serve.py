@@ -19,7 +19,7 @@ from montgomery_tpu.bigint import msm as oracle_msm
 from montgomery_tpu.bigint.weierstrass import AffinePoint
 from montgomery_tpu.concrete import BLS12_377, PALLAS
 from montgomery_tpu_torch import serve
-from montgomery_tpu_torch.msm import WeierstrassMsm
+from montgomery_tpu_torch.msm import EdwardsMsm, WeierstrassMsm
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -126,8 +126,7 @@ def test_off_curve_point_rejected(inputs, monkeypatch):
 def test_curves(monkeypatch):
     with pytest.raises(KeyError):
         serve.get_curve("nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve.get_curve("ed-on-bls12-377", device="cpu")
+    assert isinstance(serve.get_curve("ed-on-bls12-377", device="cpu"), EdwardsMsm)
     no_endo = dict(serve.WEIERSTRASS_CURVES)
     no_endo["pallas"] = dataclasses.replace(no_endo["pallas"], endomorphism=None)
     monkeypatch.setattr(serve, "WEIERSTRASS_CURVES", no_endo)
