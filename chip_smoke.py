@@ -4,8 +4,9 @@
 Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
 against its plain PyTorch version on the card, runs BLS12-377 MSMs on every
 engine and ed-on-bls12-377 (Twisted Edwards) MSMs, directly and through
-`serve.compute_msm`, against the bigint oracle and against a closed form, and
-times them.
+`serve.compute_msm`, against the bigint oracle and against a closed form,
+generates random points of both curves on the card by sqrt trial and runs
+MSMs on them, and times them.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,13 @@ Phases, each printed as it runs:
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
      combine's 208) and ed_add_packed up to the first super-round level at
      2^20 points, with the identity on either side, P + P, P + (-P),
-     unreduced values and every sign and pair flag in the first lanes;
+     unreduced values and every sign and pair flag in the first lanes. Then
+     the sqrt slice's kernels (`phase_sqrt_kernels`) at 12 and 9 limbs:
+     exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43 and every
+     chain) and every sqrt_win window of one whole sqrt, bit for bit, at
+     2^16 and 2^16 + 17 lanes with 0, 1, p - 1, [p, 2p) values, known squares
+     and known non-squares in the first lanes; inv against inv_root; each
+     timed at the 2,621,456 candidates of a 2^20-point generation;
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
      and the safe batched-affine engine with zero scalars, duplicate and
      negated duplicate points and the point at infinity; the unsafe engine
@@ -58,7 +65,17 @@ Phases, each printed as it runs:
      on-curve check timed apart. Then the Twisted Edwards MSM the same way at
      2^16 and 2^20 on random_points_fast_edwards(seed=42) points (msm_full,
      so to_host's kernels count too), and compute_msm(curve=
-     "ed-on-bls12-377") at 2^20 from packed bytes.
+     "ed-on-bls12-377") at 2^20 from packed bytes;
+  4. random_points_weierstrass (BLS12-377) and random_points_edwards
+     (ed-on-bls12-377) at 2^20 points (`phase_points`): launch counts of one
+     generation (exp_ladder 1, sqr_n 11, sqrt_win 12, every launch at the
+     curve's limb count), the median of 3 generations split into host draw,
+     solve, compaction, cofactor and normalisation, peak memory; every point
+     on the curve and not infinite, success flags against Euler's criterion
+     and sampled points against the bigint oracle's rebuild from the same
+     draw, q P = 0; then MSMs on those points: BLS12-377's three engines
+     agree at 2^20, the Twisted Edwards one at two window sizes, and both
+     equal the oracle at N = 512.
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
 raises; without a CUDA device the script exits 1 before printing a result.
@@ -105,6 +122,19 @@ PATH_FORBIDDEN = {"projective": _UNSAFE | _SAFE | _EDWARDS, "affine_unsafe": _SA
                   "affine_safe": _UNSAFE | _EDWARDS, "serve": _UNSAFE | _EDWARDS,
                   "te": _WEIERSTRASS - {"mont_mul", "divstep_inv_mont"},
                   "te_serve": _WEIERSTRASS - {"mont_mul", "divstep_inv_mont", "mul_const"}}
+# the random-points phase: sqrt-trial generation of 2^GEN_LOG2N points a curve
+_SOLVE = {"mul_const", "mont_mul", "divstep_inv_mont", "exp_ladder", "sqr_n", "sqrt_win"}
+PATH_KERNELS["points"] = _SOLVE | {"proj_add_rcb", "proj_dbl_rcb"}
+PATH_KERNELS["te_points"] = _SOLVE | {"ed_dbl"}
+PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr"}
+PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed"}
+GEN_LOG2N = 20
+GEN_SEED = 3
+GEN_OVERSAMPLE = 2.5
+GEN_SAMPLE_POINTS = 1024  # output lanes rebuilt with the bigint oracle
+GEN_SAMPLE_CANDIDATES = 4096  # candidates whose success flag meets Euler's criterion
+GEN_ORACLE_N = 512  # MSM on the generated points against the bigint oracle
+SQRT_CHAINS = (1, 42, 43)  # sqr_n's m: the shortest chain, and the first of each curve
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
 TE_COMBINE_K = 208  # ed_dbl's k on the 2^20 path's first combine level: c 16 = 13 x 16
@@ -294,7 +324,11 @@ def bound(ctx, name: str, lanes: int, rates: dict) -> tuple[float, str]:
     """Least time (ms) for `lanes` lanes: bytes over the memory rate, or
     the multiplies over the card's measured multiply rates, whichever is
     larger."""
-    nbytes, wide, lo = kernel_work(ctx, name)
+    return bound_of(*kernel_work(ctx, name), lanes, rates)
+
+
+def bound_of(nbytes: float, wide: float, lo: float, lanes: int, rates: dict) -> tuple[float, str]:
+    """As `bound`, from the work of one lane."""
     t_bytes = nbytes * lanes / HBM_BYTES_PER_S
     t_ops = (wide / rates["wide"] + lo / rates["lo"]) * lanes
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -1137,6 +1171,171 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
     return results
 
 
+# ------------------------------------------------- sqrt slice: kernels
+
+
+def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, last: bool = False,
+              digits=None) -> tuple[float, float, float]:
+    """(bytes, wide multiplies, low multiplies) per lane of one call of a
+    kernel of the sqrt slice, for this call's exponent e, chain m or window
+    (k, lk, last): each plane read once and written once; the products the
+    function needs. exp_ladder: the table's 2 products, then 2 squarings a
+    digit and a product for each nonzero one; sqr_n: m squarings; sqrt_win:
+    lk (lk - 1) / 2 squarings and, for each set bit of `digits` (this run's
+    digit plane), its corrections (v below the top bit, t unless last, r
+    from bit position 1), averaged over the lanes."""
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW, ladder_digits
+
+    n = f.n
+    W = 4 * n
+    prod, sqr = (2 * n * n, n), (n * (n + 1) // 2 + n * n, n)
+
+    def work(nbytes, products, squarings):
+        return (nbytes, products * prod[0] + squarings * sqr[0],
+                products * prod[1] + squarings * sqr[1])
+
+    if name == "exp_ladder":
+        nd = ladder_digits(e)
+        nonzero = sum(1 for j in range(nd - 1) if (e >> (2 * j)) & 3)
+        return work(2 * W, 2 + nonzero, 2 * (nd - 1))
+    if name == "sqr_n":
+        return work(2 * W, 0, m)
+    bits = [((digits >> i) & 1).double().mean().item() for i in range(lk)]
+    fixes = sum(b * ((i < lk - 1) + (not last) + (SQRT_WINDOW * k + i >= 1))
+                for i, b in enumerate(bits))
+    return work(5 * W + 4, fixes, lk * (lk - 1) // 2)
+
+
+def _sqrt_plane(f, N: int, gen):
+    """(n, N) Montgomery planes on the card and the canonical values of the
+    first lanes: 0, 1, p - 1, 2, 4, sixteen known squares and sixteen known
+    non-squares (a square times the least non-residue), then the unreduced
+    representatives p, p + 1, 2p - 1 and R + p, then random values below
+    2^bits(p)."""
+    p, R = f.p, f.R
+    z = 2
+    while pow(z, (p - 1) // 2, p) == 1:
+        z += 1
+    rng = random.Random(N + f.n)
+    sq = [pow(rng.randrange(1, p), 2, p) for _ in range(16)]
+    canon = [0, 1, p - 1, 2, 4] + sq + [z * s % p for s in sq]
+    raw = [c * R % p for c in canon] + [p, p + 1, 2 * p - 1, f.R_mod_p + p]
+    return _field_plane(f, N, gen, raw), canon
+
+
+def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
+    """exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43) and every
+    sqrt_win window of one whole sqrt against their plain versions, bit for
+    bit, at 12 limbs (BLS12-377) and 9 (ed-on-bls12-377), at 2^16 and
+    2^16 + 17 lanes of `_sqrt_plane`; sqrt's roots and flags on the first
+    lanes against Euler's criterion and root^2 = x on the host; inv against
+    inv_root (the divstep) in canonical values at 2^16 lanes. Then each
+    kernel timed, with its plain version, at the width the generation of 2^20
+    points gives it (int(2.5 2^20) + 16 candidates): exp_ladder at
+    e = (q - 1) / 2, sqr_n at the first chain (M - 4), sqrt_win at window 0.
+    Returns the results at 12 and at 9 limbs."""
+    import torch
+
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    say("== phase 1: exp_ladder, sqr_n and sqrt_win against their plain versions")
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = ({}, {})
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    for res, c in zip(out, (ctx, te)):
+        f = c.fops
+        n, p, M, q = f.n, f.p, f.sqrt_M, f.sqrt_q_odd
+
+        def check(label, kern, plain, N):
+            a, b = kern(), plain()
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            err = max(diff(u, v) for u, v in zip(a, b))
+            if err:
+                raise AssertionError(f"{label} at {n} limbs and {N} lanes disagrees with its plain "
+                                     f"version (max_abs_err {err})")
+            r = res.setdefault(label.split()[0], {"max_abs_err": 0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            return a
+
+        for N in KERNEL_LANES:
+            x, canon = _sqrt_plane(f, N, gen)
+            for tag, e in (("p-2", p - 2), ("(q-1)/2", (q - 1) // 2)):
+                check(f"exp_ladder e={tag}", lambda e=e: f.exp_ladder(x, e),
+                      lambda e=e: f.exp_ladder_plain(x, e), N)
+            for m in SQRT_CHAINS:
+                check(f"sqr_n m={m}", lambda m=m: f.sqr_n(x, m), lambda m=m: f.sqr_n_plain(x, m), N)
+            # one whole sqrt, window by window, on the kernels' own values
+            zmask = f.is_zero(x)
+            xs = f._sel(zmask, f.const_plane(f.R_mod_p, x), x).contiguous()
+            w = f.exp_const(xs, (q - 1) // 2)
+            t, r = f.mul(xs, f.mul(w, w)), f.mul(xs, w)
+            done = k = 0
+            while done < M:
+                lk = min(SQRT_WINDOW, M - done)
+                last, chain = done + lk >= M, M - done - lk
+                s = t
+                if chain:
+                    (s,) = check(f"sqr_n m={chain}", lambda t=t, m=chain: f.sqr_n(t, m),
+                                 lambda t=t, m=chain: f.sqr_n_plain(t, m), N)
+                t, r, dig = check(f"sqrt_win k={k}",
+                                  lambda a=(t, r, s, k, lk, last): f.sqrt_window(*a),
+                                  lambda a=(t, r, s, k, lk, last): f.sqrt_window_plain(*a), N)
+                if k == 0:
+                    square = (dig[0] & 1) == 0
+                done, k = done + lk, k + 1
+            root, ok = f.sqrt(x)
+            loop_root = f._sel(square & ~zmask, r, torch.zeros_like(r))
+            if diff(root, loop_root) or not torch.equal(ok, square | zmask):
+                raise AssertionError(f"sqrt at {n} limbs differs from its windows run one by one")
+            head = len(canon)
+            roots = f.unpack(root[:, :head], from_mont=True)
+            for v, y, sq in zip(canon, roots, ok[:head].tolist()):
+                if sq != (v == 0 or pow(v, (p - 1) // 2, p) == 1) or (y * y % p != v if sq else y):
+                    raise AssertionError(f"sqrt at {n} limbs is wrong for {v}")
+            say(f"exp_ladder (e = p - 2, (q - 1) / 2), sqr_n (m = {SQRT_CHAINS} and the {k - 1} "
+                f"chains), sqrt_win ({k} windows, M = {M}) n={n} N={N}: equal to the plain "
+                f"versions bit for bit; sqrt of 0, 1, p - 1, 16 squares and 16 non-squares right")
+        x, _ = _sqrt_plane(f, KERNEL_LANES[0], gen)
+        err = diff(_canon(f, f.inv(x)), _canon(f, f.inv_root(x)))
+        if err:
+            raise AssertionError(f"inv at {n} limbs differs from inv_root")
+        say(f"inv (Fermat, exp_ladder) n={n} N={KERNEL_LANES[0]}: equal to inv_root (divstep) in "
+            f"canonical values")
+
+        # timing at the generation's width, on random values
+        W = int(GEN_OVERSAMPLE * (1 << GEN_LOG2N)) + 16
+        x = _random_planes(f, n, W, gen)
+        e = (q - 1) // 2
+        t = f.exp_ladder(x, q)  # x^q, in the 2-Sylow subgroup
+        r = f.mul(x, f.exp_ladder(x, e))
+        s = f.sqr_n(t, M - SQRT_WINDOW)
+        dig = f.sqrt_window(t, r, s, 0, SQRT_WINDOW, False)[2]
+        for name, kern, plain, call, work in (
+                ("exp_ladder", lambda: f.exp_ladder(x, e), lambda: f.exp_ladder_plain(x, e),
+                 "e = (q - 1) / 2", sqrt_work(f, "exp_ladder", e=e)),
+                ("sqr_n", lambda: f.sqr_n(x, M - SQRT_WINDOW),
+                 lambda: f.sqr_n_plain(x, M - SQRT_WINDOW), f"m = {M - SQRT_WINDOW}",
+                 sqrt_work(f, "sqr_n", m=M - SQRT_WINDOW)),
+                ("sqrt_win", lambda: f.sqrt_window(t, r, s, 0, SQRT_WINDOW, False),
+                 lambda: f.sqrt_window_plain(t, r, s, 0, SQRT_WINDOW, False),
+                 f"window 0 (lk = {SQRT_WINDOW})",
+                 sqrt_work(f, "sqrt_win", k=0, lk=SQRT_WINDOW, last=False, digits=dig))):
+            check(name, kern, plain, W)
+            ms = cuda_time_ms(kern, 10)
+            pms = cuda_time_ms(plain, 1, 0)
+            bms, by = bound_of(*work, W, rates)
+            res[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=W, call=call)
+            say(f"{name} n={n} ({call}): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                f"({by}) per call at {W} lanes")
+        del x, t, r, s
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_te_oracle(te):
     """EdwardsMsm and compute_msm(curve="ed-on-bls12-377") against the
     bigint oracle: N = 16 (default c, a pair round first) and N = 512 (c = 4,
@@ -1229,6 +1428,151 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
     return counts
 
 
+# ------------------------------------------------- sqrt slice: random points
+
+
+def phase_points(c, path: str) -> dict:
+    """random_points_weierstrass (BLS12-377, path "points") or
+    random_points_edwards (ed-on-bls12-377, "te_points") at 2^20 points on
+    the card: launch counts of one generation with the counts set to 0 just
+    before it (exp_ladder once, sqr_n once per window but the last, sqrt_win
+    once per window, every launch at the curve's limb count); the median of
+    3 generations after that one, split into its stages, and peak memory;
+    every point on the curve and none the point at infinity (identity), on
+    the card; GEN_SAMPLE_CANDIDATES candidates' success flags against Euler's
+    criterion and GEN_SAMPLE_POINTS points rebuilt with the bigint oracle
+    from the same candidate draw (the first N successes in candidate order,
+    root^2 = rhs, the cofactor multiple equal to the output); q P = 0 on 8
+    lanes; then MSMs on the points with bench_scalars: BLS12-377's safe,
+    unsafe and projective engines agree at 2^20 and the safe one equals the
+    oracle on the first GEN_ORACLE_N points; the Twisted Edwards MSM at the
+    default c and at c - 1 agrees at 2^20 and equals the oracle at
+    GEN_ORACLE_N. Returns the generation's launch counts."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from montgomery_tpu_torch.bigint import AffinePoint, EdwardsPoint, msm as oracle_msm
+    from montgomery_tpu_torch.curves import random as rnd
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+    from montgomery_tpu_torch.utils.timing import PhaseLog
+
+    N = 1 << GEN_LOG2N
+    te = path.startswith("te")
+    f, dev, params = c.fops, c.device, c.params
+    p, q = f.p, params.order
+    E = oracle_curve(params)
+    to_host = c.ed.to_host if te else c.proj.affine_to_host
+
+    def lanes_of(idx):
+        return type(pts)(*[a[..., idx] for a in pts])
+
+    say(f"== phase 4: {'random_points_edwards' if te else 'random_points_weierstrass'}"
+        f"({params.label}) N=2^{GEN_LOG2N}, seed {GEN_SEED}, oversample {GEN_OVERSAMPLE}, "
+        f"n={f.n} limbs of 32 bits")
+
+    def generate(log=None):
+        if te:
+            return rnd.random_points_edwards(c.ed, N, seed=GEN_SEED, device=dev, log=log)
+        return rnd.random_points_weierstrass(c.proj, N, seed=GEN_SEED, device=dev, log=log)
+
+    counts, first, pts = counted(generate, path)
+    windows = -(-f.sqrt_M // SQRT_WINDOW)
+    want = {"exp_ladder": 1, "sqr_n": windows - 1, "sqrt_win": windows}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{path}: launches {counts}, expected {want} for the sqrt")
+    say(f"{path} launches: {counts} (first run {first:.3f} s); the sqrt's as predicted: {want}")
+
+    logs = []
+    for _ in range(3):
+        log = PhaseLog()
+        generate(log)
+        logs.append(dict(log.entries))
+    split = {k: statistics.median(lg[k] for lg in logs) for k in logs[0]}
+    total = statistics.median(sum(lg.values()) for lg in logs)
+    torch.cuda.reset_peak_memory_stats(dev)
+    generate()
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    say(f"generation N=2^{GEN_LOG2N}: median {total:.6f} s over 3 runs "
+        f"{['%.6f' % sum(lg.values()) for lg in logs]}; peak memory {peak / 2**20:.1f} MiB")
+    say("phase split (medians):\n" + "\n".join(f"{k:<32s} {v * 1e3:9.2f} ms" for k, v in split.items()))
+
+    # every lane on the curve, none at infinity (the identity)
+    if te:
+        on, zero = c.is_on_curve(pts), c.ed.is_zero(pts)
+    else:
+        on, zero = c.is_on_curve(pts), pts.inf
+    if not bool(on.all()) or bool(zero.any()):
+        raise AssertionError(f"{path}: {int((~on).sum())} points off the curve, "
+                             f"{int(zero.sum())} at infinity")
+
+    # the host's rebuild from the same draw
+    M = int(N * GEN_OVERSAMPLE) + 16
+    xs = rnd._uniform_field_vals(np.random.default_rng(GEN_SEED), M, p)
+    X = f.pack_raw(xs, dev)
+    if te:
+        _, Y, ok = rnd.solve_edwards(c.ed, X)
+    else:
+        _, Y, ok = rnd.solve_weierstrass(c.proj, X)
+    okh = ok.cpu().numpy()
+    idx = np.flatnonzero(okh)[:N]
+    if len(idx) < N:
+        raise AssertionError(f"{path}: only {len(idx)} successes")
+
+    def rhs(x):
+        if te:
+            den = (1 - params.d * x * x) % p
+            return (1 + x * x) * pow(den, -1, p) % p if den else None
+        return (x * x * x + params.b) % p
+
+    rng = random.Random(5)
+    for i in rng.sample(range(M), GEN_SAMPLE_CANDIDATES):
+        v = rhs(xs[i])
+        if bool(okh[i]) != (v is not None and (v == 0 or pow(v, (p - 1) // 2, p) == 1)):
+            raise AssertionError(f"{path}: candidate {i}'s success flag contradicts Euler's criterion")
+    lanes = sorted(rng.sample(range(N), GEN_SAMPLE_POINTS))
+    sel = torch.tensor(idx[lanes], dtype=torch.long, device=dev)
+    roots = f.unpack(Y.index_select(-1, sel), from_mont=True)
+    Pt = EdwardsPoint if te else AffinePoint
+    for lane, i, y, g in zip(lanes, idx[lanes], roots, to_host(lanes_of(lanes))):
+        x = xs[i]
+        if y * y % p != rhs(x) or not E.equal(g, E.scale(params.cofactor, Pt(x, y))):
+            raise AssertionError(f"{path}: point {lane} (candidate {i}) differs from the oracle's")
+    head = lanes_of(slice(0, 8))
+    if te:
+        in_group = c.ed.is_zero(c.ed.scale(q, head))
+    else:
+        in_group = c.proj.is_zero(c.proj.scale(q, c.proj.from_affine(head)))
+    if not bool(in_group.all()):
+        raise AssertionError(f"{path}: q P != 0 on the first 8 points")
+    say(f"{path}: all {N} points on the curve, none infinite; {GEN_SAMPLE_CANDIDATES} success flags "
+        f"equal Euler's criterion; {GEN_SAMPLE_POINTS} points equal the oracle's cofactor multiple "
+        f"of their candidate (the first {N} successes of {M}); q P = 0 on 8 points")
+
+    # MSMs on the generated points
+    scalars = bench_scalars(q, N)
+    limbs = c.scalars_to_limbs(scalars)
+    cN = c.default_c(N)
+    if te:
+        runs = {f"c={cN}": dict(c=cN), f"c={cN - 1}": dict(c=cN - 1)}
+    else:
+        runs = {"affine-safe": {}, "affine-unsafe": dict(unsafe=True),
+                "projective": dict(affine=False)}
+    results = {k: c.msm_full(limbs, pts, **kw) for k, kw in runs.items()}
+    ref = next(iter(results.values()))
+    if ref.is_zero or not all(E.equal(v, ref) for v in results.values()):
+        raise AssertionError(f"{path}: MSMs on the generated points disagree: {list(results)}")
+    head = lanes_of(slice(0, GEN_ORACLE_N))
+    sc = scalars[:GEN_ORACLE_N]
+    if not E.equal(c.msm_full(sc, head), oracle_msm(E, sc, to_host(head))):
+        raise AssertionError(f"{path}: MSM of {GEN_ORACLE_N} generated points differs from the oracle")
+    say(f"{path}: MSM at N=2^{GEN_LOG2N} on the generated points agrees across {list(results)}; "
+        f"at N={GEN_ORACLE_N} equal to the bigint oracle")
+    return counts
+
+
 def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
     """The {"kernels": [...]} line: one entry per registered kernel, its
     launches read from the first run of `home_runs` that runs it (bench.py's
@@ -1239,6 +1583,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
 
     top = max(MSM_LOG2N)
     home_runs = [f"{run}_2^{top}" for run in (PATHS[0], "te", *PATHS[1:], "serve", "te_serve")]
+    home_runs += [f"{run}_2^{GEN_LOG2N}" for run in ("points", "te_points")]
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
@@ -1253,7 +1598,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
         if name in kres and name in te_kres:  # instantiated at 12 and at 9 limbs
             e["n9"] = {key: te_kres[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                            "lanes", "max_abs_err")}
-        e.update({key: v for key, v in res.items() if key.endswith("_level")})
+        e.update({key: v for key, v in res.items() if key.endswith("_level") or key == "call"})
         return e
 
     return {"kernels": [entry(name, k) for name, k in kernels.REGISTRY.items()]}
@@ -1295,6 +1640,9 @@ def main() -> int:
     te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
     kres = phase_kernels(ctx, host_pts, rates)
     te_kres = phase_te_kernels(te, te_host, rates)
+    sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
+    kres.update(sqrt12)
+    te_kres.update(sqrt9)
     phase_oracle(ctx, host_pts)
     phase_te_oracle(te)
     launches, expected = {}, {}
@@ -1309,6 +1657,10 @@ def main() -> int:
         launches[f"te_2^{log2n}"] = phase_te_msm(te, log2n, te_pts, expected)
     launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
                                                            TE_CURVE, "te_serve")
+    del pts, te_pts
+    torch.cuda.empty_cache()
+    for c, path in ((ctx, "points"), (te, "te_points")):
+        launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
     line = kernels_line(kres, te_kres, launches)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))

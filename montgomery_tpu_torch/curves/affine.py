@@ -100,7 +100,7 @@ class AffineOps:
                 raise ValueError("lane count exceeds the kernels' int range")
             PACK_GLV.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
                             kernels.ptr(inf), self._beta_words, self.f.field_words(PACK_GLV), N,
-                            n=self.f.n)
+                            n=self.f.n, device=out.device)
         return out
 
     def pack_rows_glv_plain(self, A: AffineBatch) -> torch.Tensor:
@@ -151,7 +151,8 @@ class AffineOps:
             AFF_PRE_PACKED.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags),
                                   kernels.ptr(Av), sa, kernels.ptr(Bv), sb, kernels.ptr(sAv),
                                   kernels.ptr(sBv), kernels.ptr(hv), self._one_words,
-                                  self.f.field_words(AFF_PRE_PACKED), M, n=self.f.n)
+                                  self.f.field_words(AFF_PRE_PACKED), M, n=self.f.n,
+                                  device=denom.device)
         return denom, numer, flags
 
     def pre_packed_plain(self, A, B, sA, sB, hp):
@@ -194,7 +195,8 @@ class AffineOps:
             AFF_POST_PACKED.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                    kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
                                    kernels.ptr(nv), sn, kernels.ptr(fv), kernels.ptr(hv),
-                                   self.f.field_words(AFF_POST_PACKED), M, n=self.f.n)
+                                   self.f.field_words(AFF_POST_PACKED), M, n=self.f.n,
+                                   device=out.device)
         return out
 
     def post_packed_plain(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
@@ -228,7 +230,8 @@ class AffineOps:
         if M:
             AFF_PRE_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                     kernels.ptr(hv), self._one_words,
-                                    self.f.field_words(AFF_PRE_PACKED_U), M, n=self.f.n)
+                                    self.f.field_words(AFF_PRE_PACKED_U), M, n=self.f.n,
+                                    device=out.device)
         return out
 
     def pre_packed_u_plain(self, A, B, hp) -> torch.Tensor:
@@ -252,7 +255,7 @@ class AffineOps:
             AFF_POST_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                      kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
                                      kernels.ptr(hv), self.f.field_words(AFF_POST_PACKED_U), M,
-                                     n=self.f.n)
+                                     n=self.f.n, device=out.device)
         return out
 
     def post_packed_u_plain(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:

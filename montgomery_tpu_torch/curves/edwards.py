@@ -29,6 +29,7 @@ from ..bigint.twisted_edwards import EdwardsParams, EdwardsPoint
 from ..ops import kernels
 from ..ops.field import FieldOps, from16, to16
 from ..ops.limbs import to_words
+from .projective import scale_by
 
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
@@ -125,7 +126,7 @@ class EdwardsOps:
         outs = [torch.empty_like(flat[0]) for _ in range(4)]
         if N:
             kernel.launch(*[kernels.ptr(t) for t in outs + flat], *extra, self._k_words,
-                          self.f.field_words(kernel), N, n=n)
+                          self.f.field_words(kernel), N, n=n, device=outs[0].device)
         return EdwardsBatch(*[o.reshape(shape) for o in outs])
 
     def add(self, P: EdwardsBatch, Q: EdwardsBatch) -> EdwardsBatch:
@@ -158,6 +159,13 @@ class EdwardsOps:
             P16 = self._add16(P16, P16)
         return EdwardsBatch(*[from16(a) for a in P16])
 
+    def scale(self, k: int, P: EdwardsBatch) -> EdwardsBatch:
+        """k P for a constant k: the doublings between set bits as one
+        `ed_dbl` launch each (the cofactor 4 of ed-on-bls12-377 is one launch
+        of two doublings). The same point as the JAX package's
+        double-and-add with selects."""
+        return scale_by(self, k, P)
+
     # ------------------------------------------------------------ packed form
 
     @property
@@ -189,7 +197,8 @@ class EdwardsOps:
         if M:
             ED_ADD_PACKED.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
                                  kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(hv), self._k_words,
-                                 self.f.field_words(ED_ADD_PACKED), M, n=self.f.n)
+                                 self.f.field_words(ED_ADD_PACKED), M, n=self.f.n,
+                                 device=out.device)
         return out
 
     def _split_signed16(self, A: torch.Tensor, s: torch.Tensor):

@@ -56,6 +56,22 @@ class AffineBatch(NamedTuple):
         return self.x.shape[-1]
 
 
+def scale_by(ops, k: int, P):
+    """k P for a constant k on `ops` (a ProjectiveOps or an EdwardsOps):
+    the doublings between set bits run as one `double_n` launch each."""
+    if k < 0:
+        return scale_by(ops, -k, ops.neg(P))
+    if k == 0:
+        return ops.zero_like(P)
+    R, run = P, 0
+    for bit in bin(k)[3:]:
+        run += 1
+        if bit == "1":
+            R = ops.add(ops.double_n(R, run), P)
+            run = 0
+    return ops.double_n(R, run)
+
+
 def normalize_host(X: list[int], Y: list[int], Z: list[int], p: int) -> list[AffinePoint]:
     """Canonical projective ints -> affine points, with Montgomery's trick:
     one modular inverse for the whole batch."""
@@ -84,6 +100,7 @@ class ProjectiveOps:
         if params.a % p != 0:
             raise NotImplementedError("curves with a != 0 (add_masked) are not ported")
         self.f, self.params = fops, params
+        self.b_mont = params.b % p * fops.R % p
         self.b3_mont = 3 * params.b % p * fops.R % p
         beta = params.endomorphism.beta if params.endomorphism else 0
         self.beta_mont = beta % p * fops.R % p
@@ -100,6 +117,10 @@ class ProjectiveOps:
         f = self.f
         return ProjectiveBatch(torch.zeros_like(P.X), f.const_plane(f.R_mod_p, P.Y),
                                torch.zeros_like(P.Z))
+
+    def is_zero(self, P: ProjectiveBatch) -> torch.Tensor:
+        """Bool over the batch: the point at infinity (Z == 0)."""
+        return self.f.is_zero(P.Z)
 
     def neg(self, P: ProjectiveBatch) -> ProjectiveBatch:
         return ProjectiveBatch(P.X, self.f.neg(P.Y), P.Z)
@@ -126,7 +147,8 @@ class ProjectiveOps:
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
         if N:
             PROJ_ADD_RCB.launch(*[kernels.ptr(t) for t in outs + flat],
-                                self._b3_words, self.f.field_words(PROJ_ADD_RCB), N, n=self.f.n)
+                                self._b3_words, self.f.field_words(PROJ_ADD_RCB), N, n=self.f.n,
+                                device=outs[0].device)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def add_plain(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
@@ -166,7 +188,8 @@ class ProjectiveOps:
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
         if N:
             PROJ_DBL_RCB.launch(*[kernels.ptr(t) for t in outs + flat], int(k),
-                                self._b3_words, self.f.field_words(PROJ_DBL_RCB), N, n=self.f.n)
+                                self._b3_words, self.f.field_words(PROJ_DBL_RCB), N, n=self.f.n,
+                                device=outs[0].device)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def double_n_plain(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:
@@ -186,6 +209,24 @@ class ProjectiveOps:
             X3b = F.mul(t0m, XY)
             X = F.add(X3b, X3b)
         return ProjectiveBatch(from16(X), from16(Y), from16(Z))
+
+    def scale(self, k: int, P: ProjectiveBatch) -> ProjectiveBatch:
+        """k P for a constant k, left to right: each set bit below the top
+        one costs one `double_n` launch over the doublings since the last
+        add, then one add of P (the cofactor of BLS12-377, 125 bits with 16
+        set, is 16 doubling launches and 15 adds). The same point as the
+        JAX package's double-and-add with selects."""
+        return scale_by(self, k, P)
+
+    def to_affine(self, P: ProjectiveBatch) -> AffineBatch:
+        """Batch normalisation on the device: one batch inversion of Z
+        (zeros map to zero) and one batched product; infinity gives
+        x = y = 0 with the mask set."""
+        f = self.f
+        X, Y, Z = [a.reshape(f.n, -1) for a in P]
+        zinv = f.batch_inv(Z, handle_zero=True)
+        x, y = f.mul_list([(X, zinv), (Y, zinv)])
+        return AffineBatch(x, y, self.is_zero(P).reshape(-1))
 
     def endomorphism_affine(self, A: AffineBatch) -> AffineBatch:
         """phi(x, y) = (beta x, y), through kernel 1 on a CUDA tensor."""

@@ -1,16 +1,24 @@
-"""Fast random subgroup points for benchmarks.
+"""Random subgroup points on the device.
 
-Counterpart of `random_points_fast` and `random_points_fast_edwards` in
-`montgomery_tpu/curves/random.py`, with the same seed scheme, so a seed gives
-the same points in both packages: `n_tables` bases from
-`random.Random(seed)`, table t holding the multiples (j + 3) B_t for
-j < table_size, and table indices from `numpy.random.default_rng(seed)`.
-Point i is sum_t (idx[t, i] + 3) B_t.
+Counterpart of `montgomery_tpu/curves/random.py`, with the same seed schemes,
+so a seed gives the same points in both packages.
+
+- `random_points_fast` and `random_points_fast_edwards` (for benchmarks):
+  `n_tables` bases from `random.Random(seed)`, table t holding the multiples
+  (j + 3) B_t for j < table_size, and table indices from
+  `numpy.random.default_rng(seed)`. Point i is sum_t (idx[t, i] + 3) B_t.
+- `random_points_weierstrass` and `random_points_edwards` (points of full
+  entropy, by sqrt trial): candidate x values drawn on the host from
+  `numpy.random.default_rng(seed)`, the curve equation solved on the device
+  with `FieldOps.sqrt` (kernels `exp_ladder`, `sqr_n`, `sqrt_win`), the
+  first N successes kept in candidate order, the cofactor cleared with
+  `scale`, and (Weierstrass) the points normalised with one batch inversion.
 """
 
 from __future__ import annotations
 
 import random as pyrandom
+from contextlib import nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -128,3 +136,98 @@ def random_points_fast_edwards(ed: EdwardsOps, N: int, seed: int = 0, device="cu
         _save(cache, both[:, :N].cpu().numpy(), both[:, N:].cpu().numpy())
     both = f.to_montgomery(both)
     return ed.from_affine_arrays(both[:, :N], both[:, N:])
+
+
+def _uniform_field_vals(rng: np.random.Generator, M: int, p: int) -> list[int]:
+    """M statistically uniform field elements: random bytes with 64 bits of
+    slack, reduced mod p (bias below 2^-64); the JAX package's draw."""
+    nbytes = (p.bit_length() + 7) // 8 + 8
+    raw = rng.bytes(M * nbytes)
+    return [int.from_bytes(raw[i * nbytes:(i + 1) * nbytes], "little") % p for i in range(M)]
+
+
+def _candidates(f, N: int, seed: int, oversample: float, device) -> torch.Tensor:
+    """(n, M) raw planes of M = int(N * oversample) + 16 candidate x values."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions")
+    M = int(N * oversample) + 16
+    return f.pack_raw(_uniform_field_vals(np.random.default_rng(seed), M, f.p), device)
+
+
+def _first_successes(ok: torch.Tensor, N: int) -> torch.Tensor:
+    """Indices of the first N set lanes of `ok`, in candidate order."""
+    idx = torch.nonzero(ok).flatten()
+    if idx.numel() < N:
+        raise ValueError(f"only {idx.numel()} of {ok.numel()} candidates gave a point, {N} "
+                         f"needed: raise the oversample")
+    return idx[:N]
+
+
+def solve_weierstrass(proj: ProjectiveOps, X: torch.Tensor):
+    """Raw candidate planes X -> (x, y, ok) in Montgomery form: y a root of
+    x^3 + b where ok (y = 0 elsewhere)."""
+    f = proj.f
+    Xm = f.to_montgomery(X)
+    rhs = f.add(f.mul(f.mul(Xm, Xm), Xm), f.const_plane(proj.b_mont, Xm))
+    Y, ok = f.sqrt(rhs)
+    return Xm, Y, ok
+
+
+def solve_edwards(ed: EdwardsOps, X: torch.Tensor):
+    """Raw candidate planes X -> (x, y, ok) in Montgomery form: y a root of
+    (1 + x^2) / (1 - d x^2) where ok; 1 - d x^2 = 0 is not ok."""
+    f = ed.f
+    xm = f.to_montgomery(X)
+    one = f.const_plane(f.R_mod_p, xm)
+    xx = f.mul(xm, xm)
+    num = f.add(one, xx)
+    den = f.sub(one, f.mul_const(xx, ed.d_mont))
+    Y, ok = f.sqrt(f.mul(num, f.batch_inv(den, handle_zero=True)))
+    return xm, Y, ok & ~f.is_zero(den)
+
+
+def _phase(log, label: str, device):
+    return log.phase(label, device) if log is not None else nullcontext()
+
+
+def random_points_weierstrass(proj: ProjectiveOps, N: int, seed: int = 0, device="cuda",
+                              oversample: float = 2.5, log=None) -> AffineBatch:
+    """N random subgroup points of y^2 = x^3 + b (cofactor cleared), as a
+    Montgomery-form AffineBatch on `device`: the JAX package's
+    random_points_weierstrass. With `log` (a utils.timing.PhaseLog), each
+    stage is synchronised and timed into it."""
+    f, params = proj.f, proj.params
+    with _phase(log, "host draw", device):
+        X = _candidates(f, N, seed, oversample, device)
+    with _phase(log, "solve (sqrt)", device):
+        Xm, Y, ok = solve_weierstrass(proj, X)
+    with _phase(log, "compaction", device):
+        idx = _first_successes(ok, N)
+        A = AffineBatch(Xm.index_select(-1, idx), Y.index_select(-1, idx),
+                        torch.zeros(N, dtype=torch.bool, device=X.device))
+    if params.cofactor == 1:
+        return A
+    with _phase(log, "cofactor", device):
+        P = proj.scale(params.cofactor, proj.from_affine(A))
+    with _phase(log, "normalisation", device):
+        return proj.to_affine(P)
+
+
+def random_points_edwards(ed: EdwardsOps, N: int, seed: int = 0, device="cuda",
+                          oversample: float = 2.5, log=None) -> EdwardsBatch:
+    """N random Twisted Edwards subgroup points (a = -1), as a Montgomery-form
+    EdwardsBatch on `device`, unnormalised: the JAX package's
+    random_points_edwards. y^2 = (1 + x^2) / (1 - d x^2); a candidate with
+    1 - d x^2 = 0 gives no point. With `log`, each stage is timed into it."""
+    f = ed.f
+    with _phase(log, "host draw", device):
+        X = _candidates(f, N, seed, oversample, device)
+    with _phase(log, "solve (sqrt)", device):
+        xm, Y, ok = solve_edwards(ed, X)
+    with _phase(log, "compaction", device):
+        idx = _first_successes(ok, N)
+        P = ed.from_affine_arrays(xm.index_select(-1, idx), Y.index_select(-1, idx))
+    if ed.params.cofactor == 1:
+        return P
+    with _phase(log, "cofactor", device):
+        return ed.scale(ed.params.cofactor, P)

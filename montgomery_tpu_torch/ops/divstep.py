@@ -213,5 +213,5 @@ def inv_mont(f, x_mont: torch.Tensor) -> torch.Tensor:
     out = torch.empty((f.n, M), dtype=torch.int32, device=x_mont.device)
     if M:
         DIVSTEP_INV_MONT.launch(kernels.ptr(out), kernels.ptr(xv), sx, f.inv_params.kernel_words,
-                                f.field_words(DIVSTEP_INV_MONT), M, n=f.n)
+                                f.field_words(DIVSTEP_INV_MONT), M, n=f.n, device=out.device)
     return out

@@ -41,6 +41,28 @@ MONT_SQR = kernels.Kernel(
     "montgomery_tpu/ops/field.py:533",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
+EXP_LADDER = kernels.Kernel(
+    "exp_ladder", {12: "msm_exp_ladder", 9: "msm_exp_ladder_n9"},
+    "montgomery_tpu_torch/csrc/exp_ladder.cu",
+    "montgomery_tpu/ops/field.py:668",
+    [kernels.VP, kernels.VP, kernels.U32P, kernels.INT, kernels.U32P, kernels.INT],
+)
+# one run-time-m kernel for both of the JAX package's call sites: sqr_n_dyn
+# (:839) and the static-m sqr_n_{m} (:850)
+SQR_N = kernels.Kernel(
+    "sqr_n", {12: "msm_sqr_n", 9: "msm_sqr_n_n9"}, "montgomery_tpu_torch/csrc/sqr_n.cu",
+    "montgomery_tpu/ops/field.py:839,850",
+    [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
+)
+SQRT_WIN = kernels.Kernel(
+    "sqrt_win", {12: "msm_sqrt_win", 9: "msm_sqrt_win_n9"}, "montgomery_tpu_torch/csrc/sqrt_win.cu",
+    "montgomery_tpu/ops/field.py:955",
+    [kernels.VP] * 7 + [kernels.U32P] + [kernels.INT] * 4 + [kernels.U32P, kernels.INT],
+)
+
+# bits of the 2-Sylow discrete log that one sqrt_win launch extracts (the
+# JAX package's _SQRT_WINDOW)
+SQRT_WINDOW = 4
 
 
 def to16(x: torch.Tensor) -> torch.Tensor:
@@ -146,6 +168,8 @@ class FieldOps:
         self.R_mod_p = self.R % p
         self.R_inv = pow(self.R, -1, p)
         self.plain = Plain16(p, 2 * n)
+        self.sqrt_M, self.sqrt_q_odd, self.sqrt_g_inv_pows = sqrt_constants(p, self.R)
+        self._g_tables: dict = {}
 
     def field_words(self, kernel: kernels.Kernel):
         """The FieldParams that `kernel` takes; raises NotImplementedError
@@ -204,6 +228,11 @@ class FieldOps:
 
     # --------------------------------------------------- montgomery multiply
 
+    def _flat(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """(n, *B) planes -> contiguous (n, N) planes for a kernel, and N."""
+        xf = x.reshape(self.n, -1).contiguous()
+        return xf, kernels.check_planes(self.n, xf)
+
     def mul(self, x, y):
         """x y / R mod p, in [0, 2p) for x, y < 8p: kernel `mont_mul` on CUDA
         tensors, `mul_plain` on CPU tensors. As in the JAX package the kernel
@@ -219,7 +248,7 @@ class FieldOps:
         out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
         if N:
             MONT_MUL.launch(kernels.ptr(out), kernels.ptr(xv), sx, kernels.ptr(yv), sy,
-                            self.field_words(MONT_MUL), N, n=self.n)
+                            self.field_words(MONT_MUL), N, n=self.n, device=out.device)
         return out.reshape(shape)
 
     def mul_plain(self, x, y):
@@ -237,7 +266,7 @@ class FieldOps:
         out = torch.empty((self.n, N), dtype=torch.int32, device=x.device)
         if N:
             MONT_SQR.launch(kernels.ptr(out), kernels.ptr(xv), sx, self.field_words(MONT_SQR), N,
-                            n=self.n)
+                            n=self.n, device=out.device)
         return out.reshape(shape)
 
     def square_plain(self, x):
@@ -262,13 +291,12 @@ class FieldOps:
         if not kernels.on_cuda(x):
             return self.mul_const_plain(x, c_mont)
         shape = x.shape
-        xf = x.reshape(self.n, -1).contiguous()
-        N = kernels.check_planes(self.n, xf)
+        xf, N = self._flat(x)
         out = torch.empty_like(xf)
         if N:
             MUL_CONST.launch(kernels.ptr(out), kernels.ptr(xf),
                              kernels.words(codec.to_words(c_mont, self.n)),
-                             self.field_words(MUL_CONST), N, n=self.n)
+                             self.field_words(MUL_CONST), N, n=self.n, device=out.device)
         return out.reshape(shape)
 
     def to_montgomery(self, x):
@@ -328,6 +356,163 @@ class FieldOps:
             inv = self._sel(zmask, torch.zeros_like(inv), inv)
         return inv
 
+    # ------------------------------------------------------------------- exp
+
+    def exp_ladder(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """x^e in Montgomery form for e >= 1, in [0, 2p): kernel
+        `exp_ladder` on CUDA tensors, `exp_ladder_plain` on CPU tensors. The
+        exponent rides in the launch's parameters, so one binary serves every
+        e (the JAX package built one kernel per exponent)."""
+        if e < 1 or e >= self.R:
+            raise ValueError("exp_ladder needs 1 <= e < R")
+        if not kernels.on_cuda(x):
+            return self.exp_ladder_plain(x, e)
+        xf, N = self._flat(x)
+        out = torch.empty_like(xf)
+        if N:
+            e_words = kernels.words(codec.to_words(e, self.n))
+            EXP_LADDER.launch(kernels.ptr(out), kernels.ptr(xf), e_words, ladder_digits(e),
+                              self.field_words(EXP_LADDER), N, n=self.n, device=out.device)
+        return out.reshape(x.shape)
+
+    def exp_ladder_plain(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """The kernel's sequence on 16-bit limbs: the table {x, x^2, x^3},
+        then MSB first per 2-bit digit two squarings and, unless the digit
+        is 0, a product by the table entry (the JAX package multiplied by one
+        there: the same value, another representative)."""
+        F = self.plain
+        x1 = to16(x)
+        x2 = F.mul(x1, x1)
+        table = (None, x1, x2, F.mul(x2, x1))
+        nd = ladder_digits(e)
+        acc = table[(e >> (2 * (nd - 1))) & 3]
+        for k in range(nd - 2, -1, -1):
+            acc = F.mul(acc, acc)
+            acc = F.mul(acc, acc)
+            d = (e >> (2 * k)) & 3
+            if d:
+                acc = F.mul(acc, table[d])
+        return from16(acc)
+
+    def exp_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
+        """x^e for a constant e >= 0 (x^0 = one, in Montgomery form)."""
+        if e < 0:
+            raise ValueError("negative exponent")
+        if e == 0:
+            return self.const_plane(self.R_mod_p, x).contiguous()
+        return self.exp_ladder(x, e)
+
+    def inv(self, x: torch.Tensor) -> torch.Tensor:
+        """1/x in Montgomery form by Fermat, x^(p - 2); 0 -> 0."""
+        return self.exp_ladder(x, self.p - 2)
+
+    # ------------------------------------------------------------------ sqrt
+
+    def sqr_n(self, x: torch.Tensor, m: int) -> torch.Tensor:
+        """x^(2^m) by m Montgomery squarings in one launch (m at run time):
+        kernel `sqr_n` on CUDA tensors, `sqr_n_plain` on CPU tensors."""
+        if m <= 0:
+            return x
+        if not kernels.on_cuda(x):
+            return self.sqr_n_plain(x, m)
+        xf, N = self._flat(x)
+        out = torch.empty_like(xf)
+        if N:
+            SQR_N.launch(kernels.ptr(out), kernels.ptr(xf), int(m), self.field_words(SQR_N), N,
+                         n=self.n, device=out.device)
+        return out.reshape(x.shape)
+
+    def sqr_n_plain(self, x: torch.Tensor, m: int) -> torch.Tensor:
+        F = self.plain
+        a = to16(x)
+        for _ in range(m):
+            a = F.mul(a, a)
+        return from16(a)
+
+    @functools.cached_property
+    def _one_words(self):
+        return kernels.words(codec.to_words(self.R_mod_p, self.n))
+
+    def _g_table(self, device) -> torch.Tensor:
+        """The M x n words of g^(-2^j) (Montgomery form) on `device`."""
+        t = self._g_tables.get(device)
+        if t is None:
+            t = torch.from_numpy(codec.pack(self.sqrt_g_inv_pows, self.n).T.copy()).to(device)
+            self._g_tables[device] = t
+        return t
+
+    def sqrt_window(self, t, r, s, k: int, lk: int, last: bool):
+        """Window k of the 2-Sylow discrete log (lk <= SQRT_WINDOW bits),
+        given s = t^(2^(M - 4k - lk)): (t', r', digit) with the digit an int32
+        (1, *B) plane. Kernel `sqrt_win` on CUDA tensors, `sqrt_window_plain`
+        on CPU tensors."""
+        if not kernels.on_cuda(t, r, s):
+            return self.sqrt_window_plain(t, r, s, k, lk, last)
+        tf, rf, sf = [a.reshape(self.n, -1).contiguous() for a in (t, r, s)]
+        N = kernels.check_planes(self.n, tf, rf, sf)
+        t2, r2 = torch.empty_like(tf), torch.empty_like(rf)
+        digit = torch.empty((1, N), dtype=torch.int32, device=tf.device)
+        if N:
+            planes = (t2, r2, digit, tf, rf, sf, self._g_table(tf.device))
+            SQRT_WIN.launch(*[kernels.ptr(a) for a in planes], self._one_words, int(k), int(lk),
+                            self.sqrt_M, int(bool(last)), self.field_words(SQRT_WIN), N, n=self.n,
+                            device=t2.device)
+        return t2.reshape(t.shape), r2.reshape(r.shape), digit.reshape(1, *t.shape[1:])
+
+    def sqrt_window_plain(self, t, r, s, k: int, lk: int, last: bool):
+        """The JAX package's _sqrt_window_formula on 16-bit limbs, in the
+        kernel's order: for bit i of the window, square a copy of v
+        lk - 1 - i times and compare it with one (canonical values); where
+        it differs, the bit is set, and v (while later bits need it), t
+        (unless this is the last window) and the root r (from bit position
+        1 on) take their products with g^(-2^j) (computed on every lane,
+        then selected)."""
+        F, M, g = self.plain, self.sqrt_M, self.sqrt_g_inv_pows
+        t16, r16, v = to16(t), to16(r), to16(s)
+        one = F.const(self.R_mod_p, v)
+        digit = torch.zeros(s.shape[1:], dtype=torch.int32, device=s.device)
+        for i in range(lk):
+            chk = v
+            for _ in range(lk - 1 - i):
+                chk = F.mul(chk, chk)
+            bit = ~(F.reduce(chk) == one).all(dim=0)
+            digit |= bit.to(torch.int32) << i
+            j = SQRT_WINDOW * k + i
+            if i < lk - 1:
+                v = torch.where(bit[None], F.mul_const(v, g[M - lk + i]), v)
+            if not last:
+                t16 = torch.where(bit[None], F.mul_const(t16, g[j]), t16)
+            if j >= 1:
+                r16 = torch.where(bit[None], F.mul_const(r16, g[j - 1]), r16)
+        return from16(t16), from16(r16), digit[None]
+
+    def sqrt(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Square roots of Montgomery-form x in [0, 2p) over the batch:
+        (root, is_square). The JAX package's windowed Pohlig-Hellman sqrt
+        (the same steps, so the same root): u = x^q and r = x^((q+1)/2)
+        from one ladder, then per 4-bit window of the 2-Sylow discrete log of
+        u one `sqr_n` (the chain down to the window) and one `sqrt_win`. Zero
+        gives root 0 and is_square; a non-square gives root 0 and not
+        is_square."""
+        M, q = self.sqrt_M, self.sqrt_q_odd
+        zmask = self.is_zero(x)
+        one = self.const_plane(self.R_mod_p, x)
+        x_safe = self._sel(zmask, one, x).contiguous()
+        w_half = self.exp_const(x_safe, (q - 1) // 2)
+        u = self.mul(x_safe, self.mul(w_half, w_half))  # x^q
+        r = self.mul(x_safe, w_half)  # x^((q + 1) / 2)
+        t, done, k, parity = u, 0, 0, None
+        while done < M:
+            lk = min(SQRT_WINDOW, M - done)
+            s = self.sqr_n(t, M - done - lk)
+            t, r, digit = self.sqrt_window(t, r, s, k, lk, done + lk >= M)
+            if k == 0:
+                parity = (digit[0] & 1) != 0
+            done += lk
+            k += 1
+        is_square = ~parity
+        return self._sel(is_square & ~zmask, r, torch.zeros_like(r)), is_square | zmask
+
     # -------------------------------------------------------------------- I/O
 
     def pack(self, values, device="cuda", to_mont: bool = False) -> torch.Tensor:
@@ -348,6 +533,31 @@ class FieldOps:
 
     def host_planes(self, values) -> np.ndarray:
         return codec.pack(values, self.n)
+
+
+def ladder_digits(e: int) -> int:
+    """Count of 2-bit digits of e >= 1 (the ladder's steps are this less 1)."""
+    return (e.bit_length() + 1) // 2
+
+
+def sqrt_constants(p: int, R: int) -> tuple[int, int, list[int]]:
+    """The 2-Sylow structure of F_p^* that sqrt needs, as the JAX package's
+    create_field_ops computes it for an odd prime p: p - 1 = 2^M q with q
+    odd, and g^(-2^j) in Montgomery form for j < M, where g = z^q generates
+    the 2-Sylow subgroup for the least non-residue z."""
+    M, q = 0, p - 1
+    while q % 2 == 0:
+        q //= 2
+        M += 1
+    z = 2
+    while pow(z, (p - 1) // 2, p) == 1:
+        z += 1
+    cur = pow(pow(z, q, p), -1, p)
+    pows = []
+    for _ in range(M):
+        pows.append(cur * R % p)
+        cur = cur * cur % p
+    return M, q, pows
 
 
 @functools.lru_cache(maxsize=None)

@@ -151,8 +151,11 @@ class Kernel:
         self._fns: dict = {}
         REGISTRY[name] = self
 
-    def launch(self, *args, n: int | None = None) -> None:
-        """Launch the entry point for n limbs on the current stream."""
+    def launch(self, *args, n: int | None = None, device: torch.device) -> None:
+        """Launch the entry point for n limbs on `device`, the CUDA device
+        that holds the launch's tensors, and on that device's current
+        stream (not the current device's: a tensor on another card must not
+        reach a kernel on this one)."""
         check_limbs(self, n)
         fn = self._fns.get(n)
         if fn is None:
@@ -160,8 +163,8 @@ class Kernel:
             fn.argtypes = [*self.argtypes, ctypes.c_void_p]
             fn.restype = ctypes.c_int
             self._fns[n] = fn
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(*args, stream)
+        with torch.cuda.device(device):
+            rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"kernel {self.name}: launch failed, CUDA error {rc}")
         self.launches += 1
@@ -237,7 +240,7 @@ def check_limbs(kernel: Kernel, n: int | None) -> None:
         have = sorted(k for k in kernel.symbols if k is not None)
         raise NotImplementedError(
             f"kernel {kernel.name} is compiled for {have} limbs of 32 bits; this field needs "
-            f"{n}: other curves on the card are ROADMAP item 12 (on the CPU, pass "
+            f"{n}: see ROADMAP, \"Other Weierstrass curves on the card\" (on the CPU, pass "
             f"device='cpu' to run the plain versions)")
 
 

@@ -225,7 +225,7 @@ def digits_glv_device(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Ten
     if N:
         cfg = gd.kernel_words(c)
         GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(s),
-                          cfg.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N)
+                          cfg.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N, device=out.device)
     return out
 
 

@@ -304,7 +304,8 @@ def test_launch_guard_by_kernel():
     """kernels.field_params accepts 9 limbs only for the kernels the TE path
     runs at n = 9, 12 for every field kernel, and 13 for none: no launch can
     hand planes of another width to a kernel."""
-    nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed"}
+    nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed",
+            "exp_ladder", "sqr_n", "sqrt_win"}
     field_kernels = {k for k in kernels.REGISTRY.values() if None not in k.symbols}
     assert {k.name for k in field_kernels} >= nine | {"proj_add_rcb", "aff_pre_packed", "mont_sqr"}
     for k in field_kernels:
@@ -313,12 +314,12 @@ def test_launch_guard_by_kernel():
             if ok:
                 assert len(kernels.field_params(k, P, n, 1)) == 3 * n + 1
             else:
-                with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+                with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
                     kernels.field_params(k, P, n, 1)
     for k in (projective.PROJ_ADD_RCB, projective.PROJ_DBL_RCB, affine.AFF_PRE_PACKED,
               affine.AFF_POST_PACKED, affine.PACK_GLV, MONT_SQR):
         with pytest.raises(NotImplementedError):
-            k.launch(n=9)  # refused before the library is touched
+            k.launch(n=9, device=torch.device("cuda"))  # refused before the library is touched
     assert set(edwards.ED_ADD.symbols) == {9} and set(MONT_MUL.symbols) == set(MUL_CONST.symbols) == {9, 12}
 
 
@@ -326,5 +327,5 @@ def test_weierstrass_guard_on_cuda(monkeypatch):
     """WeierstrassMsm on the card still refuses Pallas (9 limbs: its field
     kernels exist at 9, its curve kernels do not) before any launch."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
         WeierstrassMsm(PALLAS, device="cuda")

@@ -93,6 +93,7 @@ def test_random_points_fast_closed_form():
 
 def test_import_leaves_jax_out():
     code = ("import sys, montgomery_tpu_torch.msm, montgomery_tpu_torch.interop, "
+            "montgomery_tpu_torch.ops.field, montgomery_tpu_torch.curves.projective, "
             "montgomery_tpu_torch.curves.random, montgomery_tpu_torch.serve, "
             "montgomery_tpu_torch.curves.edwards, montgomery_tpu_torch.bigint.twisted_edwards, "
             "montgomery_tpu_torch.concrete; "
@@ -116,7 +117,7 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
                            "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
-                           "ed_add_packed"}
+                           "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win"}
     assert all(v == 0 for v in counts.values()), counts
 
 

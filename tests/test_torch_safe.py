@@ -276,11 +276,11 @@ def test_safe_msm_matches_oracle(ctx, N, c, first):
 def test_cuda_limb_guard(monkeypatch):
     """On the card, a field whose limb count is not the kernels' (BLS12-381:
     13) raises before any launch; checked without a device."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
         FieldOps(BLS12_381.modulus).field_words(MONT_MUL)
     kernels.check_limbs(MONT_MUL, FieldOps(P).n)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
         WeierstrassMsm(BLS12_381, device="cuda")
     # the plain versions run any limb count on the CPU
     assert WeierstrassMsm(BLS12_381, device="cpu").fops.n == 13

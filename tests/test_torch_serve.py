@@ -137,5 +137,5 @@ def test_curves(monkeypatch):
     # before any device is touched)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     for label in ("bls12-381", "pallas"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 12"):
+        with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
             serve.get_curve(label)
