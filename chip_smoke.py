@@ -5,8 +5,9 @@ Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
 against its plain PyTorch version on the card, runs BLS12-377 MSMs on every
 engine and ed-on-bls12-377 (Twisted Edwards) MSMs, directly and through
 `serve.compute_msm`, against the bigint oracle and against a closed form,
-generates random points of both curves on the card by sqrt trial and runs
-MSMs on them, and times them.
+runs the planar batched-affine adds against the oracle and the sharded MSM
+on logical meshes of the one card, generates random points of both curves
+on the card by sqrt trial and runs MSMs on them, and times them.
 
     python3 chip_smoke.py
 
@@ -39,7 +40,11 @@ Phases, each printed as it runs:
      chain) and every sqrt_win window of one whole sqrt, bit for bit, at
      2^16 and 2^16 + 17 lanes with 0, 1, p - 1, [p, 2p) values, known squares
      and known non-squares in the first lanes; inv against inv_root; each
-     timed at the 2,621,456 candidates of a 2^20-point generation;
+     timed at the 2,621,456 candidates of a 2^20-point generation. Then the
+     planar adds' kernels (`planar_kernels`: aff_pre, aff_post,
+     aff_pre_unsafe with and without its validity mask, aff_post_unsafe)
+     bit for bit at 2^16, 2^16 + 17 and 2^20 lanes, every flag class in the
+     first lanes, each timed at 2^20;
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
      and the safe batched-affine engine with zero scalars, duplicate and
      negated duplicate points and the point at infinity; the unsafe engine
@@ -47,9 +52,13 @@ Phases, each printed as it runs:
      the affine engines at the default c (a pair round first) and at c = 4
      (the 8-way super-round first); serve.compute_msm from ints and from
      bytes, and its ValueError on an off-curve point, misaligned bytes and a
-     length mismatch. Then the same for the Twisted Edwards engine
-     (EdwardsMsm, 9 limbs; the identity in place of infinity) and
-     compute_msm(curve="ed-on-bls12-377");
+     length mismatch. Then the planar adds (`phase_planar_oracle`):
+     batch_add and batch_add_unsafe (masked too) on the lanes of
+     tests/test_curve_ops.py and the 640-lane grids of
+     tests/test_grid_combine.py against the oracle, and at 2^20 lanes on
+     1,024 sampled lanes, with launch counts and times. Then the same as
+     above for the Twisted Edwards engine (EdwardsMsm, 9 limbs; the
+     identity in place of infinity) and compute_msm(curve="ed-on-bls12-377");
   3. per path (affine-unsafe, affine-safe and projective) and size (N = 2^16,
      2^20, c from window_size) on random_points_fast(seed=42) points: launch
      counts of a run with the counts set to 0 just before it (every kernel of
@@ -75,7 +84,16 @@ Phases, each printed as it runs:
      and sampled points against the bigint oracle's rebuild from the same
      draw, q P = 0; then MSMs on those points: BLS12-377's three engines
      agree at 2^20, the Twisted Edwards one at two window sizes, and both
-     equal the oracle at N = 512.
+     equal the oracle at N = 512;
+  5. (run before phase 4, while the bench points are on the card) the
+     sharded MSM (`phase_sharded`): msm_full_sharded on logical meshes of
+     1, 2, 4 and 8 shards of the card, every engine, against the oracle at
+     N = 512 (a zero scalar, one point under one scalar in two shards), and
+     at 2^16 and 2^20 against the closed form and the single-device engine,
+     with launch counts at 8 shards and the median of 3 at 2^20; then
+     msm_sharded with the Twisted Edwards adapter at 2 shards and 2^16.
+     Every MSM path, sharded ones included, must launch none of the planar
+     adds' kernels.
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
 raises; without a CUDA device the script exits 1 before printing a result.
@@ -109,6 +127,9 @@ _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_r
 _UNSAFE, _SAFE = {"aff_pre_packed_u", "aff_post_packed_u"}, {"aff_pre_packed", "aff_post_packed"}
 _EDWARDS = {"ed_add", "ed_dbl", "ed_add_packed"}
 _WEIERSTRASS = _AFFINE | _UNSAFE | _SAFE | {"mont_sqr"}
+# the planar adds' kernels: launched by AffineOps.batch_add / batch_add_unsafe,
+# never by an MSM path (sharded ones included)
+_PLANAR = {"aff_pre", "aff_post", "aff_pre_unsafe", "aff_post_unsafe"}
 PATH_KERNELS = {
     "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"},
     "affine_unsafe": _AFFINE | _UNSAFE,
@@ -128,6 +149,18 @@ PATH_KERNELS["points"] = _SOLVE | {"proj_add_rcb", "proj_dbl_rcb"}
 PATH_KERNELS["te_points"] = _SOLVE | {"ed_dbl"}
 PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr"}
 PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed"}
+for _path in PATH_FORBIDDEN:
+    PATH_FORBIDDEN[_path] |= _PLANAR
+# the planar adds at 2^20 lanes: the batch inversion's kernels and their own
+PATH_KERNELS["planar_safe"] = {"aff_pre", "aff_post", "mont_mul", "divstep_inv_mont"}
+PATH_KERNELS["planar_unsafe"] = {"aff_pre_unsafe", "aff_post_unsafe", "mont_mul", "divstep_inv_mont"}
+for _path in ("planar_safe", "planar_unsafe"):
+    PATH_FORBIDDEN[_path] = (_WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR) - PATH_KERNELS[_path]
+PLANAR_LANES = (*KERNEL_LANES, 1 << 20)  # the planar kernels' checks; timed at the last
+PLANAR_SAMPLE = 1024  # lanes of the 2^20-lane planar adds checked against the oracle
+GRID_W = 640  # tests/test_grid_combine.py's grid: wider than the 512-lane inversion stop
+SHARD_D = (1, 2, 4, 8)  # logical shards on the one card
+SHARD_ORACLE_N = 512
 GEN_LOG2N = 20
 GEN_SEED = 3
 GEN_OVERSAMPLE = 2.5
@@ -304,19 +337,26 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
         "divstep_inv_mont": (2 * W, wide + ctx.fops.inv_params.n_batches * per_batch, lo),
         "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
         "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
-        "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, *products(3)),
+        "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, wide + sqr[0], lo + sqr[1]),
         "mont_sqr": (2 * W, *sqr),
         # in: A, B, two signs, hp; out: denom, numer, flags
         "aff_pre_packed": (2 * col + 12 + 2 * W + 4, *sqr),
         # in: A, B, two signs, dinv, numer, flags, hp; out: one packed column
-        "aff_post_packed": (2 * col + 8 + 2 * W + 8 + col,
-                            products(2)[0] + sqr[0], products(2)[1] + sqr[1]),
+        "aff_post_packed": (2 * col + 8 + 2 * W + 8 + col, wide + sqr[0], lo + sqr[1]),
         # Twisted Edwards (8 products and 1 by k = 2d per add): 8 points
         # moved by the add, 2 by k = 1 doublings, and for the packed add two
         # packed columns, two signs and hp in, one column out
         "ed_add": (12 * W, *products(9)),
         "ed_dbl": (8 * W, *products(9)),
         "ed_add_packed": (2 * 4 * W + 12 + 4 * W, *products(9)),
+        # the planar adds: x1, y1, x2, y2 and two bool infinity bytes in;
+        # pre: denom, numer, flags out; post: dinv, numer, flags in too, x3,
+        # y3 and a bool out; the unsafe pre (timed with its validity byte):
+        # two x in, denom out; the unsafe post: five planes in, two out
+        "aff_pre": (4 * W + 2 + 2 * W + 4, *sqr),
+        "aff_post": (6 * W + 4 + 2 + 2 * W + 1, wide + sqr[0], lo + sqr[1]),
+        "aff_pre_unsafe": (2 * W + 1 + W, 0, 0),
+        "aff_post_unsafe": (5 * W + 2 * W, wide + sqr[0], lo + sqr[1]),
     }[name]
 
 
@@ -473,6 +513,8 @@ def phase_kernels(ctx, pts, rates: dict):
                    cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, 13), 3, 1))
 
     affine_kernels(ctx, pts, record, diff)
+    torch.cuda.empty_cache()
+    planar_kernels(ctx, pts, record, diff)
     torch.cuda.empty_cache()
     for name, r in results.items():
         r["bound_ms"], r["bound_by"] = bound(ctx, name, r["lanes"], rates)
@@ -669,6 +711,67 @@ def affine_kernels(ctx, pts, record, diff):
         del cases
 
 
+def planar_kernels(ctx, pts, record, diff):
+    """The planar adds' kernels (aff_pre, aff_post, aff_pre_unsafe with and
+    without its validity mask, aff_post_unsafe) against their plain versions
+    on the same tensors, bit for bit (raw planes, flags and masks), at 2^16,
+    2^16 + 17 and 2^20 lanes. The operands are column slices of wider
+    planes; the first lanes hold every flag class of `_flag_lanes` (the
+    signs folded into y: doubling, cancellation, each operand infinite, both,
+    the order-2 point (p - 1, 0) doubled, unreduced representatives), the
+    rest random values below 2^bits(p) with one lane in 8 infinite; the
+    masked pre kernel's unpaired classes are invalid lanes, the rest random.
+    Each kernel is timed at 2^20 lanes (aff_pre_unsafe with its mask)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, aff, dev = ctx.fops, ctx.affine, ctx.device
+    n = f.n
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def raw_err(a, b):
+        a, b = (t if isinstance(t, tuple) else (t,) for t in (a, b))
+        return max(diff(x.long(), y.long()) for x, y in zip(a, b))
+
+    for M in PLANAR_LANES:
+        X, Y = _random_planes(f, n, 2 * M, gen), _random_planes(f, n, 2 * M, gen)
+        inf = torch.randint(0, 8, (2 * M,), device=dev, generator=gen) == 0
+        K = min(M, 1200)
+        FA, FB, fsa, fsb, fhp = _flag_lanes(ctx, pts, K)
+        for off, F, sg in ((0, FA, fsa), (M, FB, fsb)):
+            X[:, off:off + K] = F[:n]
+            Y[:, off:off + K] = torch.where(sg != 0, f.neg(F[n:2 * n]), F[n:2 * n])
+            inf[off:off + K] = F[2 * n] != 0
+        G = AffineBatch(X[:, :M], Y[:, :M], inf[:M])
+        H = AffineBatch(X[:, M:], Y[:, M:], inf[M:])
+        valid = torch.randint(0, 2, (M,), device=dev, generator=gen) == 1
+        valid[:K] = fhp[0] != 0
+        dinv = _random_planes(f, n, M, gen)
+        _, numer, flags = aff.pre(G, H)
+        cases = {
+            "aff_pre": (lambda: aff.pre(G, H), lambda: aff.pre_plain(G, H)),
+            "aff_post": (lambda: aff.post(G, H, dinv, numer, flags),
+                         lambda: aff.post_plain(G, H, dinv, numer, flags)),
+            "aff_pre_unsafe": (lambda: aff.pre_unsafe(G.x, H.x, valid),
+                               lambda: aff.pre_unsafe_plain(G.x, H.x, valid)),
+            "aff_pre_unsafe without mask": (lambda: aff.pre_unsafe(G.x, H.x),
+                                            lambda: aff.pre_unsafe_plain(G.x, H.x)),
+            "aff_post_unsafe": (lambda: aff.post_unsafe(G, H, dinv),
+                                lambda: aff.post_unsafe_plain(G, H, dinv)),
+        }
+        for label, (kern, plain) in cases.items():
+            err = raw_err(kern(), plain())
+            say(f"{label} N={M}: max_abs_err {err} (raw planes)")
+            if err:
+                raise AssertionError(f"{label} at {M} lanes disagrees with its plain version")
+            if M == PLANAR_LANES[-1] and " " not in label:
+                record(label, err, cuda_time_ms(kern, KERNEL_REPS), cuda_time_ms(plain, 3, 1), M)
+            else:
+                record(label.split()[0], err)
+        del cases, X, Y
+
+
 # ----------------------------------------------------------------- phase 2
 
 
@@ -754,6 +857,203 @@ def phase_oracle(ctx, pts):
             say(f"serve.compute_msm on a {label}: ValueError ({e})")
         else:
             raise AssertionError(f"compute_msm accepted a {label}")
+
+
+def _grid_lanes(E, rng: random.Random):
+    """tests/test_grid_combine.py's two GRID_W-lane grids: empty + empty,
+    empty + P, P + empty, P + P, two cancellations, then generic pairs."""
+    from montgomery_tpu_torch.bigint import AffinePoint
+
+    zero = AffinePoint.zero()
+    base = [E.scale(rng.randrange(1, 1 << 62), E.generator) for _ in range(8)]
+    g = [zero, zero, base[1], base[2], base[3], base[4]]
+    h = [zero, base[0], zero, base[2], E.neg(base[3]), E.neg(base[4])]
+    while len(g) < GRID_W:
+        k = rng.randrange(1, 1 << 30)
+        g.append(E.scale(k, base[len(g) % 8]))
+        h.append(E.scale(k + 1, base[(len(g) + 3) % 8]))
+    return g, h
+
+
+def phase_planar_oracle(ctx, pts_full):
+    """The planar adds (AffineOps.batch_add, batch_add_unsafe) against the
+    bigint oracle: tests/test_curve_ops.py's lanes with the order-2 point T
+    = (p - 1, 0) (T + T, T + Q); the unsafe add on distinct points, and
+    masked with one doubling lane excluded and passed through; the 640-lane
+    grids of tests/test_grid_combine.py, safe and masked; then at 2^20 lanes
+    on the bench points (H = the points 12,345 lanes on, with a doubling, a
+    cancellation and infinite operands planted in the first lanes) with
+    PLANAR_SAMPLE lanes against the oracle, each add's launch counts from a
+    run with the counts set to 0 just before it, and the median of 3.
+    Returns the two runs' launch counts."""
+    import statistics
+
+    import torch
+
+    from montgomery_tpu_torch.bigint import AffinePoint, WeierstrassCurve
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    say("== phase 2: planar batched-affine adds against the bigint oracle")
+    E = WeierstrassCurve(ctx.params)
+    aff, dev, f = ctx.affine, ctx.device, ctx.fops
+    rng = random.Random(4)
+
+    def check(label, out, want):
+        got = ctx.proj.affine_to_host(out)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if not E.equal(g, w)]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"{label}: lanes {bad[:8]} differ from the oracle")
+        say(f"{label}: {len(want)} lanes equal to the oracle")
+
+    P, Q, R, S, *rest = [E.random_point(rng) for _ in range(8)]
+    Z0, T = AffinePoint.zero(), AffinePoint(f.p - 1, 0)
+    lhs, rhs = [P, Q, P, P, Z0, P, Z0, R, T, T, Q], [Q, R, P, E.neg(P), Q, Z0, Z0, S, T, Q, T]
+    G, H = ctx.affine_to_device(lhs), ctx.affine_to_device(rhs)
+    check("batch_add on test_curve_ops' lanes", aff.batch_add(G, H), [E.add(a, b) for a, b in zip(lhs, rhs)])
+    ul, ur = [P, Q, R, S, P], rest + [P]
+    UG, UH = ctx.affine_to_device(ul), ctx.affine_to_device(ur)
+    keep = torch.tensor([True] * 4 + [False], device=dev)
+    sums = [E.add(a, b) for a, b in zip(ul, ur)]
+    check("batch_add_unsafe on distinct points", aff.batch_add_unsafe(*[AffineBatch(*[a[..., :4] for a in B])
+                                                                        for B in (UG, UH)]), sums[:4])
+    check("batch_add_unsafe masked (P + P excluded, passed through)",
+          aff.select(keep, aff.batch_add_unsafe(UG, UH, valid=keep), UG), sums[:4] + [P])
+
+    g, h = _grid_lanes(E, rng)
+    G, H = ctx.affine_to_device(g), ctx.affine_to_device(h)
+    sums = [E.add(a, b) for a, b in zip(g, h)]
+    check(f"batch_add on the {GRID_W}-lane grid", aff.batch_add(G, H), sums)
+    valid = torch.ones(GRID_W, dtype=torch.bool, device=dev)
+    valid[:6] = False
+    check(f"batch_add_unsafe masked on the {GRID_W}-lane grid (hazard lanes passed through)",
+          aff.select(valid, aff.batch_add_unsafe(G, H, valid=valid), G), g[:6] + sums[6:])
+
+    N = pts_full.count
+    G = pts_full
+    shift = (torch.arange(N, device=dev) + 12345) % N
+    H = AffineBatch(*[a.index_select(a.dim() - 1, shift) for a in G])
+    hx, hy, hinf = H.x.clone(), H.y.clone(), H.inf.clone()
+    hx[:, 0], hy[:, 0] = G.x[:, 0], G.y[:, 0]  # doubling
+    hx[:, 1], hy[:, 1] = G.x[:, 1], f.neg(G.y[:, 1:2])[:, 0]  # cancellation
+    ginf = G.inf.clone()
+    ginf[2] = ginf[4] = True  # G infinite; both infinite
+    hinf[3] = hinf[4] = True  # H infinite
+    G, H = AffineBatch(G.x, G.y, ginf), AffineBatch(hx, hy, hinf)
+    lanes = sorted({*range(8), *random.Random(9).sample(range(N), PLANAR_SAMPLE - 8)})
+    sel = torch.tensor(lanes, device=dev)
+
+    def sampled(B):
+        return AffineBatch(*[a.index_select(a.dim() - 1, sel) for a in B])
+
+    hg, hh = (ctx.proj.affine_to_host(sampled(B)) for B in (G, H))
+    valid = torch.rand(N, device=dev, generator=torch.Generator(device=dev).manual_seed(8)) < 0.9
+    valid[:5] = False  # the planted hazard lanes
+    runs = {"planar_safe": (lambda: aff.batch_add(G, H), [E.add(a, b) for a, b in zip(hg, hh)]),
+            "planar_unsafe": (lambda: aff.select(valid, aff.batch_add_unsafe(G, H, valid=valid), G),
+                              [E.add(a, b) if v else a for a, b, v in zip(hg, hh, valid[sel].tolist())])}
+    launches = {}
+    for path, (run, want) in runs.items():
+        counts, first, out = counted(run, path)
+        check(f"{path} at {N} lanes ({len(lanes)} sampled, hazards in the first lanes)", sampled(out), want)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        say(f"{path} launches: {counts}; median {statistics.median(times):.6f} s over 3 runs "
+            f"{['%.6f' % t for t in times]} (first run {first:.3f} s)")
+        launches[f"{path}_2^{N.bit_length() - 1}"] = counts
+    return launches
+
+
+def phase_sharded(ctx, te, pts_full, te_full, host_pts, expected) -> dict:
+    """msm_full_sharded on logical meshes of D = 1, 2, 4 and 8 shards on the
+    one card, every engine: at SHARD_ORACLE_N points (c = 4) against the
+    bigint oracle, with a zero scalar and one point under one scalar in two
+    shards (the unsafe engine at D = 1 on distinct points: one shard would
+    hold the duplicate, against its contract); at 2^16 and 2^20 on the bench
+    points and scalars against the closed form and the single-device
+    engine's result, launch counts at D = 8 and 2^20, and the median of 3 at
+    2^20 (logical shards on one card: the shards run one after another, so
+    the times are no scaling evidence); then msm_sharded with the Twisted
+    Edwards adapter at D = 2 and 2^16 against the closed form. Returns the
+    counted runs' launch counts."""
+    from montgomery_tpu_torch.bigint import WeierstrassCurve, msm as oracle_msm
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+    from montgomery_tpu_torch.parallel import make_mesh, msm_full_sharded, msm_sharded, shard_points
+    from montgomery_tpu_torch.utils.timing import timeit
+
+    dev = ctx.device
+    E, q = WeierstrassCurve(ctx.params), ctx.params.order
+    meshes = {D: make_mesh(D, devices=[dev] * D) for D in SHARD_D}
+    engines = {"affine_safe": dict(affine=True), "affine_unsafe": dict(affine=True, unsafe=True),
+               "projective": dict(affine=False)}
+    say(f"== phase 5: msm_full_sharded on logical meshes of {list(SHARD_D)} shards on one card")
+    N, c = SHARD_ORACLE_N, 4
+    rng = random.Random(6)
+    pts = host_pts[:N]
+    sc = [rng.randrange(q) for _ in range(N)]
+    sc[0] = 0
+    dup, dsc = list(pts), list(sc)
+    dup[N // 2 + 1], dsc[N // 2 + 1] = pts[1], sc[1]
+    cases = {"hazards": (dup, dsc, oracle_msm(E, dsc, dup)), "distinct": (pts, sc, oracle_msm(E, sc, pts))}
+    for D, mesh in meshes.items():
+        for engine, kw in engines.items():
+            case = "distinct" if D == 1 and engine == "affine_unsafe" else "hazards"
+            p_, s_, want = cases[case]
+            A, L = shard_points(ctx.affine_to_device(p_), ctx.scalars_to_limbs(s_), mesh)
+            got = ctx.proj.to_host(msm_full_sharded(ctx, A, L, c, mesh, **kw))[0]
+            if not E.equal(got, want):
+                raise AssertionError(f"msm_full_sharded {engine} D={D} N={N} differs from the oracle")
+        say(f"D={D}: msm_full_sharded at N={N}, c={c}, every engine: equal to the oracle "
+            f"(zero scalar; point 1 and its scalar again at {N // 2 + 1})")
+    launches = {}
+    top = max(MSM_LOG2N)
+    for log2n in MSM_LOG2N:
+        N = 1 << log2n
+        c = ctx.default_c(N)
+        A = AffineBatch(*[a[..., :N] for a in pts_full])
+        limbs = ctx.scalars_to_limbs(bench_scalars(q, N))
+        want = expected_sum(expected, ctx.params, N, pts_full.count)
+        for engine, kw in engines.items():
+            single = ctx.proj.to_host(ctx.msm_device_full(A, limbs, c, **kw))[0]
+            if not E.equal(single, want):
+                raise AssertionError(f"single-device {engine} at N=2^{log2n} differs from the closed form")
+            for D, mesh in meshes.items():
+                As, Ls = shard_points(A, limbs, mesh)
+
+                def run(As=As, Ls=Ls, mesh=mesh, kw=kw):
+                    return msm_full_sharded(ctx, As, Ls, c, mesh, **kw)
+
+                if log2n == top and D == max(SHARD_D):
+                    counts, _, S = counted(run, engine)
+                    launches[f"sharded_{engine}_D{D}_2^{log2n}"] = counts
+                else:
+                    S = run()
+                got = ctx.proj.to_host(S)[0]
+                if not (E.equal(got, want) and E.equal(got, single)):
+                    raise AssertionError(f"msm_full_sharded {engine} D={D} at N=2^{log2n} differs")
+                note = ""
+                if log2n == top:
+                    med, times = timeit(run, device=dev, reps=3, warmup=1)
+                    note = f"; median {med:.6f} s over 3 runs {['%.6f' % t for t in times]}"
+                say(f"msm_full_sharded {engine} D={D} N=2^{log2n} c={c}: equal to the closed form "
+                    f"and the single-device engine{note}")
+    say("(times of logical shards on one card: the shards run one after another; no scaling evidence)")
+    N = 1 << min(MSM_LOG2N)
+    c = te.default_c(N)
+    P = type(te_full)(*[a[..., :N] for a in te_full])
+    digits = te.digits(te.scalars_to_limbs(bench_scalars(te.params.order, N)), c)
+    mesh = meshes[2]
+    Ps, ds = shard_points(P, digits, mesh)
+    counts, secs, got = counted(lambda: te.ed.to_host(msm_sharded(te.adapter, Ps, ds, c, mesh)), "te")
+    if not oracle_curve(te.params).equal(got[0], expected_sum(expected, te.params, N, te_full.count)):
+        raise AssertionError(f"msm_sharded (Twisted Edwards) D=2 N=2^{min(MSM_LOG2N)} differs")
+    say(f"msm_sharded Twisted Edwards D=2 N={N} c={c}: equal to the closed form ({secs:.3f} s)")
+    launches[f"te_sharded_D2_2^{min(MSM_LOG2N)}"] = counts
+    return launches
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1576,21 +1876,23 @@ def phase_points(c, path: str) -> dict:
 def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
     """The {"kernels": [...]} line: one entry per registered kernel, its
     launches read from the first run of `home_runs` that runs it (bench.py's
-    configuration, then the Twisted Edwards MSM, then the others at 2^20),
-    with every run's count beside them; a kernel instantiated at 12 and at 9
-    limbs carries its 9-limb measurements under "n9"."""
+    configuration, then the Twisted Edwards MSM, then the others at 2^20,
+    then the planar adds at 2^20), with the count of every run that launched
+    it beside them; a kernel instantiated at 12 and at 9 limbs carries its
+    9-limb measurements under "n9"."""
     from montgomery_tpu_torch.ops import kernels
 
     top = max(MSM_LOG2N)
     home_runs = [f"{run}_2^{top}" for run in (PATHS[0], "te", *PATHS[1:], "serve", "te_serve")]
     home_runs += [f"{run}_2^{GEN_LOG2N}" for run in ("points", "te_points")]
+    home_runs += [f"{run}_2^{top}" for run in ("planar_safe", "planar_unsafe")]
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
         res = kres.get(name) or te_kres[name]
         e = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[home][name], "launches_run": home,
-             "launches_by_path": {run: c[name] for run, c in launches.items()},
+             "launches_by_path": {run: c[name] for run, c in launches.items() if c[name]},
              "max_abs_err": max(r[name]["max_abs_err"] for r in (kres, te_kres) if name in r),
              "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
              "bound_by": res["bound_by"], "library_ms": None, "lanes": res["lanes"],
@@ -1644,8 +1946,8 @@ def main() -> int:
     kres.update(sqrt12)
     te_kres.update(sqrt9)
     phase_oracle(ctx, host_pts)
+    launches, expected = phase_planar_oracle(ctx, pts), {}
     phase_te_oracle(te)
-    launches, expected = {}, {}
     for path in PATHS:
         for log2n in MSM_LOG2N:
             launches[f"{path}_2^{log2n}"] = phase_msm(ctx, log2n, pts, path, expected)
@@ -1657,6 +1959,7 @@ def main() -> int:
         launches[f"te_2^{log2n}"] = phase_te_msm(te, log2n, te_pts, expected)
     launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
                                                            TE_CURVE, "te_serve")
+    launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
     del pts, te_pts
     torch.cuda.empty_cache()
     for c, path in ((ctx, "points"), (te, "te_points")):

@@ -10,11 +10,13 @@
 // (2n+1, M) array. The unsafe contract (no two operands of a pair share x,
 // no infinity among paired operands) is the caller's.
 //
-// Bound on this card: 3 products per lane (864 32x32->64 multiplies)
-// against 256 bytes read and 100 written; the multiply and the memory bounds
-// are about equal (0.088 and 0.089 ms at 835,592 lanes on an H100). Design: one thread per lane,
+// Bound on this card: 2 products and a square per lane (798 32x32->64
+// multiplies) against 256 bytes read and 100 written; the memory bound
+// (0.089 ms at 835,592 lanes on an H100) is a little above the multiply
+// bound. Design: one thread per lane,
 // operands read in place through their row strides; neg/sub/select are the
-// branch-free helpers of field.cuh, load_signed that of affine.cuh.
+// branch-free helpers of field.cuh, load_signed and aff_chord (shared with
+// the planar aff_post_unsafe.cu) those of affine.cuh.
 #include "affine.cuh"
 
 template <int NL>
@@ -25,18 +27,11 @@ aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ 
                          const int32_t* __restrict__ hp, FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
-  uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], lam[NL], t[NL], x3[NL], y3[NL];
+  uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], x3[NL], y3[NL];
   load_signed(x1, y1, A, sa, i, sA[i] != 0, F);
   load_signed(x2, y2, B, sb, i, sB[i] != 0, F);
   fe_load(d, dinv, sd, i);
-  fe_sub(t, y2, y1, F);
-  fe_mul(lam, t, d, F);
-  fe_mul(t, lam, lam, F);
-  fe_sub(t, t, x1, F);
-  fe_sub(x3, t, x2, F);
-  fe_sub(t, x1, x3, F);
-  fe_mul(y3, lam, t, F);
-  fe_sub(y3, y3, y1, F);
+  aff_chord(x3, y3, x1, y1, x2, y2, d, F);
   bool paired = hp[i] != 0;
   fe_select(x3, paired, x3, x1);
   fe_select(y3, paired, y3, y1);

@@ -1,0 +1,47 @@
+// Kernel 18: edge-case triage of the planar safe batched-affine add.
+//
+// Replaces the Pallas kernel "aff_pre" of montgomery_tpu/curves/affine.py
+// (AffineOps.batch_add, :134, over _pre_inv_formula, :76-99). Per lane of
+// two planar point batches G and H: aff_triage of affine.cuh gives the
+// denominator (2 y1 for a doubling, x2 - x1 otherwise, the Montgomery form
+// of 1 where poisoned: cancel, a tangent at y = 0, an infinite operand), the
+// slope numerator and the flags. Outputs: denom (NL, N), numer (NL, N),
+// flags (1, N).
+//
+// Bound on this card: memory; per lane 192 bytes of coordinates and two
+// infinity bytes read, 100 bytes written, against one square. Design: one
+// thread per lane; each coordinate plane is read in place through its own
+// row stride (a column slice or a flattened grid passes without a copy); the
+// infinity masks are the batches' bool bytes, read as they are.
+#include "affine.cuh"
+
+template <int NL>
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+aff_pre_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, int32_t* __restrict__ flags,
+               const int32_t* __restrict__ x1p, int sx1, const int32_t* __restrict__ y1p, int sy1,
+               const int32_t* __restrict__ x2p, int sx2, const int32_t* __restrict__ y2p, int sy2,
+               const uint8_t* __restrict__ inf1, const uint8_t* __restrict__ inf2, Fe<NL> one,
+               FieldParams<NL> F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], u[NL];
+  fe_load(x1, x1p, sx1, i);
+  fe_load(y1, y1p, sy1, i);
+  fe_load(x2, x2p, sx2, i);
+  fe_load(y2, y2p, sy2, i);
+  flags[i] = aff_triage(d, u, x1, y1, x2, y2, inf1[i] != 0, inf2[i] != 0, one.v, F);
+  fe_store(denom, N, i, d);
+  fe_store(numer, N, i, u);
+}
+
+extern "C" int msm_aff_pre(void* denom, void* numer, void* flags, const void* x1, int sx1, const void* y1,
+                           int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* inf1,
+                           const void* inf2, const uint32_t* one, const uint32_t* field, int N,
+                           void* stream) {
+  if (N > 0)
+    aff_pre_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)x1, sx1, (const int32_t*)y1, sy1,
+        (const int32_t*)x2, sx2, (const int32_t*)y2, sy2, (const uint8_t*)inf1, (const uint8_t*)inf2,
+        fe_from<12>(one), field_from<12>(field), N);
+  return (int)cudaGetLastError();
+}

@@ -4,10 +4,12 @@
 // safe batched-affine kernels: _pre_inv_formula (:76-99), the edge-case
 // triage before the inversion, and _post_inv_formula (:101-121), the chord or
 // tangent completion after it, with _slope_numer_dbl (:67-74) for a = 0.
-// The packed kernels (aff_pre_packed.cu, aff_post_packed.cu) call them per
-// lane; a planar add can call the same functions. Templates over the limb
-// count like field.cuh; the kernels instantiate them at 12 limbs only
-// (BLS12-377), the one Weierstrass field on the card.
+// The packed kernels (aff_pre_packed.cu, aff_post_packed.cu) and the planar
+// ones (aff_pre.cu, aff_post.cu) call them per lane; aff_chord is the
+// completion of the unsafe add, packed (aff_post_packed_u.cu) and planar
+// (aff_post_unsafe.cu), _post_inv_unsafe_formula (:160-167). Templates over
+// the limb count like field.cuh; the kernels instantiate them at 12 limbs
+// only (BLS12-377), the one Weierstrass field on the card.
 //
 // Flags of a lane: bit 1 is_dbl (both finite, x1 == x2, y1 == y2), bit 2
 // cancel (both finite, x1 == x2, y1 != y2), bit 4 y1_zero. A lane whose
@@ -85,4 +87,23 @@ __device__ __forceinline__ bool aff_complete(uint32_t (&x3)[NL], uint32_t (&y3)[
   fe_select(x3, only2, x1, x3);
   fe_select(y3, only2, y1, y3);
   return (flags & AFF_CANCEL) || ((flags & AFF_DBL) && (flags & AFF_Y1_ZERO)) || (inf1 && inf2);
+}
+
+// the chord of the unsafe add (no edge cases): lambda = (y2 - y1) dinv,
+// x3 = lambda^2 - x1 - x2, y3 = lambda (x1 - x3) - y1; two products and a
+// square (fe_sqr, equal to fe_mul(lam, lam) bit for bit)
+template <int NL>
+__device__ __forceinline__ void aff_chord(uint32_t (&x3)[NL], uint32_t (&y3)[NL], const uint32_t (&x1)[NL],
+                                          const uint32_t (&y1)[NL], const uint32_t (&x2)[NL],
+                                          const uint32_t (&y2)[NL], const uint32_t (&dinv)[NL],
+                                          const FieldParams<NL>& F) {
+  uint32_t lam[NL], t[NL];
+  fe_sub(t, y2, y1, F);
+  fe_mul(lam, t, dinv, F);
+  fe_sqr(t, lam, F);
+  fe_sub(t, t, x1, F);
+  fe_sub(x3, t, x2, F);
+  fe_sub(t, x1, x3, F);
+  fe_mul(y3, lam, t, F);
+  fe_sub(y3, y3, y1, F);
 }

@@ -1,18 +1,24 @@
-"""Batched affine Weierstrass additions in the packed-row form, one shared
-batch inversion per batch.
+"""Batched affine Weierstrass additions, one shared batch inversion per
+batch: on planar point batches and in the packed-row form.
 
-Counterpart of the packed part of `montgomery_tpu/curves/affine.py`
-(`AffineOps`, :25-50 and :196-380). The MSM engine keeps points as ONE int32
-array of rows [x (n) | y (n) | inf (1)], so every pair round gathers one
-column per operand. The JAX package packed two 13-bit limbs into each int32
-row; this port's limbs are whole 32-bit words, so a packed point is
-2n + 1 = 25 rows for BLS12-377 and there is no 16-bit packing.
+Counterpart of `montgomery_tpu/curves/affine.py` (`AffineOps`). The planar
+adds (`batch_add`, `batch_add_unsafe`, `batch_double`) take AffineBatch
+planes (n, *batch) with bool infinity masks (*batch). The MSM engine keeps
+points as ONE int32 array of rows [x (n) | y (n) | inf (1)], so every pair
+round gathers one column per operand. The JAX package packed two 13-bit
+limbs into each int32 row; this port's limbs are whole 32-bit words, so a
+packed point is 2n + 1 = 25 rows for BLS12-377 and there is no 16-bit
+packing.
 
-Kernels (`csrc/`): `pack_glv` writes the packed rows of [P..., phi(P)...];
-`aff_pre_packed` and `aff_post_packed` sit around `FieldOps.batch_inv` in the
-safe (complete) packed add, `aff_pre_packed_u` and `aff_post_packed_u` in
-the unsafe one. Each wrapper runs its kernel on CUDA tensors and its plain
-version on CPU tensors.
+Kernels (`csrc/`): `aff_pre` and `aff_post` sit around `FieldOps.batch_inv`
+in the planar safe (complete) add, `aff_pre_unsafe` (with an optional
+validity mask) and `aff_post_unsafe` in the planar unsafe one; `pack_glv`
+writes the packed rows of [P..., phi(P)...]; `aff_pre_packed` and
+`aff_post_packed` are the safe packed add's, `aff_pre_packed_u` and
+`aff_post_packed_u` the unsafe one's. The safe adds share their per-lane
+triage and completion (`csrc/affine.cuh`), the unsafe ones their chord.
+Each wrapper runs its kernel on CUDA tensors and its plain version on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -55,12 +61,42 @@ AFF_POST_PACKED = kernels.Kernel(
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _INT],
 )
 
+AFF_PRE = kernels.Kernel(
+    "aff_pre", {12: "msm_aff_pre"}, "montgomery_tpu_torch/csrc/aff_pre.cu",
+    "montgomery_tpu/curves/affine.py:134",
+    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _U32P, _INT],
+)
+AFF_POST = kernels.Kernel(
+    "aff_post", {12: "msm_aff_post"}, "montgomery_tpu_torch/csrc/aff_post.cu",
+    "montgomery_tpu/curves/affine.py:140",
+    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _VP,
+     _U32P, _INT],
+)
+# one kernel for both of the JAX package's unsafe pre stages: aff_pre_unsafe
+# (:180) and, with a validity mask, aff_pre_masked (:184)
+AFF_PRE_UNSAFE = kernels.Kernel(
+    "aff_pre_unsafe", {12: "msm_aff_pre_unsafe"}, "montgomery_tpu_torch/csrc/aff_pre_unsafe.cu",
+    "montgomery_tpu/curves/affine.py:180,184",
+    [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
+)
+AFF_POST_UNSAFE = kernels.Kernel(
+    "aff_post_unsafe", {12: "msm_aff_post_unsafe"}, "montgomery_tpu_torch/csrc/aff_post_unsafe.cu",
+    "montgomery_tpu/curves/affine.py:190",
+    [_VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _U32P, _INT],
+)
+
 # flag bits of the safe pre stage (csrc/affine.cuh)
 DBL, CANCEL, Y1_ZERO = 1, 2, 4
 
 
+def _flat(A: AffineBatch) -> AffineBatch:
+    """Planes (n, *batch) -> (n, M), masks (*batch) -> bool (M,)."""
+    return AffineBatch(A.x.reshape(A.x.shape[0], -1), A.y.reshape(A.y.shape[0], -1),
+                       A.inf.to(torch.bool).reshape(-1))
+
+
 class AffineOps:
-    """Packed batched-affine group ops for y^2 = x^3 + b."""
+    """Batched-affine group ops for y^2 = x^3 + b, planar and packed."""
 
     def __init__(self, fops: FieldOps, params: CurveParams):
         p = fops.p
@@ -157,27 +193,33 @@ class AffineOps:
 
     def pre_packed_plain(self, A, B, sA, sB, hp):
         """aff_triage of csrc/affine.cuh on 16-bit limbs, then the hp select."""
-        F = self.f.plain
         x1, y1, inf1 = self._split_signed(A, sA)
         x2, y2, inf2 = self._split_signed(B, sB)
+        denom, numer, flags = self._triage16(x1, y1, x2, y2, inf1[0] != 0, inf2[0] != 0)
+        denom = FieldOps._sel(hp[0] != 0, denom, self.f.plain.const(self.f.R_mod_p, x1))
+        return from16(denom), from16(numer), flags[None]
+
+    def _triage16(self, x1, y1, x2, y2, inf1, inf2):
+        """aff_triage of csrc/affine.cuh on 16-bit limbs, bool infinity
+        masks: (denom, numer, int32 flags (M,))."""
+        F = self.f.plain
         sel = FieldOps._sel
 
         def eq(a, b):
             return (F.reduce(a) == F.reduce(b)).all(dim=0)
 
         xeq, yeq = eq(x1, x2), eq(y1, y2)
-        finite = (inf1[0] == 0) & (inf2[0] == 0)
+        finite = ~inf1 & ~inf2
         is_dbl = xeq & yeq & finite
         cancel = xeq & ~yeq & finite
         y1_zero = (F.reduce(y1) == 0).all(dim=0)
         one = F.const(self.f.R_mod_p, x1).expand_as(x1)
         denom = sel(is_dbl, F.add(y1, y1), F.sub(x2, x1))
         denom = sel(cancel | (is_dbl & y1_zero) | ~finite, one, denom)
-        denom = sel(hp[0] != 0, denom, one)
         xx = F.mul(x1, x1)
         numer = sel(is_dbl, F.add(F.add(xx, xx), xx), F.sub(y2, y1))
         flags = DBL * is_dbl.int() + CANCEL * cancel.int() + Y1_ZERO * y1_zero.int()
-        return from16(denom), from16(numer), flags[None]
+        return denom, numer, flags
 
     def post_packed(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
         """(2n+1, M) packed sums of the safe add, inf row live (pass-through
@@ -201,21 +243,28 @@ class AffineOps:
 
     def post_packed_plain(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
         """aff_complete of csrc/affine.cuh on 16-bit limbs, then the hp select."""
-        F = self.f.plain
         x1, y1, inf1 = self._split_signed(A, sA)
         x2, y2, inf2 = self._split_signed(B, sB)
-        i1, i2, fl = inf1[0] != 0, inf2[0] != 0, flags[0]
+        x3, y3, inf3 = self._complete16(x1, y1, x2, y2, to16(dinv), to16(numer), flags[0],
+                                        inf1[0] != 0, inf2[0] != 0)
         sel = FieldOps._sel
-        lam = F.mul(to16(numer), to16(dinv))
-        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
-        y3 = F.sub(F.mul(lam, F.sub(x1, x3)), y1)
-        only1, only2 = i1 & ~i2, i2 & ~i1
-        x3, y3 = sel(only1, x2, x3), sel(only1, y2, y3)
-        x3, y3 = sel(only2, x1, x3), sel(only2, y1, y3)
-        inf3 = ((fl & CANCEL) != 0) | (((fl & DBL) != 0) & ((fl & Y1_ZERO) != 0)) | (i1 & i2)
         paired = hp[0] != 0
         out_inf = torch.where(paired[None], inf3.to(torch.int32)[None], inf1)
         return torch.cat([from16(sel(paired, x3, x1)), from16(sel(paired, y3, y1)), out_inf])
+
+    def _complete16(self, x1, y1, x2, y2, dinv, numer, flags, inf1, inf2):
+        """aff_complete of csrc/affine.cuh on 16-bit limbs: (x3, y3, bool
+        inf3)."""
+        F = self.f.plain
+        sel = FieldOps._sel
+        lam = F.mul(numer, dinv)
+        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
+        y3 = F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+        only1, only2 = inf1 & ~inf2, inf2 & ~inf1
+        x3, y3 = sel(only1, x2, x3), sel(only1, y2, y3)
+        x3, y3 = sel(only2, x1, x3), sel(only2, y1, y3)
+        inf3 = ((flags & CANCEL) != 0) | (((flags & DBL) != 0) & ((flags & Y1_ZERO) != 0)) | (inf1 & inf2)
+        return x3, y3, inf3
 
     def pre_packed_u(self, A, B, hp) -> torch.Tensor:
         """(n, M) denominators x_B - x_A, R mod p where hp == 0: kernel
@@ -259,19 +308,157 @@ class AffineOps:
         return out
 
     def post_packed_u_plain(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
-        F = self.f.plain
         x1, y1, inf1 = self._split_signed(A, sA)
         x2, y2, _ = self._split_signed(B, sB)
-        lam = F.mul(F.sub(y2, y1), to16(dinv))
-        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
-        y3 = F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+        x3, y3 = self._chord16(x1, y1, x2, y2, to16(dinv))
         paired = hp[0][None] != 0
         out_x = from16(torch.where(paired, x3, x1))
         out_y = from16(torch.where(paired, y3, y1))
         out_inf = torch.where(hp != 0, torch.zeros_like(inf1), inf1)
         return torch.cat([out_x, out_y, out_inf], dim=0)
 
+    def _chord16(self, x1, y1, x2, y2, dinv):
+        """aff_chord of csrc/affine.cuh on 16-bit limbs: (x3, y3)."""
+        F = self.f.plain
+        lam = F.mul(F.sub(y2, y1), dinv)
+        x3 = F.sub(F.sub(F.mul(lam, lam), x1), x2)
+        return x3, F.sub(F.mul(lam, F.sub(x1, x3)), y1)
+
     # ------------------------------------------------------------ planar ops
+
+    def zero(self, N: int, device) -> AffineBatch:
+        """N points at infinity (x = y = 0)."""
+        z = self.f.zeros((N,), device)
+        return AffineBatch(z, z, torch.ones((N,), dtype=torch.bool, device=device))
+
+    def select(self, mask: torch.Tensor, a: AffineBatch, b: AffineBatch) -> AffineBatch:
+        """a where mask, else b, lane by lane."""
+        s = self.f._sel
+        return AffineBatch(s(mask, a.x, b.x), s(mask, a.y, b.y), torch.where(mask, a.inf, b.inf))
+
+    def neg(self, A: AffineBatch) -> AffineBatch:
+        return AffineBatch(A.x, self.f.neg(A.y), A.inf)
+
+    def batch_add(self, G: AffineBatch, H: AffineBatch) -> AffineBatch:
+        """Lane-wise G[i] + H[i], complete: infinite operands, doubling
+        (x1 == x2, y1 == y2) and cancellation (x1 == x2, y1 == -y2). Planes
+        (n, *batch) of one shape, bool masks (*batch). One batch inversion
+        shared by every lane between kernels `aff_pre` and `aff_post`; a
+        poisoned lane's denominator is 1, so none brings a zero into it."""
+        shape = _same_shape(G, H)
+        g, h = _flat(G), _flat(H)
+        denom, numer, flags = self.pre(g, h)
+        dinv = self.f.batch_inv(denom)
+        x3, y3, inf3 = self.post(g, h, dinv, numer, flags)
+        return AffineBatch(x3.reshape(shape), y3.reshape(shape), inf3.reshape(shape[1:]))
+
+    def pre(self, G: AffineBatch, H: AffineBatch):
+        """Triage of the planar safe add over (n, M) planes and bool (M,)
+        masks: (denom (n, M), numer (n, M), flags (1, M)): kernel `aff_pre`
+        on CUDA tensors."""
+        n, M = self.f.n, G.count
+        i1, i2 = _lane_mask(G.inf, M), _lane_mask(H.inf, M)
+        if not kernels.on_cuda(*G, *H):
+            return self.pre_plain(G, H)
+        (x1, sx1), (y1, sy1), (x2, sx2), (y2, sy2) = [kernels.lane_view(a, n, M) for a in (*G[:2], *H[:2])]
+        denom = torch.empty((n, M), dtype=torch.int32, device=G.x.device)
+        numer = torch.empty_like(denom)
+        flags = torch.empty((1, M), dtype=torch.int32, device=G.x.device)
+        if M:
+            AFF_PRE.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags), kernels.ptr(x1),
+                           sx1, kernels.ptr(y1), sy1, kernels.ptr(x2), sx2, kernels.ptr(y2), sy2,
+                           kernels.ptr(i1), kernels.ptr(i2), self._one_words,
+                           self.f.field_words(AFF_PRE), M, n=n, device=denom.device)
+        return denom, numer, flags
+
+    def pre_plain(self, G: AffineBatch, H: AffineBatch):
+        denom, numer, flags = self._triage16(to16(G.x), to16(G.y), to16(H.x), to16(H.y), G.inf, H.inf)
+        return from16(denom), from16(numer), flags[None]
+
+    def post(self, G: AffineBatch, H: AffineBatch, dinv, numer, flags) -> AffineBatch:
+        """Completion of the planar safe add: the sums as (n, M) planes and
+        a bool (M,) mask: kernel `aff_post` on CUDA tensors."""
+        n, M = self.f.n, G.count
+        i1, i2 = _lane_mask(G.inf, M), _lane_mask(H.inf, M)
+        if not kernels.on_cuda(*G, *H, dinv, numer, flags):
+            return self.post_plain(G, H, dinv, numer, flags)
+        (x1, sx1), (y1, sy1), (x2, sx2), (y2, sy2), (dv, sd), (nv, sn) = [
+            kernels.lane_view(a, n, M) for a in (*G[:2], *H[:2], dinv, numer)]
+        fv, _ = kernels.lane_view(flags, 1, M)
+        x3 = torch.empty((n, M), dtype=torch.int32, device=G.x.device)
+        y3 = torch.empty_like(x3)
+        inf3 = torch.empty((M,), dtype=torch.bool, device=G.x.device)
+        if M:
+            AFF_POST.launch(kernels.ptr(x3), kernels.ptr(y3), kernels.ptr(inf3), kernels.ptr(x1), sx1,
+                            kernels.ptr(y1), sy1, kernels.ptr(x2), sx2, kernels.ptr(y2), sy2,
+                            kernels.ptr(dv), sd, kernels.ptr(nv), sn, kernels.ptr(fv), kernels.ptr(i1),
+                            kernels.ptr(i2), self.f.field_words(AFF_POST), M, n=n, device=x3.device)
+        return AffineBatch(x3, y3, inf3)
+
+    def post_plain(self, G: AffineBatch, H: AffineBatch, dinv, numer, flags) -> AffineBatch:
+        x3, y3, inf3 = self._complete16(to16(G.x), to16(G.y), to16(H.x), to16(H.y), to16(dinv),
+                                        to16(numer), flags[0], G.inf, H.inf)
+        return AffineBatch(from16(x3), from16(y3), inf3)
+
+    def batch_add_unsafe(self, G: AffineBatch, H: AffineBatch, valid=None) -> AffineBatch:
+        """Lane-wise G[i] + H[i] for valid lanes whose operands are finite
+        with x1 != x2 (the caller's contract: one zero denominator poisons
+        every lane). `valid`, an optional bool mask (*batch), excludes lanes
+        from the shared inversion; their output is unspecified. The result's
+        infinity mask is all False, as in the JAX package."""
+        shape = _same_shape(G, H)
+        if valid is not None and valid.shape != shape[1:]:
+            raise ValueError(f"validity mask of shape {tuple(valid.shape)} for a batch {tuple(shape[1:])}")
+        g, h = _flat(G), _flat(H)
+        v = None if valid is None else valid.to(torch.bool).reshape(-1)
+        dinv = self.f.batch_inv(self.pre_unsafe(g.x, h.x, v))
+        x3, y3 = self.post_unsafe(g, h, dinv)
+        return AffineBatch(x3.reshape(shape), y3.reshape(shape), torch.zeros_like(G.inf, dtype=torch.bool))
+
+    def pre_unsafe(self, x1, x2, valid=None) -> torch.Tensor:
+        """(n, M) denominators x2 - x1, R mod p where `valid` (bool (M,),
+        optional) is False: kernel `aff_pre_unsafe` on CUDA tensors."""
+        n, M = self.f.n, x1.shape[-1]
+        if valid is not None:
+            valid = _lane_mask(valid, M)
+        if not kernels.on_cuda(x1, x2, *([] if valid is None else [valid])):
+            return self.pre_unsafe_plain(x1, x2, valid)
+        (a, sa), (b, sb) = kernels.lane_view(x1, n, M), kernels.lane_view(x2, n, M)
+        vptr = None if valid is None else kernels.ptr(valid)
+        out = torch.empty((n, M), dtype=torch.int32, device=x1.device)
+        if M:
+            AFF_PRE_UNSAFE.launch(kernels.ptr(out), kernels.ptr(a), sa, kernels.ptr(b), sb, vptr,
+                                  self._one_words, self.f.field_words(AFF_PRE_UNSAFE), M, n=n,
+                                  device=out.device)
+        return out
+
+    def pre_unsafe_plain(self, x1, x2, valid=None) -> torch.Tensor:
+        F = self.f.plain
+        d = F.sub(to16(x2), to16(x1))
+        if valid is not None:
+            d = FieldOps._sel(valid, d, F.const(self.f.R_mod_p, d))
+        return from16(d)
+
+    def post_unsafe(self, G: AffineBatch, H: AffineBatch, dinv) -> tuple[torch.Tensor, torch.Tensor]:
+        """The chord of the planar unsafe add, (x3, y3) (n, M) planes:
+        kernel `aff_post_unsafe` on CUDA tensors."""
+        if not kernels.on_cuda(*G[:2], *H[:2], dinv):
+            return self.post_unsafe_plain(G, H, dinv)
+        n, M = self.f.n, G.count
+        (x1, sx1), (y1, sy1), (x2, sx2), (y2, sy2), (dv, sd) = [
+            kernels.lane_view(a, n, M) for a in (*G[:2], *H[:2], dinv)]
+        x3 = torch.empty((n, M), dtype=torch.int32, device=G.x.device)
+        y3 = torch.empty_like(x3)
+        if M:
+            AFF_POST_UNSAFE.launch(kernels.ptr(x3), kernels.ptr(y3), kernels.ptr(x1), sx1,
+                                   kernels.ptr(y1), sy1, kernels.ptr(x2), sx2, kernels.ptr(y2), sy2,
+                                   kernels.ptr(dv), sd, self.f.field_words(AFF_POST_UNSAFE), M, n=n,
+                                   device=x3.device)
+        return x3, y3
+
+    def post_unsafe_plain(self, G: AffineBatch, H: AffineBatch, dinv):
+        x3, y3 = self._chord16(to16(G.x), to16(G.y), to16(H.x), to16(H.y), to16(dinv))
+        return from16(x3), from16(y3)
 
     def batch_double(self, G: AffineBatch) -> AffineBatch:
         """Lane-wise 2 G[i] with one shared inversion; infinity and y = 0
@@ -292,3 +479,21 @@ class AffineOps:
         f = self.f
         rhs = f.add(f.mul(f.square(A.x), A.x), f.const_plane(self.b_mont, A.x))
         return f.is_equal(f.square(A.y), rhs) | A.inf
+
+
+def _lane_mask(m: torch.Tensor, M: int) -> torch.Tensor:
+    """A bool (M,) mask, contiguous, as the kernels read it (one byte a
+    lane); ValueError for another dtype or shape."""
+    if m.dtype != torch.bool or tuple(m.shape) != (M,):
+        raise ValueError(f"expected a bool ({M},) mask, got {m.dtype} {tuple(m.shape)}")
+    return m.contiguous()
+
+
+def _same_shape(G: AffineBatch, H: AffineBatch) -> torch.Size:
+    """The planes' common shape (n, *batch); ValueError unless both batches
+    have it and masks of shape (*batch)."""
+    shape = G.x.shape
+    if any(a.shape != shape for a in (G.y, H.x, H.y)) or G.inf.shape != shape[1:] \
+            or H.inf.shape != shape[1:]:
+        raise ValueError(f"point batches of different shapes: {[tuple(a.shape) for a in (*G, *H)]}")
+    return shape

@@ -1,10 +1,10 @@
 """Group adapters: the batched-group interfaces the MSM engine needs.
 
-Counterpart of `ProjectiveAdapter`, the packed members of
-`AffineAccumAdapter` and `EdwardsAdapter` in `montgomery_tpu/msm/adapters.py`.
-Projective point batches are ProjectiveBatch tuples whose planes have shape
-(n, *batch); the batched-affine accumulation keeps points as packed (2n+1, M)
-rows, the Twisted Edwards one as packed (4n, M) rows.
+Counterpart of `ProjectiveAdapter`, `AffineAccumAdapter` and
+`EdwardsAdapter` in `montgomery_tpu/msm/adapters.py`. Point batches are
+NamedTuples whose planes have shape (n, *batch) (an AffineBatch's infinity
+mask (*batch)); the batched-affine accumulation keeps points as packed
+(2n+1, M) rows, the Twisted Edwards one as packed (4n, M) rows.
 """
 
 from __future__ import annotations
@@ -55,6 +55,34 @@ class AffineAccumAdapter:
         self.aff, self.proj, self.unsafe = aff, proj, unsafe
         self.f = aff.f
         self.rounds: list[tuple[str, int, int]] = []  # of the last accumulation
+
+    # planar members: AffineBatch planes (n, *batch), the planar adds
+
+    def zero_like(self, shape, device) -> AffineBatch:
+        z = self.f.zeros(tuple(shape), device)
+        return AffineBatch(z, z, torch.ones(tuple(shape), dtype=torch.bool, device=device))
+
+    def from_points(self, A: AffineBatch) -> AffineBatch:
+        return A
+
+    def add(self, P: AffineBatch, Q: AffineBatch, valid=None) -> AffineBatch:
+        """The planar safe add; with unsafe, the unsafe one (`valid` excludes
+        lanes from its shared inversion; the safe add takes every lane)."""
+        if self.unsafe:
+            return self.aff.batch_add_unsafe(P, Q, valid=valid)
+        return self.aff.batch_add(P, Q)
+
+    def select(self, mask, a: AffineBatch, b: AffineBatch) -> AffineBatch:
+        return self.aff.select(mask, a, b)
+
+    def gather(self, P: AffineBatch, idx) -> AffineBatch:
+        return AffineBatch(*[a.index_select(a.dim() - 1, idx) for a in P])
+
+    def neg_where(self, P: AffineBatch, mask) -> AffineBatch:
+        f = self.f
+        return AffineBatch(P.x, f._sel(mask, f.neg(P.y), P.y), P.inf)
+
+    # packed members: the engine's rows (2n+1, M)
 
     @property
     def packed_rows(self) -> int:

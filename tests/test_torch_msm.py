@@ -96,7 +96,7 @@ def test_import_leaves_jax_out():
             "montgomery_tpu_torch.ops.field, montgomery_tpu_torch.curves.projective, "
             "montgomery_tpu_torch.curves.random, montgomery_tpu_torch.serve, "
             "montgomery_tpu_torch.curves.edwards, montgomery_tpu_torch.bigint.twisted_edwards, "
-            "montgomery_tpu_torch.concrete; "
+            "montgomery_tpu_torch.concrete, montgomery_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'montgomery_tpu' or m.startswith('montgomery_tpu.')]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -117,7 +117,8 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
                            "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
-                           "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win"}
+                           "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win", "aff_pre", "aff_post",
+                           "aff_pre_unsafe", "aff_post_unsafe"}
     assert all(v == 0 for v in counts.values()), counts
 
 
