@@ -7,7 +7,9 @@ engine and ed-on-bls12-377 (Twisted Edwards) MSMs, directly and through
 `serve.compute_msm`, against the bigint oracle and against a closed form,
 runs the planar batched-affine adds against the oracle and the sharded MSM
 on logical meshes of the one card, generates random points of both curves
-on the card by sqrt trial and runs MSMs on them, and times them.
+on the card by sqrt trial and runs MSMs on them, runs the micro-benchmark
+with the baselines' kernels (the divstep inverse of plain values, the
+Barrett product), and times them.
 
     python3 chip_smoke.py
 
@@ -44,7 +46,13 @@ Phases, each printed as it runs:
      planar adds' kernels (`planar_kernels`: aff_pre, aff_post,
      aff_pre_unsafe with and without its validity mask, aff_post_unsafe)
      bit for bit at 2^16, 2^16 + 17 and 2^20 lanes, every flag class in the
-     first lanes, each timed at 2^20;
+     first lanes, each timed at 2^20. Then the baselines' kernels
+     (`phase_alt_kernels`): divstep_inv and barrett_mul bit for bit at
+     2^18, 2^18 + 17 and 512 (divstep_inv) or 2^20 (barrett_mul) lanes of
+     canonical values with 0, 1, 2, p - 1, p - 2 and the squares nearest p^2
+     in the first lanes, 1,024 lanes against Python's ints, barrett_mul
+     against the Montgomery route on every lane, both at 9 limbs too; each
+     timed at 2^18 (9 limbs: 2^16);
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
      and the safe batched-affine engine with zero scalars, duplicate and
      negated duplicate points and the point at infinity; the unsafe engine
@@ -65,7 +73,9 @@ Phases, each printed as it runs:
      the path must launch, no kernel of another add or curve may, and every
      launch must be at the path's limb count), the check at full N against
      S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs,
-     phase split, peak memory and the round plan; the unsafe and the safe
+     phase split, peak memory and the round plan (affine-unsafe at 2^20, the
+     main path, also its device time by kernel under torch.profiler and the
+     device's busy share); the unsafe and the safe
      add timed in turns at both sizes; then the safe engine at 2^16 on 2^12
      bench points each used 16 times under one scalar, some negated, some
      infinite, some scalars 0 (against the projective engine and the closed
@@ -93,7 +103,14 @@ Phases, each printed as it runs:
      with launch counts at 8 shards and the median of 3 at 2^20; then
      msm_sharded with the Twisted Edwards adapter at 2 shards and 2^16.
      Every MSM path, sharded ones included, must launch none of the planar
-     adds' kernels.
+     adds' kernels;
+  6. (last) the micro-benchmark (`phase_micro`): micro_bench.main with every
+     section at 2^18 lanes, the Barrett chain against the plain chain, and
+     inv_divstep and inv_mont_divstep at 2^18 against the Fermat ladder on
+     every lane (the ladder run outside the counted run), timed, the two multiply chains' device time a launch
+     (torch.profiler), with launch counts (run "micro_2^18": divstep_inv
+     and barrett_mul must launch, no curve kernel may) and the memory
+     report. No other path may launch divstep_inv or barrett_mul.
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
 raises; without a CUDA device the script exits 1 before printing a result.
@@ -149,13 +166,24 @@ PATH_KERNELS["points"] = _SOLVE | {"proj_add_rcb", "proj_dbl_rcb"}
 PATH_KERNELS["te_points"] = _SOLVE | {"ed_dbl"}
 PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr"}
 PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed"}
+# the baselines' kernels: launched by inv_divstep, inv_mont_divstep and the
+# micro-bench's altmul section, never by an MSM or generation path
+_ALT = {"divstep_inv", "barrett_mul"}
 for _path in PATH_FORBIDDEN:
-    PATH_FORBIDDEN[_path] |= _PLANAR
+    PATH_FORBIDDEN[_path] |= _PLANAR | _ALT
 # the planar adds at 2^20 lanes: the batch inversion's kernels and their own
 PATH_KERNELS["planar_safe"] = {"aff_pre", "aff_post", "mont_mul", "divstep_inv_mont"}
 PATH_KERNELS["planar_unsafe"] = {"aff_pre_unsafe", "aff_post_unsafe", "mont_mul", "divstep_inv_mont"}
 for _path in ("planar_safe", "planar_unsafe"):
-    PATH_FORBIDDEN[_path] = (_WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR) - PATH_KERNELS[_path]
+    PATH_FORBIDDEN[_path] = (_WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR | _ALT) - PATH_KERNELS[_path]
+# the micro phase: micro_bench.main (every section) and the two divstep
+# inverses (the Fermat references run outside the counted run)
+PATH_KERNELS["micro"] = {"mont_mul", "mont_sqr", "mul_const", "divstep_inv_mont", "divstep_inv",
+                         "barrett_mul"}
+PATH_FORBIDDEN["micro"] = (_WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR) - PATH_KERNELS["micro"]
+ALT_LANES = (1 << 18, (1 << 18) + 17)  # the micro-bench's width, and a ragged edge
+ALT_SAMPLE = 1024  # lanes of divstep_inv and barrett_mul checked against Python's ints
+MICRO_LOG2N = 18
 PLANAR_LANES = (*KERNEL_LANES, 1 << 20)  # the planar kernels' checks; timed at the last
 PLANAR_SAMPLE = 1024  # lanes of the 2^20-lane planar adds checked against the oracle
 GRID_W = 640  # tests/test_grid_combine.py's grid: wider than the 512-lane inversion stop
@@ -205,6 +233,48 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_times(fn) -> tuple[dict, float, float]:
+    """fn() under torch.profiler's CUDA activity, after one warm-up run
+    under the profiler (its schedule's warm-up step: kernels launched right
+    after a bare start can go unrecorded): ({kernel: (launches, device ms)}
+    for this package's kernels, device ms of every kernel and copy, host ms
+    of the recorded run). Device times are self times, so no range counts
+    its kernels twice; the kernels are `<name>_kernel` in the trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from montgomery_tpu_torch.ops import kernels
+
+    torch.cuda.synchronize()
+    traces = []
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    per, busy = {}, 0.0
+    for e in traces[-1] if traces else ():
+        busy += e.self_device_time_total / 1e3
+        m = re.search(r"\b(\w+)_kernel\b", e.key)
+        if m and m.group(1) in kernels.REGISTRY and e.self_device_time_total:
+            c, t = per.get(m.group(1), (0, 0.0))
+            per[m.group(1)] = (c + e.count, t + e.self_device_time_total / 1e3)
+    return per, busy, wall * 1e3
+
+
+def say_device_times(label: str, per: dict, busy: float, wall: float) -> None:
+    if not busy:
+        say(f"{label}: the profiler saw no device time (not measured)")
+        return
+    say(f"{label}: device busy {busy:.3f} ms of {wall:.3f} ms host ({busy / wall:.3f}); the "
+        f"package's kernels {sum(t for _, t in per.values()):.3f} ms:")
+    for name, (count, t) in sorted(per.items(), key=lambda kv: -kv[1][1]):
+        say(f"  {name}: {count} launches, {t:.4f} ms, {t / count * 1e3:.2f} us a launch")
 
 
 # ----------------------------------------------------------------- phase 0
@@ -326,15 +396,19 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
                   for a in range(gd.nu) for j in range(-(-abs(q).bit_length() // gd.w))
                   if a + j < gd.nw)
         return 4 * gd.ns + 8 * gd.num_windows(13), 2 * msb + res, 0
-    # per batch of divsteps: 10 products per limb + 2 of factors below 2^31
-    per_batch = 2 * (10 * divstep.kernel_limbs(n) + 2)
+    # per batch of divsteps: 10 products a 30-bit limb, each of two factors
+    # below 2^31 in magnitude, so one wide multiply each (the kernel holds
+    # its limbs in int64 and spends two), and the 2 low products of the
+    # quotient digits md, me; the 30 serial divsteps' ALU work is left out
+    # of the floor
+    dsb, wide_b, lo_b = ctx.fops.inv_params.n_batches, 10 * divstep.kernel_limbs(n), 2
     wide, lo = products(2)
     return {
         "mul_const": (2 * W, *products(1)),
         "mont_mul": (3 * W, *products(1)),
         "proj_add_rcb": (9 * W, *products(14)),
         "proj_dbl_rcb": (6 * W, *products(9)),  # k = 1
-        "divstep_inv_mont": (2 * W, wide + ctx.fops.inv_params.n_batches * per_batch, lo),
+        "divstep_inv_mont": (2 * W, wide + dsb * wide_b, lo + dsb * lo_b),
         "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
         "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
         "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, wide + sqr[0], lo + sqr[1]),
@@ -357,6 +431,10 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
         "aff_post": (6 * W + 4 + 2 + 2 * W + 1, wide + sqr[0], lo + sqr[1]),
         "aff_pre_unsafe": (2 * W + 1 + W, 0, 0),
         "aff_post_unsafe": (5 * W + 2 * W, wide + sqr[0], lo + sqr[1]),
+        # the baselines: the divsteps alone; the schoolbook x y, the whole
+        # q1 mu and the low words of q p
+        "divstep_inv": (2 * W, dsb * wide_b, dsb * lo_b),
+        "barrett_mul": (3 * W, 2 * n * n + n * (n + 1) // 2, 0),
     }[name]
 
 
@@ -1175,6 +1253,8 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     say(f"msm {path} N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
+    if path == PATHS[0] and log2n == max(MSM_LOG2N):  # the main path: where its device time goes
+        say_device_times(f"profiled {path} N=2^{log2n}", *device_times(run))
     return counts
 
 
@@ -1636,6 +1716,171 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
     return out
 
 
+# ------------------------------------------- baselines: divstep_inv, barrett_mul
+
+
+def _canonical_plane(f, M: int, gen, adv: list[int]):
+    """(n, M) values in [0, p) on the card: `adv` in the first lanes, then
+    random values (below 2^bits(p), reduced)."""
+    t = f.reduce(_random_planes(f, f.n, M, gen))
+    k = min(len(adv), M)
+    t[:, :k] = f.pack_raw(adv[:k], gen.device)
+    return t
+
+
+def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
+    """divstep_inv and barrett_mul against their plain versions on the same
+    tensors, bit for bit: at 12 limbs (BLS12-377) at 2^18 and 2^18 + 17
+    lanes, divstep_inv also at 512 and barrett_mul at 2^20; at 9 limbs
+    (ed-on-bls12-377) at 2^16. Operands in [0, p): the first lanes 0, 1, 2,
+    p - 1, p - 2, then for barrett_mul the squares (p - 1 - k)^2, k < 16
+    (the largest products below p^2), then random values. At 12 limbs and
+    2^18 lanes, ALT_SAMPLE lanes (the first 21 among them) against Python's
+    pow(x, -1, p) and x y % p, and barrett_mul against the Montgomery route
+    from_mont(mont_mul(to_mont x, to_mont y)) on every lane. Each timed,
+    with its plain version, at 2^18 lanes (9 limbs: 2^16). Returns the
+    results at 12 and at 9 limbs."""
+    import torch
+
+    from montgomery_tpu_torch.ops import alt_mul, divstep
+    from montgomery_tpu_torch.ops import limbs as codec
+
+    say("== phase 1: divstep_inv and barrett_mul against their plain versions")
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rng = random.Random(12)
+    out = ({}, {})
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    for res, c in zip(out, (ctx, te)):
+        f = c.fops
+        n, p = f.n, f.p
+        dp, bp = f.inv_params, alt_mul.barrett_params(f)
+        edge, squares = [0, 1, 2, p - 1, p - 2], [p - 1 - k for k in range(16)]
+        timed_at = ALT_LANES[0] if n == 12 else KERNEL_LANES[0]
+        plan = {"divstep_inv": (*ALT_LANES, ROOT_LANES), "barrett_mul": (*ALT_LANES, 1 << 20)}
+        for name, widths in plan.items():
+            for M in (widths if n == 12 else (KERNEL_LANES[0],)):
+                x = _canonical_plane(f, M, gen, edge + squares)
+                if name == "divstep_inv":
+                    y = None
+                    kern, plain = (lambda: divstep.inv_divstep(dp, x)), (lambda: divstep.inv_plain(dp, x))
+                else:
+                    y = _canonical_plane(f, M, gen, edge[::-1] + squares)
+                    kern = lambda: alt_mul.barrett_mul(bp, x, y)  # noqa: E731
+                    plain = lambda: alt_mul.barrett_mul_plain(bp, x, y)  # noqa: E731
+                a = kern()
+                err = diff(a, plain())
+                say(f"{name} n={n} N={M}: max_abs_err {err} (raw planes)")
+                if err:
+                    raise AssertionError(f"{name} at {n} limbs and {M} lanes disagrees with its plain version")
+                r = res.setdefault(name, {"max_abs_err": 0})
+                if n == 12 and M == ALT_LANES[0]:
+                    lanes = sorted(set(range(21)) | set(rng.sample(range(21, M), ALT_SAMPLE - 21)))
+                    sel = torch.tensor(lanes, dtype=torch.long, device=dev)
+                    xs, got = codec.unpack(x.index_select(1, sel)), codec.unpack(a.index_select(1, sel))
+                    if y is None:
+                        want = [pow(v, -1, p) if v else 0 for v in xs]
+                    else:
+                        want = [u * v % p for u, v in zip(xs, codec.unpack(y.index_select(1, sel)))]
+                    if got != want:
+                        raise AssertionError(f"{name} differs from Python's ints on sampled lanes")
+                    if y is not None:
+                        mont = f.from_montgomery(f.mul(f.to_montgomery(x), f.to_montgomery(y)))
+                        if diff(a, mont):
+                            raise AssertionError("barrett_mul differs from the Montgomery route")
+                    say(f"{name} N={M}: {ALT_SAMPLE} lanes equal Python's "
+                        f"{'pow(x, -1, p)' if y is None else 'x y % p'}"
+                        + ("" if y is None else f"; every lane equals from_mont(mont_mul(to_mont x, "
+                                                "to_mont y))"))
+                if M == timed_at:
+                    ms = cuda_time_ms(kern, 20 if name == "divstep_inv" else KERNEL_REPS)
+                    pms = cuda_time_ms(plain, 3, 1)
+                    bms, by = bound_of(*kernel_work(c, name), M, rates)
+                    r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=M)
+                    say(f"{name} n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
+                        f"({by}) per call at {M} lanes")
+                del x, y, a
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_micro(ctx) -> dict:
+    """The micro-benchmark (`micro_bench.main`, every section, 2^18 lanes)
+    and the two divstep inverses at 2^18 lanes, in one run with the launch
+    counts set to 0 just before it; then, outside that run, the checks'
+    references: FieldOps.inv (the Fermat ladder, timed as the third
+    inverse) and the Fermat inverse of the plain values. The Barrett
+    chain's final planes against the plain chain on the same operands;
+    inv_divstep (plain values) and inv_mont_divstep (Montgomery form)
+    against the Fermat inverses on every lane; each inverse timed (median of
+    3 CUDA-event times, each run ended by a synchronize); then the
+    Montgomery and the Barrett chain once more under torch.profiler (their
+    device time a launch, which the chains' CUDA-event times hide behind the
+    host's cost of a launch) and the memory report. Returns the launch
+    counts."""
+    import torch
+
+    from montgomery_tpu_torch import micro_bench
+    from montgomery_tpu_torch.ops import alt_mul, divstep
+    from montgomery_tpu_torch.utils.memory import print_max_size_used
+    from montgomery_tpu_torch.utils.timing import timeit
+
+    say(f"== phase 6: micro_bench.main (every section) and the inverses at 2^{MICRO_LOG2N} lanes")
+    f, dev = ctx.fops, ctx.device
+    dp = f.inv_params
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def inverses(x):  # x below p: plain values and Montgomery forms alike
+        return {"inv_divstep": lambda: divstep.inv_divstep(dp, x),
+                "inv_mont_divstep": lambda: divstep.inv_mont_divstep(dp, x)}
+
+    def timed(inv):
+        return ({k: timeit(fn, device=dev, reps=3, events=True)[0] for k, fn in inv.items()},
+                {k: fn() for k, fn in inv.items()})
+
+    def run():
+        res = micro_bench.main(None, dev, MICRO_LOG2N, log=say)
+        res["inverses_s"], res["inverses"] = timed(inverses(res["altmul"]["x"]))
+        return res
+
+    counts, seconds, res = counted(run, "micro")
+    x = res["altmul"]["x"]
+    fermat_s, fermat = timed({"FieldOps.inv": lambda: f.inv(x)})
+    res["inverses_s"].update(fermat_s)
+    res["inverses"].update(fermat)
+    res["inv_of_plain"] = f.from_montgomery(f.inv(f.to_montgomery(x)))
+    alt = res["altmul"]
+    bp = alt_mul.barrett_params(f)
+    z = alt["x"]
+    for _ in range(alt["chain"]):
+        z = alt_mul.barrett_mul_plain(bp, z, alt["y"])
+    if not torch.equal(alt["barrett_chain"], z):
+        raise AssertionError("the micro-bench's Barrett chain differs from the plain chain")
+    got = res["inverses"]
+    if not torch.equal(got["inv_divstep"], res["inv_of_plain"]):
+        raise AssertionError("inv_divstep differs from the Fermat inverse")
+    if not torch.equal(_canon(f, got["inv_mont_divstep"]), _canon(f, got["FieldOps.inv"])):
+        raise AssertionError("inv_mont_divstep differs from the Fermat inverse")
+    say(f"altmul: the Barrett chain's {alt['chain']} products equal the plain chain's on every lane")
+    x, y = alt["x"], alt["y"]
+    for label, op in (("Montgomery", f.mul), ("Barrett", lambda a, b: alt_mul.barrett_mul(bp, a, b))):
+        def chain(op=op):
+            z = x
+            for _ in range(alt["chain"]):
+                z = op(z, y)
+        say_device_times(f"profiled {label} chain of {alt['chain']} at 2^{MICRO_LOG2N}", *device_times(chain))
+    say(f"inverses at 2^{MICRO_LOG2N} lanes, every lane equal to the Fermat ladder's; median ms: "
+        + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in res["inverses_s"].items()))
+    print_max_size_used(dev, log=say)
+    say(f"micro phase: {seconds:.1f} s")
+    del res, got, alt, z
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_te_oracle(te):
     """EdwardsMsm and compute_msm(curve="ed-on-bls12-377") against the
     bigint oracle: N = 16 (default c, a pair round first) and N = 512 (c = 4,
@@ -1886,6 +2131,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
     home_runs = [f"{run}_2^{top}" for run in (PATHS[0], "te", *PATHS[1:], "serve", "te_serve")]
     home_runs += [f"{run}_2^{GEN_LOG2N}" for run in ("points", "te_points")]
     home_runs += [f"{run}_2^{top}" for run in ("planar_safe", "planar_unsafe")]
+    home_runs.append(f"micro_2^{MICRO_LOG2N}")
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
@@ -1945,6 +2191,9 @@ def main() -> int:
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)
     te_kres.update(sqrt9)
+    alt12, alt9 = phase_alt_kernels(ctx, te, rates)
+    kres.update(alt12)
+    te_kres.update(alt9)
     phase_oracle(ctx, host_pts)
     launches, expected = phase_planar_oracle(ctx, pts), {}
     phase_te_oracle(te)
@@ -1964,6 +2213,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     for c, path in ((ctx, "points"), (te, "te_points")):
         launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
+    launches[f"micro_2^{MICRO_LOG2N}"] = phase_micro(ctx)
     line = kernels_line(kres, te_kres, launches)
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))

@@ -82,6 +82,27 @@ __device__ __forceinline__ uint32_t limbs_sub(uint32_t (&r)[NL], const uint32_t 
   return br;
 }
 
+// r = a b, the whole NA + NB word product (operand scanning: row i adds
+// a_i b at word offset i; s below 2^64 since (2^32 - 1)^2 + 2 (2^32 - 1)
+// = 2^64 - 1)
+template <int NA, int NB>
+__device__ __forceinline__ void limbs_mul_wide(uint32_t (&r)[NA + NB], const uint32_t (&a)[NA],
+                                               const uint32_t (&b)[NB]) {
+#pragma unroll
+  for (int k = 0; k < NA + NB; k++) r[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NA; i++) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < NB; j++) {
+      uint64_t s = (uint64_t)r[i + j] + (uint64_t)a[i] * b[j] + c;
+      r[i + j] = (uint32_t)s;
+      c = s >> 32;
+    }
+    r[i + NB] = (uint32_t)c;
+  }
+}
+
 template <int NL>
 __device__ __forceinline__ void fe_select(uint32_t (&r)[NL], bool c, const uint32_t (&a)[NL],
                                           const uint32_t (&b)[NL]) {

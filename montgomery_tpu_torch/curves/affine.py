@@ -27,7 +27,7 @@ import torch
 
 from ..bigint.weierstrass import CurveParams
 from ..ops import kernels
-from ..ops.field import FieldOps, from16, to16
+from ..ops.field import FieldOps, MulCounter, from16, to16
 from ..ops.limbs import to_words
 from .projective import AffineBatch
 
@@ -85,6 +85,11 @@ AFF_POST_UNSAFE = kernels.Kernel(
     [_VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _U32P, _INT],
 )
 
+# Montgomery products of the JAX formulas, recorded per launch (MulCounter):
+# the GLV map's beta x, the triage's square, the completions' two products
+# and a square; the unsafe pre stages have none
+PACK_GLV_MULS, PRE_MULS, POST_MULS = 1, 1, 3
+
 # flag bits of the safe pre stage (csrc/affine.cuh)
 DBL, CANCEL, Y1_ZERO = 1, 2, 4
 
@@ -124,6 +129,7 @@ class AffineOps:
     def pack_rows_glv(self, A: AffineBatch) -> torch.Tensor:
         """AffineBatch (N) -> packed rows (2n+1, 2N) of [P..., phi(P)...],
         phi(x, y) = (beta x, y): kernel `pack_glv` on CUDA tensors."""
+        MulCounter.record(A.x.shape, PACK_GLV_MULS)
         if not kernels.on_cuda(A.x, A.y, A.inf):
             return self.pack_rows_glv_plain(A)
         n, N = self.f.n, A.count
@@ -174,6 +180,7 @@ class AffineOps:
         """Triage of the safe add: (denom (n, M), numer (n, M), flags (1, M)),
         denom 1 where poisoned or hp == 0: kernel `aff_pre_packed` on CUDA
         tensors."""
+        MulCounter.record(A.shape, PRE_MULS)
         if not kernels.on_cuda(A, B, sA, sB, hp):
             return self.pre_packed_plain(A, B, sA, sB, hp)
         n, R, M = self.f.n, self.packed_rows, A.shape[-1]
@@ -224,6 +231,7 @@ class AffineOps:
     def post_packed(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
         """(2n+1, M) packed sums of the safe add, inf row live (pass-through
         where hp == 0): kernel `aff_post_packed` on CUDA tensors."""
+        MulCounter.record(A.shape, POST_MULS)
         if not kernels.on_cuda(A, B, sA, sB, dinv, numer, flags, hp):
             return self.post_packed_plain(A, B, sA, sB, dinv, numer, flags, hp)
         n, R, M = self.f.n, self.packed_rows, A.shape[-1]
@@ -292,6 +300,7 @@ class AffineOps:
     def post_packed_u(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
         """(2n+1, M) packed sums (pass-through where hp == 0): kernel
         `aff_post_packed_u` on CUDA tensors."""
+        MulCounter.record(A.shape, POST_MULS)
         if not kernels.on_cuda(A, B, sA, sB, dinv, hp):
             return self.post_packed_u_plain(A, B, sA, sB, dinv, hp)
         n, R, M = self.f.n, self.packed_rows, A.shape[-1]
@@ -358,6 +367,7 @@ class AffineOps:
         on CUDA tensors."""
         n, M = self.f.n, G.count
         i1, i2 = _lane_mask(G.inf, M), _lane_mask(H.inf, M)
+        MulCounter.record(G.x.shape, PRE_MULS)
         if not kernels.on_cuda(*G, *H):
             return self.pre_plain(G, H)
         (x1, sx1), (y1, sy1), (x2, sx2), (y2, sy2) = [kernels.lane_view(a, n, M) for a in (*G[:2], *H[:2])]
@@ -380,6 +390,7 @@ class AffineOps:
         a bool (M,) mask: kernel `aff_post` on CUDA tensors."""
         n, M = self.f.n, G.count
         i1, i2 = _lane_mask(G.inf, M), _lane_mask(H.inf, M)
+        MulCounter.record(G.x.shape, POST_MULS)
         if not kernels.on_cuda(*G, *H, dinv, numer, flags):
             return self.post_plain(G, H, dinv, numer, flags)
         (x1, sx1), (y1, sy1), (x2, sx2), (y2, sy2), (dv, sd), (nv, sn) = [
@@ -442,6 +453,7 @@ class AffineOps:
     def post_unsafe(self, G: AffineBatch, H: AffineBatch, dinv) -> tuple[torch.Tensor, torch.Tensor]:
         """The chord of the planar unsafe add, (x3, y3) (n, M) planes:
         kernel `aff_post_unsafe` on CUDA tensors."""
+        MulCounter.record(G.x.shape, POST_MULS)
         if not kernels.on_cuda(*G[:2], *H[:2], dinv):
             return self.post_unsafe_plain(G, H, dinv)
         n, M = self.f.n, G.count

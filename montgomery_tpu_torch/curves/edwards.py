@@ -27,7 +27,7 @@ import torch
 
 from ..bigint.twisted_edwards import EdwardsParams, EdwardsPoint
 from ..ops import kernels
-from ..ops.field import FieldOps, from16, to16
+from ..ops.field import FieldOps, MulCounter, from16, to16
 from ..ops.limbs import to_words
 from .projective import scale_by
 
@@ -50,6 +50,9 @@ ED_ADD_PACKED = kernels.Kernel(
     "montgomery_tpu/curves/edwards.py:184",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
 )
+# Montgomery products of one add (the JAX formula's 8 and 1 by k = 2d), for
+# MulCounter
+ADD_MULS = 9
 
 
 class EdwardsBatch(NamedTuple):
@@ -132,6 +135,7 @@ class EdwardsOps:
     def add(self, P: EdwardsBatch, Q: EdwardsBatch) -> EdwardsBatch:
         """Unified add (valid for P == Q and the identity): kernel `ed_add`
         on CUDA tensors, `add_plain` on CPU tensors."""
+        MulCounter.record(P.X.shape, ADD_MULS)
         if not kernels.on_cuda(*P, *Q):
             return self.add_plain(P, Q)
         return self._launch(ED_ADD, [*P, *Q])
@@ -149,6 +153,7 @@ class EdwardsOps:
         `ed_dbl` on CUDA tensors, `double_n_plain` on CPU tensors."""
         if k <= 0:
             return P
+        MulCounter.record(P.X.shape, k * ADD_MULS)
         if not kernels.on_cuda(*P):
             return self.double_n_plain(P, k)
         return self._launch(ED_DBL, list(P), (int(k),))
@@ -187,6 +192,7 @@ class EdwardsOps:
         the sign plane is set. sA, sB, valid: int32 (1, M) planes. Kernel
         `ed_add_packed` on CUDA tensors (one launch: the add is complete and
         needs no inversion)."""
+        MulCounter.record(A.shape, ADD_MULS)
         if not kernels.on_cuda(A, B, sA, sB, valid):
             return self.add_packed_plain(A, B, sA, sB, valid)
         R, M = self.packed_rows, A.shape[-1]

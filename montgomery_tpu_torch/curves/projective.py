@@ -15,7 +15,7 @@ import torch
 
 from ..bigint.weierstrass import AffinePoint, CurveParams
 from ..ops import kernels
-from ..ops.field import FieldOps, from16, to16
+from ..ops.field import FieldOps, MulCounter, from16, to16
 from ..ops.limbs import to_words
 
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
@@ -30,6 +30,9 @@ PROJ_DBL_RCB = kernels.Kernel(
     "montgomery_tpu/curves/projective.py:258",
     [_VP] * 6 + [_INT, _U32P, _U32P, _INT],
 )
+# Montgomery products of the JAX formulas (MulCounter): the RCB add's 12
+# and 2 by 3b, a doubling's 8 and 1 by 3b
+ADD_MULS, DBL_MULS = 14, 9
 
 
 class ProjectiveBatch(NamedTuple):
@@ -137,6 +140,7 @@ class ProjectiveOps:
 
     def add(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
         """Complete RCB addition (valid for P == Q, P == -Q and zero)."""
+        MulCounter.record(P.X.shape, ADD_MULS)
         ins = [*P, *Q]
         if not kernels.on_cuda(*ins):
             return self.add_plain(P, Q)
@@ -179,6 +183,7 @@ class ProjectiveOps:
         """k complete RCB doublings in one launch (k at run time)."""
         if k <= 0:
             return P
+        MulCounter.record(P.X.shape, k * DBL_MULS)
         if not kernels.on_cuda(*P):
             return self.double_n_plain(P, k)
         shape = P.X.shape

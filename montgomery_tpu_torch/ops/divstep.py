@@ -15,10 +15,15 @@ The batch size and the limb grid differ from the JAX package's (16 steps on
 13-bit int32 limbs): here BATCH = 30 steps act on signed 30-bit limbs in int64,
 where a matrix entry times a limb and their 3-term sums stay below 2^62. The
 plain version below (torch int64, vectorised over lanes, N_LIMBS limbs for
-every field) and kernel `divstep_inv_mont` (`csrc/divstep_inv_mont.cu`,
+every field) and the kernels (the safegcd core of `csrc/divstep.cuh`,
 `kernel_limbs(n)` limbs for a field of n 32-bit words) run this same
 algorithm; the inverse is unique, so both agree with the JAX package
 exactly.
+
+Entry points: `inv_divstep` (plain values, kernel `divstep_inv`) and
+`inv_mont_divstep` (Montgomery form, `mul_const` around `divstep_inv`), the
+JAX package's public inverses; `inv_mont` (kernel `divstep_inv_mont`, the
+two Montgomery products fused in) is the root of `FieldOps.batch_inv`.
 """
 
 from __future__ import annotations
@@ -44,6 +49,15 @@ DIVSTEP_INV_MONT = kernels.Kernel(
     "montgomery_tpu/ops/field.py:761",
     [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.U32P, kernels.INT],
 )
+DIVSTEP_INV = kernels.Kernel(
+    "divstep_inv", {12: "msm_divstep_inv", 9: "msm_divstep_inv_n9"},
+    "montgomery_tpu_torch/csrc/divstep_inv.cu",
+    "montgomery_tpu/ops/divstep.py:245",
+    [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.INT],
+)
+# Montgomery products of divstep_inv_mont (out of and back into Montgomery
+# form), for MulCounter
+INV_MONT_MULS = 2
 
 
 def iterations(d: int) -> int:
@@ -63,6 +77,7 @@ def _limbs30(value: int, count: int = N_LIMBS) -> list[int]:
 
 @dataclass(frozen=True, eq=False)
 class DivstepParams:
+    f: object  # the FieldOps
     p: int
     iters: int
     n_batches: int
@@ -87,7 +102,7 @@ def divstep_params(f) -> DivstepParams:
         words += _limbs30(p << j, dl)
     words += codec.to_words(f.R2, f.n) + [pinv, nb]
     arr = np.asarray([w & 0xFFFFFFFF for w in words], dtype=np.uint32).view(np.int32)
-    return DivstepParams(p=p, iters=it, n_batches=nb, pinv=pinv,
+    return DivstepParams(f=f, p=p, iters=it, n_batches=nb, pinv=pinv,
                          kernel_words=(ctypes.c_int32 * len(arr))(*arr.tolist()))
 
 
@@ -196,6 +211,32 @@ def inv_plain(dp: DivstepParams, x: torch.Tensor) -> torch.Tensor:
     return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
+def inv_divstep(dp: DivstepParams, x: torch.Tensor) -> torch.Tensor:
+    """x^-1 mod p in [0, p) of plain (n, *B) planes of canonical values in
+    [0, p); 0 -> 0: kernel `divstep_inv` on a CUDA tensor, `inv_plain` on a
+    CPU tensor."""
+    n = dp.f.n
+    shape = x.shape
+    M = x[0].numel()
+    if not kernels.on_cuda(x):
+        return inv_plain(dp, x.reshape(n, M)).reshape(shape)
+    xv, sx = kernels.lane_view(x.reshape(n, M), n, M)
+    out = torch.empty((n, M), dtype=torch.int32, device=x.device)
+    if M:
+        DIVSTEP_INV.launch(kernels.ptr(out), kernels.ptr(xv), sx, dp.kernel_words, M, n=n,
+                           device=out.device)
+    return out.reshape(shape)
+
+
+def inv_mont_divstep(dp: DivstepParams, x_mont: torch.Tensor) -> torch.Tensor:
+    """Montgomery-form inverse as the JAX package composes it: out of
+    Montgomery form (`mul_const` by 1, reduced into [0, p)), the plain
+    inverse (`inv_divstep`), back into Montgomery form (`mul_const` by R^2);
+    x_mont in [0, 2p), result in [0, 2p), 0 -> 0."""
+    f = dp.f
+    return f.to_montgomery(inv_divstep(dp, f.from_montgomery(x_mont)))
+
+
 def inv_mont_plain(f, x_mont: torch.Tensor) -> torch.Tensor:
     """Montgomery x in [0, 2p) -> the Montgomery form of x^-1, in [0, 2p);
     0 -> 0 (plain torch: the field `f`'s plain products around `inv_plain`)."""
@@ -206,6 +247,9 @@ def inv_mont_plain(f, x_mont: torch.Tensor) -> torch.Tensor:
 def inv_mont(f, x_mont: torch.Tensor) -> torch.Tensor:
     """As `inv_mont_plain`: kernel `divstep_inv_mont` on a CUDA tensor, the
     plain version on a CPU tensor. x_mont: (n, M) int32."""
+    from .field import MulCounter
+
+    MulCounter.record(x_mont.shape, INV_MONT_MULS)
     if not kernels.on_cuda(x_mont):
         return inv_mont_plain(f, x_mont)
     M = x_mont.shape[-1]

@@ -65,6 +65,51 @@ SQRT_WIN = kernels.Kernel(
 SQRT_WINDOW = 4
 
 
+class MulCounter:
+    """Field-multiplication cost model: counts Montgomery products and their
+    lanes (counterpart of `montgomery_tpu/ops/field.py` MulCounter, the
+    reference's `multiplyCount`).
+
+    The JAX package counts at trace time. Here the count is taken at call
+    time, in the dispatching wrapper before the device split, so the CPU and
+    the card count the same: `FieldOps.mul`, `square` and `mul_const` record
+    one call each, and a kernel that runs several field products in one
+    launch records its JAX formula's count (the `*_MULS` constant beside its
+    `Kernel`: 14 for the RCB add, 9 for the RCB doubling and the Edwards
+    adds, 1 or 3 for the batched-affine kernels). One difference is real: a
+    JAX loop body (`fori_loop`: the ladder, k doublings) counts once per
+    trace, while here every iteration counts.
+
+    Usage:  with MulCounter() as mc: fn(*args)
+            print(mc.calls, mc.lanes)
+    """
+
+    _active: list = []
+
+    def __init__(self):
+        self.calls = 0
+        self.lanes = 0
+
+    def __enter__(self):
+        MulCounter._active.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        MulCounter._active.remove(self)
+        return False
+
+    @classmethod
+    def record(cls, shape, times: int = 1):
+        """`times` products over planes of `shape` (n, *B): calls += times,
+        lanes += times * prod(B)."""
+        if not cls._active or times <= 0:
+            return
+        lanes = int(np.prod(shape[1:])) if len(shape) > 1 else 1
+        for c in cls._active:
+            c.calls += times
+            c.lanes += times * lanes
+
+
 def to16(x: torch.Tensor) -> torch.Tensor:
     """(n, *B) int32 planes of 32-bit limbs -> (2n, *B) int64 16-bit limbs."""
     u = x.to(torch.int64) & 0xFFFFFFFF
@@ -238,6 +283,8 @@ class FieldOps:
         tensors, `mul_plain` on CPU tensors. As in the JAX package the kernel
         takes operands of one shape; a broadcast operand is expanded (and
         copied where its lanes are not contiguous)."""
+        if MulCounter._active:
+            MulCounter.record(torch.broadcast_shapes(x.shape, y.shape))
         if not kernels.on_cuda(x, y):
             return self.mul_plain(x, y)
         x, y = torch.broadcast_tensors(x, y)
@@ -258,6 +305,7 @@ class FieldOps:
     def square(self, x):
         """x^2 / R mod p, in [0, 2p) for x < 8p, equal to mul(x, x) bit for
         bit: kernel `mont_sqr` on CUDA tensors, `square_plain` on CPU tensors."""
+        MulCounter.record(x.shape)
         if not kernels.on_cuda(x):
             return self.square_plain(x)
         shape = x.shape
@@ -288,6 +336,7 @@ class FieldOps:
     def mul_const(self, x: torch.Tensor, c_mont: int) -> torch.Tensor:
         """x c / R mod p for a constant c in [0, p): kernel 1 on a CUDA
         tensor, `mul_const_plain` on a CPU tensor."""
+        MulCounter.record(x.shape)
         if not kernels.on_cuda(x):
             return self.mul_const_plain(x, c_mont)
         shape = x.shape
@@ -365,6 +414,7 @@ class FieldOps:
         e (the JAX package built one kernel per exponent)."""
         if e < 1 or e >= self.R:
             raise ValueError("exp_ladder needs 1 <= e < R")
+        MulCounter.record(x.shape, ladder_products(e))
         if not kernels.on_cuda(x):
             return self.exp_ladder_plain(x, e)
         xf, N = self._flat(x)
@@ -413,6 +463,7 @@ class FieldOps:
         kernel `sqr_n` on CUDA tensors, `sqr_n_plain` on CPU tensors."""
         if m <= 0:
             return x
+        MulCounter.record(x.shape, m)
         if not kernels.on_cuda(x):
             return self.sqr_n_plain(x, m)
         xf, N = self._flat(x)
@@ -446,6 +497,7 @@ class FieldOps:
         given s = t^(2^(M - 4k - lk)): (t', r', digit) with the digit an int32
         (1, *B) plane. Kernel `sqrt_win` on CUDA tensors, `sqrt_window_plain`
         on CPU tensors."""
+        MulCounter.record(t.shape, sqrt_window_products(k, lk, last))
         if not kernels.on_cuda(t, r, s):
             return self.sqrt_window_plain(t, r, s, k, lk, last)
         tf, rf, sf = [a.reshape(self.n, -1).contiguous() for a in (t, r, s)]
@@ -538,6 +590,21 @@ class FieldOps:
 def ladder_digits(e: int) -> int:
     """Count of 2-bit digits of e >= 1 (the ladder's steps are this less 1)."""
     return (e.bit_length() + 1) // 2
+
+
+def ladder_products(e: int) -> int:
+    """Montgomery products of `exp_ladder` for e: the table's two, then two
+    squarings a digit below the top and a product for each nonzero one."""
+    nd = ladder_digits(e)
+    return 2 + sum(2 + bool((e >> (2 * k)) & 3) for k in range(nd - 1))
+
+
+def sqrt_window_products(k: int, lk: int, last: bool) -> int:
+    """Montgomery products of one `sqrt_win` launch: bit i squares a copy of
+    v lk - 1 - i times, then computes its corrections of v (below the top
+    bit), t (unless last) and r (from bit position 1) on every lane."""
+    return sum((lk - 1 - i) + (i < lk - 1) + (not last) + (SQRT_WINDOW * k + i >= 1)
+               for i in range(lk))
 
 
 def sqrt_constants(p: int, R: int) -> tuple[int, int, list[int]]:

@@ -1,3 +1,4 @@
-"""Utilities: phase timing."""
+"""Utilities: phase timing and device memory reports."""
 
-from .timing import PhaseLog, sync, timeit
+from .memory import device_memory_stats, print_max_size_used
+from .timing import PhaseLog, sync, tic, timeit, toc

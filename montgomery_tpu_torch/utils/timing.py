@@ -1,6 +1,13 @@
 """Phase timing: tic/toc pairs collected into a log (counterpart of
-`montgomery_tpu/utils/timing.py`). Times are host clock around work that
-ends in a device synchronize."""
+`montgomery_tpu/utils/timing.py`). `PhaseLog` and `timeit` time with the
+host clock around work that ends in a device synchronize; `timeit(...,
+events=True)` brackets each run with CUDA events instead (the
+micro-benchmark's timer).
+
+The JAX module's `enable_compilation_cache` turns on XLA's persistent
+compile cache. Its counterpart here is the kernels' build cache
+(`build/kernels/<hash>/`, `ops/kernels.py`), so it has no copy in this
+module."""
 
 from __future__ import annotations
 
@@ -39,17 +46,40 @@ def sync(device=None) -> None:
         torch.cuda.synchronize(device)
 
 
-def timeit(fn, *args, device=None, reps: int = 5, warmup: int = 1) -> tuple[float, list[float]]:
-    """Median host time of fn(*args) over `reps` runs after `warmup` runs,
-    one synchronize per run. Returns (median, all times) in seconds."""
+def tic() -> float:
+    return time.perf_counter()
+
+
+def toc(t0: float) -> float:
+    """Host seconds since `tic()` returned t0."""
+    return time.perf_counter() - t0
+
+
+def timeit(fn, *args, device=None, reps: int = 5, warmup: int = 1,
+           events: bool = False) -> tuple[float, list[float]]:
+    """Median time of fn(*args) over `reps` runs after `warmup` runs, one
+    synchronize per run, by the host clock; with `events` on a CUDA device,
+    between CUDA events recorded on its current stream just before and after
+    the run (the device's clock, from the enqueue of the first event, so
+    host work inside fn counts). Returns (median, all times) in seconds."""
     for _ in range(warmup):
         fn(*args)
         sync(device)
+    events = events and device is not None and torch.device(device).type == "cuda"
     ts = []
     for _ in range(reps):
         sync(device)
-        t0 = time.perf_counter()
-        fn(*args)
-        sync(device)
-        ts.append(time.perf_counter() - t0)
+        if events:
+            stream = torch.cuda.current_stream(device)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record(stream)
+            fn(*args)
+            t1.record(stream)
+            sync(device)
+            ts.append(t0.elapsed_time(t1) * 1e-3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            sync(device)
+            ts.append(time.perf_counter() - t0)
     return statistics.median(ts), ts

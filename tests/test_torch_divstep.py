@@ -1,5 +1,6 @@
 """montgomery_tpu_torch inversion chain against montgomery_tpu: the Montgomery
-product (`mont_mul`), the batch inversion tree and the divstep root.
+product (`mont_mul`), the batch inversion tree, the divstep root and the
+public divstep inverses (`inv_divstep`, `inv_mont_divstep`).
 
 Inputs come from numpy with fixed seeds plus the edge values 0, 1, p - 1 and
 unreduced representatives in [p, 2p); both packages get the same canonical
@@ -7,6 +8,9 @@ values through `montgomery_tpu_torch.interop` and results are compared as
 canonical integers (tolerance zero). The JAX side runs eagerly in the suite's
 callback kernel mode. Port tensors live on the CPU, so the plain versions run.
 """
+
+import contextlib
+import types
 
 import jax
 import numpy as np
@@ -20,9 +24,10 @@ from montgomery_tpu.ops.divstep import inv_divstep as jax_inv_divstep
 from montgomery_tpu.ops.divstep import inv_mont_divstep as jax_inv_mont_divstep
 from montgomery_tpu.ops.field import create_field_ops as jax_field_ops
 from montgomery_tpu_torch import interop
-from montgomery_tpu_torch.ops import divstep
+from montgomery_tpu_torch.concrete import BLS12_381, ED_ON_BLS12_377
+from montgomery_tpu_torch.ops import divstep, kernels
 from montgomery_tpu_torch.ops import limbs as codec
-from montgomery_tpu_torch.ops.field import create_field_ops
+from montgomery_tpu_torch.ops.field import MUL_CONST, create_field_ops
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -140,7 +145,7 @@ def divstep_cases(fields):
     one jitted program."""
     jf, _ = fields
     rng = np.random.default_rng(7)
-    plain = [0, 1, 2, P - 1, P - 2] + _rand_below(rng, P, 11)
+    plain = [0, 1, 2, P - 1, P - 2, P // 2, 1 << 255] + _rand_below(rng, P, 9)
     mont = [0, 1, P - 1] + _rand_below(rng, P, 13)
     jdp = jax_divstep_params(jf)
     zp, zm = jax.jit(lambda a, b: (jax_inv_divstep(jdp, a), jax_inv_mont_divstep(jdp, b)))(
@@ -172,3 +177,84 @@ def test_divstep_montgomery_matches_jax(fields, divstep_cases):
         assert f.unpack(out, from_mont=True) == want
         assert all(v < 2 * P for v in codec.unpack(out))
         assert torch.equal(out, divstep.inv_mont_plain(f, t))
+
+
+def test_inv_divstep_matches_jax(fields, divstep_cases):
+    """The public plain-domain inverse (kernel `divstep_inv` on the card,
+    `inv_plain` here) against the JAX package's `inv_divstep`, also on a
+    batch of two axes."""
+    _, f = fields
+    xs, jz, _, _ = divstep_cases
+    dp = f.inv_params
+    x = f.pack_raw(xs, "cpu")
+    out = divstep.inv_divstep(dp, x)
+    want = [pow(v, -1, P) if v else 0 for v in xs]
+    assert codec.unpack(out) == interop.planes_to_ints(jz, W_JAX) == want
+    assert torch.equal(divstep.inv_divstep(dp, x.reshape(f.n, 4, 4)), out.reshape(f.n, 4, 4))
+
+
+def test_inv_mont_divstep_matches_jax(fields, divstep_cases):
+    """The public Montgomery-form inverse, composed as the JAX package's
+    `inv_mont_divstep` (out of Montgomery form, `inv_divstep`, back), on
+    canonical and unreduced [p, 2p) inputs."""
+    jf, f = fields
+    _, _, xs, jz = divstep_cases
+    want = [pow(x, -1, P) if x else 0 for x in xs]
+    assert _from_jax(jf, f, jz) == want
+    for t in (f.pack(xs, device="cpu", to_mont=True),
+              f.pack_raw([x * f.R % P + P for x in xs], "cpu")):
+        out = divstep.inv_mont_divstep(f.inv_params, t)
+        assert f.unpack(out, from_mont=True) == want
+        assert all(v < 2 * P for v in codec.unpack(out))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Tensors taken for CUDA ones, a fake kernel library that records each
+    entry point's name and arguments, and recorders in place of torch.cuda's
+    device scope and stream."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(kernels.LIBRARY, "get", lambda: Library())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=55))
+    for k in (divstep.DIVSTEP_INV, MUL_CONST):
+        monkeypatch.setattr(k, "_fns", {})
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "launches_by_n", {})
+    return calls
+
+
+def test_divstep_inv_kernel_branch_arguments(fake_card):
+    """A CUDA tensor goes to msm_divstep_inv (12 limbs) or
+    msm_divstep_inv_n9 (9 limbs) with out, x and its row stride (a column
+    slice passes its parent's), the DivstepConst words, the lane count and
+    the stream; `inv_mont_divstep` launches mul_const, divstep_inv,
+    mul_const; 13 limbs (BLS12-381) raise NotImplementedError."""
+    for p, symbol in ((P, "msm_divstep_inv"), (ED_ON_BLS12_377.modulus, "msm_divstep_inv_n9")):
+        f = create_field_ops(p)
+        wide = f.pack_raw(list(range(1, 31)), "cpu")
+        x = wide[:, 10:]
+        fake_card.clear()
+        out = divstep.inv_divstep(f.inv_params, x)
+        ((name, (out_p, x_p, sx, cfg, M, stream)),) = fake_card
+        assert name == symbol and out.shape == (f.n, 20) and out_p.value == out.data_ptr()
+        assert (x_p.value, sx, M, stream) == (x.data_ptr(), 30, 20, 55)
+        assert cfg is f.inv_params.kernel_words
+    fake_card.clear()
+    divstep.inv_mont_divstep(f.inv_params, x)
+    assert [name for name, _ in fake_card] == ["msm_mul_const_n9", "msm_divstep_inv_n9",
+                                               "msm_mul_const_n9"]
+    assert divstep.DIVSTEP_INV.launches_by_n == {12: 1, 9: 2}
+    f381 = create_field_ops(BLS12_381.modulus)
+    with pytest.raises(NotImplementedError):
+        divstep.inv_divstep(f381.inv_params, f381.pack_raw([3], "cpu"))

@@ -31,7 +31,7 @@ from montgomery_tpu_torch.curves import affine, edwards, projective
 from montgomery_tpu_torch.curves.edwards import EdwardsBatch, EdwardsOps
 from montgomery_tpu_torch.curves.random import random_points_fast_edwards, table_bases, table_indices
 from montgomery_tpu_torch.msm import WeierstrassMsm
-from montgomery_tpu_torch.ops import divstep, kernels
+from montgomery_tpu_torch.ops import alt_mul, divstep, kernels
 from montgomery_tpu_torch.ops import limbs as codec
 from montgomery_tpu_torch.ops.field import MONT_MUL, MONT_SQR, MUL_CONST, create_field_ops
 from montgomery_tpu_torch.scalar.device import ints_to_limbs_np, signed_digits_device
@@ -305,7 +305,7 @@ def test_launch_guard_by_kernel():
     runs at n = 9, 12 for every field kernel, and 13 for none: no launch can
     hand planes of another width to a kernel."""
     nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed",
-            "exp_ladder", "sqr_n", "sqrt_win"}
+            "exp_ladder", "sqr_n", "sqrt_win", divstep.DIVSTEP_INV.name, alt_mul.BARRETT_MUL.name}
     field_kernels = {k for k in kernels.REGISTRY.values() if None not in k.symbols}
     assert {k.name for k in field_kernels} >= nine | {"proj_add_rcb", "aff_pre_packed", "mont_sqr"}
     for k in field_kernels:

@@ -21,7 +21,7 @@ from montgomery_tpu.bigint.weierstrass import AffinePoint
 from montgomery_tpu.concrete import BLS12_377
 from montgomery_tpu_torch.curves.random import random_points_fast, table_bases, table_indices
 from montgomery_tpu_torch.msm import WeierstrassMsm
-from montgomery_tpu_torch.ops import kernels
+from montgomery_tpu_torch.ops import alt_mul, kernels
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -118,7 +118,7 @@ def test_cpu_tensors_launch_no_kernel(ctx):
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
                            "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
                            "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win", "aff_pre", "aff_post",
-                           "aff_pre_unsafe", "aff_post_unsafe"}
+                           "aff_pre_unsafe", "aff_post_unsafe", "divstep_inv", alt_mul.BARRETT_MUL.name}
     assert all(v == 0 for v in counts.values()), counts
 
 
