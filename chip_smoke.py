@@ -18,7 +18,10 @@ Phases, each printed as it runs:
      maximum SM clock, kernel build time and register counts, and the
      measured rates of the 32x32->64 and the low 32-bit multiply
      (`montgomery_tpu_torch/csrc/rates/imad_rate.cu`, built beside the
-     kernels) that the operation bounds divide by;
+     kernels) that the operation bounds divide by; the latency of one
+     dependent Montgomery product in one thread and on one warp
+     (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit), which
+     the window combine's dependent-chain floor multiplies;
   1. each kernel against its plain version on the same tensors, with
      adversarial values in the first lanes (canonical values must be equal;
      the packed adds' first lanes cover every flag class of the safe add:
@@ -31,7 +34,21 @@ Phases, each printed as it runs:
      divstep_inv_mont at 512, the batch-inversion root); each timed (CUDA
      events) on the tensors it was checked on, at the 2^16 path's width
      (mont_sqr at 2^20), beside its plain version's time and a lower bound
-     from bytes moved or multiplies. Then the Twisted Edwards path's kernels
+     from bytes moved or multiplies. Then the two kernels redesigned for
+     this card at the main paths' shapes (`phase_redesign`): the window
+     combine proj_combine_rcb for (K, c) = (10, 13) and (12, 11), 10 fresh
+     inputs each with identity windows, bit for bit against the plain Horner
+     and as points against the halving combine through the one-thread
+     double_n (the log-depth combine it replaced, timed beside it), with
+     its bound and dependent-chain floor; proj_dbl_rcb's few-lane body at
+     k = 6 on 10 lanes and on 1 lane
+     (10 fresh inputs, bit for bit against the plain version and the
+     one-thread body), both bodies timed on 10 lanes and a doubling's time
+     on one lane; the fused aff_post_packed_u at 1, 513, 835,592 (10 fresh
+     inputs each) and 10,649,608 lanes, bit for bit against its plain
+     version and against the full batch_inv with the plain chord, timed at
+     the two widest beside the descent level it replaced.
+     Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
      combine's 208) and ed_add_packed up to the first super-round level at
@@ -71,7 +88,9 @@ Phases, each printed as it runs:
      2^20, c from window_size) on random_points_fast(seed=42) points: launch
      counts of a run with the counts set to 0 just before it (every kernel of
      the path must launch, no kernel of another add or curve may, and every
-     launch must be at the path's limb count), the check at full N against
+     launch must be at the path's limb count; on the main path, affine-unsafe
+     at 2^20, the redesigned kernels' counts are MAIN_PATH_LAUNCHES), the
+     check at full N against
      S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs,
      phase split, peak memory and the round plan (affine-unsafe at 2^20, the
      main path, also its device time by kernel under torch.profiler and the
@@ -138,9 +157,11 @@ PATHS = ("affine_unsafe", "affine_safe", "projective")
 KERNEL_REPS = 200  # back-to-back launches per kernel timing (tens of ms on the card)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
+LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "mul_latency.cu"
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
-_AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb"}
+_AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb",
+           "proj_combine_rcb"}
 _UNSAFE, _SAFE = {"aff_pre_packed_u", "aff_post_packed_u"}, {"aff_pre_packed", "aff_post_packed"}
 _EDWARDS = {"ed_add", "ed_dbl", "ed_add_packed"}
 _WEIERSTRASS = _AFFINE | _UNSAFE | _SAFE | {"mont_sqr"}
@@ -148,7 +169,7 @@ _WEIERSTRASS = _AFFINE | _UNSAFE | _SAFE | {"mont_sqr"}
 # never by an MSM path (sharded ones included)
 _PLANAR = {"aff_pre", "aff_post", "aff_pre_unsafe", "aff_post_unsafe"}
 PATH_KERNELS = {
-    "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits"},
+    "projective": {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "proj_combine_rcb", "glv_digits"},
     "affine_unsafe": _AFFINE | _UNSAFE,
     "affine_safe": _AFFINE | _SAFE,
     "serve": _AFFINE | _SAFE | {"mul_const", "mont_sqr"},
@@ -164,7 +185,8 @@ PATH_FORBIDDEN = {"projective": _UNSAFE | _SAFE | _EDWARDS, "affine_unsafe": _SA
 _SOLVE = {"mul_const", "mont_mul", "divstep_inv_mont", "exp_ladder", "sqr_n", "sqrt_win"}
 PATH_KERNELS["points"] = _SOLVE | {"proj_add_rcb", "proj_dbl_rcb"}
 PATH_KERNELS["te_points"] = _SOLVE | {"ed_dbl"}
-PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr"}
+PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr",
+                                                         "proj_combine_rcb"}
 PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed"}
 # the baselines' kernels: launched by inv_divstep, inv_mont_divstep and the
 # micro-bench's altmul section, never by an MSM or generation path
@@ -199,6 +221,18 @@ SQRT_CHAINS = (1, 42, 43)  # sqr_n's m: the shortest chain, and the first of eac
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
 TE_COMBINE_K = 208  # ed_dbl's k on the 2^20 path's first combine level: c 16 = 13 x 16
+# the redesigned kernels at the main paths' shapes: the combine's (K, c) at
+# 2^20 and 2^16; window_sums' doublings at 2^20 (k = log2 S = 6 on K = 10
+# lanes); fresh-input checks of the combine and the fused post (the widest
+# post checked once)
+COMBINE_CASES = ((10, 13), (12, 11))
+FEW_DBL = (6, 10)
+DBL_CHAIN = 600  # doublings on one lane, for the time of one
+REDESIGN_REPS = 10
+# the main path's launches (affine-unsafe at 2^20) of the kernels this
+# script's redesign phase holds to their new shapes
+MAIN_PATH_LAUNCHES = {"proj_combine_rcb": 1, "proj_dbl_rcb": 1, "proj_add_rcb": 37, "mont_mul": 236,
+                      "aff_post_packed_u": 12}
 
 
 def say(*a):
@@ -235,13 +269,15 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_times(fn) -> tuple[dict, float, float]:
+def device_times(fn) -> tuple[dict, float, float, dict]:
     """fn() under torch.profiler's CUDA activity, after one warm-up run
     under the profiler (its schedule's warm-up step: kernels launched right
     after a bare start can go unrecorded): ({kernel: (launches, device ms)}
     for this package's kernels, device ms of every kernel and copy, host ms
-    of the recorded run). Device times are self times, so no range counts
-    its kernels twice; the kernels are `<name>_kernel` in the trace."""
+    of the recorded run, {trace key: (launches, device ms)} of PyTorch's own
+    kernels and copies). Device times are self times, so no range counts
+    its kernels twice; the kernels are `<name>_kernel` in the trace
+    (`<name>_few_kernel` for a few-lane body)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -257,17 +293,20 @@ def device_times(fn) -> tuple[dict, float, float]:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             prof.step()
-    per, busy = {}, 0.0
+    per, others, busy = {}, {}, 0.0
     for e in traces[-1] if traces else ():
+        if not e.self_device_time_total:
+            continue
         busy += e.self_device_time_total / 1e3
-        m = re.search(r"\b(\w+)_kernel\b", e.key)
-        if m and m.group(1) in kernels.REGISTRY and e.self_device_time_total:
-            c, t = per.get(m.group(1), (0, 0.0))
-            per[m.group(1)] = (c + e.count, t + e.self_device_time_total / 1e3)
-    return per, busy, wall * 1e3
+        m = re.search(r"\b(\w+?)(?:_few)?_kernel\b", e.key)  # proj_dbl_rcb's few-lane body too
+        name = m.group(1) if m and m.group(1) in kernels.REGISTRY else None
+        into = per if name else others
+        c, t = into.get(name or e.key, (0, 0.0))
+        into[name or e.key] = (c + e.count, t + e.self_device_time_total / 1e3)
+    return per, busy, wall * 1e3, others
 
 
-def say_device_times(label: str, per: dict, busy: float, wall: float) -> None:
+def say_device_times(label: str, per: dict, busy: float, wall: float, others: dict) -> None:
     if not busy:
         say(f"{label}: the profiler saw no device time (not measured)")
         return
@@ -275,22 +314,29 @@ def say_device_times(label: str, per: dict, busy: float, wall: float) -> None:
         f"package's kernels {sum(t for _, t in per.values()):.3f} ms:")
     for name, (count, t) in sorted(per.items(), key=lambda kv: -kv[1][1]):
         say(f"  {name}: {count} launches, {t:.4f} ms, {t / count * 1e3:.2f} us a launch")
+    say(f"  PyTorch's own kernels and copies: {sum(c for c, _ in others.values())} launches, "
+        f"{sum(t for _, t in others.values()):.3f} ms; the largest:")
+    for key, (count, t) in sorted(others.items(), key=lambda kv: -kv[1][1])[:8]:
+        say(f"    {key[:90]}: {count} launches, {t:.4f} ms")
 
 
 # ----------------------------------------------------------------- phase 0
 
 
-def start_rate_build():
-    """Start nvcc on the multiply-rate microbenchmark, which is built apart
-    from the kernels' library; returns (process or None if built, path)."""
+def start_probe_build(src: Path):
+    """Start nvcc on a probe (a multiply-rate or latency microbenchmark),
+    which is built apart from the kernels' library; returns (process or
+    None if built, path)."""
     from montgomery_tpu_torch.ops import kernels
 
-    out = ROOT / "build" / "rates" / hashlib.sha256(RATE_SRC.read_bytes()).hexdigest()[:16]
-    lib = out / "libimad_rate.so"
+    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = ROOT / "build" / "rates" / key
+    lib = out / f"lib{src.stem}.so"
     if lib.exists():
         return None, lib
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(lib), str(RATE_SRC)]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I",
+           str(kernels.CSRC), "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
@@ -353,17 +399,64 @@ def phase_env() -> dict:
     say("card:", smi_line())
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
-    rate_build, rate_lib = start_rate_build()
+    probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     for line in kernels.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip())
-    if rate_build is not None:
-        log, _ = rate_build.communicate()
-        if rate_build.returncode:
-            raise RuntimeError(f"nvcc failed on {RATE_SRC.name}:\n{log[-4000:]}")
-    return multiply_rates(rate_lib, clock)
+    for src, (proc, _) in probes.items():
+        if proc is not None:
+            log, _ = proc.communicate()
+            name = src.name
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    say(f"  ptxas ({name}):", line.strip())
+    rates = multiply_rates(probes[RATE_SRC][1], clock)
+    rates.update(product_latency(probes[LATENCY_SRC][1]))
+    return rates
+
+
+def product_latency(lib_path: Path) -> dict:
+    """Latency (s) of one dependent BLS12-377 Montgomery product on the
+    card: a chain of products in one thread (fe_mul) and on one warp
+    (coop_mul), each one launch of a single block; the two chains' last
+    products must agree bit for bit."""
+    import torch
+
+    from montgomery_tpu_torch.concrete import BLS12_377
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.ops.field import create_field_ops
+    from montgomery_tpu_torch.ops.limbs import to_words
+
+    f = create_field_ops(BLS12_377.modulus)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.mul_latency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_uint32)] * 4 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    x, y = (kernels.words(to_words(v * f.R % f.p, f.n)) for v in (3, 5))
+    mu = kernels.words(to_words(-pow(f.p, -1, f.R) % f.R, f.n))
+    field = kernels.words(to_words(f.p, f.n) + to_words(2 * f.p, f.n) + to_words(4 * f.p, f.n) + [f.mu])
+    outs = {w: torch.empty(f.n, dtype=torch.int32, device="cuda") for w in (0, 1)}
+
+    def launch(warp, iters):
+        rc = fn(warp, iters, x, y, mu, field, ctypes.c_void_p(outs[warp].data_ptr()),
+                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        if rc:
+            raise RuntimeError(f"mul_latency launch failed, CUDA error {rc}")
+
+    lat = {}
+    for warp, key, iters in ((0, "lat_thread", 500), (1, "lat_warp", 4000)):
+        lat[key] = cuda_time_ms(lambda: launch(warp, iters), 5) * 1e-3 / iters
+    for warp in (0, 1):
+        launch(warp, 333)
+    if not torch.equal(outs[0], outs[1]):
+        raise AssertionError("the warp product chain differs from the one-thread chain")
+    say(f"dependent product latency: one thread {lat['lat_thread'] * 1e6:.3f} us, one warp "
+        f"{lat['lat_warp'] * 1e6:.3f} us (chains of 500 and 4000 products; equal bit for bit)")
+    return lat
 
 
 # ------------------------------------------------------- bounds per kernel
@@ -411,7 +504,11 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
         "divstep_inv_mont": (2 * W, wide + dsb * wide_b, lo + dsb * lo_b),
         "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
         "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
-        "aff_post_packed_u": (5 * W + 16 + 2 * W + 4, wide + sqr[0], lo + sqr[1]),
+        # fused with the last descent level: A (x, y, inf), B (x, y), two
+        # signs, hp, half a parent inverse and the partner's denominator in,
+        # one packed column out; the lane's inverse is one more product
+        "aff_post_packed_u": (2 * W + 4 + 2 * W + 12 + W // 2 + W + 2 * W + 4,
+                              products(3)[0] + sqr[0], products(3)[1] + sqr[1]),
         "mont_sqr": (2 * W, *sqr),
         # in: A, B, two signs, hp; out: denom, numer, flags
         "aff_pre_packed": (2 * col + 12 + 2 * W + 4, *sqr),
@@ -760,11 +857,13 @@ def affine_kernels(ctx, pts, record, diff):
             A, B = C[:, :M], C[:, M:]  # a level's two halves
             sA, sB = sg[:, :M], sg[:, M:]
             dinv = _field_plane(f, M, gen, adv)
+            denom = aff.pre_packed_u(A, B, hp)
+            inv1, h1 = f.batch_inv_parent(denom)
             cases["aff_pre_packed_u"] = (M, lambda: aff.pre_packed_u(A, B, hp),
                                          lambda: aff.pre_packed_u_plain(A, B, hp), canon_err)
-            cases["aff_post_packed_u"] = (M, lambda: aff.post_packed_u(A, B, sA, sB, dinv, hp),
-                                          lambda: aff.post_packed_u_plain(A, B, sA, sB, dinv, hp),
-                                          packed_err)
+            cases["aff_post_packed_u"] = (
+                M, lambda: aff.post_packed_u(A, B, sA, sB, inv1, denom, h1, hp),
+                lambda: aff.post_packed_u_plain(A, B, sA, sB, inv1, denom, h1, hp), packed_err)
             h = M // 2
             for tag, ops in (("", (A, B, sA, sB, hp)),
                              (" halves", (A[:, :h], B[:, :h], sA[:, :h], sB[:, :h], hp[:, :h]))):
@@ -848,6 +947,204 @@ def planar_kernels(ctx, pts, record, diff):
             else:
                 record(label.split()[0], err)
         del cases, X, Y
+
+
+def _window_sums(ctx, pts, K: int, rng: random.Random, lanes: int = 1):
+    """K window sums of `lanes` combines as projective planes (n, lanes, K)
+    on the card: oracle points with random Z, a coordinate in 4 unreduced
+    (+p), and the identity (0 : 1 : 0) in two windows of each lane (the top
+    one among them in about half the lanes); returns (planes, the points on
+    the host, lane by lane)."""
+    from montgomery_tpu_torch.bigint.weierstrass import AffinePoint
+    from montgomery_tpu_torch.curves.projective import ProjectiveBatch
+
+    f = ctx.fops
+    p, R = f.p, f.R
+    cols, host = ([], [], []), []
+    for i in range(lanes * K):
+        if i % K == 0:
+            ident = {rng.randrange(K), K - 1 if rng.random() < 0.5 else rng.randrange(K)}
+        pt = AffinePoint.zero() if i % K in ident else pts[rng.randrange(len(pts))]
+        z = rng.randrange(1, p)
+        xyz = (0, 1, 0) if pt.is_zero else (pt.x * z % p, pt.y * z % p, z)
+        for col, v in zip(cols, xyz):
+            col.append(v * R % p + (p if rng.random() < 0.25 else 0))
+        host.append(pt)
+    W = ProjectiveBatch(*[f.pack_raw(col, ctx.device).reshape(f.n, lanes, K) for col in cols])
+    return W, host
+
+
+def _raw_err(a, b) -> int:
+    return max(int((x.long() - y.long()).abs().max()) if x.numel() else 0 for x, y in zip(a, b))
+
+
+class OneThreadDoublings:
+    """The projective adapter with every double_n on proj_dbl_rcb's
+    one-thread body: the halving combine over it is the window combine as
+    it ran before proj_combine_rcb."""
+
+    def __init__(self, adapter):
+        self._adapter = adapter
+
+    def __getattr__(self, name):
+        return getattr(self._adapter, name)
+
+    def double_n(self, P, k: int):
+        return self._adapter.proj.double_n(P, k, few=False)
+
+
+def phase_redesign(ctx, pts, rates: dict) -> dict:
+    """The two kernels redesigned for this card, at the main paths' shapes.
+
+    - proj_combine_rcb for (K, c) = COMBINE_CASES, one launch on one lane
+      for each of REDESIGN_REPS fresh inputs (identities among the windows,
+      unreduced values): bit for bit against the plain Horner
+      (`combine_plain`, one run over all the inputs), and as affine
+      points against the halving combine through the one-thread double_n
+      (`combine_halving` over `OneThreadDoublings`: the log-depth combine it
+      replaced) and against Python's ints for the first input; timed beside
+      both, with its bound and the dependent-chain floor (serial warp
+      products x the latency of one, phase 0).
+    - proj_dbl_rcb's few-lane body at k = 6 on 10 lanes (window_sums' at
+      2^20) and 1 lane, bit for bit against the plain version and the wide
+      body; both bodies timed on 10 lanes, and a doubling's time on one
+      lane. (The one-thread body's wide launches are timed in the kernel
+      table's k = 1 row, on 65,536 lanes.)
+    - the fused aff_post_packed_u at 1, 513, 835,592 and 10,649,608 lanes
+      (column slices of wider arrays, random signs and pairs, distinct x),
+      REDESIGN_REPS fresh inputs below 10^7 lanes and one at the widest: bit
+      for bit against its plain version (`post_packed_u_plain`) and against
+      the full `batch_inv` with the plain chord; timed at the two widest,
+      beside the descent level it replaces (`FieldOps._descend`).
+
+    Returns per-kernel results: proj_combine_rcb's row, and the main-path
+    rows ("main_path") of proj_dbl_rcb and aff_post_packed_u."""
+    import torch
+
+    from montgomery_tpu_torch.bigint import WeierstrassCurve
+    from montgomery_tpu_torch.curves.projective import ADD_MULS, DBL_MULS, ProjectiveBatch
+    from montgomery_tpu_torch.msm.pippenger import combine_halving
+
+    say("== phase 1: the redesigned kernels at the main paths' shapes")
+    f, proj, aff, dev = ctx.fops, ctx.proj, ctx.affine, ctx.device
+    n, W = f.n, 4 * f.n
+    E = WeierstrassCurve(ctx.params)
+    rng = random.Random(9)
+    out = {}
+
+    one_thread = OneThreadDoublings(ctx.adapter)
+    # -- the window combine: REDESIGN_REPS fresh inputs, one launch each,
+    # against one plain Horner over all of them (lane r of planes (n, reps, K))
+    combine = {}
+    for K, c in COMBINE_CASES:
+        Wall, host = _window_sums(ctx, pts, K, rng, lanes=REDESIGN_REPS)
+        want = proj.combine_plain(Wall, c)
+        err = 0
+        for rep in range(REDESIGN_REPS):
+            Wk = ProjectiveBatch(*[a[:, rep:rep + 1].contiguous() for a in Wall])
+            got = proj.combine(Wk, c)
+            err = max(err, _raw_err(got, ProjectiveBatch(*[a[:, rep:rep + 1] for a in want])))
+            flat = ProjectiveBatch(*[a.reshape(n, K) for a in Wk])
+            halving = combine_halving(one_thread, flat, c, K)
+            a, b = proj.to_host(got)[0], proj.to_host(halving)[0]
+            if err or not E.equal(a, b):
+                raise AssertionError(f"proj_combine_rcb K={K} c={c} disagrees (rep {rep}, raw err {err})")
+            if rep == 0:
+                expect = E.scale(0, E.generator)
+                for k, pt in enumerate(host[:K]):
+                    expect = E.add(expect, E.scale(1 << (c * k), pt))
+                if not E.equal(a, expect):
+                    raise AssertionError(f"proj_combine_rcb K={K} c={c} differs from Python's ints")
+        ms = cuda_time_ms(lambda: proj.combine(Wk, c), 20)
+        half_ms = cuda_time_ms(lambda: combine_halving(one_thread, flat, c, K), 10)
+        plain_ms = cuda_time_ms(lambda: proj.combine_plain(Wk, c), 1, 0)
+        products = (K - 1) * (c * DBL_MULS + ADD_MULS)
+        bms, by = bound_of((K + 1) * 3 * W, products * 2 * n * n, products * n, 1, rates)
+        serial = 3 * (K - 1) * (c + 1)  # warp products on the critical path
+        floor = serial * rates["lat_warp"] * 1e3
+        combine[(K, c)] = dict(ms=ms, plain_ms=plain_ms, halving_ms=half_ms, bound_ms=bms, bound_by=by,
+                               floor_ms=floor, serial_products=serial, max_abs_err=err)
+        say(f"proj_combine_rcb K={K} c={c}: {REDESIGN_REPS} fresh inputs bit for bit with the plain "
+            f"Horner and equal to the halving combine; kernel {ms:.4f} ms, halving (one-thread "
+            f"double_n) {half_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bms * 1e3:.3f} us "
+            f"({by}, share {bms / ms:.4f}); floor {serial} x {rates['lat_warp'] * 1e6:.3f} us = "
+            f"{floor:.4f} ms (share {floor / ms:.3f})")
+    main = combine[COMBINE_CASES[0]]
+    out["proj_combine_rcb"] = dict(main, lanes=1, call=f"K={COMBINE_CASES[0][0]}, c={COMBINE_CASES[0][1]}",
+                                   main_path={f"K={K}, c={c}": v for (K, c), v in combine.items()})
+
+    # -- few-lane doublings
+    k, lanes = FEW_DBL
+    err = 0
+    for N in (lanes, 1):
+        for rep in range(REDESIGN_REPS):
+            Wk, host = _window_sums(ctx, pts, lanes, rng)
+            keep = [i for i, pt in enumerate(host) if N == lanes or not pt.is_zero][:N]
+            P = ProjectiveBatch(*[a.reshape(n, lanes)[:, keep].contiguous() for a in Wk])
+            got = proj.double_n(P, k)
+            err = max(err, _raw_err(got, proj.double_n_plain(P, k)),
+                      _raw_err(got, proj.double_n(P, k, few=False)))
+            if err:
+                raise AssertionError(f"proj_dbl_rcb few-lane k={k} N={N} disagrees (rep {rep})")
+    P1 = P  # the last one-lane input (no identity)
+    Wk, _ = _window_sums(ctx, pts, lanes, rng)
+    P = ProjectiveBatch(*[a.reshape(n, lanes) for a in Wk])
+    few_ms = cuda_time_ms(lambda: proj.double_n(P, k), 50)
+    wide_ms = cuda_time_ms(lambda: proj.double_n(P, k, few=False), 20)
+    bms, by = bound_of(6 * W, k * DBL_MULS * 2 * n * n, k * DBL_MULS * n, lanes, rates)
+    per_dbl = cuda_time_ms(lambda: proj.double_n(P1, DBL_CHAIN), 5) * 1e3 / DBL_CHAIN
+    chain = DBL_CHAIN // 10  # the one-thread body takes about 10x longer a doubling
+    per_dbl_wide = cuda_time_ms(lambda: proj.double_n(P1, chain, few=False), 5) * 1e3 / chain
+    say(f"proj_dbl_rcb few-lane body k={k}: {REDESIGN_REPS} fresh inputs at {lanes} and 1 lanes bit "
+        f"for bit with the plain version and the one-thread body; {lanes} lanes: {few_ms:.4f} ms "
+        f"(one-thread body {wide_ms:.4f} ms), bound {bms * 1e3:.3f} us ({by}); one lane: "
+        f"{per_dbl:.3f} us a doubling (one-thread body {per_dbl_wide:.3f} us)")
+    out["proj_dbl_rcb"] = dict(main_path=dict(
+        k=k, lanes=lanes, ms=few_ms, one_thread_ms=wide_ms, bound_ms=bms, bound_by=by,
+        us_a_doubling=per_dbl, us_a_doubling_one_thread=per_dbl_wide, max_abs_err=err,
+        few_lanes=proj.FEW_LANES))
+
+    # -- the fused post
+    gen = torch.Generator(device=dev).manual_seed(11)
+    post = {}
+    widths = (1, 513, first_level_width(ctx, 16), first_level_width(ctx, 20))
+    for M in widths:
+        reps = 1 if M == widths[-1] else REDESIGN_REPS
+        err = 0
+        for rep in range(reps):
+            # A and B: column slices of one array of 2M + 3 random columns
+            C = _random_planes(f, 2 * n + 1, 2 * M + 3, gen)
+            C[2 * n] = 0
+            A, B = C[:, 1:M + 1], C[:, M + 3:]
+            sA, sB, hp = (torch.randint(0, 2, (1, M), dtype=torch.int32, device=dev, generator=gen)
+                          for _ in range(3))
+            denom = aff.pre_packed_u(A, B, hp)
+            inv1, h = f.batch_inv_parent(denom)
+            got = aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp)
+            old = aff.post_packed_u_plain(A, B, sA, sB, f.batch_inv(denom), denom, 0, hp)
+            err = max(err, _raw_err(got, aff.post_packed_u_plain(A, B, sA, sB, inv1, denom, h, hp)),
+                      _raw_err(got, old))
+            if err:
+                raise AssertionError(f"aff_post_packed_u at {M} lanes disagrees (rep {rep})")
+            del old
+        row = dict(max_abs_err=err, checks=reps, h=h)
+        if M >= widths[-2]:
+            row["ms"] = cuda_time_ms(lambda: aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp), 20)
+            row["descent_level_ms"] = cuda_time_ms(lambda: f._descend(denom, inv1), 20)
+            row["bound_ms"], row["bound_by"] = bound(ctx, "aff_post_packed_u", M, rates)
+            if M == widths[-2]:
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: aff.post_packed_u_plain(A, B, sA, sB, inv1, denom, h, hp), 3, 1)
+            say(f"aff_post_packed_u N={M}: kernel {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, share {row['bound_ms'] / row['ms']:.3f}); the descent level it "
+                f"replaces {row['descent_level_ms']:.4f} ms")
+        say(f"aff_post_packed_u N={M} (h={h}): {reps} fresh inputs bit for bit with the plain version "
+            f"and with batch_inv + the plain chord")
+        post[str(M)] = row
+        del C, A, B, denom, inv1, got
+        torch.cuda.empty_cache()
+    out["aff_post_packed_u"] = dict(main_path=post)
+    return out
 
 
 # ----------------------------------------------------------------- phase 2
@@ -1235,6 +1532,10 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
 
     counts, first, S = counted(run, path)
     say(f"{path} launches: {counts} (first run {first:.3f} s)")
+    if path == PATHS[0] and log2n == max(MSM_LOG2N):
+        wrong = {k: (counts[k], v) for k, v in MAIN_PATH_LAUNCHES.items() if counts[k] != v}
+        if wrong:
+            raise AssertionError(f"main path launches (got, expected): {wrong}")
     if affine:
         say(f"rounds: {adapter.rounds}")
     got = ctx.proj.to_host(S)[0]
@@ -2146,7 +2447,8 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
         if name in kres and name in te_kres:  # instantiated at 12 and at 9 limbs
             e["n9"] = {key: te_kres[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                            "lanes", "max_abs_err")}
-        e.update({key: v for key, v in res.items() if key.endswith("_level") or key == "call"})
+        e.update({key: v for key, v in res.items()
+                  if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms")})
         return e
 
     return {"kernels": [entry(name, k) for name, k in kernels.REGISTRY.items()]}
@@ -2187,6 +2489,8 @@ def main() -> int:
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
     te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
     kres = phase_kernels(ctx, host_pts, rates)
+    for name, res in phase_redesign(ctx, host_pts, rates).items():
+        kres.setdefault(name, {}).update(res)
     te_kres = phase_te_kernels(te, te_host, rates)
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)

@@ -1,4 +1,5 @@
-// Kernel 9: chord completion of the unsafe packed batched-affine add.
+// Kernel 9: chord completion of the unsafe packed batched-affine add, fused
+// with the last descent level of its batch inversion.
 //
 // Replaces the Pallas kernel "aff_post_packed_u" of
 // montgomery_tpu/curves/affine.py (AffineOps.add_packed, unsafe branch, over
@@ -10,27 +11,55 @@
 // (2n+1, M) array. The unsafe contract (no two operands of a pair share x,
 // no infinity among paired operands) is the caller's.
 //
-// Bound on this card: 2 products and a square per lane (798 32x32->64
-// multiplies) against 256 bytes read and 100 written; the memory bound
-// (0.089 ms at 835,592 lanes on an H100) is a little above the multiply
-// bound. Design: one thread per lane,
-// operands read in place through their row strides; neg/sub/select are the
-// branch-free helpers of field.cuh, load_signed and aff_chord (shared with
-// the planar aff_post_unsafe.cu) those of affine.cuh.
+// The lane's inverse dinv is formed here from the batch inversion's parent
+// level (FieldOps.batch_inv_parent: inv1, the inverses of the tree's first
+// product level, and h = M / 2) and the pre kernel's denominators, exactly
+// as the descent would (ops/field.py, FieldOps._descend):
+//   i < h: inv1[i] denom[i + h];  h <= i < 2h: inv1[i - h] denom[i - h];
+//   i = 2h (M odd): inv1[h];      h = 0 (no tree): inv1[i],
+// the same Montgomery product of the same operands, so the sums are today's
+// bit for bit.
+//
+// Bound on this card: bytes and multiplies nearly balanced. A lane reads A
+// and B (x, y; A's inf row), the signs and hp, its half of the parent
+// inverse and its partner's denominator (24 + 48 bytes in place of a 48-byte
+// dinv) and writes one packed column: 380 bytes, against 356 for the chord
+// alone plus 312 that the descent level moved through device memory (the
+// repeat and the concatenation of its operands and a full-width mont_mul).
+// 3 products and a square a lane (1,086 32x32->64 multiplies), about 0.11 ms
+// of multiplies at 835,592 lanes against 0.095 ms of bytes. Design: one
+// thread per lane, operands read in place through their row strides, the
+// chord of affine.cuh (shared with the planar aff_post_unsafe.cu), and
+// __launch_bounds__ with a minimum of 5 blocks of 128 threads an SM, so that
+// enough warps are resident for one warp's loads to overlap another's
+// products. Chosen by measurement on an H100 80GB HBM3 at 700 W, with the
+// kernel built at other minimums and timed beside this one: 5 blocks (96
+// registers, 68 bytes of spill) ran 0.2401 ms at 835,592 lanes and 2.955 ms
+// at 10,649,608, against 0.2455 and 3.006 at 4 (127 registers), 0.2443 and
+// 2.977 with no minimum (151 registers), and 0.2761 and 3.306 at 6 (80
+// registers, 300 bytes of spill).
 #include "affine.cuh"
 
 template <int NL>
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
+__global__ void __launch_bounds__(LANES_PER_BLOCK, 5)
 aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,
                          const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ sA,
-                         const int32_t* __restrict__ sB, const int32_t* __restrict__ dinv, int sd,
-                         const int32_t* __restrict__ hp, FieldParams<NL> F, int N) {
+                         const int32_t* __restrict__ sB, const int32_t* __restrict__ inv1, int si,
+                         const int32_t* __restrict__ denom, int sd, int h, const int32_t* __restrict__ hp,
+                         FieldParams<NL> F, int N) {
   int i = lane_index();
   if (i >= N) return;
   uint32_t x1[NL], y1[NL], x2[NL], y2[NL], d[NL], x3[NL], y3[NL];
+  if (h == 0 || i >= 2 * h) {
+    fe_load(d, inv1, si, h == 0 ? i : h);
+  } else {
+    uint32_t a[NL], b[NL];
+    fe_load(a, inv1, si, i < h ? i : i - h);
+    fe_load(b, denom, sd, i < h ? i + h : i - h);
+    fe_mul(d, a, b, F);
+  }
   load_signed(x1, y1, A, sa, i, sA[i] != 0, F);
   load_signed(x2, y2, B, sb, i, sB[i] != 0, F);
-  fe_load(d, dinv, sd, i);
   aff_chord(x3, y3, x1, y1, x2, y2, d, F);
   bool paired = hp[i] != 0;
   fe_select(x3, paired, x3, x1);
@@ -42,11 +71,11 @@ aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ 
 }
 
 extern "C" int msm_aff_post_packed_u(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
-                                     const void* sB, const void* dinv, int sd, const void* hp,
-                                     const uint32_t* field, int N, void* stream) {
+                                     const void* sB, const void* inv1, int si, const void* denom, int sd,
+                                     int h, const void* hp, const uint32_t* field, int N, void* stream) {
   if (N > 0)
     aff_post_packed_u_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
-        (const int32_t*)dinv, sd, (const int32_t*)hp, field_from<12>(field), N);
+        (const int32_t*)inv1, si, (const int32_t*)denom, sd, h, (const int32_t*)hp, field_from<12>(field), N);
   return (int)cudaGetLastError();
 }

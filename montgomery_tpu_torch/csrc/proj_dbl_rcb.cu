@@ -5,37 +5,20 @@
 // Replaces three Pallas kernels of montgomery_tpu/curves/projective.py:
 // "proj_dbl_rcb" (double_rcb / _dbl_rcb_formula, :196-223, k = 1),
 // "proj_dbln_rcb" (k in a plane) and "proj_dbl{k}_rcb" (static k) of
-// double_n (:225-276). One binary serves every k of the window combine.
+// double_n (:225-276). One binary serves every k.
 //
-// Bound on this card: 9 CIOS products per doubling, so integer multiply
-// throughput; the point stays in registers across all k doublings, so a
-// launch reads and writes one point per lane whatever k is. Design: one
-// thread per lane, a run-time loop over the doubling body.
-#include "field.cuh"
-
-template <int NL>
-__device__ __forceinline__ void rcb_dbl(uint32_t (&X)[NL], uint32_t (&Y)[NL], uint32_t (&Z)[NL],
-                                        const Fe<NL>& b3, const FieldParams<NL>& F) {
-  uint32_t YY[NL], ZZ[NL], YZ[NL], XY[NL], Z3d[NL], t2[NL], u[NL], v[NL];
-  fe_mul(YY, Y, Y, F);
-  fe_mul(ZZ, Z, Z, F);
-  fe_mul(YZ, Y, Z, F);
-  fe_mul(XY, X, Y, F);
-  fe_add(Z3d, YY, YY, F);
-  fe_add(Z3d, Z3d, Z3d, F);   // 4 Y^2, reduced
-  fe_add_lazy(Z3d, Z3d, Z3d);  // 8 Y^2 < 4p
-  fe_mul(t2, ZZ, b3.v, F);     // 3b Z^2
-  fe_add_lazy(u, YY, t2);      // Y3t < 4p
-  fe_add(v, t2, t2, F);
-  fe_add(v, v, t2, F);         // 9b Z^2 reduced
-  fe_sub_lazy(YY, YY, v, F);   // t0m = Y^2 - 9b Z^2 + 4p < 6p
-  fe_mul(X, t2, Z3d, F);       // X3a
-  fe_mul(Z, YZ, Z3d, F);       // Z3
-  fe_mul(v, YY, u, F);         // Y3a
-  fe_add(Y, X, v, F);          // Y3 = X3a + Y3a
-  fe_mul(v, YY, XY, F);        // X3b
-  fe_add(X, v, v, F);          // X3 = 2 X3b
-}
+// Two bodies, chosen by the wrapper from the lane count:
+// - wide (one thread a lane): bound by integer multiply throughput, 9 CIOS
+//   products a doubling; the point stays in registers across all k
+//   doublings, so a launch reads and writes one point per lane whatever k is.
+// - few (one block of 4 warps a lane, below the wrapper's lane threshold):
+//   bound by latency, since a few lanes cannot fill the card and each
+//   doubling waits on the one before. projective.cuh's coop_dbl runs each
+//   stage's products on separate warps and each product on a whole warp
+//   (coop.cuh), so a doubling is 3 dependent warp products; the point stays
+//   in shared memory across all k doublings.
+// Both give the same values bit for bit.
+#include "projective.cuh"
 
 template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
@@ -54,9 +37,29 @@ proj_dbl_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t*
   fe_store(Z3, N, i, z);
 }
 
+template <int NL>
+__global__ void __launch_bounds__(32 * COOP_DBL_WARPS)
+proj_dbl_rcb_few_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int32_t* __restrict__ Z3,
+                        const int32_t* __restrict__ X1, const int32_t* __restrict__ Y1,
+                        const int32_t* __restrict__ Z1, int k, Fe<NL> b3, Fe<NL> mu, FieldParams<NL> F,
+                        int N) {
+  __shared__ CoopPoint<NL> S;
+  int i = blockIdx.x;
+  coop_init(S, F, mu, b3);
+  coop_load_point<NL>(S.X, S.Y, S.Z, X1, Y1, Z1, N, i, threadIdx.x, blockDim.x);
+  __syncthreads();
+  for (int r = 0; r < k; r++) coop_dbl(S, F);
+  coop_store_point(X3, Y3, Z3, N, i, S);
+}
+
 extern "C" int msm_proj_dbl_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
-                                int k, const uint32_t* b3, const uint32_t* field, int N, void* stream) {
-  if (N > 0)
+                                int k, const uint32_t* b3, const uint32_t* mu, const uint32_t* field, int N,
+                                int few, void* stream) {
+  if (N > 0 && few)
+    proj_dbl_rcb_few_kernel<12><<<N, 32 * COOP_DBL_WARPS, 0, (cudaStream_t)stream>>>(
+        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
+        fe_from<12>(b3), fe_from<12>(mu), field_from<12>(field), N);
+  else if (N > 0)
     proj_dbl_rcb_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
         fe_from<12>(b3), field_from<12>(field), N);

@@ -1,0 +1,55 @@
+// Latency of one dependent Montgomery product on the card at hand, in the two
+// forms the field kernels use: fe_mul in one thread (field.cuh) and coop_mul
+// on a whole warp (coop.cuh). chip_smoke.py multiplies the window combine's
+// serial product count by the warp product's latency for the combine's
+// dependent-chain floor: a kernel that carries one point through a chain of
+// products cannot beat that chain, however it uses the card.
+// Not part of the kernels' library: it is built on its own, beside it.
+//
+// One block of one warp runs `iters` products, each on the result of the one
+// before (x <- x y), and stores x, so none is optimised away; the launch time
+// over iters is the latency of one product (launch overhead amortised).
+#include "../coop.cuh"
+
+constexpr int NL = 12;
+
+__global__ void __launch_bounds__(32)
+one_thread_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iters) {
+  if (threadIdx.x) return;
+  uint32_t x[NL];
+#pragma unroll
+  for (int k = 0; k < NL; k++) x[k] = x0.v[k];
+  for (int i = 0; i < iters; i++) fe_mul(x, x, y.v, F);
+#pragma unroll
+  for (int k = 0; k < NL; k++) out[k] = x[k];
+}
+
+__global__ void __launch_bounds__(32)
+warp_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, Fe<NL> mu, FieldParams<NL> F, int iters) {
+  __shared__ uint32_t x[NL], ys[NL];
+  __shared__ CoopConsts<NL> C;
+  coop_load_consts(C, F, mu);
+  if (threadIdx.x < NL) {
+    x[threadIdx.x] = x0.v[threadIdx.x];
+    ys[threadIdx.x] = y.v[threadIdx.x];
+  }
+  __syncwarp();
+  for (int i = 0; i < iters; i++) {
+    coop_mul(x, x, ys, C);
+    __syncwarp();
+  }
+  if (threadIdx.x < NL) out[threadIdx.x] = x[threadIdx.x];
+}
+
+// One launch of `iters` dependent products: warp = 0 one thread, 1 a warp;
+// out holds the NL words of the last product. Returns cudaGetLastError().
+extern "C" int mul_latency(int warp, int iters, const uint32_t* x, const uint32_t* y, const uint32_t* mu,
+                           const uint32_t* field, void* out, void* stream) {
+  if (warp)
+    warp_chain<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
+                                                   fe_from<NL>(mu), field_from<NL>(field), iters);
+  else
+    one_thread_chain<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
+                                                         field_from<NL>(field), iters);
+  return (int)cudaGetLastError();
+}

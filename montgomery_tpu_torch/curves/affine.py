@@ -48,7 +48,7 @@ AFF_POST_PACKED_U = kernels.Kernel(
     "aff_post_packed_u", {12: "msm_aff_post_packed_u"},
     "montgomery_tpu_torch/csrc/aff_post_packed_u.cu",
     "montgomery_tpu/curves/affine.py:345",
-    [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _U32P, _INT],
+    [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _U32P, _INT],
 )
 AFF_PRE_PACKED = kernels.Kernel(
     "aff_pre_packed", {12: "msm_aff_pre_packed"}, "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
@@ -170,8 +170,8 @@ class AffineOps:
         batch)."""
         if unsafe:
             denom = self.pre_packed_u(A, B, valid)
-            dinv = self.f.batch_inv(denom)
-            return self.post_packed_u(A, B, sA, sB, dinv, valid)
+            inv1, h = self.f.batch_inv_parent(denom)  # the post forms the last level
+            return self.post_packed_u(A, B, sA, sB, inv1, denom, h, valid)
         denom, numer, flags = self.pre_packed(A, B, sA, sB, valid)
         dinv = self.f.batch_inv(denom)  # no zero: poisoned and unpaired lanes hold 1
         return self.post_packed(A, B, sA, sB, dinv, numer, flags, valid)
@@ -297,26 +297,42 @@ class AffineOps:
         one = F.const(self.f.R_mod_p, d).expand_as(d)
         return from16(torch.where(hp[0][None] != 0, d, one))
 
-    def post_packed_u(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
-        """(2n+1, M) packed sums (pass-through where hp == 0): kernel
-        `aff_post_packed_u` on CUDA tensors."""
-        MulCounter.record(A.shape, POST_MULS)
-        if not kernels.on_cuda(A, B, sA, sB, dinv, hp):
-            return self.post_packed_u_plain(A, B, sA, sB, dinv, hp)
+    def post_packed_u(self, A, B, sA, sB, inv1, denom, h: int, hp) -> torch.Tensor:
+        """(2n+1, M) packed sums (pass-through where hp == 0) from the batch
+        inversion's parent level (`FieldOps.batch_inv_parent(denom)`: inv1,
+        h) and the denominators: kernel `aff_post_packed_u` on CUDA tensors,
+        which forms each lane's inverse as the last descent level would."""
+        MulCounter.record(A.shape, POST_MULS + (h > 0))
+        if not kernels.on_cuda(A, B, sA, sB, inv1, denom, hp):
+            return self.post_packed_u_plain(A, B, sA, sB, inv1, denom, h, hp)
         n, R, M = self.f.n, self.packed_rows, A.shape[-1]
+        _check_parent(inv1, M, h)
         Av, sa = kernels.lane_view(A, R, M)
         Bv, sb = kernels.lane_view(B, R, M)
-        dv, sd = kernels.lane_view(dinv, n, M)
+        iv, si = kernels.lane_view(inv1, n, inv1.shape[-1])
+        dv, sd = kernels.lane_view(denom, n, M)
         sAv, sBv, hv = [kernels.lane_view(t, 1, M)[0] for t in (sA, sB, hp)]
         out = torch.empty((R, M), dtype=torch.int32, device=A.device)
         if M:
             AFF_POST_PACKED_U.launch(kernels.ptr(out), kernels.ptr(Av), sa, kernels.ptr(Bv), sb,
-                                     kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(dv), sd,
-                                     kernels.ptr(hv), self.f.field_words(AFF_POST_PACKED_U), M,
-                                     n=self.f.n, device=out.device)
+                                     kernels.ptr(sAv), kernels.ptr(sBv), kernels.ptr(iv), si,
+                                     kernels.ptr(dv), sd, int(h), kernels.ptr(hv),
+                                     self.f.field_words(AFF_POST_PACKED_U), M, n=self.f.n,
+                                     device=out.device)
         return out
 
-    def post_packed_u_plain(self, A, B, sA, sB, dinv, hp) -> torch.Tensor:
+    def post_packed_u_plain(self, A, B, sA, sB, inv1, denom, h: int, hp) -> torch.Tensor:
+        """The lanes' inverses from (inv1, h) and denom with plain products,
+        as `FieldOps._descend` forms them, then the chord (aff_chord of
+        csrc/affine.cuh on 16-bit limbs)."""
+        f = self.f
+        M = A.shape[-1]
+        _check_parent(inv1, M, h)
+        dinv = inv1
+        if h:
+            lo = f.mul_plain(inv1[:, :h], denom[:, h:2 * h])
+            hi = f.mul_plain(inv1[:, :h], denom[:, :h])
+            dinv = torch.cat([lo, hi, inv1[:, h:h + (M & 1)]], dim=-1)
         x1, y1, inf1 = self._split_signed(A, sA)
         x2, y2, _ = self._split_signed(B, sB)
         x3, y3 = self._chord16(x1, y1, x2, y2, to16(dinv))
@@ -491,6 +507,14 @@ class AffineOps:
         f = self.f
         rhs = f.add(f.mul(f.square(A.x), A.x), f.const_plane(self.b_mont, A.x))
         return f.is_equal(f.square(A.y), rhs) | A.inf
+
+
+def _check_parent(inv1: torch.Tensor, M: int, h: int) -> None:
+    """inv1 must be what `FieldOps.batch_inv_parent` gives for M lanes."""
+    want = (M + 1) // 2 if h else M
+    if h not in (0, M // 2) or inv1.shape[-1] != want:
+        raise ValueError(f"parent inverses of width {inv1.shape[-1]} with h = {h} do not fit "
+                         f"{M} lanes")
 
 
 def _lane_mask(m: torch.Tensor, M: int) -> torch.Tensor:

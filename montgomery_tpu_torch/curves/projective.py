@@ -2,9 +2,10 @@
 
 Counterpart of `montgomery_tpu/curves/projective.py`. Points are
 (X : Y : Z) in Montgomery form, each coordinate an (n, *B) int32 plane; the
-point at infinity is any lane with Z == 0. `add` and `double_n` run kernels 2
-and 3 (`csrc/proj_add_rcb.cu`, `csrc/proj_dbl_rcb.cu`) on CUDA tensors and
-their plain versions on CPU tensors.
+point at infinity is any lane with Z == 0. `add`, `double_n` and `combine`
+run their kernels (`csrc/proj_add_rcb.cu`, `csrc/proj_dbl_rcb.cu`,
+`csrc/proj_combine_rcb.cu`) on CUDA tensors and their plain versions on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -25,10 +26,17 @@ PROJ_ADD_RCB = kernels.Kernel(
     "montgomery_tpu/curves/projective.py:156",
     [_VP] * 9 + [_U32P, _U32P, _INT],
 )
+# the last C argument before the stream picks the body: 0 one thread a lane,
+# 1 one block a lane (the few-lane path, below ProjectiveOps.FEW_LANES)
 PROJ_DBL_RCB = kernels.Kernel(
     "proj_dbl_rcb", {12: "msm_proj_dbl_rcb"}, "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
     "montgomery_tpu/curves/projective.py:258",
-    [_VP] * 6 + [_INT, _U32P, _U32P, _INT],
+    [_VP] * 6 + [_INT, _U32P, _U32P, _U32P, _INT, _INT],
+)
+PROJ_COMBINE_RCB = kernels.Kernel(
+    "proj_combine_rcb", {12: "msm_proj_combine_rcb"},
+    "montgomery_tpu_torch/csrc/proj_combine_rcb.cu", "montgomery_tpu/msm/pippenger.py:508",
+    [_VP] * 6 + [_INT, _INT, _U32P, _U32P, _U32P, _INT],
 )
 # Montgomery products of the JAX formulas (MulCounter): the RCB add's 12
 # and 2 by 3b, a doubling's 8 and 1 by 3b
@@ -108,6 +116,15 @@ class ProjectiveOps:
         beta = params.endomorphism.beta if params.endomorphism else 0
         self.beta_mont = beta % p * fops.R % p
         self._b3_words = kernels.words(to_words(self.b3_mont, fops.n))
+        # -p^-1 mod R, all n words: the warp product of the few-lane kernels
+        self._mu_words = kernels.words(to_words(-pow(p, -1, fops.R) % fops.R, fops.n))
+
+    # double_n launches on fewer lanes than this take the few-lane body (one
+    # block a lane, latency-bound); wider ones one thread a lane. Both bodies
+    # timed at k = 6 from 1 to 65,536 lanes on an H100 80GB HBM3 at 700 W:
+    # the few-lane body is faster up to 3,072 lanes (0.178 against 0.202
+    # ms), the one-thread body from 4,096 (0.205 against 0.239 ms)
+    FEW_LANES = 3072
 
     # ------------------------------------------------------------- structure
 
@@ -179,8 +196,10 @@ class ProjectiveOps:
     def double(self, P: ProjectiveBatch) -> ProjectiveBatch:
         return self.double_n(P, 1)
 
-    def double_n(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:
-        """k complete RCB doublings in one launch (k at run time)."""
+    def double_n(self, P: ProjectiveBatch, k: int, *, few: bool | None = None) -> ProjectiveBatch:
+        """k complete RCB doublings in one launch (k at run time); below
+        FEW_LANES lanes the kernel's few-lane body, with equal values. `few`
+        picks the body instead (the one-thread body with few=False)."""
         if k <= 0:
             return P
         MulCounter.record(P.X.shape, k * DBL_MULS)
@@ -191,10 +210,12 @@ class ProjectiveOps:
         flat = [a.reshape(n, -1).contiguous() for a in P]
         N = kernels.check_planes(n, *flat)
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
+        if few is None:
+            few = N < self.FEW_LANES
         if N:
             PROJ_DBL_RCB.launch(*[kernels.ptr(t) for t in outs + flat], int(k),
-                                self._b3_words, self.f.field_words(PROJ_DBL_RCB), N, n=self.f.n,
-                                device=outs[0].device)
+                                self._b3_words, self._mu_words, self.f.field_words(PROJ_DBL_RCB),
+                                N, int(few), n=self.f.n, device=outs[0].device)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def double_n_plain(self, P: ProjectiveBatch, k: int) -> ProjectiveBatch:
@@ -214,6 +235,40 @@ class ProjectiveOps:
             X3b = F.mul(t0m, XY)
             X = F.add(X3b, X3b)
         return ProjectiveBatch(from16(X), from16(Y), from16(Z))
+
+    def combine(self, W: ProjectiveBatch, c: int) -> ProjectiveBatch:
+        """S = sum_k 2^(c k) W_k over the last axis of planes (n, *B, K), in
+        Horner order (acc = W_{K-1}; acc = 2^c acc + W_k for k = K-2 .. 0):
+        one `proj_combine_rcb` launch on CUDA tensors, `combine_plain` on CPU
+        tensors. Returns planes (n, *B, 1); any W_k may be the identity."""
+        K = W.X.shape[-1]
+        if K < 1 or c < 1:
+            raise ValueError(f"combine needs K >= 1 windows and c >= 1, got K = {K}, c = {c}")
+        MulCounter.record(W.X.shape[:-1], (K - 1) * (c * DBL_MULS + ADD_MULS))
+        if not kernels.on_cuda(*W):
+            return self.combine_plain(W, c)
+        n = self.f.n
+        batch = W.X.shape[1:-1]
+        flat = [a.reshape(n, -1).contiguous() for a in W]
+        kernels.check_planes(n, *flat)
+        N = flat[0].shape[-1] // K
+        outs = [torch.empty((n, N), dtype=torch.int32, device=flat[0].device) for _ in range(3)]
+        if N:
+            PROJ_COMBINE_RCB.launch(*[kernels.ptr(t) for t in outs + flat], K, int(c),
+                                    self._b3_words, self._mu_words,
+                                    self.f.field_words(PROJ_COMBINE_RCB), N, n=n,
+                                    device=outs[0].device)
+        return ProjectiveBatch(*[o.reshape(n, *batch, 1) for o in outs])
+
+    def combine_plain(self, W: ProjectiveBatch, c: int) -> ProjectiveBatch:
+        """The Horner combine with `double_n_plain` and `add_plain`, in the
+        kernel's order."""
+        K = W.X.shape[-1]
+        acc = ProjectiveBatch(*[a[..., K - 1:K] for a in W])
+        for k in range(K - 2, -1, -1):
+            acc = self.add_plain(self.double_n_plain(acc, c),
+                                 ProjectiveBatch(*[a[..., k:k + 1] for a in W]))
+        return acc
 
     def scale(self, k: int, P: ProjectiveBatch) -> ProjectiveBatch:
         """k P for a constant k, left to right: each set bit below the top

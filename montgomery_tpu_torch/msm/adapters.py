@@ -37,6 +37,9 @@ class ProjectiveAdapter:
     def double_n(self, P, k: int):
         return self.proj.double_n(P, k)
 
+    def combine(self, W, c: int):
+        return self.proj.combine(W, c)
+
     def select(self, mask, a, b):
         return self.proj.select(mask, a, b)
 

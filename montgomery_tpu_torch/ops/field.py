@@ -378,12 +378,28 @@ class FieldOps:
         through), one root inversion of at most BATCH_INV_STOP lanes, and the
         descent; one `mul` launch per level each way. With handle_zero, zeros
         map to zero; without it a zero lane poisons every lane."""
-        if x.dim() != 2:
-            raise ValueError("batch_inv expects (n, M) planes")
         zmask = None
         if handle_zero:
             zmask = self.is_zero(x)
             x = self._sel(zmask, self.const_plane(self.R_mod_p, x), x)
+        inv, h = self.batch_inv_parent(x)
+        if h:
+            inv = self._descend(x, inv)
+        if handle_zero:
+            inv = self._sel(zmask, torch.zeros_like(inv), inv)
+        return inv
+
+    def batch_inv_parent(self, x: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """`batch_inv` without its last descent level: (inv1, h) with h =
+        M // 2 and inv1 the inverses of the tree's first product level (width
+        ceil(M / 2)), from which lane i's inverse is inv1[i] x[i + h] (i < h),
+        inv1[i - h] x[i - h] (h <= i < 2h) or inv1[h] (i = 2h, M odd), as
+        `_descend` forms it. Up to BATCH_INV_STOP lanes there is no tree:
+        (inv_root(x), 0). A consumer that needs each inverse once forms it
+        itself (the unsafe packed add's post kernel) and saves the level's
+        round trip through device memory. No zero handling."""
+        if x.dim() != 2:
+            raise ValueError("batch_inv expects (n, M) planes")
         levels = [x]
         while levels[-1].shape[-1] > self.BATCH_INV_STOP:
             v = levels[-1]
@@ -393,17 +409,20 @@ class FieldOps:
                 prod = torch.cat([prod, v[:, 2 * h:]], dim=-1)
             levels.append(prod)
         inv = self.inv_root(levels[-1])
-        for v in reversed(levels[:-1]):
-            h = v.shape[-1] // 2
-            # inverse of the left half = parent inverse * right half, and back
-            swapped = torch.cat([v[:, h:2 * h], v[:, :h]], dim=-1)
-            out = self.mul(inv[:, :h].repeat(1, 2), swapped)
-            if v.shape[-1] & 1:
-                out = torch.cat([out, inv[:, h:h + 1]], dim=-1)
-            inv = out
-        if handle_zero:
-            inv = self._sel(zmask, torch.zeros_like(inv), inv)
-        return inv
+        for v in reversed(levels[1:-1]):
+            inv = self._descend(v, inv)
+        return inv, (x.shape[-1] // 2 if len(levels) > 1 else 0)
+
+    def _descend(self, v: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+        """Inverses of tree level v from those of its parent: the left half's
+        is the parent's times the right half, and back; an odd level's
+        carried element keeps its parent's."""
+        h = v.shape[-1] // 2
+        swapped = torch.cat([v[:, h:2 * h], v[:, :h]], dim=-1)
+        out = self.mul(inv[:, :h].repeat(1, 2), swapped)
+        if v.shape[-1] & 1:
+            out = torch.cat([out, inv[:, h:h + 1]], dim=-1)
+        return out
 
     # ------------------------------------------------------------------- exp
 

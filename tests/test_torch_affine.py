@@ -122,6 +122,86 @@ def test_add_packed_unsafe_matches_jax(ctx, jax_side):
     assert torch.equal(safe.inf, unsafe.inf)
 
 
+# widths of the unsafe add around the batch inversion's stop (512 lanes: no
+# tree, so the post takes the root's inverses as they are) and odd widths
+# (the tree carries the last lane through)
+WIDTHS = (1, 2, 511, 512, 513, 1025)
+
+
+def _wide_operands(msm, pts, M: int, seed: int):
+    """Packed A and B as the two column halves of one (25, 2M) array (the
+    engine's layout), with numpy-drawn signs and pair flags: lane i adds
+    point i % 512 and point (7 i + 3) % 512 (never the same x); lane 0's A
+    is infinite and unpaired where M > 1. Returns (A, B, sA, sB, hp, the
+    oracle's operand points, the numpy flags)."""
+    rng = np.random.default_rng(seed)
+    ga = [pts[i % len(pts)] for i in range(M)]
+    gb = [pts[(7 * i + 3) % len(pts)] for i in range(M)]
+    flags = rng.integers(0, 2, size=(3, M), dtype=np.int32)
+    flags[2, -1] = 1
+    if M > 1:
+        ga[0], flags[2, 0] = AffinePoint.zero(), 0
+    aff = msm.affine
+    C = aff.pack_rows(msm.affine_to_device(ga + gb))
+    sA, sB, hp = (torch.from_numpy(flags[k:k + 1].copy()) for k in range(3))
+    return C[:, :M], C[:, M:], sA, sB, hp, ga, gb, flags
+
+
+def test_add_packed_unsafe_widths_match_jax(ctx):
+    """The unsafe packed add (pre kernel, `batch_inv_parent`, the post that
+    forms the last descent level) at every width of WIDTHS against the JAX
+    package's add_packed and against the oracle lane by lane. The JAX side
+    adds the lanes of every width in one call of sum(WIDTHS) lanes (a lane's
+    sum does not depend on the width; one jitted program)."""
+    msm, E, pts = ctx
+    aff = msm.affine
+    jctx = JaxMsm(BLS12_377)
+    jaff = jctx.affine
+    inputs = [_wide_operands(msm, pts, M, seed=M) for M in WIDTHS]
+    ga_all = [p for *_, ga, _, _ in inputs for p in ga]
+    gb_all = [p for *_, gb, _ in inputs for p in gb]
+    fl = np.concatenate([flags for *_, flags in inputs], axis=1)
+
+    def jax_add(G, H, a, b, v):
+        return jaff.unpack_rows(jaff.add_packed(jaff.pack_rows(G), jaff.pack_rows(H), a, b, v,
+                                                unsafe=True))
+
+    jo = jax.jit(jax_add)(jctx.proj.affine_to_device(ga_all), jctx.proj.affine_to_device(gb_all),
+                          *fl[:, None])
+    via_jax_all = msm.proj.affine_to_host(_to_port(msm, jo))
+    start = 0
+    for M, (A, B, sA, sB, hp, ga, gb, flags) in zip(WIDTHS, inputs):
+        got = msm.proj.affine_to_host(aff.unpack_rows(aff.add_packed(A, B, sA, sB, hp, unsafe=True)))
+        via_jax, start = via_jax_all[start:start + M], start + M
+        for i in range(M):
+            a = E.neg(ga[i]) if flags[0, i] else ga[i]
+            b = E.neg(gb[i]) if flags[1, i] else gb[i]
+            want = E.add(a, b) if flags[2, i] else a
+            assert E.equal(got[i], want) and E.equal(via_jax[i], want), (M, i)
+
+
+@pytest.mark.parametrize("M", WIDTHS)
+def test_batch_inv_parent_and_fused_post(ctx, M):
+    """`batch_inv_parent` plus the post's plain version (the lanes'
+    inverses from the parent level) equal the full `batch_inv` plus the old
+    formula (the chord on the given inverses) bit for bit; the parent level
+    is ceil(M / 2) wide with h = M // 2 above the 512-lane stop, the root
+    itself (h = 0) up to it."""
+    msm, _, pts = ctx
+    aff, f = msm.affine, msm.fops
+    A, B, sA, sB, hp, *_ = _wide_operands(msm, pts, M, seed=M + 1)
+    denom = aff.pre_packed_u(A, B, hp)
+    inv1, h = f.batch_inv_parent(denom)
+    assert (h, inv1.shape[-1]) == ((M // 2, (M + 1) // 2) if M > f.BATCH_INV_STOP else (0, M))
+    full = f.batch_inv(denom)
+    fused = aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp)
+    old = aff.post_packed_u_plain(A, B, sA, sB, full, denom, 0, hp)
+    assert torch.equal(fused, old)
+    assert torch.equal(f.reduce(f.mul(full, denom)), f.const_plane(f.R_mod_p, denom))
+    with pytest.raises(ValueError):
+        aff.post_packed_u(A, B, sA, sB, inv1, denom, h + 1, hp)
+
+
 @pytest.mark.parametrize("N,c,first", [(16, None, ("pair", 2)), (512, 4, ("super", 8))])
 def test_affine_unsafe_msm_matches_oracle(ctx, N, c, first):
     """msm_full(affine=True, unsafe=True) equals the bigint oracle; the round

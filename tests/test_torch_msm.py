@@ -114,7 +114,8 @@ def test_cpu_tensors_launch_no_kernel(ctx):
     msm.msm_full(sc, pts, c=4)  # the safe batched-affine engine
     assert msm.affine.is_on_curve(msm.affine_to_device(pts)).all()  # mont_sqr
     counts = kernels.launch_counts()
-    assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "glv_digits", "mont_mul",
+    assert set(counts) == {"mul_const", "proj_add_rcb", "proj_dbl_rcb", "proj_combine_rcb",
+                           "glv_digits", "mont_mul",
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
                            "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
                            "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win", "aff_pre", "aff_post",
