@@ -21,7 +21,9 @@ Phases, each printed as it runs:
      kernels) that the operation bounds divide by; the latency of one
      dependent Montgomery product in one thread and on one warp
      (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit), which
-     the window combine's dependent-chain floor multiplies;
+     the window combine's dependent-chain floor multiplies; each of
+     glv_digits' three instantiations must show no stack frame and no
+     spill in ptxas;
   1. each kernel against its plain version on the same tensors, with
      adversarial values in the first lanes (canonical values must be equal;
      the packed adds' first lanes cover every flag class of the safe add:
@@ -47,7 +49,17 @@ Phases, each printed as it runs:
      on one lane; the fused aff_post_packed_u at 1, 513, 835,592 (10 fresh
      inputs each) and 10,649,608 lanes, bit for bit against its plain
      version and against the full batch_inv with the plain chord, timed at
-     the two widest beside the descent level it replaced.
+     the two widest beside the descent level it replaced; proj_add_rcb's
+     two bodies (six threads a lane; a block a lane below FEW_ADD_LANES)
+     at 1 lane and every width window_sums launches at 2^20 (10 to 2,560
+     lanes), 10 fresh inputs each with identities, P == Q, P == -Q and
+     unreduced values, bit for bit against add_plain and each other, then
+     both swept (device time a launch) from 1 to 2^20 lanes; glv_digits
+     at 2^16 and 2^20 for every c of the window table, bit for bit against
+     digits_glv_plain with the edge scalars (0, 1, q - 1, q - 2, 2^252 and
+     near-integer s g / 2^m) in the first lanes, BLS12-381's and Pallas's
+     instantiations at 2^16, a size it lacks refused, and its device time
+     at 2^20.
      Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
@@ -93,8 +105,9 @@ Phases, each printed as it runs:
      check at full N against
      S = sum_t (sum_i s_i (idx[t, i] + 3) mod q) B_t, median of 5 runs,
      phase split, peak memory and the round plan (affine-unsafe at 2^20, the
-     main path, also its device time by kernel under torch.profiler and the
-     device's busy share); the unsafe and the safe
+     main path, also its device time by kernel under torch.profiler, the
+     device's busy share, and each proj_add_rcb launch's device time with
+     its lane count and body); the unsafe and the safe
      add timed in turns at both sizes; then the safe engine at 2^16 on 2^12
      bench points each used 16 times under one scalar, some negated, some
      infinite, some scalars 0 (against the projective engine and the closed
@@ -229,10 +242,21 @@ COMBINE_CASES = ((10, 13), (12, 11))
 FEW_DBL = (6, 10)
 DBL_CHAIN = 600  # doublings on one lane, for the time of one
 REDESIGN_REPS = 10
+# proj_add_rcb's bodies: checked at the widths window_sums launches at 2^20
+# (the tree levels and scans of 640 lanes and below, the row and column
+# trees' 1,280 and 2,560) and at 1 lane; swept at 1 and 10 2^k lanes up to
+# 20,480 (the widest window_sums level), at 65,536 (the kernel table's), and
+# at 2^18 and 2^20 (the projective engine's rounds, the cofactor scale)
+ADD_CHECK_LANES = (1, 10, 20, 40, 80, 160, 320, 640, 1280, 2560)
+ADD_SWEEP_LANES = (1, *(10 << k for k in range(12)), 1 << 16, 1 << 18, 1 << 20)
+ADD_SWEEP_REPS = 20  # launches of each body at each width, under the profiler
+# glv_digits: (log2 N, c) of the main paths at 2^16 and 2^20; every c of
+# the window table is checked at both
+GLV_CASES = ((16, 11), (20, 13))
 # the main path's launches (affine-unsafe at 2^20) of the kernels this
 # script's redesign phase holds to their new shapes
 MAIN_PATH_LAUNCHES = {"proj_combine_rcb": 1, "proj_dbl_rcb": 1, "proj_add_rcb": 37, "mont_mul": 236,
-                      "aff_post_packed_u": 12}
+                      "aff_post_packed_u": 12, "glv_digits": 1}
 
 
 def say(*a):
@@ -269,24 +293,36 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_times(fn) -> tuple[dict, float, float, dict]:
+def device_times(fn, trace: str | None = None) -> tuple[dict, float, float, dict, list]:
     """fn() under torch.profiler's CUDA activity, after one warm-up run
     under the profiler (its schedule's warm-up step: kernels launched right
     after a bare start can go unrecorded): ({kernel: (launches, device ms)}
     for this package's kernels, device ms of every kernel and copy, host ms
     of the recorded run, {trace key: (launches, device ms)} of PyTorch's own
-    kernels and copies). Device times are self times, so no range counts
-    its kernels twice; the kernels are `<name>_kernel` in the trace
-    (`<name>_few_kernel` for a few-lane body)."""
+    kernels and copies, and (kernel name, device ms) of each launch of the
+    recorded run whose kernel name matches the regex `trace`, in launch
+    order).
+    Device times are self times, so no range counts its kernels twice; the
+    kernels are `<name>_kernel` in the trace (`<name>_few_kernel` for a
+    few-lane body)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from montgomery_tpu_torch.ops import kernels
 
     torch.cuda.synchronize()
-    traces = []
+    traces, launches = [], []
+
+    def ready(p):
+        traces.append(p.key_averages())
+        if trace:
+            evs = [e for e in p.events() if e.device_type != DeviceType.CPU and re.search(trace, e.name)]
+            launches[:] = [(e.name, e.time_range.elapsed_us() / 1e3)
+                           for e in sorted(evs, key=lambda e: e.time_range.start)]
+
     with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
-                 on_trace_ready=lambda p: traces.append(p.key_averages())) as prof:
+                 on_trace_ready=ready) as prof:
         for _ in range(2):
             t0 = time.perf_counter()
             fn()
@@ -298,12 +334,25 @@ def device_times(fn) -> tuple[dict, float, float, dict]:
         if not e.self_device_time_total:
             continue
         busy += e.self_device_time_total / 1e3
-        m = re.search(r"\b(\w+?)(?:_few)?_kernel\b", e.key)  # proj_dbl_rcb's few-lane body too
+        m = re.search(r"\b(\w+?)(?:_few)?_kernel\b", e.key)  # a few-lane body too
         name = m.group(1) if m and m.group(1) in kernels.REGISTRY else None
         into = per if name else others
         c, t = into.get(name or e.key, (0, 0.0))
         into[name or e.key] = (c + e.count, t + e.self_device_time_total / 1e3)
-    return per, busy, wall * 1e3, others
+    return per, busy, wall * 1e3, others, launches
+
+
+def device_times_whole(fn, whole, trace: str | None = None, tries: int = 3):
+    """`device_times` again, up to `tries` runs, until whole(result) holds:
+    the profiler now and then drops a run's kernel events (a run whose
+    glv_digits launches all went unrecorded, one that kept 18 of 20 of a
+    kernel's). Returns the last result."""
+    for _ in range(tries):
+        res = device_times(fn, trace)
+        if whole(res):
+            break
+        say("  (the profiler dropped kernel events of this run; profiling it again)")
+    return res
 
 
 def say_device_times(label: str, per: dict, busy: float, wall: float, others: dict) -> None:
@@ -405,6 +454,11 @@ def phase_env() -> dict:
     for line in kernels.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say("  ptxas:", line.strip())
+    frames = ptxas_frames(kernels.LIBRARY.build_log)
+    glv = {k: v for k, v in frames.items() if "glv_digits_kernel" in k}
+    say(f"glv_digits instantiations (stack frame, spill stores, spill loads in bytes): {glv}")
+    if len(glv) != 3 or any(any(v) for v in glv.values()):
+        raise AssertionError("each of glv_digits' three instantiations must have no stack frame and no spill")
     for src, (proc, _) in probes.items():
         if proc is not None:
             log, _ = proc.communicate()
@@ -417,6 +471,22 @@ def phase_env() -> dict:
     rates = multiply_rates(probes[RATE_SRC][1], clock)
     rates.update(product_latency(probes[LATENCY_SRC][1]))
     return rates
+
+
+def ptxas_frames(log: str) -> dict:
+    """{function: (stack frame, spill stores, spill loads) bytes} from
+    ptxas -v output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = tuple(int(v) for v in m.groups())
+            name = None
+    return out
 
 
 def product_latency(lib_path: Path) -> dict:
@@ -481,14 +551,16 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
     sqr = (n * (n + 1) // 2 + n * n, n)
     col = 2 * W + 4
 
-    if name == "glv_digits":  # per scalar, at c = 13 (the timed call)
+    # per scalar, at c = 13 (the timed call); a product of two 13-bit limbs
+    # is one low 32-bit multiply
+    if name == "glv_digits":
         gd = ctx.glv_dev
         ng = len(gd.g1_limbs)
         msb = sum(1 for a in range(gd.ns) for j in range(ng) if gd.k0 <= a + j < gd.khi)
         res = sum(1 for q in (*gd.coef0, *gd.coef1) if q
                   for a in range(gd.nu) for j in range(-(-abs(q).bit_length() // gd.w))
                   if a + j < gd.nw)
-        return 4 * gd.ns + 8 * gd.num_windows(13), 2 * msb + res, 0
+        return 4 * gd.ns + 8 * gd.num_windows(13), 0, 2 * msb + res
     # per batch of divsteps: 10 products a 30-bit limb, each of two factors
     # below 2^31 in magnitude, so one wide multiply each (the kernel holds
     # its limbs in int64 and spends two), and the 2 low products of the
@@ -994,7 +1066,7 @@ class OneThreadDoublings:
 
 
 def phase_redesign(ctx, pts, rates: dict) -> dict:
-    """The two kernels redesigned for this card, at the main paths' shapes.
+    """The kernels redesigned for this card, at the main paths' shapes.
 
     - proj_combine_rcb for (K, c) = COMBINE_CASES, one launch on one lane
       for each of REDESIGN_REPS fresh inputs (identities among the windows,
@@ -1017,8 +1089,12 @@ def phase_redesign(ctx, pts, rates: dict) -> dict:
       the full `batch_inv` with the plain chord; timed at the two widest,
       beside the descent level it replaces (`FieldOps._descend`).
 
+    - proj_add_rcb's two bodies (`redesign_add`) and glv_digits
+      (`redesign_glv`).
+
     Returns per-kernel results: proj_combine_rcb's row, and the main-path
-    rows ("main_path") of proj_dbl_rcb and aff_post_packed_u."""
+    rows ("main_path") of proj_dbl_rcb, aff_post_packed_u, proj_add_rcb and
+    glv_digits."""
     import torch
 
     from montgomery_tpu_torch.bigint import WeierstrassCurve
@@ -1144,7 +1220,165 @@ def phase_redesign(ctx, pts, rates: dict) -> dict:
         del C, A, B, denom, inv1, got
         torch.cuda.empty_cache()
     out["aff_post_packed_u"] = dict(main_path=post)
+    out["proj_add_rcb"] = redesign_add(ctx, pts, rng)
+    out["glv_digits"] = redesign_glv(ctx, rates)
     return out
+
+
+def _add_inputs(ctx, pts, N: int, rng: random.Random):
+    """Two projective batches (P, Q) of N lanes, each lane one of: distinct
+    points, P == Q, P == -Q, P = 0, Q = 0, both 0 (the identity (0 : 1 :
+    0)); random Z and a quarter of the coordinates unreduced (+p)."""
+    from montgomery_tpu_torch.curves.projective import ProjectiveBatch
+
+    f = ctx.fops
+    p, R = f.p, f.R
+    cols = ([], [], []), ([], [], [])
+    for _ in range(N):
+        kind = rng.randrange(6)
+        a = pts[rng.randrange(len(pts))]
+        b = a if kind in (1, 2) else pts[rng.randrange(len(pts))]
+        for side, pt in enumerate((a, b)):
+            z = rng.randrange(1, p)
+            xyz = (pt.x * z % p, (-1 if side and kind == 2 else 1) * pt.y * z % p, z)
+            if kind == 5 or kind == 3 + side:
+                xyz = (0, 1, 0)
+            for col, v in zip(cols[side], xyz):
+                col.append(v * R % p + (p if rng.random() < 0.25 else 0))
+    return [ProjectiveBatch(*[f.pack_raw(c, ctx.device) for c in side]) for side in cols]
+
+
+def redesign_add(ctx, pts, rng: random.Random) -> dict:
+    """proj_add_rcb's two bodies: at every width of ADD_CHECK_LANES,
+    REDESIGN_REPS fresh inputs (`_add_inputs`), each body bit for bit
+    against add_plain and against the other, and the body `add` picks;
+    then the sweep: each body's device time a launch (torch.profiler) at
+    every width of ADD_SWEEP_LANES on random planes, with the lanes one wave
+    of its blocks covers."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import ProjectiveBatch
+    from montgomery_tpu_torch.ops import kernels
+
+    proj = ctx.proj
+    bodies = {"six": False, "few": True}  # the six-threads-a-lane body and the few-lane one
+    err = 0
+    for N in ADD_CHECK_LANES:
+        for rep in range(REDESIGN_REPS):
+            P, Q = _add_inputs(ctx, pts, N, rng)
+            got = proj.add(P, Q)
+            err = max(err, _raw_err(got, proj.add_plain(P, Q)),
+                      *[_raw_err(proj.add(P, Q, few=few), got) for few in bodies.values()])
+            if err:
+                raise AssertionError(f"proj_add_rcb disagrees at {N} lanes (rep {rep}, raw err {err})")
+    say(f"proj_add_rcb: {REDESIGN_REPS} fresh inputs at each of {ADD_CHECK_LANES} lanes (identities, "
+        f"P == Q, P == -Q, unreduced values), both bodies bit for bit with add_plain and with each other")
+    lib = kernels.LIBRARY.get()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = {b: lib.msm_proj_add_rcb_blocks_per_sm(int(few)) * (1 if few else 32) * sms
+            for b, few in bodies.items()}
+    say(f"proj_add_rcb lanes a wave ({sms} SMs; resident blocks a SM x lanes a block x SMs): {wave}")
+    gen = torch.Generator(device=ctx.device).manual_seed(12)
+    n, sweep = ctx.fops.n, {}
+    for N in ADD_SWEEP_LANES:  # values below 2p: the bodies' times do not depend on them
+        P, Q = (ProjectiveBatch(*_random_planes(ctx.fops, 3 * n, N, gen).split(n)) for _ in range(2))
+
+        def launches():
+            for few in bodies.values():
+                for _ in range(ADD_SWEEP_REPS):
+                    proj.add(P, Q, few=few)
+
+        traced = device_times_whole(launches, lambda r: len(r[4]) == 2 * ADD_SWEEP_REPS,
+                                    r"proj_add_rcb(_few)?_kernel")[4]
+        seen = {b: [] for b in bodies}
+        for name, ms in traced:
+            seen["few" if "_few_" in name else "six"].append(ms * 1e3)
+        if not all(seen.values()):  # the profiler may drop a few events, not a body's every one
+            raise AssertionError(f"the profiler saw {[len(v) for v in seen.values()]} launches a body")
+        row = {b: sum(v) / len(v) for b, v in seen.items()}
+        sweep[N] = row
+        say(f"proj_add_rcb sweep {N} lanes (device us a launch, mean of the traced of "
+            f"{ADD_SWEEP_REPS}): " + ", ".join(f"{b} {row[b]:.2f} ({len(v)})" for b, v in seen.items())
+            + f"; picked: {'few' if N < proj.FEW_ADD_LANES else 'six'}")
+    return dict(main_path=dict(check_lanes=list(ADD_CHECK_LANES), max_abs_err=err, lanes_a_wave=wave,
+                               sweep_us=sweep, few_add_lanes=proj.FEW_ADD_LANES))
+
+
+def redesign_glv(ctx, rates: dict) -> dict:
+    """glv_digits at the main paths' (N, c) = GLV_CASES and at every c of
+    the window table, bit for bit against digits_glv_plain, the edge
+    scalars (`glv_edge_scalars`: 0, 1, q - 1, q - 2, 2^252 and near-integer
+    s g / 2^m) in the first lanes; BLS12-381's and Pallas's instantiations
+    the same way at 2^16; a GlvConst of sizes no instantiation has must be
+    refused; device time (torch.profiler) and bound at 2^20, c = 13."""
+    import numpy as np
+    import torch
+
+    from montgomery_tpu_torch.concrete import BLS12_381, PALLAS
+    from montgomery_tpu_torch.msm.pippenger import window_size
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.scalar.device import (GLV_DIGITS, GLV_SHAPES, digits_glv_device,
+                                                    digits_glv_plain, glv_device, ints_to_limbs_np)
+    from montgomery_tpu_torch.scalar.glv import glv_params
+    from montgomery_tpu_torch.testing.generators import glv_edge_scalars
+
+    cs = sorted({window_size(k) for k in range(10, 22)})
+
+    def check(gd, q, log2n: int, cases, label: str):
+        """N = 2^log2n scalars (the bench scalars on BLS12-377), the edge
+        scalars first, for every c of `cases`; returns the limbs."""
+        def limbs(vals):
+            return torch.from_numpy(ints_to_limbs_np(vals, q.bit_length(), gd.w, gd.ns)).to(ctx.device)
+
+        N = 1 << log2n
+        if gd is ctx.glv_dev:
+            sl = ctx.scalars_to_limbs(bench_scalars(q, N))
+        else:
+            rnd = np.random.default_rng(log2n)
+            sl = limbs([int.from_bytes(rnd.bytes(32), "little") % q for _ in range(N)])
+        edge = glv_edge_scalars(gd, q)
+        sl[:, :len(edge)] = limbs(edge)
+        for c in cases:
+            got = digits_glv_device(gd, sl, c)
+            want = digits_glv_plain(gd, sl, c)
+            err = _raw_err([got], [want]) if got.shape == want.shape else -1
+            if err:
+                raise AssertionError(f"glv_digits {label} N=2^{log2n} c={c} disagrees (err {err})")
+        say(f"glv_digits {label} N=2^{log2n}: c in {list(cases)} bit for bit with digits_glv_plain "
+            f"({len(edge)} edge scalars first)")
+        return sl
+
+    q = ctx.params.order
+    for log2n, c in GLV_CASES:
+        sl = check(ctx.glv_dev, q, log2n, sorted({c, *cs}), "BLS12-377")
+    for C in (BLS12_381, PALLAS):
+        gd = glv_device(glv_params(C.order, C.endomorphism.lam), w=ctx.glv_dev.w)
+        check(gd, C.order, 16, cs, GLV_SHAPES[gd.kernel_shape])
+    words = ctx.glv_dev.kernel_words(13)
+    words[3] += 1  # nu: no instantiation has it
+    try:
+        out = torch.empty((int(words[8]), 2), dtype=torch.int32, device=ctx.device)  # K rows
+        GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(sl), words.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)), 1, device=out.device)
+    except RuntimeError as e:
+        say(f"glv_digits refuses a shape it lacks: {e}")
+    else:
+        raise AssertionError("glv_digits launched on sizes it has no instantiation for")
+    log2n, c = GLV_CASES[-1]
+    N = 1 << log2n
+    per = device_times_whole(lambda: [ctx.digits(sl, c) for _ in range(ADD_SWEEP_REPS)],
+                             lambda r: r[0].get("glv_digits", (0,))[0] == ADD_SWEEP_REPS)[0]
+    count, dev_ms = per.get("glv_digits", (0, 0.0))
+    dev = dev_ms / count if count else None  # None: the profiler kept none of the launches
+    ms = cuda_time_ms(lambda: ctx.digits(sl, c), 20)
+    plain_ms = cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, c), 3, 1)
+    bms, by = bound(ctx, "glv_digits", N, rates)
+    rows = dict(lanes=N, c=c, device_ms=dev, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                window_cs=cs)
+    say(f"glv_digits N=2^{log2n} c={c}: device "
+        + (f"{dev:.4f} ms a launch (profiler, share of the bound {bms / dev:.3f})" if dev else "not measured")
+        + f", {ms:.4f} ms (events), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+    return dict(main_path=rows)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -1555,8 +1789,49 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
     if path == PATHS[0] and log2n == max(MSM_LOG2N):  # the main path: where its device time goes
-        say_device_times(f"profiled {path} N=2^{log2n}", *device_times(run))
+        profile_main_path(ctx, run, f"profiled {path} N=2^{log2n}")
     return counts
+
+
+def profile_main_path(ctx, run, label: str) -> None:
+    """The main path's device time by kernel (`device_times`), and each
+    proj_add_rcb launch's device time beside its lane count and body (the
+    lane counts recorded by a wrapper around ProjectiveOps.add for the
+    profiled run alone)."""
+    proj, lanes = ctx.proj, []
+    add = proj.add
+
+    def recording_add(P, Q, **kw):
+        lanes.append(P.X[0].numel())
+        return add(P, Q, **kw)
+
+    def traced():
+        lanes.clear()
+        return run()
+
+    proj.add = recording_add
+    try:
+        per, busy, wall, others, adds = device_times_whole(
+            traced, lambda r: len(r[4]) == len(lanes) and all(r[0].get(k, (0,))[0] == v
+                                                             for k, v in MAIN_PATH_LAUNCHES.items()),
+            r"proj_add_rcb(_few)?_kernel")
+    finally:
+        del proj.add
+    say_device_times(label, per, busy, wall, others)
+    if len(adds) != len(lanes):
+        say(f"proj_add_rcb by launch: not measured ({len(adds)} traced launches, {len(lanes)} adds)")
+        return
+    say(f"proj_add_rcb by launch on the main path (lanes, body: device us), FEW_ADD_LANES "
+        f"{proj.FEW_ADD_LANES}:")
+    rows, by_body = [], {}
+    for N, (name, ms) in zip(lanes, adds):
+        body = "few" if "_few_" in name else "six"
+        rows.append(f"{N}, {body}: {ms * 1e3:.2f}")
+        c, t = by_body.get(body, (0, 0.0))
+        by_body[body] = (c + 1, t + ms)
+    for i in range(0, len(rows), 6):
+        say("  " + "; ".join(rows[i:i + 6]))
+    say("  by body (launches, device ms): " + ", ".join(f"{b} {c}, {t:.4f}" for b, (c, t) in by_body.items()))
 
 
 def phase_ab(ctx, pts_full, log2n: int, turns: int = 5):
@@ -2172,7 +2447,8 @@ def phase_micro(ctx) -> dict:
             z = x
             for _ in range(alt["chain"]):
                 z = op(z, y)
-        say_device_times(f"profiled {label} chain of {alt['chain']} at 2^{MICRO_LOG2N}", *device_times(chain))
+        say_device_times(f"profiled {label} chain of {alt['chain']} at 2^{MICRO_LOG2N}",
+                         *device_times(chain)[:4])
     say(f"inverses at 2^{MICRO_LOG2N} lanes, every lane equal to the Fermat ladder's; median ms: "
         + ", ".join(f"{k} {v * 1e3:.4f}" for k, v in res["inverses_s"].items()))
     print_max_size_used(dev, log=say)

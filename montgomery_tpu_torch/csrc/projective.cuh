@@ -1,12 +1,14 @@
 // Complete projective addition and doubling for a = 0 (Renes-Costello-Batina
-// 2015/1060, Alg. 7 and Alg. 9), in two forms:
+// 2015/1060, Alg. 7 and Alg. 9):
 //
-// - rcb_add, rcb_dbl: one point in one thread's registers (wide launches,
-//   one lane a thread: proj_add_rcb.cu, proj_dbl_rcb.cu);
+// - rcb_dbl: one point in one thread's registers (wide launches, one lane a
+//   thread: proj_dbl_rcb.cu; the wide add spreads a lane over six threads
+//   in proj_add_rcb.cu itself);
 // - coop_add, coop_dbl: one point in shared memory, carried by a block
-//   (few-lane launches and the window combine: proj_dbl_rcb.cu,
-//   proj_combine_rcb.cu). A formula's products fall into dependent stages,
-//   Alg. 9's 9 into 4 | 1 | 4 and Alg. 7's 14 into 6 | 2 | 6; warp w computes
+//   (few-lane launches and the window combine: proj_add_rcb.cu,
+//   proj_dbl_rcb.cu, proj_combine_rcb.cu). A formula's products fall into
+//   dependent stages, Alg. 9's 9 into 4 | 1 | 4 and Alg. 7's 14 into
+//   6 | 2 | 6; warp w computes
 //   the stage's product w with coop.cuh's warp product, and the additions
 //   between stages run on lane 0 of the warp that needs them. So a doubling's
 //   critical path is 3 warp products instead of 9 one-thread products.
@@ -18,50 +20,6 @@
 // montgomery_tpu/curves/projective.py).
 #pragma once
 #include "coop.cuh"
-
-template <int NL>
-__device__ __forceinline__ void rcb_add(uint32_t (&X3)[NL], uint32_t (&Y3)[NL], uint32_t (&Z3)[NL],
-                                        const uint32_t (&X1)[NL], const uint32_t (&Y1)[NL],
-                                        const uint32_t (&Z1)[NL], const uint32_t (&X2)[NL],
-                                        const uint32_t (&Y2)[NL], const uint32_t (&Z2)[NL], const Fe<NL>& b3,
-                                        const FieldParams<NL>& F) {
-  uint32_t t0[NL], t1[NL], t2[NL], t3[NL], t4[NL], t5[NL], u[NL], v[NL];
-  fe_mul(t0, X1, X2, F);
-  fe_mul(t1, Y1, Y2, F);
-  fe_mul(t2, Z1, Z2, F);
-  fe_add_lazy(u, X1, Y1);
-  fe_add_lazy(v, X2, Y2);
-  fe_mul(t3, u, v, F);  // m0
-  fe_add_lazy(u, Y1, Z1);
-  fe_add_lazy(v, Y2, Z2);
-  fe_mul(t4, u, v, F);  // m1
-  fe_add_lazy(u, X1, Z1);
-  fe_add_lazy(v, X2, Z2);
-  fe_mul(t5, u, v, F);  // m2
-  fe_add_lazy(u, t0, t1);
-  fe_sub_lazy(t3, t3, u, F);  // X1Y2 + X2Y1 (+4p)
-  fe_add_lazy(u, t1, t2);
-  fe_sub_lazy(t4, t4, u, F);  // Y1Z2 + Y2Z1 (+4p)
-  fe_add_lazy(u, t0, t2);
-  fe_sub_lazy(t5, t5, u, F);  // X1Z2 + X2Z1 (+4p)
-  uint32_t t2b[NL], Y3b[NL];
-  fe_mul(t2b, t2, b3.v, F);   // 3b Z1Z2
-  fe_mul(Y3b, t5, b3.v, F);   // 3b (X1Z2 + X2Z1)
-  fe_add_lazy(u, t0, t0);
-  fe_add_lazy(t0, u, t0);     // 3 X1X2
-  fe_add_lazy(t2, t1, t2b);   // Z3s = Y1Y2 + 3b Z1Z2
-  fe_sub_lazy(t1, t1, t2b, F);  // t1m = Y1Y2 - 3b Z1Z2 (+4p)
-  // Xa = t3 t1m, Xb = t4 Y3b, Ya = t1m Z3s, Yb = Y3b t0_3, Za = Z3s t4, Zb = t0_3 t3
-  fe_mul(u, t3, t1, F);
-  fe_mul(v, t4, Y3b, F);
-  fe_sub(X3, u, v, F);
-  fe_mul(u, t1, t2, F);
-  fe_mul(v, Y3b, t0, F);
-  fe_add(Y3, u, v, F);
-  fe_mul(u, t2, t4, F);
-  fe_mul(v, t0, t3, F);
-  fe_add(Z3, u, v, F);
-}
 
 template <int NL>
 __device__ __forceinline__ void rcb_dbl(uint32_t (&X)[NL], uint32_t (&Y)[NL], uint32_t (&Z)[NL],
@@ -178,8 +136,9 @@ __device__ __forceinline__ void coop_dbl(CoopPoint<NL>& S, const FieldParams<NL>
   __syncthreads();
 }
 
-// (X, Y, Z) <- (X, Y, Z) + (X2, Y2, Z2), as rcb_add; every thread of the
-// block calls it (warps 0-5 work)
+// (X, Y, Z) <- (X, Y, Z) + (X2, Y2, Z2), the order of operations of
+// proj_add_rcb.cu's six-threads-a-lane body; every thread of the block
+// calls it (warps 0-5 work)
 template <int NL>
 __device__ __forceinline__ void coop_add(CoopPoint<NL>& S, const FieldParams<NL>& F) {
   int warp = threadIdx.x >> 5, lane = warp_lane();

@@ -21,10 +21,13 @@ from ..ops.limbs import to_words
 
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
+# the last C argument before the stream picks the body: 0 six threads a
+# lane, 1 one block a lane (the few-lane path, below
+# ProjectiveOps.FEW_ADD_LANES)
 PROJ_ADD_RCB = kernels.Kernel(
     "proj_add_rcb", {12: "msm_proj_add_rcb"}, "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
     "montgomery_tpu/curves/projective.py:156",
-    [_VP] * 9 + [_U32P, _U32P, _INT],
+    [_VP] * 9 + [_U32P, _U32P, _U32P, _INT, _INT],
 )
 # the last C argument before the stream picks the body: 0 one thread a lane,
 # 1 one block a lane (the few-lane path, below ProjectiveOps.FEW_LANES)
@@ -116,7 +119,7 @@ class ProjectiveOps:
         beta = params.endomorphism.beta if params.endomorphism else 0
         self.beta_mont = beta % p * fops.R % p
         self._b3_words = kernels.words(to_words(self.b3_mont, fops.n))
-        # -p^-1 mod R, all n words: the warp product of the few-lane kernels
+        # -p^-1 mod R, all n words: the warp product of the few-lane bodies
         self._mu_words = kernels.words(to_words(-pow(p, -1, fops.R) % fops.R, fops.n))
 
     # double_n launches on fewer lanes than this take the few-lane body (one
@@ -125,6 +128,15 @@ class ProjectiveOps:
     # the few-lane body is faster up to 3,072 lanes (0.178 against 0.202
     # ms), the one-thread body from 4,096 (0.205 against 0.239 ms)
     FEW_LANES = 3072
+
+    # add launches on fewer lanes than this take the few-lane body (a block
+    # a lane), wider ones six threads a lane. Both bodies timed from 1 to
+    # 2^20 lanes on an H100 80GB HBM3 at 700 W (device time a launch, two
+    # calls): the few-lane body is faster up to 20 lanes (5.73-6.12 against
+    # 6.84-6.85 us), the two are within the calls' spread at 40 (6.70-7.19
+    # against 6.86-6.92), the six-threads body is faster from 80 (7.06
+    # against 7.88)
+    FEW_ADD_LANES = 40
 
     # ------------------------------------------------------------- structure
 
@@ -155,8 +167,10 @@ class ProjectiveOps:
 
     # ------------------------------------------------------------ group law
 
-    def add(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
-        """Complete RCB addition (valid for P == Q, P == -Q and zero)."""
+    def add(self, P: ProjectiveBatch, Q: ProjectiveBatch, *, few: bool | None = None) -> ProjectiveBatch:
+        """Complete RCB addition (valid for P == Q, P == -Q and zero), one
+        launch on CUDA tensors: below FEW_ADD_LANES lanes the kernel's
+        few-lane body, with equal values. `few` picks the body instead."""
         MulCounter.record(P.X.shape, ADD_MULS)
         ins = [*P, *Q]
         if not kernels.on_cuda(*ins):
@@ -166,10 +180,12 @@ class ProjectiveOps:
         flat = [a.reshape(n, -1).contiguous() for a in ins]
         N = kernels.check_planes(n, *flat)
         outs = [torch.empty_like(flat[0]) for _ in range(3)]
+        if few is None:
+            few = N < self.FEW_ADD_LANES
         if N:
             PROJ_ADD_RCB.launch(*[kernels.ptr(t) for t in outs + flat],
-                                self._b3_words, self.f.field_words(PROJ_ADD_RCB), N, n=self.f.n,
-                                device=outs[0].device)
+                                self._b3_words, self._mu_words, self.f.field_words(PROJ_ADD_RCB),
+                                N, int(few), n=self.f.n, device=outs[0].device)
         return ProjectiveBatch(*[o.reshape(shape) for o in outs])
 
     def add_plain(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:

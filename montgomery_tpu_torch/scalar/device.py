@@ -6,15 +6,18 @@ order), because the truncated most-significant-limb product that yields the
 lattice coefficients is defined on that limb grid: with the same limbs the
 digits equal the JAX digits integer for integer.
 
-`digits_glv_device` runs kernel 4 (`csrc/glv_digits.cu`) on a CUDA tensor and
-its plain version, `digits_glv_plain`, in int64 on a CPU tensor. The non-GLV
-digits of the Twisted Edwards MSM (`extract_windows`, `signed_digits_device`)
-are plain torch on every device, as they were plain XLA in the JAX package.
+`digits_glv_device` runs kernel 4 (`csrc/glv_digits.cu`, instantiated at the
+limb counts of BLS12-377, BLS12-381 and Pallas at w = 13: `GLV_SHAPES`) on a
+CUDA tensor and its plain version, `digits_glv_plain`, in int64 on a CPU
+tensor. The non-GLV digits of the Twisted Edwards MSM (`extract_windows`,
+`signed_digits_device`) are plain torch on every device, as they were plain
+XLA in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -31,6 +34,13 @@ GLV_DIGITS = kernels.Kernel(
     [kernels.VP, kernels.VP, ctypes.POINTER(ctypes.c_int32), kernels.INT],
 )
 _MAXL = 24  # GLV_MAXL of csrc/glv_digits.cu
+# the limb counts glv_digits.cu is instantiated at (its GlvShape list):
+# (ns, ng, nu, nw, the lengths of a0, b0, a1, b1) -> the curve at w = 13
+GLV_SHAPES = {
+    (20, 12, 10, 10, (1, 10, 10, 1)): "BLS12-377",
+    (20, 12, 11, 11, (10, 1, 1, 10)): "BLS12-381",
+    (20, 12, 11, 11, (10, 10, 10, 10)): "Pallas",
+}
 
 
 def bytes_to_limbs_np(data, n_bytes: int, w: int, n_limbs: int) -> np.ndarray:
@@ -71,16 +81,54 @@ class GlvDevice:
     def num_windows(self, c: int) -> int:
         return ceil_div(self.max_bits_eff + 1, c)
 
+    def coef_limbs(self) -> list[list[int]]:
+        """w-bit limbs of |a0|, |b0|, |a1|, |b1| (one zero limb for 0)."""
+        return [to_limbs(abs(q), self.w, ceil_div(abs(q).bit_length(), self.w) or 1)
+                for q in (*self.coef0, *self.coef1)]
+
+    @property
+    def kernel_shape(self) -> tuple:
+        """(ns, ng, nu, nw, coefficient lengths): a key of GLV_SHAPES."""
+        return (self.ns, len(self.g1_limbs), self.nu, self.nw,
+                tuple(len(x) for x in self.coef_limbs()))
+
+    def column_bounds(self) -> tuple[int, int]:
+        """The largest column sums that glv_digits.cu's 32-bit accumulators
+        hold at these constants, every input limb at 2^w - 1 and every
+        carry at its largest: (the truncated product's, unsigned, carry
+        included; the residuals' magnitude, signed: the two coefficient
+        columns, s and the carry)."""
+        top = (1 << self.w) - 1
+        msb = carry = 0
+        for k in range(self.k0, self.khi):
+            col = carry + sum(top * max(g1, g2) for j, (g1, g2)
+                              in enumerate(zip(self.g1_limbs, self.g2_limbs)) if 0 <= k - j < self.ns)
+            msb, carry = max(msb, col), col >> self.w
+        limbs, res = self.coef_limbs(), 0
+        for pair, with_s in (((0, 1), True), ((2, 3), False)):
+            carry = 0
+            for t in range(self.nw):
+                col = carry + (top if with_s and t < self.ns else 0)
+                col += sum(top * x for h in pair for j, x in enumerate(limbs[h]) if 0 <= t - j < self.nu)
+                res, carry = max(res, col), -(-col >> self.w)
+        return msb, res
+
     def kernel_words(self, c: int) -> np.ndarray:
-        """The GlvConst struct of csrc/glv_digits.cu as int32 words."""
+        """The GlvConst struct of csrc/glv_digits.cu as int32 words. Raises
+        NotImplementedError for limb counts the kernel is not instantiated
+        at (GLV_SHAPES), and ValueError where a column could overflow the
+        kernel's 32-bit accumulators (`column_bounds`)."""
+        if self.w != 13 or self.k0 != self.ns - 1 or self.khi - self.k0 != self.nu + 2 \
+                or self.kernel_shape not in GLV_SHAPES:
+            raise NotImplementedError(
+                f"glv_digits is instantiated for {sorted(GLV_SHAPES.values())} at w = 13; these "
+                f"constants need w = {self.w}, (ns, ng, nu, nw, lengths) = {self.kernel_shape}")
+        msb, res = self.column_bounds()
+        if msb >= 1 << 32 or res >= 1 << 31:
+            raise ValueError(f"GLV columns overflow 32 bits: {msb} (unsigned), {res} (signed)")
         pad = lambda xs: list(xs) + [0] * (_MAXL - len(xs))  # noqa: E731
         coefs = [*self.coef0, *self.coef1]
-        limbs = [to_limbs(abs(q), self.w, ceil_div(abs(q).bit_length(), self.w) or 1)
-                 for q in coefs]
-        sizes = [self.ns, self.khi - self.k0, self.nu, self.nw, len(self.g1_limbs)]
-        sizes += [len(x) for x in limbs]
-        if max(sizes) > _MAXL:
-            raise ValueError("GLV limb counts exceed the kernel's arrays")
+        limbs = self.coef_limbs()
         words = [self.ns, self.k0, self.khi, self.nu, self.nw, len(self.g1_limbs),
                  self.w, c, self.num_windows(c), self.max_bits_eff]
         words += pad(self.g1_limbs) + pad(self.g2_limbs)
@@ -214,7 +262,9 @@ def digits_glv_plain(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Tens
 def digits_glv_device(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Tensor:
     """(ns, N) int32 scalar limbs -> (K, 2N) int32 signed digits for the
     GLV-expanded point list [P..., phi(P)...]: column i holds the digits of
-    s0_i, column N + i those of s1_i. Kernel 4 on a CUDA tensor."""
+    s0_i, column N + i those of s1_i. Kernel 4 on a CUDA tensor, for the
+    limb counts it is instantiated at (GLV_SHAPES; others raise
+    NotImplementedError, and the kernel itself refuses them)."""
     if not 1 <= c <= 16:
         raise ValueError("window size c must be in [1, 16]")
     if not kernels.on_cuda(s_limbs):
@@ -223,10 +273,15 @@ def digits_glv_device(gd: GlvDevice, s_limbs: torch.Tensor, c: int) -> torch.Ten
     N = kernels.check_planes(gd.ns, s)
     out = torch.empty((gd.num_windows(c), 2 * N), dtype=torch.int32, device=s.device)
     if N:
-        cfg = gd.kernel_words(c)
-        GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(s),
-                          cfg.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), N, device=out.device)
+        GLV_DIGITS.launch(kernels.ptr(out), kernels.ptr(s), _launch_words(gd, c), N, device=out.device)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_words(gd: GlvDevice, c: int) -> ctypes.Array:
+    """`kernel_words` as the launch's C array, built and checked once."""
+    words = gd.kernel_words(c)
+    return (ctypes.c_int32 * len(words))(*words.tolist())
 
 
 # ------------------------------------------------- non-GLV signed digits

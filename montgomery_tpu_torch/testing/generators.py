@@ -47,3 +47,25 @@ def sample_scalars(order: int, count: int, rng: _random.Random) -> list[int]:
         else:
             out.append(rng.randrange(order))
     return out
+
+
+def glv_edge_scalars(gd, q: int, tol_bits: int = 20, per_constant: int = 4) -> list[int]:
+    """Scalars in [0, q) at the edges of the device GLV decomposition `gd`
+    (a scalar.device.GlvDevice): 0, 1, q - 1, q - 2, 2^252 (where below q),
+    and for each of g1 and g2 the `per_constant` largest s < q whose
+    s g / 2^m lies within 2^-tol_bits of an integer, from above or below:
+    there the truncated product's guard limbs decide floor(s g / 2^m). They
+    are denominators of the continued fraction of g / 2^m."""
+    m = gd.m_limbs * gd.w
+    mod = 1 << m
+    out = [s for s in (0, 1, q - 1, q - 2, 1 << 252) if 0 <= s < q]
+    for limbs in (gd.g1_limbs, gd.g2_limbs):
+        g = sum(int(x) << (gd.w * j) for j, x in enumerate(limbs))
+        near, num, den, prev, cur = [], g, mod, 0, 1
+        while num and cur < q:
+            a, (num, den) = den // num, (den % num, num)
+            if (cur * g) % mod and min((cur * g) % mod, mod - (cur * g) % mod) < mod >> tol_bits:
+                near.append(cur)
+            prev, cur = cur, a * cur + prev
+        out += near[-per_constant:]
+    return out

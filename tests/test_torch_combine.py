@@ -6,7 +6,8 @@ and `add_plain` in the kernel's order) against the JAX package's log-depth
 sums; `reduce_buckets` end to end against the JAX package's; and, with a
 fake library and recorders in place of the card, which body of
 `proj_dbl_rcb` a launch of N lanes takes and what `proj_combine_rcb` is
-given. The two combines give other projective coordinates, so results are
+given, and which body of `proj_add_rcb` an add of N lanes takes. The two
+combines give other projective coordinates, so results are
 compared as affine points (tolerance zero). The JAX side runs jitted, in one
 program, in the suite's callback kernel mode; inputs come from numpy seeds.
 """
@@ -35,6 +36,7 @@ from montgomery_tpu_torch.msm import pippenger
 from montgomery_tpu_torch.msm.adapters import ProjectiveAdapter
 from montgomery_tpu_torch.ops import kernels
 from montgomery_tpu_torch.ops.field import create_field_ops
+from montgomery_tpu_torch.ops.limbs import to_words
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -205,13 +207,14 @@ def recorded(monkeypatch):
             return 0
         return fn
 
-    lib = types.SimpleNamespace(msm_proj_dbl_rcb=entry("dbl"), msm_proj_combine_rcb=entry("combine"))
+    lib = types.SimpleNamespace(msm_proj_dbl_rcb=entry("dbl"), msm_proj_combine_rcb=entry("combine"),
+                                msm_proj_add_rcb=entry("add"))
     monkeypatch.setattr(kernels.LIBRARY, "get", lambda: lib)
     monkeypatch.setattr(kernels, "on_cuda", lambda *ts: True)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=7))
-    for k in (projective.PROJ_DBL_RCB, projective.PROJ_COMBINE_RCB):
+    for k in (projective.PROJ_DBL_RCB, projective.PROJ_COMBINE_RCB, projective.PROJ_ADD_RCB):
         monkeypatch.setattr(k, "_fns", {})
         monkeypatch.setattr(k, "launches", 0)
         monkeypatch.setattr(k, "launches_by_n", {})
@@ -238,6 +241,34 @@ def test_double_n_body_by_lanes(ctx, recorded):
         proj.double_n(ProjectiveBatch(z, z, z), 6, few=few)
         assert recorded[-1][1][-3:-1] == (N, int(few))
     assert projective.PROJ_DBL_RCB.launches == 7
+
+
+def test_add_body_by_lanes(ctx, recorded):
+    """Below FEW_ADD_LANES lanes `add` asks for the few-lane body (one block
+    a lane), from it on for the six-threads-a-lane body: the main path's
+    smallest window-sum levels (10 and 20 lanes) take the first, its wider
+    levels (40 to 20,480 lanes) and the projective engine's rounds the
+    second; `few` picks the body by name. Each launch carries 3b, mu =
+    -p^-1 mod R (the warp product's) and the field words; one registry
+    count a launch."""
+    _, _, f, proj, _ = ctx
+    few = ProjectiveOps.FEW_ADD_LANES
+    assert 10 < few <= 40 < 2560
+    mu = [w % (1 << 32) for w in to_words(-pow(P, -1, f.R) % f.R, f.n)]
+    b3 = [w % (1 << 32) for w in to_words(proj.b3_mont, f.n)]
+    cases = [(1, 1), (10, 1), (20, 1), (few - 1, 1), (few, 0), (640, 0), (20480, 0)]
+    for N, want in cases:
+        z = torch.zeros((f.n, N), dtype=torch.int32)
+        proj.add(ProjectiveBatch(z, z, z), ProjectiveBatch(z, z, z))
+        name, args = recorded[-1]
+        assert name == "add" and args[-3] == N and args[-2] == want, (N, args[-3:])
+        assert list(args[10]) == mu and list(args[9]) == b3
+        assert args[-1] == 7  # the tensors' device's stream
+    for N, body in ((10, False), (640, True)):  # the body asked for by name
+        z = torch.zeros((f.n, N), dtype=torch.int32)
+        proj.add(ProjectiveBatch(z, z, z), ProjectiveBatch(z, z, z), few=body)
+        assert recorded[-1][1][-3:-1] == (N, int(body))
+    assert projective.PROJ_ADD_RCB.launches == len(cases) + 2
 
 
 def test_combine_launch_arguments(ctx, recorded):
