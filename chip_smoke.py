@@ -2,9 +2,10 @@
 """GPU smoke run of montgomery_tpu_torch on one CUDA card.
 
 Builds the CUDA kernels from `montgomery_tpu_torch/csrc/`, holds each kernel
-against its plain PyTorch version on the card, runs BLS12-377 MSMs on every
-engine and ed-on-bls12-377 (Twisted Edwards) MSMs, directly and through
-`serve.compute_msm`, against the bigint oracle and against a closed form,
+against its plain PyTorch version on the card, runs BLS12-377, BLS12-381 and
+Pallas MSMs on every engine and ed-on-bls12-377 (Twisted Edwards) MSMs,
+directly and through `serve.compute_msm`, against the bigint oracle and
+against a closed form,
 runs the planar batched-affine adds against the oracle and the sharded MSM
 on logical meshes of the one card, generates random points of both curves
 on the card by sqrt trial and runs MSMs on them, runs the micro-benchmark
@@ -21,9 +22,11 @@ Phases, each printed as it runs:
      kernels) that the operation bounds divide by; the latency of one
      dependent Montgomery product in one thread and on one warp
      (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit), which
-     the window combine's dependent-chain floor multiplies; each of
-     glv_digits' three instantiations must show no stack frame and no
-     spill in ptxas;
+     the window combine's dependent-chain floor multiplies; ptxas of every
+     kernel function (registers, stack frame, spill, shared memory), and
+     each instantiation BLS12-381 (13 limbs) and Pallas (9 limbs) brought
+     must be in the log; each of glv_digits' three instantiations must show
+     no stack frame and no spill in ptxas;
   1. each kernel against its plain version on the same tensors, with
      adversarial values in the first lanes (canonical values must be equal;
      the packed adds' first lanes cover every flag class of the safe add:
@@ -143,9 +146,23 @@ Phases, each printed as it runs:
      (torch.profiler), with launch counts (run "micro_2^18": divstep_inv
      and barrett_mul must launch, no curve kernel may) and the memory
      report. No other path may launch divstep_inv or barrett_mul.
-The last lines are a JSON object of per-kernel results, the card's name and
-power limit, and a JSON object {"ok": true, "device": {...}}. Any failure
-raises; without a CUDA device the script exits 1 before printing a result.
+Between phases 4 and 6, BLS12-381 and Pallas (`phase_new_curves`), each on
+  its own 2^20 bench points: phase 1, every kernel at the curve's limb count bit
+  for bit with its plain version at 1, 17, 40, 640, 2^16 and 2^16 + 17
+  lanes on adversarial inputs, and timed (events, the profiler's device
+  time, bound, share) at the 12-limb table's widths; phase 2, every engine
+  and compute_msm against the oracle at N = 16 and 512; phase 3, every
+  engine at 2^16 and 2^20 (BLS12-381's unsafe one also at 2^18) against
+  the closed form, every launch at the curve's limb count and none at 12,
+  with the main path's profile, and compute_msm at 2^20 from bytes; phase
+  4, random_points_weierstrass at 2^16; and aff_post_packed_u at 13 and 9
+  limbs built at other __launch_bounds__ minimums and timed beside its own
+  (`post_u_minimums`).
+The last lines are a JSON object of per-kernel details, the JSON object of
+per-kernel results (13- and 9-limb measurements under "n13" and "n9" or
+"n9_weierstrass"), the card's name and power limit, and a JSON object
+{"ok": true, "device": {...}}. Any failure raises; without a CUDA device the
+script exits 1 before printing a result.
 """
 
 from __future__ import annotations
@@ -451,11 +468,15 @@ def phase_env() -> dict:
     probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
-    for line in kernels.LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            say("  ptxas:", line.strip())
-    frames = ptxas_frames(kernels.LIBRARY.build_log)
-    glv = {k: v for k, v in frames.items() if "glv_digits_kernel" in k}
+    jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
+    say(f"  {len(jobs)} nvcc processes (end, run time s), the last first: "
+        + ", ".join(f"{name} {end}, {ran}" for name, end, ran in sorted(jobs, key=lambda j: -float(j[1]))))
+    funcs = ptxas_functions(kernels.LIBRARY.build_log)
+    say("ptxas, each kernel function (registers, stack frame, spill stores, spill loads, shared memory "
+        "bytes):")
+    for (name, nl), v in sorted(ptxas_by_limbs(kernels.LIBRARY.build_log).items()):
+        say(f"  {name} n={nl}: {v}")
+    glv = {k: v[1:4] for k, v in funcs.items() if "glv_digits_kernel" in k}
     say(f"glv_digits instantiations (stack frame, spill stores, spill loads in bytes): {glv}")
     if len(glv) != 3 or any(any(v) for v in glv.values()):
         raise AssertionError("each of glv_digits' three instantiations must have no stack frame and no spill")
@@ -473,19 +494,35 @@ def phase_env() -> dict:
     return rates
 
 
-def ptxas_frames(log: str) -> dict:
-    """{function: (stack frame, spill stores, spill loads) bytes} from
-    ptxas -v output."""
-    out, name = {}, None
+def ptxas_functions(log: str) -> dict:
+    """{kernel function (mangled): (registers, stack frame, spill stores,
+    spill loads, shared memory bytes)} from ptxas -v output."""
+    out, name, frame = {}, None, None
     for line in log.splitlines():
-        m = re.search(r"Function properties for (\S+)", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = m.group(1)
+            name, frame = m.group(1), None
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
-            out[name] = tuple(int(v) for v in m.groups())
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and frame is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name] = (int(m.group(1)), *frame, int(smem.group(1)) if smem else 0)
             name = None
+    return out
+
+
+def ptxas_by_limbs(log: str) -> dict:
+    """`ptxas_functions` of every kernel template instantiated over the limb
+    count NL, as {(kernel, NL): ...} (a few-lane body is "<kernel>_few")."""
+    out = {}
+    for name, v in ptxas_functions(log).items():
+        m = re.match(r"_Z\d+(\w+?)_kernelILi(\d+)E", name)
+        if m:
+            out[m.group(1), int(m.group(2))] = v
     return out
 
 
@@ -1275,8 +1312,8 @@ def redesign_add(ctx, pts, rng: random.Random) -> dict:
         f"P == Q, P == -Q, unreduced values), both bodies bit for bit with add_plain and with each other")
     lib = kernels.LIBRARY.get()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    wave = {b: lib.msm_proj_add_rcb_blocks_per_sm(int(few)) * (1 if few else 32) * sms
-            for b, few in bodies.items()}
+    per_sm = getattr(lib, kernels.symbols("proj_add_rcb_blocks_per_sm", proj.f.n)[proj.f.n])
+    wave = {b: per_sm(int(few)) * (1 if few else 32) * sms for b, few in bodies.items()}
     say(f"proj_add_rcb lanes a wave ({sms} SMs; resident blocks a SM x lanes a block x SMs): {wave}")
     gen = torch.Generator(device=ctx.device).manual_seed(12)
     n, sweep = ctx.fops.n, {}
@@ -1400,11 +1437,14 @@ def _adversarial_inputs(E, base, N: int, rng: random.Random):
     return pts, sc
 
 
-def phase_oracle(ctx, pts):
+def phase_oracle(ctx, pts, curve: str = "bls12-377"):
+    """Every engine at N = 16 and 512 on adversarial inputs against the
+    bigint oracle, and serve.compute_msm(curve=curve) from ints and bytes
+    with its ValueErrors; `pts` are distinct oracle points of the curve."""
     from montgomery_tpu_torch import serve
     from montgomery_tpu_torch.bigint import WeierstrassCurve, msm as oracle_msm
 
-    say("== phase 2: MSM against the bigint oracle")
+    say(f"== phase 2: {ctx.params.label} MSM against the bigint oracle")
     E = WeierstrassCurve(ctx.params)
     q = ctx.params.order
     rng = random.Random(2)
@@ -1446,12 +1486,13 @@ def phase_oracle(ctx, pts):
     want = oracle_msm(E, sc, pts_adv)
     want = (0, 0) if want.is_zero else (want.x, want.y)
     xy = [(0, 0) if P.is_zero else (P.x, P.y) for P in pts_adv]
-    pbytes = b"".join(x.to_bytes(48, "little") + y.to_bytes(48, "little") for x, y in xy)
+    nb = -(-ctx.fops.p.bit_length() // 8)
+    pbytes = b"".join(x.to_bytes(nb, "little") + y.to_bytes(nb, "little") for x, y in xy)
     sbytes = b"".join((s + q if s + q < 1 << 256 else s).to_bytes(32, "little") for s in sc)
     for label, args in (("ints", (xy, sc)), ("bytes", (pbytes, sbytes))):
-        if serve.compute_msm(*args) != want:
-            raise AssertionError(f"compute_msm from {label} differs from the oracle")
-        say(f"serve.compute_msm from {label}, N=16: equal to the oracle")
+        if serve.compute_msm(*args, curve=curve) != want:
+            raise AssertionError(f"compute_msm({curve!r}) from {label} differs from the oracle")
+        say(f"serve.compute_msm({curve!r}) from {label}, N=16: equal to the oracle")
     bad_xy = list(xy)
     bad_xy[3] = (xy[3][0], (xy[3][1] + 1) % ctx.fops.p)
     for label, args, match in (("off-curve point", (bad_xy, sc), "not on curve"),
@@ -1459,13 +1500,13 @@ def phase_oracle(ctx, pts):
                                ("misaligned scalar bytes", (pbytes, sbytes[:-1]), "multiple"),
                                ("length mismatch", (xy, sc[:-1]), "length mismatch")):
         try:
-            serve.compute_msm(*args)
+            serve.compute_msm(*args, curve=curve)
         except ValueError as e:
             if match not in str(e):
-                raise AssertionError(f"compute_msm on a {label}: {e}") from e
-            say(f"serve.compute_msm on a {label}: ValueError ({e})")
+                raise AssertionError(f"compute_msm({curve!r}) on a {label}: {e}") from e
+            say(f"serve.compute_msm({curve!r}) on a {label}: ValueError ({e})")
         else:
-            raise AssertionError(f"compute_msm accepted a {label}")
+            raise AssertionError(f"compute_msm({curve!r}) accepted a {label}")
 
 
 def _grid_lanes(E, rng: random.Random):
@@ -1657,7 +1698,8 @@ def phase_sharded(ctx, te, pts_full, te_full, host_pts, expected) -> dict:
     digits = te.digits(te.scalars_to_limbs(bench_scalars(te.params.order, N)), c)
     mesh = meshes[2]
     Ps, ds = shard_points(P, digits, mesh)
-    counts, secs, got = counted(lambda: te.ed.to_host(msm_sharded(te.adapter, Ps, ds, c, mesh)), "te")
+    counts, secs, got = counted(lambda: te.ed.to_host(msm_sharded(te.adapter, Ps, ds, c, mesh)), "te",
+                                te.fops.n)
     if not oracle_curve(te.params).equal(got[0], expected_sum(expected, te.params, N, te_full.count)):
         raise AssertionError(f"msm_sharded (Twisted Edwards) D=2 N=2^{min(MSM_LOG2N)} differs")
     say(f"msm_sharded Twisted Edwards D=2 N={N} c={c}: equal to the closed form ({secs:.3f} s)")
@@ -1709,10 +1751,11 @@ def bench_scalars(q: int, N: int) -> list[int]:
     return [int.from_bytes(raw[32 * i: 32 * (i + 1)], "little") % q for i in range(N)]
 
 
-def counted(fn, path: str):
+def counted(fn, path: str, limbs: int = 12, kernels_of: set | None = None):
     """Run fn once with every launch count set to 0 just before it; check
-    that each kernel of `path` launched and none of its forbidden ones did.
-    Returns (counts, seconds, result)."""
+    that each kernel of `path` (or of `kernels_of`) launched, none of its
+    forbidden ones did, and every launch was at `limbs` limbs (glv_digits,
+    which has no limb count, aside). Returns (counts, seconds, result)."""
     import torch
 
     from montgomery_tpu_torch.ops import kernels
@@ -1724,25 +1767,26 @@ def counted(fn, path: str):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = kernels.launch_counts()
-    missing = [k for k in PATH_KERNELS[path] if counts[k] <= 0]
+    missing = [k for k in (PATH_KERNELS[path] if kernels_of is None else kernels_of) if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels {missing} were not launched on the {path} path")
-    stray = [k for k in PATH_FORBIDDEN[path] if counts[k]]
+    stray = [k for k in PATH_FORBIDDEN[path] if counts.get(k)]
     if stray:
         raise AssertionError(f"kernels {stray} were launched on the {path} path")
     by_n = kernels.launch_counts_by_n()
-    te = path.startswith("te")
-    wrong = {k: v for k, v in by_n.items() if set(v) - ({TE_LIMBS} if te else {12, None})}
+    wrong = {k: v for k, v in by_n.items() if set(v) - {limbs, None}}
     if wrong:
-        raise AssertionError(f"launches at another limb count on the {path} path: {wrong}")
+        raise AssertionError(f"launches at another limb count than {limbs} on the {path} path: {wrong}")
     say(f"{path} launches by limb count: {by_n}")
     return counts, seconds, out
 
 
-def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
+def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict, profile: bool | None = None):
     """One path at N = 2^log2n: launch counts of a run with the counts set
-    to 0 just before it, the full-N check, 5 timed runs, peak memory and the
-    phase split. Returns the launch counts."""
+    to 0 just before it (every launch at the curve's limb count), the full-N
+    check, 5 timed runs, peak memory and the phase split; with `profile`
+    (by default on the main path: affine-unsafe at the largest size), its
+    device time by kernel. Returns the launch counts."""
     import torch
 
     from montgomery_tpu_torch.bigint import WeierstrassCurve
@@ -1754,7 +1798,7 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     K = ctx.glv_dev.num_windows(c)
     affine, unsafe = path != "projective", path == "affine_unsafe"
     adapter = ctx.aff_adapter_unsafe if unsafe else ctx.aff_adapter
-    say(f"== phase 3: BLS12-377 MSM N=2^{log2n}, c={c}, K={K} (GLV halves), path {path}, "
+    say(f"== phase 3: {ctx.params.label} MSM N=2^{log2n}, c={c}, K={K} (GLV halves), path {path}, "
         f"n={ctx.fops.n} limbs of 32 bits")
     A = AffineBatch(*[a[..., :N] for a in pts_full])
     scalars = bench_scalars(ctx.params.order, N)
@@ -1764,9 +1808,10 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     def run():
         return ctx.msm_device_full(A, limbs, c, affine=affine, unsafe=unsafe)
 
-    counts, first, S = counted(run, path)
+    counts, first, S = counted(run, path, ctx.fops.n)
     say(f"{path} launches: {counts} (first run {first:.3f} s)")
-    if path == PATHS[0] and log2n == max(MSM_LOG2N):
+    main = path == PATHS[0] and log2n == max(MSM_LOG2N)
+    if main and ctx.fops.n == 12:
         wrong = {k: (counts[k], v) for k, v in MAIN_PATH_LAUNCHES.items() if counts[k] != v}
         if wrong:
             raise AssertionError(f"main path launches (got, expected): {wrong}")
@@ -1788,16 +1833,18 @@ def phase_msm(ctx, log2n: int, pts_full, path: str, expected: dict):
     say(f"msm {path} N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
-    if path == PATHS[0] and log2n == max(MSM_LOG2N):  # the main path: where its device time goes
-        profile_main_path(ctx, run, f"profiled {path} N=2^{log2n}")
+    if (main if profile is None else profile):  # where its device time goes
+        expect = {k: counts[k] for k in MAIN_PATH_LAUNCHES}
+        profile_main_path(ctx, run, f"profiled {ctx.params.label} {path} N=2^{log2n}", expect)
     return counts
 
 
-def profile_main_path(ctx, run, label: str) -> None:
-    """The main path's device time by kernel (`device_times`), and each
-    proj_add_rcb launch's device time beside its lane count and body (the
-    lane counts recorded by a wrapper around ProjectiveOps.add for the
-    profiled run alone)."""
+def profile_main_path(ctx, run, label: str, expect: dict) -> None:
+    """The main path's device time by kernel (`device_times`; profiled
+    again until the trace holds `expect`'s launches of each kernel in it),
+    and each proj_add_rcb launch's device time beside its lane count and
+    body (the lane counts recorded by a wrapper around ProjectiveOps.add for
+    the profiled run alone)."""
     proj, lanes = ctx.proj, []
     add = proj.add
 
@@ -1813,7 +1860,7 @@ def profile_main_path(ctx, run, label: str) -> None:
     try:
         per, busy, wall, others, adds = device_times_whole(
             traced, lambda r: len(r[4]) == len(lanes) and all(r[0].get(k, (0,))[0] == v
-                                                             for k, v in MAIN_PATH_LAUNCHES.items()),
+                                                             for k, v in expect.items()),
             r"proj_add_rcb(_few)?_kernel")
     finally:
         del proj.add
@@ -1943,7 +1990,7 @@ def phase_serve(ctx, pts_full, log2n: int, expected: dict, curve: str = "bls12-3
     t_chk = time.perf_counter() - t0
     if not ok:
         raise AssertionError(f"{curve} bench points failed the on-curve check")
-    counts, t_all, got = counted(lambda: serve.compute_msm(pbytes, sbytes, curve=curve), path)
+    counts, t_all, got = counted(lambda: serve.compute_msm(pbytes, sbytes, curve=curve), path, f.n)
     say(f"{path} launches: {counts}")
     want = expected_sum(expected, ctx.params, N, pts_full.count)
     if got != (want.x, want.y):
@@ -2131,7 +2178,7 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
 
 
 def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, last: bool = False,
-              digits=None) -> tuple[float, float, float]:
+              digits=None, s_is_t: bool = False) -> tuple[float, float, float]:
     """(bytes, wide multiplies, low multiplies) per lane of one call of a
     kernel of the sqrt slice, for this call's exponent e, chain m or window
     (k, lk, last): each plane read once and written once; the products the
@@ -2139,7 +2186,9 @@ def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, las
     digit and a product for each nonzero one; sqr_n: m squarings; sqrt_win:
     lk (lk - 1) / 2 squarings and, for each set bit of `digits` (this run's
     digit plane), its corrections (v below the top bit, t unless last, r
-    from bit position 1), averaged over the lanes."""
+    from bit position 1), averaged over the lanes; it reads t, r and s and
+    writes t, r and the digit, and where the window needs no chain s is t
+    itself (s_is_t), read once."""
     from montgomery_tpu_torch.ops.field import SQRT_WINDOW, ladder_digits
 
     n = f.n
@@ -2159,7 +2208,7 @@ def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, las
     bits = [((digits >> i) & 1).double().mean().item() for i in range(lk)]
     fixes = sum(b * ((i < lk - 1) + (not last) + (SQRT_WINDOW * k + i >= 1))
                 for i, b in enumerate(bits))
-    return work(5 * W + 4, fixes, lk * (lk - 1) // 2)
+    return work((4 if s_is_t else 5) * W + 4, fixes, lk * (lk - 1) // 2)
 
 
 def _sqrt_plane(f, N: int, gen):
@@ -2177,6 +2226,61 @@ def _sqrt_plane(f, N: int, gen):
     canon = [0, 1, p - 1, 2, 4] + sq + [z * s % p for s in sq]
     raw = [c * R % p for c in canon] + [p, p + 1, 2 * p - 1, f.R_mod_p + p]
     return _field_plane(f, N, gen, raw), canon
+
+
+def sqrt_checks(f, N: int, gen, check) -> None:
+    """exp_ladder (e = p - 2, (q - 1) / 2), sqr_n (m of SQRT_CHAINS) and one
+    whole sqrt window by window on N lanes of `_sqrt_plane`, each call
+    through check(label, kernel, plain, N), which holds the kernel against
+    its plain version and returns the kernel's outputs; then sqrt's roots
+    and flags against its windows run one by one, and on the first lanes
+    against Euler's criterion and root^2 = x on the host."""
+    import torch
+
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    n, p, M, q = f.n, f.p, f.sqrt_M, f.sqrt_q_odd
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    x, canon = _sqrt_plane(f, N, gen)
+    for tag, e in (("p-2", p - 2), ("(q-1)/2", (q - 1) // 2)):
+        check(f"exp_ladder e={tag}", lambda e=e: f.exp_ladder(x, e),
+              lambda e=e: f.exp_ladder_plain(x, e), N)
+    for m in SQRT_CHAINS:
+        check(f"sqr_n m={m}", lambda m=m: f.sqr_n(x, m), lambda m=m: f.sqr_n_plain(x, m), N)
+    # one whole sqrt, window by window, on the kernels' own values
+    zmask = f.is_zero(x)
+    xs = f._sel(zmask, f.const_plane(f.R_mod_p, x), x).contiguous()
+    w = f.exp_const(xs, (q - 1) // 2)
+    t, r = f.mul(xs, f.mul(w, w)), f.mul(xs, w)
+    done = k = 0
+    while done < M:
+        lk = min(SQRT_WINDOW, M - done)
+        last, chain = done + lk >= M, M - done - lk
+        s = t
+        if chain:
+            (s,) = check(f"sqr_n m={chain}", lambda t=t, m=chain: f.sqr_n(t, m),
+                         lambda t=t, m=chain: f.sqr_n_plain(t, m), N)
+        t, r, dig = check(f"sqrt_win k={k}",
+                          lambda a=(t, r, s, k, lk, last): f.sqrt_window(*a),
+                          lambda a=(t, r, s, k, lk, last): f.sqrt_window_plain(*a), N)
+        if k == 0:
+            square = (dig[0] & 1) == 0
+        done, k = done + lk, k + 1
+    root, ok = f.sqrt(x)
+    loop_root = f._sel(square & ~zmask, r, torch.zeros_like(r))
+    if diff(root, loop_root) or not torch.equal(ok, square | zmask):
+        raise AssertionError(f"sqrt at {n} limbs differs from its windows run one by one")
+    head = len(canon)
+    roots = f.unpack(root[:, :head], from_mont=True)
+    for v, y, sq in zip(canon, roots, ok[:head].tolist()):
+        if sq != (v == 0 or pow(v, (p - 1) // 2, p) == 1) or (y * y % p != v if sq else y):
+            raise AssertionError(f"sqrt at {n} limbs is wrong for {v}")
+    say(f"exp_ladder (e = p - 2, (q - 1) / 2), sqr_n (m = {SQRT_CHAINS} and the {k - 1} "
+        f"chains), sqrt_win ({k} windows, M = {M}) n={n} N={N}: equal to the plain "
+        f"versions bit for bit; sqrt of 0, 1, p - 1, 16 squares and 16 non-squares right")
 
 
 def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
@@ -2218,43 +2322,7 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
             return a
 
         for N in KERNEL_LANES:
-            x, canon = _sqrt_plane(f, N, gen)
-            for tag, e in (("p-2", p - 2), ("(q-1)/2", (q - 1) // 2)):
-                check(f"exp_ladder e={tag}", lambda e=e: f.exp_ladder(x, e),
-                      lambda e=e: f.exp_ladder_plain(x, e), N)
-            for m in SQRT_CHAINS:
-                check(f"sqr_n m={m}", lambda m=m: f.sqr_n(x, m), lambda m=m: f.sqr_n_plain(x, m), N)
-            # one whole sqrt, window by window, on the kernels' own values
-            zmask = f.is_zero(x)
-            xs = f._sel(zmask, f.const_plane(f.R_mod_p, x), x).contiguous()
-            w = f.exp_const(xs, (q - 1) // 2)
-            t, r = f.mul(xs, f.mul(w, w)), f.mul(xs, w)
-            done = k = 0
-            while done < M:
-                lk = min(SQRT_WINDOW, M - done)
-                last, chain = done + lk >= M, M - done - lk
-                s = t
-                if chain:
-                    (s,) = check(f"sqr_n m={chain}", lambda t=t, m=chain: f.sqr_n(t, m),
-                                 lambda t=t, m=chain: f.sqr_n_plain(t, m), N)
-                t, r, dig = check(f"sqrt_win k={k}",
-                                  lambda a=(t, r, s, k, lk, last): f.sqrt_window(*a),
-                                  lambda a=(t, r, s, k, lk, last): f.sqrt_window_plain(*a), N)
-                if k == 0:
-                    square = (dig[0] & 1) == 0
-                done, k = done + lk, k + 1
-            root, ok = f.sqrt(x)
-            loop_root = f._sel(square & ~zmask, r, torch.zeros_like(r))
-            if diff(root, loop_root) or not torch.equal(ok, square | zmask):
-                raise AssertionError(f"sqrt at {n} limbs differs from its windows run one by one")
-            head = len(canon)
-            roots = f.unpack(root[:, :head], from_mont=True)
-            for v, y, sq in zip(canon, roots, ok[:head].tolist()):
-                if sq != (v == 0 or pow(v, (p - 1) // 2, p) == 1) or (y * y % p != v if sq else y):
-                    raise AssertionError(f"sqrt at {n} limbs is wrong for {v}")
-            say(f"exp_ladder (e = p - 2, (q - 1) / 2), sqr_n (m = {SQRT_CHAINS} and the {k - 1} "
-                f"chains), sqrt_win ({k} windows, M = {M}) n={n} N={N}: equal to the plain "
-                f"versions bit for bit; sqrt of 0, 1, p - 1, 16 squares and 16 non-squares right")
+            sqrt_checks(f, N, gen, check)
         x, _ = _sqrt_plane(f, KERNEL_LANES[0], gen)
         err = diff(_canon(f, f.inv(x)), _canon(f, f.inv_root(x)))
         if err:
@@ -2526,7 +2594,7 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
     scalars = bench_scalars(te.params.order, N)
     limbs = te.scalars_to_limbs(scalars)
     dev = te.device
-    counts, first, got = counted(lambda: te.msm_full(limbs, P, c=c), "te")
+    counts, first, got = counted(lambda: te.msm_full(limbs, P, c=c), "te", te.fops.n)
     say(f"te launches: {counts} (first run {first:.3f} s)")
     say(f"rounds: {te.adapter.rounds}")
     t0 = time.perf_counter()
@@ -2553,13 +2621,15 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
 # ------------------------------------------------- sqrt slice: random points
 
 
-def phase_points(c, path: str) -> dict:
-    """random_points_weierstrass (BLS12-377, path "points") or
-    random_points_edwards (ed-on-bls12-377, "te_points") at 2^20 points on
-    the card: launch counts of one generation with the counts set to 0 just
-    before it (exp_ladder once, sqr_n once per window but the last, sqrt_win
-    once per window, every launch at the curve's limb count); the median of
-    3 generations after that one, split into its stages, and peak memory;
+def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
+    """random_points_weierstrass (a Weierstrass curve, path "points") or
+    random_points_edwards (ed-on-bls12-377, "te_points") at 2^log2n points
+    on the card: launch counts of one generation with the counts set to 0
+    just before it (exp_ladder once, sqr_n once per window but the last,
+    sqrt_win once per window, the cofactor's adds and doublings and the
+    normalisation where the cofactor is not 1, every launch at the curve's
+    limb count) and its peak memory; the median of 3 generations after
+    that one, split into its stages;
     every point on the curve and none the point at infinity (identity), on
     the card; GEN_SAMPLE_CANDIDATES candidates' success flags against Euler's
     criterion and GEN_SAMPLE_POINTS points rebuilt with the bigint oracle
@@ -2568,7 +2638,7 @@ def phase_points(c, path: str) -> dict:
     lanes; then MSMs on the points with bench_scalars: BLS12-377's safe,
     unsafe and projective engines agree at 2^20 and the safe one equals the
     oracle on the first GEN_ORACLE_N points; the Twisted Edwards MSM at the
-    default c and at c - 1 agrees at 2^20 and equals the oracle at
+    default c and at c - 1 agrees at 2^log2n and equals the oracle at
     GEN_ORACLE_N. Returns the generation's launch counts."""
     import statistics
 
@@ -2580,7 +2650,7 @@ def phase_points(c, path: str) -> dict:
     from montgomery_tpu_torch.ops.field import SQRT_WINDOW
     from montgomery_tpu_torch.utils.timing import PhaseLog
 
-    N = 1 << GEN_LOG2N
+    N = 1 << log2n
     te = path.startswith("te")
     f, dev, params = c.fops, c.device, c.params
     p, q = f.p, params.order
@@ -2591,7 +2661,7 @@ def phase_points(c, path: str) -> dict:
         return type(pts)(*[a[..., idx] for a in pts])
 
     say(f"== phase 4: {'random_points_edwards' if te else 'random_points_weierstrass'}"
-        f"({params.label}) N=2^{GEN_LOG2N}, seed {GEN_SEED}, oversample {GEN_OVERSAMPLE}, "
+        f"({params.label}) N=2^{log2n}, seed {GEN_SEED}, oversample {GEN_OVERSAMPLE}, "
         f"n={f.n} limbs of 32 bits")
 
     def generate(log=None):
@@ -2599,8 +2669,15 @@ def phase_points(c, path: str) -> dict:
             return rnd.random_points_edwards(c.ed, N, seed=GEN_SEED, device=dev, log=log)
         return rnd.random_points_weierstrass(c.proj, N, seed=GEN_SEED, device=dev, log=log)
 
-    counts, first, pts = counted(generate, path)
     windows = -(-f.sqrt_M // SQRT_WINDOW)
+    need = None
+    if not te and f.n != 12:  # BLS12-381 (one window, no chain) and Pallas (no cofactor)
+        need = {"mul_const", "mont_mul", "exp_ladder", "sqrt_win"} | ({"sqr_n"} if windows > 1 else set())
+        if params.cofactor != 1:
+            need |= {"proj_add_rcb", "proj_dbl_rcb", "divstep_inv_mont"}
+    torch.cuda.reset_peak_memory_stats(dev)
+    counts, first, pts = counted(generate, path, f.n, need)
+    peak = torch.cuda.max_memory_allocated(dev)
     want = {"exp_ladder": 1, "sqr_n": windows - 1, "sqrt_win": windows}
     if any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"{path}: launches {counts}, expected {want} for the sqrt")
@@ -2613,11 +2690,7 @@ def phase_points(c, path: str) -> dict:
         logs.append(dict(log.entries))
     split = {k: statistics.median(lg[k] for lg in logs) for k in logs[0]}
     total = statistics.median(sum(lg.values()) for lg in logs)
-    torch.cuda.reset_peak_memory_stats(dev)
-    generate()
-    torch.cuda.synchronize(dev)
-    peak = torch.cuda.max_memory_allocated(dev)
-    say(f"generation N=2^{GEN_LOG2N}: median {total:.6f} s over 3 runs "
+    say(f"generation N=2^{log2n}: median {total:.6f} s over 3 runs "
         f"{['%.6f' % sum(lg.values()) for lg in logs]}; peak memory {peak / 2**20:.1f} MiB")
     say("phase split (medians):\n" + "\n".join(f"{k:<32s} {v * 1e3:9.2f} ms" for k, v in split.items()))
 
@@ -2690,18 +2763,480 @@ def phase_points(c, path: str) -> dict:
     sc = scalars[:GEN_ORACLE_N]
     if not E.equal(c.msm_full(sc, head), oracle_msm(E, sc, to_host(head))):
         raise AssertionError(f"{path}: MSM of {GEN_ORACLE_N} generated points differs from the oracle")
-    say(f"{path}: MSM at N=2^{GEN_LOG2N} on the generated points agrees across {list(results)}; "
+    say(f"{path}: MSM at N=2^{log2n} on the generated points agrees across {list(results)}; "
         f"at N={GEN_ORACLE_N} equal to the bigint oracle")
     return counts
 
 
-def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
-    """The {"kernels": [...]} line: one entry per registered kernel, its
-    launches read from the first run of `home_runs` that runs it (bench.py's
-    configuration, then the Twisted Edwards MSM, then the others at 2^20,
-    then the planar adds at 2^20), with the count of every run that launched
-    it beside them; a kernel instantiated at 12 and at 9 limbs carries its
-    9-limb measurements under "n9"."""
+# ------------------------------------ BLS12-381 and Pallas: 13 and 9 limbs
+
+# the Weierstrass curves beside BLS12-377, by their serve labels: their base
+# fields need 13 limbs of 32 bits (BLS12-381) and 9 (Pallas)
+NEW_CURVES = ("bls12-381", "pallas")
+# the widths every new instantiation is checked at: one lane, a ragged
+# warp, the few-lane add's threshold, the widest window_sums scan, and the
+# kernel table's width with a ragged edge
+CHECK_LANES = (1, 17, 40, 640, 1 << 16, (1 << 16) + 17)
+POINT_LANES = 640  # input lanes built from curve points; wider checks add random planes after them
+NEW_TIMING_REPS = 20  # launches a timing, by CUDA events and under the profiler
+NEW_SQRT_LANES = 1 << 20  # the sqrt slice's timing width at 13 and 9 limbs
+COMBINE_AT = {1: COMBINE_CASES[0], 17: COMBINE_CASES[1]}  # the combine's (K, c) by width
+WIDE_COMBINE = (3, 2)  # the combine's (K, c) at the other widths
+NEW_MSM_LOG2N = (16, 20)
+NEW_UNSAFE_LOG2N = 18  # BLS12-381's unsafe engine also at the zprize22 size, 2^18
+NEW_GEN_LOG2N = 16
+# post_u_min_blocks of csrc/aff_post_packed_u.cu: the minimums built beside
+# the kernel's own at 13 and 9 limbs, for ptxas and the time at the main
+# paths' widths (0: no minimum)
+POST_U_MINIMUMS = (0, 3, 4, 5, 6, 7)
+
+
+def new_instantiations() -> list[tuple[str, int]]:
+    """(kernel, limbs) of every Weierstrass kernel (those with a 13-limb
+    entry point) at BLS12-381's 13 limbs and Pallas's 9."""
+    from montgomery_tpu_torch.ops import kernels
+
+    return [(name, n) for name, k in kernels.REGISTRY.items() if 13 in k.symbols for n in (13, 9)]
+
+
+def phase_new_ptxas() -> dict:
+    """Registers, stack frame, spill and shared memory of each kernel
+    function of every Weierstrass kernel at 13 and 9 limbs (a kernel with a
+    few-lane body has two), from the build's ptxas log; each must be
+    there."""
+    from montgomery_tpu_torch.ops import kernels
+
+    found = ptxas_by_limbs(kernels.LIBRARY.build_log)
+    out = {}
+    say("ptxas of the instantiations for BLS12-381 (13 limbs) and Pallas (9 limbs): registers, stack "
+        "frame, spill stores, spill loads, shared memory (bytes)")
+    for name, n in new_instantiations():
+        funcs = {f: v for (f, nl), v in found.items() if nl == n and f in (name, f"{name}_few")}
+        if name not in {f.removesuffix("_few") for f in funcs}:
+            raise AssertionError(f"no ptxas record of {name} at {n} limbs")
+        for func, (regs, stack, st, ld, smem) in sorted(funcs.items()):
+            say(f"  {func} n={n}: {regs} registers, stack {stack}, spill {st} / {ld}, smem {smem}"
+                + ("   <- spills" if st or ld else ""))
+            out.setdefault(name, {})[f"n{n}" + ("_few" if func.endswith("_few") else "")] = dict(
+                registers=regs, stack=stack, spill_stores=st, spill_loads=ld, smem=smem)
+    return out
+
+
+def _widen(base, N: int, rand):
+    """The first N lanes of `base` (rows, L), or, for N > L, rand(N) (rows,
+    N) with `base` in its first L lanes."""
+    L = base.shape[-1]
+    if N <= L:
+        return base[..., :N].contiguous()
+    t = rand(N)
+    t[..., :L] = base
+    return t
+
+
+def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
+    """Every kernel at the curve's limb count (13 for BLS12-381, 9 for
+    Pallas) against its plain version on the same tensors, bit for bit in
+    raw planes, at each width of CHECK_LANES. Inputs: field planes with 0,
+    1, 2, p - 1, p, p + 1, 2p - 1, R mod p and R^2 mod p in the first lanes,
+    then random values below 2^bits(p); projective pairs from curve points
+    (`_add_inputs`: identities, P == Q, P == -Q, unreduced values); packed
+    and planar affine operands with every flag class of `_flag_lanes`
+    (doubling, cancellation, each operand infinite, unpaired lanes, y = 0
+    at x = p - 1, unreduced representatives); window sums with identities
+    (`_window_sums`); the sqrt slice on `_sqrt_plane` (known squares and
+    non-squares). Beyond POINT_LANES lanes the inputs continue with random
+    planes. Both bodies of proj_add_rcb and proj_dbl_rcb (k = 1, 6, 13) are
+    checked at every width against one plain run, the combine at (K, c) of
+    COMBINE_AT (the 2^20 and the 2^16 path's on one lane and on 17) and at
+    WIDE_COMBINE at the other widths (its plain Horner takes about 6 s a
+    call, host-bound, up to 640 lanes). Then each kernel
+    is timed at widths[name] lanes (the 12-limb table's width; the sqrt
+    slice's at NEW_SQRT_LANES) on random planes: CUDA-event mean and the
+    profiler's device time a launch over NEW_TIMING_REPS launches, its plain
+    version once, the bound from the same call's rates and the share (bound
+    / device time)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch, ProjectiveBatch
+    from montgomery_tpu_torch.ops import divstep, kernels
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    f, proj, aff, dev = ctx.fops, ctx.proj, ctx.affine, ctx.device
+    n, p, label = f.n, f.p, ctx.params.label
+    say(f"== phase 1: {label} kernels at {n} limbs against their plain versions")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rng = random.Random(13)
+    adv = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p, f.R2]
+    P0, Q0 = _add_inputs(ctx, pts, POINT_LANES, rng)
+    FA, FB, fsa, fsb, fhp = _flag_lanes(ctx, pts, POINT_LANES)
+    windows = {Kc: _window_sums(ctx, pts, Kc[0], rng, lanes=POINT_LANES)[0]
+               for Kc in (*COMBINE_CASES, WIDE_COMBINE)}
+    results = {}
+
+    def field_rand(rows):
+        return lambda N: _random_planes(f, rows, N, gen)
+
+    def bits(N):
+        return torch.randint(0, 2, (1, N), dtype=torch.int32, device=dev, generator=gen)
+
+    def packed_rand(N):
+        t = _random_planes(f, 2 * n + 1, N, gen)
+        t[2 * n] = (torch.randint(0, 8, (N,), device=dev, generator=gen) == 0).to(torch.int32)
+        return t
+
+    def record(name, err):
+        r = results.setdefault(name, {"max_abs_err": 0, "widths": []})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def check(label_, kern, plain, N):
+        """kern (or each of a list of kernel calls) against one plain run."""
+        b = plain()
+        b = b if isinstance(b, tuple) else (b,)
+        for kn in kern if isinstance(kern, list) else [kern]:
+            a = kn()
+            a = a if isinstance(a, tuple) else (a,)
+            err = _raw_err(a, b)
+            if err:
+                raise AssertionError(f"{label_} at {n} limbs and {N} lanes disagrees with its plain "
+                                     f"version (max_abs_err {err})")
+            record(label_.split()[0], err)
+        return a
+
+    for N in CHECK_LANES:
+        x, y = _field_plane(f, N, gen, adv), _field_plane(f, N, gen, adv[::-1])
+        P, Q = (ProjectiveBatch(*[_widen(a, N, field_rand(n)) for a in B]) for B in (P0, Q0))
+        C = torch.cat([_widen(FA, N, packed_rand), _widen(FB, N, packed_rand)], dim=1)
+        A, B = C[:, :N], C[:, N:]  # a level's two halves: column slices of one array
+        sA, sB, hp = (_widen(t, N, bits) for t in (fsa, fsb, fhp))
+        dinv = _field_plane(f, N, gen, adv)
+        G = AffineBatch(A[:n], torch.where(sA != 0, f.neg(A[n:2 * n]), A[n:2 * n]), A[2 * n] != 0)
+        H = AffineBatch(B[:n], torch.where(sB != 0, f.neg(B[n:2 * n]), B[n:2 * n]), B[2 * n] != 0)
+        valid = hp[0] != 0
+        cases = {
+            "mul_const beta": (lambda: f.mul_const(x, proj.beta_mont),
+                               lambda: f.mul_const_plain(x, proj.beta_mont)),
+            "mul_const R^2": (lambda: f.mul_const(x, f.R2), lambda: f.mul_const_plain(x, f.R2)),
+            "mont_mul": (lambda: f.mul(x, y), lambda: f.mul_plain(x, y)),
+            "mont_sqr": (lambda: f.square(x), lambda: f.square_plain(x)),
+            "divstep_inv_mont": (lambda: f.inv_root(x), lambda: divstep.inv_mont_plain(f, x)),
+        }
+        if N > 1:  # column slices, read in place through their row strides
+            xs, ys = x[:, 1:], y[:, :-1]
+            cases["mont_mul slice"] = (lambda: f.mul(xs, ys), lambda: f.mul_plain(xs, ys))
+            cases["mont_sqr slice"] = (lambda: f.square(xs), lambda: f.square_plain(xs))
+        # both bodies of the add and the doublings against one plain run
+        cases["proj_add_rcb"] = ([lambda few=few: proj.add(P, Q, few=few) for few in (False, True)],
+                                 lambda: proj.add_plain(P, Q))
+        for k in (1, 6, 13):
+            cases[f"proj_dbl_rcb k={k}"] = ([lambda k=k, few=few: proj.double_n(P, k, few=few)
+                                             for few in (False, True)], lambda k=k: proj.double_n_plain(P, k))
+        for (K, c), W0 in windows.items():
+            if (K, c) != COMBINE_AT.get(N, WIDE_COMBINE):
+                continue
+            W = ProjectiveBatch(*[_widen(a.reshape(n, -1), N * K, field_rand(n)).reshape(n, N, K)
+                                  for a in W0])
+            cases[f"proj_combine_rcb K={K} c={c}"] = (lambda W=W, c=c: proj.combine(W, c),
+                                                      lambda W=W, c=c: proj.combine_plain(W, c))
+        Ab = AffineBatch(x, y, A[2 * n] != 0)
+        denom = aff.pre_packed_u(A, B, hp)
+        inv1, h = f.batch_inv_parent(denom)
+        _, numer, flags = aff.pre_packed(A, B, sA, sB, hp)
+        _, pnumer, pflags = aff.pre(G, H)
+        cases.update({
+            "pack_glv": (lambda: aff.pack_rows_glv(Ab), lambda: aff.pack_rows_glv_plain(Ab)),
+            "aff_pre_packed_u": (lambda: aff.pre_packed_u(A, B, hp), lambda: aff.pre_packed_u_plain(A, B, hp)),
+            "aff_post_packed_u": (lambda: aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp),
+                                  lambda: aff.post_packed_u_plain(A, B, sA, sB, inv1, denom, h, hp)),
+            "aff_pre_packed": (lambda: aff.pre_packed(A, B, sA, sB, hp),
+                               lambda: aff.pre_packed_plain(A, B, sA, sB, hp)),
+            "aff_post_packed": (lambda: aff.post_packed(A, B, sA, sB, dinv, numer, flags, hp),
+                                lambda: aff.post_packed_plain(A, B, sA, sB, dinv, numer, flags, hp)),
+            "aff_pre": (lambda: aff.pre(G, H), lambda: aff.pre_plain(G, H)),
+            "aff_post": (lambda: aff.post(G, H, dinv, pnumer, pflags),
+                         lambda: aff.post_plain(G, H, dinv, pnumer, pflags)),
+            "aff_pre_unsafe": (lambda: aff.pre_unsafe(G.x, H.x, valid),
+                               lambda: aff.pre_unsafe_plain(G.x, H.x, valid)),
+            "aff_pre_unsafe without mask": (lambda: aff.pre_unsafe(G.x, H.x),
+                                            lambda: aff.pre_unsafe_plain(G.x, H.x)),
+            "aff_post_unsafe": (lambda: aff.post_unsafe(G, H, dinv), lambda: aff.post_unsafe_plain(G, H, dinv)),
+        })
+        for label_, (kern, plain) in cases.items():
+            check(label_, kern, plain, N)
+        sqrt_checks(f, N, gen, check)
+        for r in results.values():
+            r["widths"].append(N)
+        say(f"{label} n={n} N={N}: every kernel bit for bit with its plain version ({len(cases)} cases "
+            f"and the sqrt slice; {time.perf_counter() - t0:.1f} s into the phase)")
+        del cases, x, y, P, Q, C, A, B, G, H, denom, inv1, numer, flags, pnumer, pflags
+        torch.cuda.empty_cache()
+
+    # -- proj_add_rcb's resident blocks a SM at this count, then timing at the
+    # 12-limb table's widths, on random planes
+    per_sm = getattr(kernels.LIBRARY.get(), kernels.symbols("proj_add_rcb_blocks_per_sm", n)[n])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    blocks = {"six": per_sm(0), "few": per_sm(1)}
+    results["proj_add_rcb"]["blocks_per_sm"] = blocks
+    say(f"proj_add_rcb n={n}: resident blocks a SM {blocks} (lanes a wave: six "
+        f"{blocks['six'] * 32 * sms}, few {blocks['few'] * sms})")
+    M, q = f.sqrt_M, f.sqrt_q_odd
+    for name in sorted(results):
+        W = NEW_SQRT_LANES if name in ("exp_ladder", "sqr_n", "sqrt_win") else widths[name]
+        x, y = _random_planes(f, n, W, gen), _random_planes(f, n, W, gen)
+        work = None
+        if name == "mul_const":
+            kern, plain = lambda: f.mul_const(x, proj.beta_mont), lambda: f.mul_const_plain(x, proj.beta_mont)
+        elif name == "mont_mul":
+            kern, plain = lambda: f.mul(x, y), lambda: f.mul_plain(x, y)
+        elif name == "mont_sqr":
+            kern, plain = lambda: f.square(x), lambda: f.square_plain(x)
+        elif name == "divstep_inv_mont":
+            kern, plain = lambda: f.inv_root(x), lambda: divstep.inv_mont_plain(f, x)
+        elif name in ("proj_add_rcb", "proj_dbl_rcb"):
+            P, Q = (ProjectiveBatch(*_random_planes(f, 3 * n, W, gen).split(n)) for _ in range(2))
+            if name == "proj_add_rcb":
+                kern, plain = lambda: proj.add(P, Q), lambda: proj.add_plain(P, Q)
+            else:
+                kern, plain = lambda: proj.double_n(P, 1), lambda: proj.double_n_plain(P, 1)
+        elif name == "proj_combine_rcb":
+            K, c = COMBINE_CASES[0]
+            W3 = ProjectiveBatch(*_random_planes(f, 3 * n, W * K, gen).reshape(3, n, W, K))
+            kern, plain = lambda: proj.combine(W3, c), lambda: proj.combine_plain(W3, c)
+            products = (K - 1) * (c * 9 + 14)
+            work = ((K + 1) * 3 * 4 * n, products * 2 * n * n, products * n)
+        elif name in ("pack_glv", "aff_pre_packed_u", "aff_post_packed_u", "aff_pre_packed", "aff_post_packed"):
+            C = torch.cat([packed_rand(W), packed_rand(W)], dim=1)
+            A, B = C[:, :W], C[:, W:]
+            sA, sB, hp = bits(W), bits(W), bits(W)
+            Ab = AffineBatch(x, y, A[2 * n] != 0)
+            denom = aff.pre_packed_u(A, B, hp)
+            inv1, h = f.batch_inv_parent(denom)
+            _, numer, flags = aff.pre_packed(A, B, sA, sB, hp)
+            kern, plain = {
+                "pack_glv": (lambda: aff.pack_rows_glv(Ab), lambda: aff.pack_rows_glv_plain(Ab)),
+                "aff_pre_packed_u": (lambda: aff.pre_packed_u(A, B, hp),
+                                     lambda: aff.pre_packed_u_plain(A, B, hp)),
+                "aff_post_packed_u": (lambda: aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp),
+                                      lambda: aff.post_packed_u_plain(A, B, sA, sB, inv1, denom, h, hp)),
+                "aff_pre_packed": (lambda: aff.pre_packed(A, B, sA, sB, hp),
+                                   lambda: aff.pre_packed_plain(A, B, sA, sB, hp)),
+                "aff_post_packed": (lambda: aff.post_packed(A, B, sA, sB, y, numer, flags, hp),
+                                    lambda: aff.post_packed_plain(A, B, sA, sB, y, numer, flags, hp)),
+            }[name]
+        elif name in ("aff_pre", "aff_post", "aff_pre_unsafe", "aff_post_unsafe"):
+            inf = torch.randint(0, 8, (2, W), device=dev, generator=gen) == 0
+            G = AffineBatch(x, y, inf[0])
+            H = AffineBatch(*_random_planes(f, 2 * n, W, gen).split(n), inf[1])
+            valid = inf[0]
+            _, numer, flags = aff.pre(G, H)
+            dinv = _random_planes(f, n, W, gen)
+            kern, plain = {
+                "aff_pre": (lambda: aff.pre(G, H), lambda: aff.pre_plain(G, H)),
+                "aff_post": (lambda: aff.post(G, H, dinv, numer, flags),
+                             lambda: aff.post_plain(G, H, dinv, numer, flags)),
+                "aff_pre_unsafe": (lambda: aff.pre_unsafe(G.x, H.x, valid),
+                                   lambda: aff.pre_unsafe_plain(G.x, H.x, valid)),
+                "aff_post_unsafe": (lambda: aff.post_unsafe(G, H, dinv),
+                                    lambda: aff.post_unsafe_plain(G, H, dinv)),
+            }[name]
+        elif name == "exp_ladder":
+            e = (q - 1) // 2
+            kern, plain = lambda: f.exp_ladder(x, e), lambda: f.exp_ladder_plain(x, e)
+            work = sqrt_work(f, "exp_ladder", e=e)
+        elif name == "sqr_n":
+            m = max(M - SQRT_WINDOW, 1)  # the first chain, or one squaring where M <= 4
+            kern, plain = lambda: f.sqr_n(x, m), lambda: f.sqr_n_plain(x, m)
+            work = sqrt_work(f, "sqr_n", m=m)
+        elif name == "sqrt_win":
+            lk = min(SQRT_WINDOW, M)
+            t = f.exp_ladder(x, q)  # x^q, in the 2-Sylow subgroup
+            r = f.mul(x, f.exp_ladder(x, (q - 1) // 2))
+            s = f.sqr_n(t, M - lk)
+            last = lk == M
+            dig = f.sqrt_window(t, r, s, 0, lk, last)[2]
+            kern, plain = (lambda: f.sqrt_window(t, r, s, 0, lk, last),
+                           lambda: f.sqrt_window_plain(t, r, s, 0, lk, last))
+            work = sqrt_work(f, "sqrt_win", k=0, lk=lk, last=last, digits=dig, s_is_t=s is t)
+        else:
+            raise AssertionError(f"no timing case for {name}")
+        a, b = kern(), plain()
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        if _raw_err(a, b):
+            raise AssertionError(f"{name} at {n} limbs and {W} lanes (timing inputs) disagrees")
+        ms = cuda_time_ms(kern, NEW_TIMING_REPS)
+        per = device_times_whole(lambda: [kern() for _ in range(NEW_TIMING_REPS)],
+                                 lambda res: res[0].get(name, (0,))[0] == NEW_TIMING_REPS)[0]
+        count, dms = per.get(name, (0, 0.0))
+        dev_ms = dms / count if count else None
+        plain_ms = cuda_time_ms(plain, 1, 0)
+        lanes = 1 if name == "proj_combine_rcb" else W
+        bms, by = bound_of(*work, lanes, rates) if work else bound(ctx, name, W, rates)
+        share = bms / dev_ms if dev_ms else None
+        results[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             share=share, lanes=lanes)
+        say(f"{name} n={n} at {lanes} lanes ({time.perf_counter() - t0:.1f} s into the phase): events "
+            f"{ms:.4f} ms, device "
+            + (f"{dev_ms:.4f} ms" if dev_ms else "not measured") + f", plain {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})" + (f", share {share:.3f}" if share else ""))
+        del kern, plain, x, y
+        torch.cuda.empty_cache()
+    return results
+
+
+def post_u_minimums(ctxs: dict) -> dict:
+    """aff_post_packed_u at the limb counts of `ctxs` ({n: context}) built
+    at each minimum of POST_U_MINIMUMS blocks an SM (a copy of the source
+    with post_u_min_blocks returning it, one nvcc a count and minimum, all
+    at once, under build/post_u/): ptxas registers and spill, and the device
+    time a launch at the first super-round level of the 2^16 and 2^20 paths,
+    each variant bit for bit with the library's build on the same inputs."""
+    import torch
+
+    from montgomery_tpu_torch.curves.affine import AFF_POST_PACKED_U
+    from montgomery_tpu_torch.ops import kernels
+
+    text = (kernels.CSRC / "aff_post_packed_u.cu").read_text()
+    pat = r"constexpr int post_u_min_blocks\(int NL\) \{[^}]*\}"
+    if not re.search(pat, text):
+        raise AssertionError("post_u_min_blocks not found in aff_post_packed_u.cu")
+    out_dir = ROOT / "build" / "post_u" / hashlib.sha256(text.encode()).hexdigest()[:16]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for m in POST_U_MINIMUMS:
+        var = re.sub(pat, f"constexpr int post_u_min_blocks(int NL) {{ return {m}; }}", text)
+        if m == 0:
+            var = var.replace("__launch_bounds__(LANES_PER_BLOCK, post_u_min_blocks(NL))",
+                              "__launch_bounds__(LANES_PER_BLOCK)")
+        cu = out_dir / f"post_u_m{m}.cu"
+        cu.write_text(var)
+        for n in ctxs:
+            lib = out_dir / f"libpost_u_m{m}_n{n}.so"
+            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DMSM_LIMBS={n}", "-shared", "-I",
+                   str(kernels.CSRC), "-o", str(lib), str(cu)]
+            procs[m, n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True), lib)
+    res = {n: {} for n in ctxs}
+    libs = {}
+    for (m, n), (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the post_u variant {m} at {n} limbs:\n{log[-3000:]}")
+        libs[m, n] = ctypes.CDLL(str(lib))
+        res[n][m] = {"ptxas": ptxas_by_limbs(log)[("aff_post_packed_u", n)]}
+    own = dict(AFF_POST_PACKED_U._fns)
+    try:
+        for n, ctx in ctxs.items():
+            f, aff = ctx.fops, ctx.affine
+            gen = torch.Generator(device=ctx.device).manual_seed(17)
+            for log2n in (16, 20):
+                M = first_level_width(ctx, log2n)
+                C = _random_planes(f, 2 * n + 1, 2 * M, gen)
+                C[2 * n] = 0
+                A, B = C[:, :M], C[:, M:]
+                sA, sB, hp = (torch.randint(0, 2, (1, M), dtype=torch.int32, device=ctx.device, generator=gen)
+                              for _ in range(3))
+                denom = aff.pre_packed_u(A, B, hp)
+                inv1, h = f.batch_inv_parent(denom)
+
+                def run():
+                    return aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp)
+
+                AFF_POST_PACKED_U._fns.pop(n, None)
+                want = run()
+                for m in POST_U_MINIMUMS:
+                    fn = getattr(libs[m, n], AFF_POST_PACKED_U.symbols[n])
+                    fn.argtypes = [*AFF_POST_PACKED_U.argtypes, ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
+                    AFF_POST_PACKED_U._fns[n] = fn
+                    if _raw_err([run()], [want]):
+                        raise AssertionError(f"aff_post_packed_u min {m} at {n} limbs differs")
+                    per = device_times_whole(lambda: [run() for _ in range(NEW_TIMING_REPS)],
+                                             lambda r: r[0].get("aff_post_packed_u", (0,))[0] == NEW_TIMING_REPS)[0]
+                    count, ms = per.get("aff_post_packed_u", (0, 0.0))
+                    res[n][m][f"device_ms_{M}"] = ms / count if count else None
+                AFF_POST_PACKED_U._fns.pop(n, None)
+                del C, A, B, denom, inv1
+                torch.cuda.empty_cache()
+    finally:
+        AFF_POST_PACKED_U._fns.clear()
+        AFF_POST_PACKED_U._fns.update(own)
+    for n, by_m in res.items():
+        for m, row in sorted(by_m.items()):
+            say(f"aff_post_packed_u n={n} min blocks {m or 'none'}: ptxas (registers, stack, spill stores, "
+                f"spill loads, smem) {row['ptxas']}; device ms a launch " + ", ".join(
+                    f"{k[len('device_ms_'):]} lanes {v:.5f}" if v else f"{k[len('device_ms_'):]} lanes not measured"
+                    for k, v in row.items() if k.startswith("device_ms_")))
+    return res
+
+
+def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_start: float) -> dict:
+    """BLS12-381 (13 limbs) and Pallas (9 limbs), each on its own 2^20 bench
+    points (random_points_fast(seed=42)): phase 1, every kernel at the
+    curve's limb count against its plain version and timed at the 12-limb
+    table's widths (`phase_curve_kernels`); phase 2, every engine and
+    compute_msm against the bigint oracle (`phase_oracle`); phase 3, every
+    engine at 2^16 and 2^20 (and BLS12-381's unsafe one at 2^18) against the
+    closed form, with its launches (every one at the curve's limb count),
+    median of 5, peak memory and phase split, the profile of affine-unsafe
+    at 2^20, and compute_msm at 2^20 from bytes; phase 4,
+    random_points_weierstrass at 2^16. Then aff_post_packed_u's minimums at
+    13 and 9 limbs (`post_u_minimums`). Launch counts go into `launches` as
+    "<curve>/<run>_2^<log2 N>"; returns ({curve: kernel results}, the
+    minimums' results)."""
+    import torch
+
+    from montgomery_tpu_torch.concrete import WEIERSTRASS_CURVES
+    from montgomery_tpu_torch.curves.random import random_points_fast
+    from montgomery_tpu_torch.msm import WeierstrassMsm
+
+    widths = {name: r["lanes"] for name, r in kres.items() if "lanes" in r}
+    out, ctxs = {}, {}
+    for label in NEW_CURVES:
+        c = WeierstrassMsm(WEIERSTRASS_CURVES[label], device=torch.device("cuda", 0))
+        ctxs[c.fops.n] = c
+        t0 = time.perf_counter()
+        pts = random_points_fast(c.proj, 1 << max(NEW_MSM_LOG2N), seed=SEED_POINTS, device=c.device,
+                                 cache_dir=ROOT / "build" / "points")
+        torch.cuda.synchronize()
+        say(f"points ({label}): 2^{max(NEW_MSM_LOG2N)} from random_points_fast(seed={SEED_POINTS}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host = c.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
+        out[label] = phase_curve_kernels(c, host, rates, widths)
+        say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase 1 done")
+        phase_oracle(c, host, label)
+        sizes = {path: NEW_MSM_LOG2N for path in PATHS}
+        if label == "bls12-381":
+            sizes["affine_unsafe"] = tuple(sorted({*NEW_MSM_LOG2N, NEW_UNSAFE_LOG2N}))
+        for path in PATHS:
+            for log2n in sizes[path]:
+                launches[f"{label}/{path}_2^{log2n}"] = phase_msm(c, log2n, pts, path, expected)
+        launches[f"{label}/serve_2^{max(NEW_MSM_LOG2N)}"] = phase_serve(c, pts, max(NEW_MSM_LOG2N), expected,
+                                                                        label)
+        del pts
+        torch.cuda.empty_cache()
+        launches[f"{label}/points_2^{NEW_GEN_LOG2N}"] = phase_points(c, "points", NEW_GEN_LOG2N)
+        say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phases 2-4 done")
+    return out, post_u_minimums(ctxs)
+
+
+def _num(v):
+    """A measured float to 6 significant digits (the kernels line stays
+    within the tail of the output that a caller keeps); others unchanged."""
+    return float(f"{v:.6g}") if isinstance(v, float) else v
+
+
+def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx: dict) -> tuple[dict, dict]:
+    """The {"kernels": [...]} line and the per-kernel details printed before
+    it. One entry per registered kernel, its launches read from the first
+    run of `home_runs` that runs it (bench.py's configuration, then the
+    Twisted Edwards MSM, then the others at 2^20, then the planar adds at
+    2^20); a kernel instantiated at 12 and at 9 limbs for Twisted Edwards
+    carries its 9-limb measurements under "n9". BLS12-381's (13 limbs) go
+    under "n13", Pallas's (9 limbs) under "n9", or "n9_weierstrass" where
+    "n9" holds the Twisted Edwards ones, each with its launches from the
+    first of that curve's runs that launched it. The details: every run's
+    count of each kernel, the redesign phases' main-path shapes, and ptxas
+    of the 13- and 9-limb instantiations."""
     from montgomery_tpu_torch.ops import kernels
 
     top = max(MSM_LOG2N)
@@ -2709,25 +3244,45 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict) -> dict:
     home_runs += [f"{run}_2^{GEN_LOG2N}" for run in ("points", "te_points")]
     home_runs += [f"{run}_2^{top}" for run in ("planar_safe", "planar_unsafe")]
     home_runs.append(f"micro_2^{MICRO_LOG2N}")
+    new_home = {label: [f"{label}/{run}_2^{top}" for run in (*PATHS, "serve")]
+                + [f"{label}/points_2^{NEW_GEN_LOG2N}"] for label in NEW_CURVES}
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "share", "lanes", "max_abs_err",
+            "blocks_per_sm")
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
         res = kres.get(name) or te_kres[name]
         e = {"name": name, "route": "cuda", "source": k.source, "replaces": k.replaces,
              "launches": launches[home][name], "launches_run": home,
-             "launches_by_path": {run: c[name] for run, c in launches.items() if c[name]},
              "max_abs_err": max(r[name]["max_abs_err"] for r in (kres, te_kres) if name in r),
-             "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+             "ms": _num(res["ms"]), "plain_ms": _num(res["plain_ms"]), "bound_ms": _num(res["bound_ms"]),
              "bound_by": res["bound_by"], "library_ms": None, "lanes": res["lanes"],
              "limbs": sorted(n for n in k.symbols if n is not None)}
         if name in kres and name in te_kres:  # instantiated at 12 and at 9 limbs
-            e["n9"] = {key: te_kres[name][key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                           "lanes", "max_abs_err")}
-        e.update({key: v for key, v in res.items()
-                  if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms")})
+            e["n9"] = {key: _num(te_kres[name][key]) for key in keys if key in te_kres[name]}
+        for label, res_n in new_kres.items():
+            if name not in res_n:
+                continue
+            n = 13 if label == "bls12-381" else 9
+            run = next((r for r in new_home[label] if launches[r][name]), None)
+            e["n13" if n == 13 else "n9_weierstrass" if "n9" in e else "n9"] = {
+                **{key: _num(res_n[name][key]) for key in keys if key in res_n[name]},
+                "launches": launches[run][name] if run else 0, "launches_run": run}
         return e
 
-    return {"kernels": [entry(name, k) for name, k in kernels.REGISTRY.items()]}
+    def detail(name):
+        res = {**te_kres.get(name, {}), **kres.get(name, {})}
+        d = {"launches_by_path": {run: c[name] for run, c in launches.items() if c[name]}}
+        d.update({key: v for key, v in res.items()
+                  if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms")})
+        d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
+        if name in ptx:
+            d["ptxas_new"] = ptx[name]
+        return d
+
+    names = list(kernels.REGISTRY)
+    return ({"kernels": [entry(name, kernels.REGISTRY[name]) for name in names]},
+            {"kernel_details": {name: detail(name) for name in names}})
 
 
 def main() -> int:
@@ -2747,6 +3302,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rates = phase_env()
+    ptx = phase_new_ptxas()
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 0 done")
     ctx = WeierstrassMsm(BLS12_377, device=dev)
     te = EdwardsMsm(ED_ON_BLS12_377, device=dev)
     npts = 1 << max(MSM_LOG2N)
@@ -2774,6 +3331,7 @@ def main() -> int:
     alt12, alt9 = phase_alt_kernels(ctx, te, rates)
     kres.update(alt12)
     te_kres.update(alt9)
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 1 done")
     phase_oracle(ctx, host_pts)
     launches, expected = phase_planar_oracle(ctx, pts), {}
     phase_te_oracle(te)
@@ -2788,13 +3346,20 @@ def main() -> int:
         launches[f"te_2^{log2n}"] = phase_te_msm(te, log2n, te_pts, expected)
     launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
                                                            TE_CURVE, "te_serve")
+    say(f"[{time.perf_counter() - t_start:.1f} s] phases 2 and 3 done")
     launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 5 done")
     del pts, te_pts
     torch.cuda.empty_cache()
     for c, path in ((ctx, "points"), (te, "te_points")):
         launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 4 done")
+    new_kres, post_u = phase_new_curves(rates, kres, launches, expected, t_start)
     launches[f"micro_2^{MICRO_LOG2N}"] = phase_micro(ctx)
-    line = kernels_line(kres, te_kres, launches)
+    line, details = kernels_line(kres, te_kres, launches, new_kres, ptx)
+    details["aff_post_packed_u_minimums"] = {f"n{n}": {str(m): row for m, row in by_m.items()}
+                                             for n, by_m in post_u.items()}
+    say(json.dumps(details))
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))
     say(smi_line())

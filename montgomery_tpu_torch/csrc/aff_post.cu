@@ -38,14 +38,45 @@ aff_post_kernel(int32_t* __restrict__ x3p, int32_t* __restrict__ y3p, uint8_t* _
   inf3[i] = inf;
 }
 
-extern "C" int msm_aff_post(void* x3, void* y3, void* inf3, const void* x1, int sx1, const void* y1, int sy1,
-                            const void* x2, int sx2, const void* y2, int sy2, const void* dinv, int sd,
-                            const void* numer, int sn, const void* flags, const void* inf1,
-                            const void* inf2, const uint32_t* field, int N, void* stream) {
+template <int NL>
+static int launch(void* x3, void* y3, void* inf3, const void* x1, int sx1, const void* y1, int sy1,
+                  const void* x2, int sx2, const void* y2, int sy2, const void* dinv, int sd,
+                  const void* numer, int sn, const void* flags, const void* inf1, const void* inf2,
+                  const uint32_t* field, int N, void* stream) {
   if (N > 0)
-    aff_post_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    aff_post_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)x3, (int32_t*)y3, (uint8_t*)inf3, (const int32_t*)x1, sx1, (const int32_t*)y1, sy1,
         (const int32_t*)x2, sx2, (const int32_t*)y2, sy2, (const int32_t*)dinv, sd, (const int32_t*)numer,
-        sn, (const int32_t*)flags, (const uint8_t*)inf1, (const uint8_t*)inf2, field_from<12>(field), N);
+        sn, (const int32_t*)flags, (const uint8_t*)inf1, (const uint8_t*)inf2, field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
+
+#if MSM_AT(12)
+extern "C" int msm_aff_post(void* x3, void* y3, void* inf3, const void* x1, int sx1, const void* y1, int sy1,
+                            const void* x2, int sx2, const void* y2, int sy2, const void* dinv, int sd,
+                            const void* numer, int sn, const void* flags, const void* inf1, const void* inf2,
+                            const uint32_t* field, int N, void* stream) {
+  return launch<12>(x3, y3, inf3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, numer, sn, flags, inf1, inf2,
+    field, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_post_n13(void* x3, void* y3, void* inf3, const void* x1, int sx1, const void* y1,
+                                int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* dinv,
+                                int sd, const void* numer, int sn, const void* flags, const void* inf1,
+                                const void* inf2, const uint32_t* field, int N, void* stream) {
+  return launch<13>(x3, y3, inf3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, numer, sn, flags, inf1, inf2,
+    field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_post_n9(void* x3, void* y3, void* inf3, const void* x1, int sx1, const void* y1,
+                               int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* dinv,
+                               int sd, const void* numer, int sn, const void* flags, const void* inf1,
+                               const void* inf2, const uint32_t* field, int N, void* stream) {
+  return launch<9>(x3, y3, inf3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, numer, sn, flags, inf1, inf2,
+    field, N, stream);
+}
+#endif

@@ -41,14 +41,41 @@ aff_post_packed_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A,
   out[(size_t)2 * NL * N + i] = paired ? (int32_t)inf3 : inf1;
 }
 
+template <int NL>
+static int launch(void* out, const void* A, int sa, const void* B, int sb, const void* sA, const void* sB,
+                  const void* dinv, int sd, const void* numer, int sn, const void* flags, const void* hp,
+                  const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    aff_post_packed_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
+        (const int32_t*)dinv, sd, (const int32_t*)numer, sn, (const int32_t*)flags, (const int32_t*)hp,
+        field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_aff_post_packed(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
                                    const void* sB, const void* dinv, int sd, const void* numer, int sn,
                                    const void* flags, const void* hp, const uint32_t* field, int N,
                                    void* stream) {
-  if (N > 0)
-    aff_post_packed_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
-        (const int32_t*)dinv, sd, (const int32_t*)numer, sn, (const int32_t*)flags, (const int32_t*)hp,
-        field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(out, A, sa, B, sb, sA, sB, dinv, sd, numer, sn, flags, hp, field, N, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_post_packed_n13(void* out, const void* A, int sa, const void* B, int sb,
+                                       const void* sA, const void* sB, const void* dinv, int sd,
+                                       const void* numer, int sn, const void* flags, const void* hp,
+                                       const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, A, sa, B, sb, sA, sB, dinv, sd, numer, sn, flags, hp, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_post_packed_n9(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
+                                      const void* sB, const void* dinv, int sd, const void* numer, int sn,
+                                      const void* flags, const void* hp, const uint32_t* field, int N,
+                                      void* stream) {
+  return launch<9>(out, A, sa, B, sb, sA, sB, dinv, sd, numer, sn, flags, hp, field, N, stream);
+}
+#endif

@@ -38,10 +38,26 @@
 // at 10,649,608, against 0.2455 and 3.006 at 4 (127 registers), 0.2443 and
 // 2.977 with no minimum (151 registers), and 0.2761 and 3.306 at 6 (80
 // registers, 300 bytes of spill).
+//
+// The minimum is chosen per limb count (post_u_min_blocks): the least
+// spill, then the faster of two neighbouring minimums by device time, the
+// kernel built at minimums of none and 3 to 7 and timed a launch at the
+// first super-round level of the 2^16 and 2^20 paths (chip_smoke.py
+// post_u_minimums, H100 80GB HBM3 at 700 W). At 13 limbs (BLS12-381) no
+// spill needs a minimum of 4 or less: 3 (161 registers, as with no
+// minimum) ran 0.2818 ms at 835,592 lanes and 3.489 ms at 10,649,608,
+// against 0.2831 and 3.529 at 4 (128 registers); 5 (96 registers, 116
+// bytes of spill) ran 0.2794 and 3.461, 6 (368 bytes) 0.3161 and 3.919. At
+// 9 limbs (Pallas) 5 gives 95 registers and no spill, 0.1311 ms at 835,592
+// lanes and 1.769 at 11,714,568, against 0.1360 and 1.840 at 4 (113
+// registers) and 0.1350 and 1.808 at 6 (80 registers, 16 bytes of spill).
 #include "affine.cuh"
 
+// the minimum of resident blocks an SM asked of ptxas at each limb count
+__host__ __device__ constexpr int post_u_min_blocks(int NL) { return NL == 13 ? 3 : 5; }
+
 template <int NL>
-__global__ void __launch_bounds__(LANES_PER_BLOCK, 5)
+__global__ void __launch_bounds__(LANES_PER_BLOCK, post_u_min_blocks(NL))
 aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,
                          const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ sA,
                          const int32_t* __restrict__ sB, const int32_t* __restrict__ inv1, int si,
@@ -70,12 +86,39 @@ aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ 
   out[(size_t)2 * NL * N + i] = paired ? 0 : inf1;
 }
 
+template <int NL>
+static int launch(void* out, const void* A, int sa, const void* B, int sb, const void* sA, const void* sB,
+                  const void* inv1, int si, const void* denom, int sd, int h, const void* hp,
+                  const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    aff_post_packed_u_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
+        (const int32_t*)inv1, si, (const int32_t*)denom, sd, h, (const int32_t*)hp, field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_aff_post_packed_u(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
                                      const void* sB, const void* inv1, int si, const void* denom, int sd,
                                      int h, const void* hp, const uint32_t* field, int N, void* stream) {
-  if (N > 0)
-    aff_post_packed_u_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
-        (const int32_t*)inv1, si, (const int32_t*)denom, sd, h, (const int32_t*)hp, field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(out, A, sa, B, sb, sA, sB, inv1, si, denom, sd, h, hp, field, N, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_post_packed_u_n13(void* out, const void* A, int sa, const void* B, int sb,
+                                         const void* sA, const void* sB, const void* inv1, int si,
+                                         const void* denom, int sd, int h, const void* hp,
+                                         const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, A, sa, B, sb, sA, sB, inv1, si, denom, sd, h, hp, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_post_packed_u_n9(void* out, const void* A, int sa, const void* B, int sb,
+                                        const void* sA, const void* sB, const void* inv1, int si,
+                                        const void* denom, int sd, int h, const void* hp,
+                                        const uint32_t* field, int N, void* stream) {
+  return launch<9>(out, A, sa, B, sb, sA, sB, inv1, si, denom, sd, h, hp, field, N, stream);
+}
+#endif

@@ -33,12 +33,37 @@ aff_post_unsafe_kernel(int32_t* __restrict__ x3p, int32_t* __restrict__ y3p, con
   fe_store(y3p, N, i, y3);
 }
 
-extern "C" int msm_aff_post_unsafe(void* x3, void* y3, const void* x1, int sx1, const void* y1, int sy1,
-                                   const void* x2, int sx2, const void* y2, int sy2, const void* dinv,
-                                   int sd, const uint32_t* field, int N, void* stream) {
+template <int NL>
+static int launch(void* x3, void* y3, const void* x1, int sx1, const void* y1, int sy1, const void* x2,
+                  int sx2, const void* y2, int sy2, const void* dinv, int sd, const uint32_t* field, int N,
+                  void* stream) {
   if (N > 0)
-    aff_post_unsafe_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    aff_post_unsafe_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
         (int32_t*)x3, (int32_t*)y3, (const int32_t*)x1, sx1, (const int32_t*)y1, sy1, (const int32_t*)x2,
-        sx2, (const int32_t*)y2, sy2, (const int32_t*)dinv, sd, field_from<12>(field), N);
+        sx2, (const int32_t*)y2, sy2, (const int32_t*)dinv, sd, field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
+
+#if MSM_AT(12)
+extern "C" int msm_aff_post_unsafe(void* x3, void* y3, const void* x1, int sx1, const void* y1, int sy1,
+                                   const void* x2, int sx2, const void* y2, int sy2, const void* dinv, int sd,
+                                   const uint32_t* field, int N, void* stream) {
+  return launch<12>(x3, y3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, field, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_post_unsafe_n13(void* x3, void* y3, const void* x1, int sx1, const void* y1, int sy1,
+                                       const void* x2, int sx2, const void* y2, int sy2, const void* dinv,
+                                       int sd, const uint32_t* field, int N, void* stream) {
+  return launch<13>(x3, y3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_post_unsafe_n9(void* x3, void* y3, const void* x1, int sx1, const void* y1, int sy1,
+                                      const void* x2, int sx2, const void* y2, int sy2, const void* dinv,
+                                      int sd, const uint32_t* field, int N, void* stream) {
+  return launch<9>(x3, y3, x1, sx1, y1, sy1, x2, sx2, y2, sy2, dinv, sd, field, N, stream);
+}
+#endif

@@ -34,14 +34,44 @@ aff_pre_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, int32_t
   fe_store(numer, N, i, u);
 }
 
+template <int NL>
+static int launch(void* denom, void* numer, void* flags, const void* x1, int sx1, const void* y1, int sy1,
+                  const void* x2, int sx2, const void* y2, int sy2, const void* inf1, const void* inf2,
+                  const uint32_t* one, const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    aff_pre_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)x1, sx1, (const int32_t*)y1, sy1,
+        (const int32_t*)x2, sx2, (const int32_t*)y2, sy2, (const uint8_t*)inf1, (const uint8_t*)inf2,
+        fe_from<NL>(one), field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_aff_pre(void* denom, void* numer, void* flags, const void* x1, int sx1, const void* y1,
                            int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* inf1,
                            const void* inf2, const uint32_t* one, const uint32_t* field, int N,
                            void* stream) {
-  if (N > 0)
-    aff_pre_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)x1, sx1, (const int32_t*)y1, sy1,
-        (const int32_t*)x2, sx2, (const int32_t*)y2, sy2, (const uint8_t*)inf1, (const uint8_t*)inf2,
-        fe_from<12>(one), field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(denom, numer, flags, x1, sx1, y1, sy1, x2, sx2, y2, sy2, inf1, inf2, one, field, N,
+    stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_pre_n13(void* denom, void* numer, void* flags, const void* x1, int sx1, const void* y1,
+                               int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* inf1,
+                               const void* inf2, const uint32_t* one, const uint32_t* field, int N,
+                               void* stream) {
+  return launch<13>(denom, numer, flags, x1, sx1, y1, sy1, x2, sx2, y2, sy2, inf1, inf2, one, field, N,
+    stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_pre_n9(void* denom, void* numer, void* flags, const void* x1, int sx1, const void* y1,
+                              int sy1, const void* x2, int sx2, const void* y2, int sy2, const void* inf1,
+                              const void* inf2, const uint32_t* one, const uint32_t* field, int N,
+                              void* stream) {
+  return launch<9>(denom, numer, flags, x1, sx1, y1, sy1, x2, sx2, y2, sy2, inf1, inf2, one, field, N,
+    stream);
+}
+#endif

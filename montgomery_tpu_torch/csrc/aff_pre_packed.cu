@@ -34,13 +34,38 @@ aff_pre_packed_kernel(int32_t* __restrict__ denom, int32_t* __restrict__ numer, 
   flags[i] = fl;
 }
 
+template <int NL>
+static int launch(void* denom, void* numer, void* flags, const void* A, int sa, const void* B, int sb,
+                  const void* sA, const void* sB, const void* hp, const uint32_t* one, const uint32_t* field,
+                  int N, void* stream) {
+  if (N > 0)
+    aff_pre_packed_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)A, sa, (const int32_t*)B, sb,
+        (const int32_t*)sA, (const int32_t*)sB, (const int32_t*)hp, fe_from<NL>(one),
+        field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_aff_pre_packed(void* denom, void* numer, void* flags, const void* A, int sa, const void* B,
                                   int sb, const void* sA, const void* sB, const void* hp, const uint32_t* one,
                                   const uint32_t* field, int N, void* stream) {
-  if (N > 0)
-    aff_pre_packed_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)denom, (int32_t*)numer, (int32_t*)flags, (const int32_t*)A, sa, (const int32_t*)B, sb,
-        (const int32_t*)sA, (const int32_t*)sB, (const int32_t*)hp, fe_from<12>(one),
-        field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(denom, numer, flags, A, sa, B, sb, sA, sB, hp, one, field, N, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_pre_packed_n13(void* denom, void* numer, void* flags, const void* A, int sa,
+                                      const void* B, int sb, const void* sA, const void* sB, const void* hp,
+                                      const uint32_t* one, const uint32_t* field, int N, void* stream) {
+  return launch<13>(denom, numer, flags, A, sa, B, sb, sA, sB, hp, one, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_pre_packed_n9(void* denom, void* numer, void* flags, const void* A, int sa,
+                                     const void* B, int sb, const void* sA, const void* sB, const void* hp,
+                                     const uint32_t* one, const uint32_t* field, int N, void* stream) {
+  return launch<9>(denom, numer, flags, A, sa, B, sb, sA, sB, hp, one, field, N, stream);
+}
+#endif

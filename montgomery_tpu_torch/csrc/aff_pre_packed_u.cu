@@ -27,11 +27,35 @@ aff_pre_packed_u_kernel(int32_t* __restrict__ denom, const int32_t* __restrict__
   fe_store(denom, N, i, d);
 }
 
-extern "C" int msm_aff_pre_packed_u(void* denom, const void* A, int sa, const void* B, int sb, const void* hp,
-                                    const uint32_t* one, const uint32_t* field, int N, void* stream) {
+template <int NL>
+static int launch(void* denom, const void* A, int sa, const void* B, int sb, const void* hp,
+                  const uint32_t* one, const uint32_t* field, int N, void* stream) {
   if (N > 0)
-    aff_pre_packed_u_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)denom, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)hp, fe_from<12>(one),
-        field_from<12>(field), N);
+    aff_pre_packed_u_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)hp, fe_from<NL>(one),
+        field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
+
+#if MSM_AT(12)
+extern "C" int msm_aff_pre_packed_u(void* denom, const void* A, int sa, const void* B, int sb, const void* hp,
+                                    const uint32_t* one, const uint32_t* field, int N, void* stream) {
+  return launch<12>(denom, A, sa, B, sb, hp, one, field, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_pre_packed_u_n13(void* denom, const void* A, int sa, const void* B, int sb,
+                                        const void* hp, const uint32_t* one, const uint32_t* field, int N,
+                                        void* stream) {
+  return launch<13>(denom, A, sa, B, sb, hp, one, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_pre_packed_u_n9(void* denom, const void* A, int sa, const void* B, int sb,
+                                       const void* hp, const uint32_t* one, const uint32_t* field, int N,
+                                       void* stream) {
+  return launch<9>(denom, A, sa, B, sb, hp, one, field, N, stream);
+}
+#endif

@@ -30,12 +30,36 @@ aff_pre_unsafe_kernel(int32_t* __restrict__ denom, const int32_t* __restrict__ x
   fe_store(denom, N, i, d);
 }
 
+template <int NL>
+static int launch(void* denom, const void* x1, int sx1, const void* x2, int sx2, const void* valid,
+                  const uint32_t* one, const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    aff_pre_unsafe_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)denom, (const int32_t*)x1, sx1, (const int32_t*)x2, sx2, (const uint8_t*)valid,
+        fe_from<NL>(one), field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_aff_pre_unsafe(void* denom, const void* x1, int sx1, const void* x2, int sx2,
                                   const void* valid, const uint32_t* one, const uint32_t* field, int N,
                                   void* stream) {
-  if (N > 0)
-    aff_pre_unsafe_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)denom, (const int32_t*)x1, sx1, (const int32_t*)x2, sx2, (const uint8_t*)valid,
-        fe_from<12>(one), field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(denom, x1, sx1, x2, sx2, valid, one, field, N, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_aff_pre_unsafe_n13(void* denom, const void* x1, int sx1, const void* x2, int sx2,
+                                      const void* valid, const uint32_t* one, const uint32_t* field, int N,
+                                      void* stream) {
+  return launch<13>(denom, x1, sx1, x2, sx2, valid, one, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_aff_pre_unsafe_n9(void* denom, const void* x1, int sx1, const void* x2, int sx2,
+                                     const void* valid, const uint32_t* one, const uint32_t* field, int N,
+                                     void* stream) {
+  return launch<9>(denom, x1, sx1, x2, sx2, valid, one, field, N, stream);
+}
+#endif

@@ -8,8 +8,10 @@
 // ones (aff_pre.cu, aff_post.cu) call them per lane; aff_chord is the
 // completion of the unsafe add, packed (aff_post_packed_u.cu) and planar
 // (aff_post_unsafe.cu), _post_inv_unsafe_formula (:160-167). Templates over
-// the limb count like field.cuh; the kernels instantiate them at 12 limbs
-// only (BLS12-377), the one Weierstrass field on the card.
+// the limb count like field.cuh; the kernels instantiate them at the three
+// Weierstrass fields' counts: 12 limbs (BLS12-377), 13 (BLS12-381), 9
+// (Pallas). b enters only through 3b, a run-time argument of the projective
+// kernels; the affine formulas do not use it.
 //
 // Flags of a lane: bit 1 is_dbl (both finite, x1 == x2, y1 == y2), bit 2
 // cancel (both finite, x1 == x2, y1 != y2), bit 4 y1_zero. A lane whose

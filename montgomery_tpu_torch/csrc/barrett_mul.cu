@@ -119,12 +119,16 @@ static int launch(void* out, const void* x, int sx, const void* y, int sy, const
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_barrett_mul(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
                                int N, void* stream) {
   return launch<12>(out, x, sx, y, sy, cfg, N, stream);
 }
+#endif
 
+#if MSM_AT(9)
 extern "C" int msm_barrett_mul_n9(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
                                   int N, void* stream) {
   return launch<9>(out, x, sx, y, sy, cfg, N, stream);
 }
+#endif

@@ -4,20 +4,23 @@
 //
 // The safegcd state (f, g) and the mod-p coefficients (d, e) are signed
 // numbers of DS_L = ceil(32 NL / 30) limbs of 30 bits (13 limbs, 390 bits at
-// NL = 12; 10 limbs, 300 bits at NL = 9; limbs below the top in [0, 2^30),
-// the top limb signed) in int64 registers. Divsteps run in batches
-// of 30 on the low 64 bits of f and g, building a transition matrix with
-// |u| + |v| <= 2^30; each batch then applies the matrix to the full-width
-// numbers with exact division by 2^30 (f, g) or a Montgomery-style shift mod
-// p (d, e: add m p so that the low 30 bits vanish). 30 x 30-bit products and
-// their 3-term sums stay below 2^62, so int64 holds them. The batch count
-// comes from ops/divstep.py: ceil(iterations(bits(p)) / 30), 37 for the
-// 377-bit BLS12-377 base field (1110 divsteps, BY19 Thm 11.2 bound 1091), 25
-// for the 253-bit ed-on-bls12-377 base field (bound 733). |d|, |e| grow by
-// at most p per batch, so the end value lies in (-38p, 38p): add 2^6 p and
-// subtract 2^j p, j = 6..0, where each fits (2^7 p < 2^(30 DS_L - 1) at both
-// limb counts). The plain version (ops/divstep.py inv_plain) runs the
-// same algorithm in torch int64, and the inverse is unique, so both agree.
+// NL = 12; 14 limbs, 420 bits at NL = 13; 10 limbs, 300 bits at NL = 9;
+// limbs below the top in [0, 2^30), the top limb signed) in int64 registers.
+// Divsteps run in batches of 30 on the low 64 bits of f and g, building a
+// transition matrix with |u| + |v| <= 2^30; each batch then applies the
+// matrix to the full-width numbers with exact division by 2^30 (f, g) or a
+// Montgomery-style shift mod p (d, e: add m p so that the low 30 bits
+// vanish). 30 x 30-bit products and their 3-term sums stay below 2^62, so
+// int64 holds them. The batch count comes from ops/divstep.py:
+// ceil(iterations(bits(p)) / 30), 37 for the 377-bit BLS12-377 base field
+// (1110 divsteps, BY19 Thm 11.2 bound 1091) and the 381-bit BLS12-381 one
+// (bound 1102), 25 for the 253-bit ed-on-bls12-377 base field (bound 733)
+// and the 255-bit Pallas one (bound 739). |d|, |e| grow by at most p per
+// batch, so the end value lies in (-38p, 38p): add 2^6 p and subtract 2^j p,
+// j = 6..0, where each fits (2^7 p < 2^(30 DS_L - 1) at every limb count:
+// 388 bits against 419 at NL = 13). The plain version (ops/divstep.py
+// inv_plain) runs the same algorithm in torch int64, and the inverse is
+// unique, so both agree.
 #pragma once
 #include "field.cuh"
 

@@ -40,10 +40,14 @@ static int launch(void* out, const void* x, int sx, const int32_t* cfg, int N, v
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_divstep_inv(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
   return launch<12>(out, x, sx, cfg, N, stream);
 }
+#endif
 
+#if MSM_AT(9)
 extern "C" int msm_divstep_inv_n9(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
   return launch<9>(out, x, sx, cfg, N, stream);
 }
+#endif

@@ -6,9 +6,10 @@
 // every batch inversion, at most 512 lanes. Per lane: leave Montgomery form
 // (a product by 1, then reduce into [0, p)), run the divsteps, re-enter
 // Montgomery form (a product by R^2 with this port's R = 2^(32 NL)). Entry
-// points: msm_divstep_inv_mont (NL = 12, BLS12-377) and
-// msm_divstep_inv_mont_n9 (NL = 9, ed-on-bls12-377: the root of to_host's
-// batch inversion).
+// points: msm_divstep_inv_mont (NL = 12, BLS12-377),
+// msm_divstep_inv_mont_n13 (NL = 13, BLS12-381: 14 limbs of 30 bits) and
+// msm_divstep_inv_mont_n9 (NL = 9: Pallas, and ed-on-bls12-377, where it is
+// the root of to_host's batch inversion).
 //
 // The safegcd core (csrc/divstep.cuh, shared with kernel divstep_inv) runs
 // between the two products.
@@ -49,12 +50,23 @@ static int launch(void* out, const void* x, int sx, const int32_t* cfg, const ui
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_divstep_inv_mont(void* out, const void* x, int sx, const int32_t* cfg, const uint32_t* field,
                                     int N, void* stream) {
   return launch<12>(out, x, sx, cfg, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_divstep_inv_mont_n13(void* out, const void* x, int sx, const int32_t* cfg,
+                                        const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, x, sx, cfg, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_divstep_inv_mont_n9(void* out, const void* x, int sx, const int32_t* cfg,
                                        const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, sx, cfg, field, N, stream);
 }
+#endif

@@ -6,7 +6,8 @@
 // 2-bit digits, 16 to a word) with the digit count, so one binary serves
 // FieldOps.inv (e = p - 2) and the first step of FieldOps.sqrt
 // (e = (q - 1) / 2). Entry points: msm_exp_ladder (12 limbs, BLS12-377's
-// base field) and msm_exp_ladder_n9 (9 limbs, ed-on-bls12-377's).
+// base field), msm_exp_ladder_n13 (13 limbs, BLS12-381's) and
+// msm_exp_ladder_n9 (9 limbs, Pallas's and ed-on-bls12-377's).
 //
 // Bound on this card: a serial chain per lane of 2 squarings and up to one
 // product per digit (about 190 squarings and 140 products for e = p - 2 at
@@ -53,12 +54,23 @@ static int launch(void* out, const void* x, const uint32_t* e, int nd, const uin
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_exp_ladder(void* out, const void* x, const uint32_t* e, int nd, const uint32_t* field,
                               int N, void* stream) {
   return launch<12>(out, x, e, nd, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_exp_ladder_n13(void* out, const void* x, const uint32_t* e, int nd,
+                                  const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, x, e, nd, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_exp_ladder_n9(void* out, const void* x, const uint32_t* e, int nd,
                                  const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, e, nd, field, N, stream);
 }
+#endif

@@ -5,17 +5,20 @@
 // reduce and the Montgomery product _mul_dot + _mont_reduce_wide). There a
 // field element was rows of 13-bit limbs in int32 lanes; here it is NL words
 // of 32 bits in one thread's registers, and R = 2^(32 NL) > 64p. Everything
-// is a template over the limb count NL: NL = 12 for the BLS12-377 base field
-// (R = 2^384, R/p about 2^7), NL = 9 for ed-on-bls12-377's base field, the
-// 253-bit BLS12-377 scalar field (R = 2^288, R/p about 2^35). A kernel file
+// is a template over the limb count NL, the least with R > 64p for the
+// field: NL = 12 for the 377-bit BLS12-377 base field (R = 2^384, R/p about
+// 2^7); NL = 13 for the 381-bit BLS12-381 base field (2^384 / p is only
+// about 2^3.3, so R = 2^416, R/p about 2^35); NL = 9 for the 255-bit Pallas
+// base field (R = 2^288, R/p about 2^34) and for ed-on-bls12-377's, the
+// 253-bit BLS12-377 scalar field (R/p about 2^35). A kernel file
 // instantiates the counts its entry points serve.
 //
 // Bound on this card: 32-bit integer multiply throughput (IMAD.WIDE / IMAD.HI)
 // and register pressure; one product is 2 NL^2 32x32->64 multiplies (288 at
-// NL = 12, 162 at NL = 9). Design: CIOS with 64-bit products and the
-// reduction interleaved per row, so the working set is NL + 2 words; every
-// loop is fully unrolled so the limbs stay in registers and the modulus words
-// are read from the kernel's parameter bank. Carry chains through PTX
+// NL = 12, 338 at NL = 13, 162 at NL = 9). Design: CIOS with 64-bit products
+// and the reduction interleaved per row, so the working set is NL + 2 words;
+// every loop is fully unrolled so the limbs stay in registers and the modulus
+// words are read from the kernel's parameter bank. Carry chains through PTX
 // add.cc/mad.cc are later work.
 //
 // Bounds match the plain versions (ops/field.py Plain16): fe_mul's result is
@@ -283,6 +286,15 @@ __device__ __forceinline__ int lane_index() {
 }
 
 #define LANES_PER_BLOCK 128
+
+// The build compiles a source with entry points at several limb counts once
+// per count, with -DMSM_LIMBS=n, so that each nvcc process instantiates the
+// kernels of one count (ops/kernels.py); without it, a source instantiates
+// every count it has. Each entry point sits under #if MSM_AT(its count).
+#ifndef MSM_LIMBS
+#define MSM_LIMBS 0
+#endif
+#define MSM_AT(n) (MSM_LIMBS == 0 || MSM_LIMBS == (n))
 
 inline int grid_for(int N) { return (N + LANES_PER_BLOCK - 1) / LANES_PER_BLOCK; }
 

@@ -5,8 +5,9 @@
 // path it runs every level of the batch-inversion tree (FieldOps.batch_inv),
 // up and down: up to 30 launches per batched-affine add (248 per MSM at 2^20).
 //
-// Entry points: msm_mont_mul (12 limbs, BLS12-377's base field) and
-// msm_mont_mul_n9 (9 limbs, ed-on-bls12-377's base field; the T = x y of the
+// Entry points: msm_mont_mul (12 limbs, BLS12-377's base field),
+// msm_mont_mul_n13 (13 limbs, BLS12-381's) and msm_mont_mul_n9 (9 limbs:
+// Pallas's, and ed-on-bls12-377's, where it also runs the T = x y of the
 // point ingestion, the on-curve check and the inversion tree of to_host).
 //
 // Bound on this card: one NL-word CIOS product per lane, 2 NL^2 32x32->64
@@ -42,12 +43,23 @@ static int launch(void* out, const void* x, int sx, const void* y, int sy, const
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_mont_mul(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
                             int N, void* stream) {
   return launch<12>(out, x, sx, y, sy, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_mont_mul_n13(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
+                                int N, void* stream) {
+  return launch<13>(out, x, sx, y, sy, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_mont_mul_n9(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
                                int N, void* stream) {
   return launch<9>(out, x, sx, y, sy, field, N, stream);
 }
+#endif

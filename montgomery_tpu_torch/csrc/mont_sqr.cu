@@ -24,9 +24,29 @@ mont_sqr_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx
   fe_store(out, N, i, r);
 }
 
-extern "C" int msm_mont_sqr(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+template <int NL>
+static int launch(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
   if (N > 0)
-    mont_sqr_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, field_from<12>(field), N);
+    mont_sqr_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
+
+#if MSM_AT(12)
+extern "C" int msm_mont_sqr(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  return launch<12>(out, x, sx, field, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_mont_sqr_n13(void* out, const void* x, int sx, const uint32_t* field, int N,
+                                void* stream) {
+  return launch<13>(out, x, sx, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_mont_sqr_n9(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  return launch<9>(out, x, sx, field, N, stream);
+}
+#endif

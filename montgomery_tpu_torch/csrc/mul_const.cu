@@ -4,8 +4,9 @@
 // (FieldOps.mul_const, :562-589), which baked the constant's limbs into the
 // traced formula. It serves to_montgomery (c = R^2), from_montgomery (c = 1)
 // and the GLV endomorphism phi(x, y) = (beta x, y). Entry points:
-// msm_mul_const (12 limbs, BLS12-377) and msm_mul_const_n9 (9 limbs,
-// ed-on-bls12-377: to Montgomery form in EdwardsMsm.points_from_bytes).
+// msm_mul_const (12 limbs, BLS12-377), msm_mul_const_n13 (13 limbs,
+// BLS12-381) and msm_mul_const_n9 (9 limbs: Pallas, and ed-on-bls12-377's
+// to Montgomery form in EdwardsMsm.points_from_bytes).
 //
 // Bound on this card: one NL-word CIOS product per lane, so integer multiply
 // throughput; each lane reads and writes 4 NL bytes, far below the multiply
@@ -34,12 +35,23 @@ static int launch(void* out, const void* x, const uint32_t* c, const uint32_t* f
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_mul_const(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
                              void* stream) {
   return launch<12>(out, x, c, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_mul_const_n13(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                                 void* stream) {
+  return launch<13>(out, x, c, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_mul_const_n9(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
                                 void* stream) {
   return launch<9>(out, x, c, field, N, stream);
 }
+#endif

@@ -34,11 +34,33 @@ pack_glv_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx
   out[(size_t)2 * NL * S + N + i] = flag;
 }
 
-extern "C" int msm_pack_glv(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
-                            const uint32_t* beta, const uint32_t* field, int N, void* stream) {
+template <int NL>
+static int launch(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
+                  const uint32_t* beta, const uint32_t* field, int N, void* stream) {
   if (N > 0)
-    pack_glv_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, (const uint8_t*)inf, fe_from<12>(beta),
-        field_from<12>(field), N);
+    pack_glv_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)x, sx, (const int32_t*)y, sy, (const uint8_t*)inf, fe_from<NL>(beta),
+        field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
+
+#if MSM_AT(12)
+extern "C" int msm_pack_glv(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
+                            const uint32_t* beta, const uint32_t* field, int N, void* stream) {
+  return launch<12>(out, x, sx, y, sy, inf, beta, field, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_pack_glv_n13(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
+                                const uint32_t* beta, const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, x, sx, y, sy, inf, beta, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_pack_glv_n9(void* out, const void* x, int sx, const void* y, int sy, const void* inf,
+                               const uint32_t* beta, const uint32_t* field, int N, void* stream) {
+  return launch<9>(out, x, sx, y, sy, inf, beta, field, N, stream);
+}
+#endif

@@ -150,29 +150,69 @@ proj_add_rcb_few_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int3
 }
 
 // few: 0 six threads a lane, 1 a block a lane
-extern "C" int msm_proj_add_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
-                                const void* X2, const void* Y2, const void* Z2, const uint32_t* b3,
-                                const uint32_t* mu, const uint32_t* field, int N, int few, void* stream) {
+template <int NL>
+static int launch(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1, const void* X2,
+                  const void* Y2, const void* Z2, const uint32_t* b3, const uint32_t* mu, const uint32_t* field,
+                  int N, int few, void* stream) {
   int32_t *x3 = (int32_t*)X3, *y3 = (int32_t*)Y3, *z3 = (int32_t*)Z3;
   const int32_t *x1 = (const int32_t*)X1, *y1 = (const int32_t*)Y1, *z1 = (const int32_t*)Z1;
   const int32_t *x2 = (const int32_t*)X2, *y2 = (const int32_t*)Y2, *z2 = (const int32_t*)Z2;
   cudaStream_t st = (cudaStream_t)stream;
   if (N > 0 && few)
-    proj_add_rcb_few_kernel<12><<<N, 32 * COOP_ADD_WARPS, 0, st>>>(
-        x3, y3, z3, x1, y1, z1, x2, y2, z2, fe_from<12>(b3), fe_from<12>(mu), field_from<12>(field), N);
+    proj_add_rcb_few_kernel<NL><<<N, 32 * COOP_ADD_WARPS, 0, st>>>(
+        x3, y3, z3, x1, y1, z1, x2, y2, z2, fe_from<NL>(b3), fe_from<NL>(mu), field_from<NL>(field), N);
   else if (N > 0)
-    proj_add_rcb_kernel<12><<<(N + 31) / 32, 32 * ADD_WARPS, 0, st>>>(
-        x3, y3, z3, x1, y1, z1, x2, y2, z2, fe_from<12>(b3), field_from<12>(field), N);
+    proj_add_rcb_kernel<NL><<<(N + 31) / 32, 32 * ADD_WARPS, 0, st>>>(
+        x3, y3, z3, x1, y1, z1, x2, y2, z2, fe_from<NL>(b3), field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
 
-// resident blocks a SM of each body (few as in msm_proj_add_rcb): with the
-// lanes a block carries, the lanes one wave of a launch covers
-extern "C" int msm_proj_add_rcb_blocks_per_sm(int few) {
+#if MSM_AT(12)
+extern "C" int msm_proj_add_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
+                                const void* X2, const void* Y2, const void* Z2, const uint32_t* b3,
+                                const uint32_t* mu, const uint32_t* field, int N, int few, void* stream) {
+  return launch<12>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, mu, field, N, few, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_proj_add_rcb_n13(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1,
+                                    const void* Z1, const void* X2, const void* Y2, const void* Z2,
+                                    const uint32_t* b3, const uint32_t* mu, const uint32_t* field, int N, int few,
+                                    void* stream) {
+  return launch<13>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, mu, field, N, few, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_proj_add_rcb_n9(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
+                                   const void* X2, const void* Y2, const void* Z2, const uint32_t* b3,
+                                   const uint32_t* mu, const uint32_t* field, int N, int few, void* stream) {
+  return launch<9>(X3, Y3, Z3, X1, Y1, Z1, X2, Y2, Z2, b3, mu, field, N, few, stream);
+}
+#endif
+
+// resident blocks a SM of each body (few as in msm_proj_add_rcb) at this
+// entry point's limb count: with the lanes a block carries, the lanes one
+// wave of a launch covers
+template <int NL>
+static int blocks_per_sm(int few) {
   int blocks = 0;
   if (few)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, proj_add_rcb_few_kernel<12>, 32 * COOP_ADD_WARPS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, proj_add_rcb_few_kernel<NL>, 32 * COOP_ADD_WARPS, 0);
   else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, proj_add_rcb_kernel<12>, 32 * ADD_WARPS, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, proj_add_rcb_kernel<NL>, 32 * ADD_WARPS, 0);
   return blocks;
 }
+
+#if MSM_AT(12)
+extern "C" int msm_proj_add_rcb_blocks_per_sm(int few) { return blocks_per_sm<12>(few); }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_proj_add_rcb_blocks_per_sm_n13(int few) { return blocks_per_sm<13>(few); }
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_proj_add_rcb_blocks_per_sm_n9(int few) { return blocks_per_sm<9>(few); }
+#endif

@@ -48,12 +48,36 @@ proj_combine_rcb_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int3
   coop_store_point(X3, Y3, Z3, N, i, S);
 }
 
+template <int NL>
+static int launch(void* X3, void* Y3, void* Z3, const void* WX, const void* WY, const void* WZ, int K, int c,
+                  const uint32_t* b3, const uint32_t* mu, const uint32_t* field, int N, void* stream) {
+  if (N > 0 && K > 0 && c > 0)
+    proj_combine_rcb_kernel<NL><<<N, 32 * COOP_ADD_WARPS, 0, (cudaStream_t)stream>>>(
+        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)WX, (const int32_t*)WY, (const int32_t*)WZ, K,
+        c, fe_from<NL>(b3), fe_from<NL>(mu), field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_proj_combine_rcb(void* X3, void* Y3, void* Z3, const void* WX, const void* WY,
                                     const void* WZ, int K, int c, const uint32_t* b3, const uint32_t* mu,
                                     const uint32_t* field, int N, void* stream) {
-  if (N > 0 && K > 0 && c > 0)
-    proj_combine_rcb_kernel<12><<<N, 32 * COOP_ADD_WARPS, 0, (cudaStream_t)stream>>>(
-        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)WX, (const int32_t*)WY, (const int32_t*)WZ, K,
-        c, fe_from<12>(b3), fe_from<12>(mu), field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(X3, Y3, Z3, WX, WY, WZ, K, c, b3, mu, field, N, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_proj_combine_rcb_n13(void* X3, void* Y3, void* Z3, const void* WX, const void* WY,
+                                        const void* WZ, int K, int c, const uint32_t* b3, const uint32_t* mu,
+                                        const uint32_t* field, int N, void* stream) {
+  return launch<13>(X3, Y3, Z3, WX, WY, WZ, K, c, b3, mu, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_proj_combine_rcb_n9(void* X3, void* Y3, void* Z3, const void* WX, const void* WY,
+                                       const void* WZ, int K, int c, const uint32_t* b3, const uint32_t* mu,
+                                       const uint32_t* field, int N, void* stream) {
+  return launch<9>(X3, Y3, Z3, WX, WY, WZ, K, c, b3, mu, field, N, stream);
+}
+#endif

@@ -52,16 +52,41 @@ proj_dbl_rcb_few_kernel(int32_t* __restrict__ X3, int32_t* __restrict__ Y3, int3
   coop_store_point(X3, Y3, Z3, N, i, S);
 }
 
+template <int NL>
+static int launch(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1, int k,
+                  const uint32_t* b3, const uint32_t* mu, const uint32_t* field, int N, int few,
+                  void* stream) {
+  if (N > 0 && few)
+    proj_dbl_rcb_few_kernel<NL><<<N, 32 * COOP_DBL_WARPS, 0, (cudaStream_t)stream>>>(
+        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
+        fe_from<NL>(b3), fe_from<NL>(mu), field_from<NL>(field), N);
+  else if (N > 0)
+    proj_dbl_rcb_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
+        fe_from<NL>(b3), field_from<NL>(field), N);
+  return (int)cudaGetLastError();
+}
+
+#if MSM_AT(12)
 extern "C" int msm_proj_dbl_rcb(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1, const void* Z1,
                                 int k, const uint32_t* b3, const uint32_t* mu, const uint32_t* field, int N,
                                 int few, void* stream) {
-  if (N > 0 && few)
-    proj_dbl_rcb_few_kernel<12><<<N, 32 * COOP_DBL_WARPS, 0, (cudaStream_t)stream>>>(
-        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
-        fe_from<12>(b3), fe_from<12>(mu), field_from<12>(field), N);
-  else if (N > 0)
-    proj_dbl_rcb_kernel<12><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-        (int32_t*)X3, (int32_t*)Y3, (int32_t*)Z3, (const int32_t*)X1, (const int32_t*)Y1, (const int32_t*)Z1, k,
-        fe_from<12>(b3), field_from<12>(field), N);
-  return (int)cudaGetLastError();
+  return launch<12>(X3, Y3, Z3, X1, Y1, Z1, k, b3, mu, field, N, few, stream);
 }
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_proj_dbl_rcb_n13(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1,
+                                    const void* Z1, int k, const uint32_t* b3, const uint32_t* mu,
+                                    const uint32_t* field, int N, int few, void* stream) {
+  return launch<13>(X3, Y3, Z3, X1, Y1, Z1, k, b3, mu, field, N, few, stream);
+}
+#endif
+
+#if MSM_AT(9)
+extern "C" int msm_proj_dbl_rcb_n9(void* X3, void* Y3, void* Z3, const void* X1, const void* Y1,
+                                   const void* Z1, int k, const uint32_t* b3, const uint32_t* mu,
+                                   const uint32_t* field, int N, int few, void* stream) {
+  return launch<9>(X3, Y3, Z3, X1, Y1, Z1, k, b3, mu, field, N, few, stream);
+}
+#endif

@@ -5,7 +5,9 @@
 // "sqr_n_{m}" (:850, one kernel per static m). FieldOps.sqrt runs it once
 // per 4-bit window of the 2-Sylow discrete log, for the chain that brings t
 // down to the window (42, 38, ..., 2 squarings at BLS12-377's M = 46).
-// Entry points: msm_sqr_n (12 limbs) and msm_sqr_n_n9 (9 limbs).
+// Entry points: msm_sqr_n (12 limbs), msm_sqr_n_n13 (13 limbs; BLS12-381's
+// M = 1 needs no chain, so its sqrt never launches it) and msm_sqr_n_n9 (9
+// limbs: Pallas, M = 32, and ed-on-bls12-377).
 //
 // Bound on this card: m squarings per lane (fe_sqr: NL (NL + 1) / 2 + NL^2
 // 32x32->64 multiplies each) against 8 NL bytes moved, so integer multiply
@@ -33,10 +35,20 @@ static int launch(void* out, const void* x, int m, const uint32_t* field, int N,
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_sqr_n(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
   return launch<12>(out, x, m, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_sqr_n_n13(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
+  return launch<13>(out, x, m, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_sqr_n_n9(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, m, field, N, stream);
 }
+#endif

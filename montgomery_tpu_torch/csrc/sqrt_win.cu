@@ -12,7 +12,8 @@
 // v (while later bits of the window need it) takes v g^(-2^(M - lk + i)),
 // t (unless this is the last window) t g^(-2^j) and r (from bit position
 // j = 4k + i >= 1 on) r g^(-2^(j - 1)), exactly the JAX package's indices.
-// Entry points: msm_sqrt_win (12 limbs) and msm_sqrt_win_n9 (9 limbs).
+// Entry points: msm_sqrt_win (12 limbs), msm_sqrt_win_n13 (13 limbs:
+// BLS12-381's one window of lk = 1) and msm_sqrt_win_n9 (9 limbs).
 //
 // Bound on this card: lk (lk - 1) / 2 squarings and up to 3 lk products per
 // lane against 20 NL + 4 bytes moved: integer multiply throughput. Design:
@@ -80,14 +81,26 @@ static int launch(void* t_out, void* r_out, void* digit_out, const void* t, cons
   return (int)cudaGetLastError();
 }
 
+#if MSM_AT(12)
 extern "C" int msm_sqrt_win(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
                             const void* s, const void* g_table, const uint32_t* one, int k, int lk, int M,
                             int last, const uint32_t* field, int N, void* stream) {
   return launch<12>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
 }
+#endif
 
+#if MSM_AT(13)
+extern "C" int msm_sqrt_win_n13(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
+                                const void* s, const void* g_table, const uint32_t* one, int k, int lk,
+                                int M, int last, const uint32_t* field, int N, void* stream) {
+  return launch<13>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
+}
+#endif
+
+#if MSM_AT(9)
 extern "C" int msm_sqrt_win_n9(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
                                const void* s, const void* g_table, const uint32_t* one, int k, int lk,
                                int M, int last, const uint32_t* field, int N, void* stream) {
   return launch<9>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
 }
+#endif

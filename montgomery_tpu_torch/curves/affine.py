@@ -7,8 +7,8 @@ planes (n, *batch) with bool infinity masks (*batch). The MSM engine keeps
 points as ONE int32 array of rows [x (n) | y (n) | inf (1)], so every pair
 round gathers one column per operand. The JAX package packed two 13-bit
 limbs into each int32 row; this port's limbs are whole 32-bit words, so a
-packed point is 2n + 1 = 25 rows for BLS12-377 and there is no 16-bit
-packing.
+packed point is 2n + 1 rows (25 for BLS12-377, 27 for BLS12-381, 19 for
+Pallas) and there is no 16-bit packing.
 
 Kernels (`csrc/`): `aff_pre` and `aff_post` sit around `FieldOps.batch_inv`
 in the planar safe (complete) add, `aff_pre_unsafe` (with an optional
@@ -34,40 +34,45 @@ from .projective import AffineBatch
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
 PACK_GLV = kernels.Kernel(
-    "pack_glv", {12: "msm_pack_glv"}, "montgomery_tpu_torch/csrc/pack_glv.cu",
+    "pack_glv", kernels.symbols("pack_glv", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/pack_glv.cu",
     "montgomery_tpu/curves/affine.py:261",
     [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
 )
 AFF_PRE_PACKED_U = kernels.Kernel(
-    "aff_pre_packed_u", {12: "msm_aff_pre_packed_u"},
+    "aff_pre_packed_u", kernels.symbols("aff_pre_packed_u", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/aff_pre_packed_u.cu",
     "montgomery_tpu/curves/affine.py:341",
     [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST_PACKED_U = kernels.Kernel(
-    "aff_post_packed_u", {12: "msm_aff_post_packed_u"},
+    "aff_post_packed_u", kernels.symbols("aff_post_packed_u", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/aff_post_packed_u.cu",
     "montgomery_tpu/curves/affine.py:345",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _U32P, _INT],
 )
 AFF_PRE_PACKED = kernels.Kernel(
-    "aff_pre_packed", {12: "msm_aff_pre_packed"}, "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
+    "aff_pre_packed", kernels.symbols("aff_pre_packed", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
     "montgomery_tpu/curves/affine.py:350",
     [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST_PACKED = kernels.Kernel(
-    "aff_post_packed", {12: "msm_aff_post_packed"}, "montgomery_tpu_torch/csrc/aff_post_packed.cu",
+    "aff_post_packed", kernels.symbols("aff_post_packed", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_post_packed.cu",
     "montgomery_tpu/curves/affine.py:355",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _INT],
 )
 
 AFF_PRE = kernels.Kernel(
-    "aff_pre", {12: "msm_aff_pre"}, "montgomery_tpu_torch/csrc/aff_pre.cu",
+    "aff_pre", kernels.symbols("aff_pre", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_pre.cu",
     "montgomery_tpu/curves/affine.py:134",
     [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST = kernels.Kernel(
-    "aff_post", {12: "msm_aff_post"}, "montgomery_tpu_torch/csrc/aff_post.cu",
+    "aff_post", kernels.symbols("aff_post", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_post.cu",
     "montgomery_tpu/curves/affine.py:140",
     [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _VP,
      _U32P, _INT],
@@ -75,12 +80,14 @@ AFF_POST = kernels.Kernel(
 # one kernel for both of the JAX package's unsafe pre stages: aff_pre_unsafe
 # (:180) and, with a validity mask, aff_pre_masked (:184)
 AFF_PRE_UNSAFE = kernels.Kernel(
-    "aff_pre_unsafe", {12: "msm_aff_pre_unsafe"}, "montgomery_tpu_torch/csrc/aff_pre_unsafe.cu",
+    "aff_pre_unsafe", kernels.symbols("aff_pre_unsafe", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_pre_unsafe.cu",
     "montgomery_tpu/curves/affine.py:180,184",
     [_VP, _VP, _INT, _VP, _INT, _VP, _U32P, _U32P, _INT],
 )
 AFF_POST_UNSAFE = kernels.Kernel(
-    "aff_post_unsafe", {12: "msm_aff_post_unsafe"}, "montgomery_tpu_torch/csrc/aff_post_unsafe.cu",
+    "aff_post_unsafe", kernels.symbols("aff_post_unsafe", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/aff_post_unsafe.cu",
     "montgomery_tpu/curves/affine.py:190",
     [_VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _U32P, _INT],
 )

@@ -25,19 +25,21 @@ _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 # lane, 1 one block a lane (the few-lane path, below
 # ProjectiveOps.FEW_ADD_LANES)
 PROJ_ADD_RCB = kernels.Kernel(
-    "proj_add_rcb", {12: "msm_proj_add_rcb"}, "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
+    "proj_add_rcb", kernels.symbols("proj_add_rcb", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/proj_add_rcb.cu",
     "montgomery_tpu/curves/projective.py:156",
     [_VP] * 9 + [_U32P, _U32P, _U32P, _INT, _INT],
 )
 # the last C argument before the stream picks the body: 0 one thread a lane,
 # 1 one block a lane (the few-lane path, below ProjectiveOps.FEW_LANES)
 PROJ_DBL_RCB = kernels.Kernel(
-    "proj_dbl_rcb", {12: "msm_proj_dbl_rcb"}, "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
+    "proj_dbl_rcb", kernels.symbols("proj_dbl_rcb", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/proj_dbl_rcb.cu",
     "montgomery_tpu/curves/projective.py:258",
     [_VP] * 6 + [_INT, _U32P, _U32P, _U32P, _INT, _INT],
 )
 PROJ_COMBINE_RCB = kernels.Kernel(
-    "proj_combine_rcb", {12: "msm_proj_combine_rcb"},
+    "proj_combine_rcb", kernels.symbols("proj_combine_rcb", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/proj_combine_rcb.cu", "montgomery_tpu/msm/pippenger.py:508",
     [_VP] * 6 + [_INT, _INT, _U32P, _U32P, _U32P, _INT],
 )

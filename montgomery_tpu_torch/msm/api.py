@@ -97,7 +97,8 @@ def _point_planes(f: FieldOps, data) -> tuple[np.ndarray, np.ndarray]:
 class WeierstrassMsm:
     """MSM context for a short-Weierstrass curve with a = 0, on `device`
     (the card unless the caller asks for the CPU). On the card the field
-    must have the Weierstrass kernels' limb count (BLS12-377)."""
+    must have a limb count the Weierstrass kernels are instantiated at: 12
+    (BLS12-377), 13 (BLS12-381) or 9 (Pallas)."""
 
     identity_xy = (0, 0)  # the affine encoding of the point at infinity
 

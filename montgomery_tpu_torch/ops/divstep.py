@@ -38,13 +38,13 @@ from . import kernels
 from . import limbs as codec
 
 LIMB_BITS = 30
-N_LIMBS = 13  # limbs of the plain version: 390 signed bits, enough for n <= 12
+N_LIMBS = 13  # limbs of the plain version: 390 signed bits, enough for p up to 382 bits
 BATCH = 30  # divsteps per transition matrix
 SHIFTS = 7  # DS_SHIFTS: the end value is brought into [0, p) by 2^j p, j < SHIFTS
 _MASK = (1 << LIMB_BITS) - 1
 
 DIVSTEP_INV_MONT = kernels.Kernel(
-    "divstep_inv_mont", {12: "msm_divstep_inv_mont", 9: "msm_divstep_inv_mont_n9"},
+    "divstep_inv_mont", kernels.symbols("divstep_inv_mont", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/divstep_inv_mont.cu",
     "montgomery_tpu/ops/field.py:761",
     [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.U32P, kernels.INT],
@@ -67,7 +67,8 @@ def iterations(d: int) -> int:
 
 def kernel_limbs(n: int) -> int:
     """30-bit limbs of the kernel's numbers for a field of n 32-bit words
-    (ds_limbs of csrc/divstep_inv_mont.cu): 13 at n = 12, 10 at n = 9."""
+    (ds_limbs of csrc/divstep_inv_mont.cu): 13 at n = 12, 14 at n = 13, 10
+    at n = 9."""
     return -(-32 * n // LIMB_BITS)
 
 

@@ -26,23 +26,25 @@ from . import limbs as codec
 _M16 = 0xFFFF
 
 MUL_CONST = kernels.Kernel(
-    "mul_const", {12: "msm_mul_const", 9: "msm_mul_const_n9"},
+    "mul_const", kernels.symbols("mul_const", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/mul_const.cu",
     "montgomery_tpu/ops/field.py:581",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.U32P, kernels.INT],
 )
 MONT_MUL = kernels.Kernel(
-    "mont_mul", {12: "msm_mont_mul", 9: "msm_mont_mul_n9"}, "montgomery_tpu_torch/csrc/mont_mul.cu",
+    "mont_mul", kernels.symbols("mont_mul", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/mont_mul.cu",
     "montgomery_tpu/ops/field.py:443",
     [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 MONT_SQR = kernels.Kernel(
-    "mont_sqr", {12: "msm_mont_sqr"}, "montgomery_tpu_torch/csrc/mont_sqr.cu",
+    "mont_sqr", kernels.symbols("mont_sqr", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/mont_sqr.cu",
     "montgomery_tpu/ops/field.py:533",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 EXP_LADDER = kernels.Kernel(
-    "exp_ladder", {12: "msm_exp_ladder", 9: "msm_exp_ladder_n9"},
+    "exp_ladder", kernels.symbols("exp_ladder", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/exp_ladder.cu",
     "montgomery_tpu/ops/field.py:668",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.INT, kernels.U32P, kernels.INT],
@@ -50,12 +52,14 @@ EXP_LADDER = kernels.Kernel(
 # one run-time-m kernel for both of the JAX package's call sites: sqr_n_dyn
 # (:839) and the static-m sqr_n_{m} (:850)
 SQR_N = kernels.Kernel(
-    "sqr_n", {12: "msm_sqr_n", 9: "msm_sqr_n_n9"}, "montgomery_tpu_torch/csrc/sqr_n.cu",
+    "sqr_n", kernels.symbols("sqr_n", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/sqr_n.cu",
     "montgomery_tpu/ops/field.py:839,850",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 SQRT_WIN = kernels.Kernel(
-    "sqrt_win", {12: "msm_sqrt_win", 9: "msm_sqrt_win_n9"}, "montgomery_tpu_torch/csrc/sqrt_win.cu",
+    "sqrt_win", kernels.symbols("sqrt_win", *kernels.WEIERSTRASS_LIMBS),
+    "montgomery_tpu_torch/csrc/sqrt_win.cu",
     "montgomery_tpu/ops/field.py:955",
     [kernels.VP] * 7 + [kernels.U32P] + [kernels.INT] * 4 + [kernels.U32P, kernels.INT],
 )

@@ -5,7 +5,8 @@ Counterpart of `montgomery_tpu/ops/kernels.py` (`fused`, `pallas_map`,
 TPU. Here every kernel is CUDA C++ under `montgomery_tpu_torch/csrc/`, built
 by `nvcc` for sm_90a into a shared library with a plain C interface, keyed by
 a hash of the sources, and called through `ctypes`. Each `.cu` file compiles
-in its own `nvcc` process, all started together, and one link joins them.
+in its own `nvcc` process per limb count it instantiates, as many at a time
+as there are CPUs, and one link joins them.
 
 Dispatch rule, shared by every wrapper: tensors on the CPU go to the kernel's
 plain PyTorch version (which lives beside the wrapper); tensors on a CUDA
@@ -13,9 +14,10 @@ device go to the kernel, or the call raises. Nothing falls back.
 
 The device code is templated over the limb count of a field element
 (`csrc/field.cuh`), and each kernel's source instantiates the counts its
-callers need: 12 limbs of 32 bits for BLS12-377's base field, 9 for
-ed-on-bls12-377's. A `Kernel` maps each limb count it was built for to its C
-symbol, and a launch at any other count raises `NotImplementedError` before
+callers need: every Weierstrass kernel 12 limbs of 32 bits (BLS12-377's base
+field), 13 (BLS12-381's) and 9 (Pallas's), the Twisted Edwards kernels 9
+(ed-on-bls12-377's). A `Kernel` maps each limb count it was built for to its
+C symbol, and a launch at any other count raises `NotImplementedError` before
 it reaches the card.
 """
 
@@ -42,6 +44,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 LIB_NAME = "libmsm_kernels.so"
+# sources whose kernels take ptxas longest (one thread carrying nine or more
+# products: the RCB doubling, the Edwards add and doubling; the ladder): their
+# processes start first
+SLOW_SOURCES = ("proj_dbl_rcb.cu", "ed_add.cu", "exp_ladder.cu")
 
 
 def _sources() -> list[Path]:
@@ -94,38 +100,75 @@ class _Library:
 
     @staticmethod
     def _compile(out_dir: Path, cus: list[Path], lib_path: Path) -> None:
-        """One nvcc process per source, all running at once, then one link."""
+        """One nvcc process per source and limb count, then one link. A
+        source whose entry points sit under MSM_AT(n) (csrc/field.cuh)
+        compiles once per such n, with -DMSM_LIMBS=n, so no process builds
+        more than one count's kernels. At most one process a CPU runs at a
+        time, those of SLOW_SOURCES first, so that the longest ones do not
+        share their CPUs with the rest. The log gives each process's end
+        and run time."""
         nvcc, tag = _nvcc(), os.getpid()
         jobs = []
         for cu in cus:
-            obj = out_dir / f"{cu.stem}.{tag}.o"
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)]
-            jobs.append((cu, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        logs, failed = [], []
-        for cu, _, proc in jobs:  # wait for every process, failed or not
-            out, _ = proc.communicate()
-            logs.append(f"== {cu.name}\n{out}")
-            if proc.returncode != 0:
-                failed.append(f"{cu.name} ({proc.returncode}):\n{out[-4000:]}")
+            text = cu.read_text()
+            for n in [n for n in WEIERSTRASS_LIMBS if f"MSM_AT({n})" in text] or [None]:
+                label = cu.name if n is None else f"{cu.name} n={n}"
+                obj = out_dir / f"{cu.stem}{'' if n is None else f'.n{n}'}.{tag}.o"
+                defs = [] if n is None else [f"-DMSM_LIMBS={n}"]
+                cmd = [nvcc, *NVCC_FLAGS, *defs, "-c", "-I", str(CSRC), "-o", str(obj), str(cu)]
+                slow = SLOW_SOURCES.index(cu.name) if cu.name in SLOW_SOURCES else len(SLOW_SOURCES)
+                jobs.append({"label": label, "obj": obj, "cmd": cmd, "order": (slow, -(n or 0))})
+        queue = sorted(jobs, key=lambda job: job["order"])
+        lock, t0 = threading.Lock(), time.perf_counter()
+
+        def worker():  # runs every process it takes, failed or not
+            while True:
+                with lock:
+                    if not queue:
+                        return
+                    job = queue.pop(0)
+                start = time.perf_counter()
+                res = subprocess.run(job["cmd"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                job["out"], job["rc"] = res.stdout, res.returncode
+                job["end"], job["ran"] = time.perf_counter() - t0, time.perf_counter() - start
+
+        workers = [threading.Thread(target=worker) for _ in range(min(len(jobs), os.cpu_count() or 1))]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        logs = [f"== {job['label']} (ended {job['end']:.1f} s, ran {job['ran']:.1f} s)\n{job['out']}"
+                for job in jobs]
+        failed = [f"{job['label']} ({job['rc']}):\n{job['out'][-4000:]}" for job in jobs if job["rc"] != 0]
         tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
         if not failed:
             res = subprocess.run(
                 [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-                 "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]],
+                 "-o", str(tmp), *[str(job["obj"]) for job in jobs]],
                 capture_output=True, text=True)
             logs.append(f"== link\n{res.stdout}{res.stderr}")
             if res.returncode != 0:
                 failed.append(f"link ({res.returncode}):\n{res.stderr[-4000:]}")
         (out_dir / "build.log").write_text("\n".join(logs))
-        for _, obj, _ in jobs:
-            obj.unlink(missing_ok=True)
+        for job in jobs:
+            job["obj"].unlink(missing_ok=True)
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, lib_path)
 
 
 LIBRARY = _Library()
+
+# the limb counts of the Weierstrass curves' base fields, at which every
+# Weierstrass kernel is instantiated: BLS12-377 (12), BLS12-381 (13), Pallas (9)
+WEIERSTRASS_LIMBS = (12, 13, 9)
+
+
+def symbols(stem: str, *counts: int) -> dict:
+    """{n: C symbol} of a kernel's entry points at the limb counts `counts`:
+    msm_<stem> at 12 limbs, msm_<stem>_n<n> at any other count."""
+    return {n: f"msm_{stem}" if n == 12 else f"msm_{stem}_n{n}" for n in counts}
+
 
 # every Kernel registers here, so a run can list kernels and reset counts
 REGISTRY: dict[str, "Kernel"] = {}
@@ -240,8 +283,8 @@ def check_limbs(kernel: Kernel, n: int | None) -> None:
         have = sorted(k for k in kernel.symbols if k is not None)
         raise NotImplementedError(
             f"kernel {kernel.name} is compiled for {have} limbs of 32 bits; this field needs "
-            f"{n}: see ROADMAP, \"Other Weierstrass curves on the card\" (on the CPU, pass "
-            f"device='cpu' to run the plain versions)")
+            f"{n} (on the CPU, pass device='cpu' to run the plain versions, which take any "
+            f"limb count)")
 
 
 @functools.lru_cache(maxsize=None)

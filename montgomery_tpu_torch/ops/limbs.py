@@ -3,8 +3,9 @@
 Counterpart of `montgomery_tpu/ops/limbs.py`. A batch of N field elements is
 an (n, N) int32 tensor with the batch on the minor axis, so limb k of lane i
 sits at flat offset k*N + i and a warp's loads are coalesced. Field elements
-use 32-bit limbs stored as int32 bit patterns (W = 32, n = 12 for the 377-bit
-BLS12-377 base field); scalars keep the JAX package's 13-bit limbs, because
+use 32-bit limbs stored as int32 bit patterns (W = 32; n = 12 for the 377-bit
+BLS12-377 base field, 13 for BLS12-381's, 9 for Pallas's and
+ed-on-bls12-377's); scalars keep the JAX package's 13-bit limbs, because
 the GLV decomposition's truncated products are defined on that limb grid.
 """
 

@@ -8,9 +8,9 @@ one to-Montgomery launch, with no per-point Python; int inputs pay one
 with the safe add (`WeierstrassMsm.msm_full`'s default), the Twisted Edwards
 curve its packed extended-coordinate engine (`EdwardsMsm.msm_full`).
 
-Curves: BLS12-377 and ed-on-bls12-377 on the card and on the CPU; BLS12-381
-and Pallas on the CPU only (their fields need limb counts that the
-Weierstrass kernels are not instantiated at).
+Curves, on the card and on the CPU: BLS12-377, BLS12-381 and Pallas (the
+Weierstrass kernels are instantiated at their fields' 12, 13 and 9 limbs of
+32 bits) and ed-on-bls12-377 (9 limbs).
 """
 
 from __future__ import annotations

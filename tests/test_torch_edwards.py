@@ -10,6 +10,7 @@ Port tensors live on the CPU, so the kernels' plain versions run; the launch
 guard of the card is checked without a device.
 """
 
+import dataclasses
 import random
 
 import jax
@@ -30,7 +31,7 @@ from montgomery_tpu_torch.concrete import ED_ON_BLS12_377, PALLAS
 from montgomery_tpu_torch.curves import affine, edwards, projective
 from montgomery_tpu_torch.curves.edwards import EdwardsBatch, EdwardsOps
 from montgomery_tpu_torch.curves.random import random_points_fast_edwards, table_bases, table_indices
-from montgomery_tpu_torch.msm import WeierstrassMsm
+from montgomery_tpu_torch.msm import WeierstrassMsm, api
 from montgomery_tpu_torch.ops import alt_mul, divstep, kernels
 from montgomery_tpu_torch.ops import limbs as codec
 from montgomery_tpu_torch.ops.field import MONT_MUL, MONT_SQR, MUL_CONST, create_field_ops
@@ -301,31 +302,39 @@ def test_random_points_fast_edwards():
 
 
 def test_launch_guard_by_kernel():
-    """kernels.field_params accepts 9 limbs only for the kernels the TE path
-    runs at n = 9, 12 for every field kernel, and 13 for none: no launch can
-    hand planes of another width to a kernel."""
+    """kernels.field_params accepts 9 limbs for the kernels the TE path runs
+    and for every Weierstrass kernel (Pallas), 12 for every field kernel but
+    the Edwards ones, 13 (BLS12-381) for the Weierstrass kernels alone, and
+    15 for none: no launch can hand planes of another width to a kernel."""
     nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed",
             "exp_ladder", "sqr_n", "sqrt_win", divstep.DIVSTEP_INV.name, alt_mul.BARRETT_MUL.name}
     field_kernels = {k for k in kernels.REGISTRY.values() if None not in k.symbols}
     assert {k.name for k in field_kernels} >= nine | {"proj_add_rcb", "aff_pre_packed", "mont_sqr"}
     for k in field_kernels:
-        for n in (9, 12, 13):
-            ok = n == 9 and k.name in nine or n == 12 and not k.name.startswith("ed_")
+        weierstrass = not k.name.startswith("ed_") and k.name not in (divstep.DIVSTEP_INV.name,
+                                                                      alt_mul.BARRETT_MUL.name)
+        for n in (9, 12, 13, 15):
+            ok = (n == 9 and (k.name in nine or weierstrass) or n == 12 and not k.name.startswith("ed_")
+                  or n == 13 and weierstrass)
             if ok:
                 assert len(kernels.field_params(k, P, n, 1)) == 3 * n + 1
             else:
-                with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
+                with pytest.raises(NotImplementedError, match=f"this field needs {n}"):
                     kernels.field_params(k, P, n, 1)
     for k in (projective.PROJ_ADD_RCB, projective.PROJ_DBL_RCB, affine.AFF_PRE_PACKED,
               affine.AFF_POST_PACKED, affine.PACK_GLV, MONT_SQR):
         with pytest.raises(NotImplementedError):
-            k.launch(n=9, device=torch.device("cuda"))  # refused before the library is touched
-    assert set(edwards.ED_ADD.symbols) == {9} and set(MONT_MUL.symbols) == set(MUL_CONST.symbols) == {9, 12}
+            k.launch(n=15, device=torch.device("cuda"))  # refused before the library is touched
+    assert set(edwards.ED_ADD.symbols) == {9}
+    assert set(MONT_MUL.symbols) == set(MUL_CONST.symbols) == set(MONT_SQR.symbols) == {9, 12, 13}
 
 
 def test_weierstrass_guard_on_cuda(monkeypatch):
-    """WeierstrassMsm on the card still refuses Pallas (9 limbs: its field
-    kernels exist at 9, its curve kernels do not) before any launch."""
+    """WeierstrassMsm on the card takes Pallas (9 limbs: its curve kernels
+    exist at 9 beside the Edwards ones) and refuses a field of a limb count
+    no kernel is built at (a 448-bit prime: 15) before any launch."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
-        WeierstrassMsm(PALLAS, device="cuda")
+    monkeypatch.setattr(api, "_CTX_CACHE", {})  # the context built here leaves with the patch
+    assert WeierstrassMsm(PALLAS, device="cuda").fops.n == 9
+    with pytest.raises(NotImplementedError, match="this field needs 15"):
+        WeierstrassMsm(dataclasses.replace(PALLAS, modulus=(1 << 448) - (1 << 224) - 1), device="cuda")

@@ -14,6 +14,7 @@ first) and N = 512 at c = 4 (the 8-way super-round first, read from the
 round log). Port tensors live on the CPU, so the kernels' plain versions run.
 """
 
+import dataclasses
 import random
 
 import jax
@@ -24,13 +25,13 @@ import torch
 from montgomery_tpu.bigint import WeierstrassCurve
 from montgomery_tpu.bigint import msm as oracle_msm
 from montgomery_tpu.bigint.weierstrass import AffinePoint
-from montgomery_tpu.concrete import BLS12_377, BLS12_381
+from montgomery_tpu.concrete import BLS12_377, BLS12_381, PALLAS
 from montgomery_tpu.msm import WeierstrassMsm as JaxMsm
 from montgomery_tpu.ops import kernels as jkernels
 from montgomery_tpu.ops import limbs as jcodec
 from montgomery_tpu_torch import interop
 from montgomery_tpu_torch.curves.affine import CANCEL, DBL, Y1_ZERO
-from montgomery_tpu_torch.msm import WeierstrassMsm
+from montgomery_tpu_torch.msm import WeierstrassMsm, api
 from montgomery_tpu_torch.ops import kernels
 from montgomery_tpu_torch.ops import limbs as codec
 from montgomery_tpu_torch.ops.field import MONT_MUL, FieldOps
@@ -43,6 +44,8 @@ P = BLS12_377.modulus
 Q = BLS12_377.order
 W_JAX = 13
 T = AffinePoint(P - 1, 0)  # (-1)^3 + 1 = 0: the point of order 2 (not in the subgroup)
+# 2^448 - 2^224 - 1, a 448-bit prime: 15 limbs of 32 bits, a count no kernel is built at
+P448 = (1 << 448) - (1 << 224) - 1
 
 # the add's lanes, one flag class each, twice (A's sign 0, then 1): ordinary,
 # A == B (doubling), B = A with the other sign (cancel), A infinite, B
@@ -274,14 +277,19 @@ def test_safe_msm_matches_oracle(ctx, N, c, first):
 
 
 def test_cuda_limb_guard(monkeypatch):
-    """On the card, a field whose limb count is not the kernels' (BLS12-381:
-    13) raises before any launch; checked without a device."""
-    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
-        FieldOps(BLS12_381.modulus).field_words(MONT_MUL)
-    kernels.check_limbs(MONT_MUL, FieldOps(P).n)
+    """On the card, a field whose limb count no kernel is built for (a
+    448-bit prime: 15 limbs) raises before any launch, while BLS12-381 (13)
+    and Pallas (9) construct; checked without a device."""
+    with pytest.raises(NotImplementedError, match=r"compiled for \[9, 12, 13\] limbs.*needs 15"):
+        FieldOps(P448).field_words(MONT_MUL)
+    for p in (P, BLS12_381.modulus, PALLAS.modulus):
+        kernels.check_limbs(MONT_MUL, FieldOps(p).n)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
-        WeierstrassMsm(BLS12_381, device="cuda")
+    monkeypatch.setattr(api, "_CTX_CACHE", {})  # the contexts built here leave with the patch
+    with pytest.raises(NotImplementedError, match="this field needs 15"):
+        WeierstrassMsm(dataclasses.replace(BLS12_381, modulus=P448), device="cuda")
+    assert WeierstrassMsm(BLS12_381, device="cuda").fops.n == 13
+    assert WeierstrassMsm(PALLAS, device="cuda").fops.n == 9
     # the plain versions run any limb count on the CPU
     assert WeierstrassMsm(BLS12_381, device="cpu").fops.n == 13
 

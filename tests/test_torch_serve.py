@@ -3,7 +3,7 @@ negative paths, on the CPU (the kernels' plain versions).
 
 Results are held against the bigint oracle of the JAX package, exact, on
 inputs with duplicates, a negated duplicate, the point at infinity (0, 0)
-and a zero scalar; Pallas (n = 9 limbs, CPU only) mirrors
+and a zero scalar; Pallas (n = 9 limbs) mirrors
 tests/test_serve.py. Malformed input raises the exception class that
 montgomery_tpu.serve.compute_msm raises for it (tests/test_negative.py).
 """
@@ -19,7 +19,7 @@ from montgomery_tpu.bigint import msm as oracle_msm
 from montgomery_tpu.bigint.weierstrass import AffinePoint
 from montgomery_tpu.concrete import BLS12_377, PALLAS
 from montgomery_tpu_torch import serve
-from montgomery_tpu_torch.msm import EdwardsMsm, WeierstrassMsm
+from montgomery_tpu_torch.msm import EdwardsMsm, WeierstrassMsm, api
 
 # several test workers share few cores; these small tensors gain nothing
 # from intra-op threads
@@ -133,9 +133,15 @@ def test_curves(monkeypatch):
     with pytest.raises(ValueError, match="endomorphism"):
         serve.get_curve("pallas", device="cpu")
     monkeypatch.undo()
-    # on the card only BLS12-377's limb count fits the kernels (checked
+    # on the card every Weierstrass curve's limb count has its kernels, and a
+    # field of another count (a 448-bit prime: 15 limbs) raises (checked
     # before any device is touched)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    for label in ("bls12-381", "pallas"):
-        with pytest.raises(NotImplementedError, match="Other Weierstrass curves on the card"):
-            serve.get_curve(label)
+    monkeypatch.setattr(api, "_CTX_CACHE", {})  # the contexts built here leave with the patch
+    for label, n in (("bls12-381", 13), ("pallas", 9)):
+        assert serve.get_curve(label).fops.n == n
+    wide = dict(serve.WEIERSTRASS_CURVES)
+    wide["p448"] = dataclasses.replace(wide["pallas"], label="p448", modulus=(1 << 448) - (1 << 224) - 1)
+    monkeypatch.setattr(serve, "WEIERSTRASS_CURVES", wide)
+    with pytest.raises(NotImplementedError, match="this field needs 15"):
+        serve.get_curve("p448")
