@@ -22,7 +22,10 @@ Phases, each printed as it runs:
      kernels) that the operation bounds divide by; the latency of one
      dependent Montgomery product in one thread and on one warp
      (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit), which
-     the window combine's dependent-chain floor multiplies; ptxas of every
+     the window combine's dependent-chain floor multiplies; the latency of
+     the safegcd core's 30 divsteps and matrix application in one thread
+     and of a whole batch on a warp (`csrc/rates/divstep_latency.cu`),
+     which the divstep inverses' floors multiply; ptxas of every
      kernel function (registers, stack frame, spill, shared memory), and
      each instantiation BLS12-381 (13 limbs) and Pallas (9 limbs) brought
      must be in the log; each of glv_digits' three instantiations must show
@@ -62,7 +65,15 @@ Phases, each printed as it runs:
      digits_glv_plain with the edge scalars (0, 1, q - 1, q - 2, 2^252 and
      near-integer s g / 2^m) in the first lanes, BLS12-381's and Pallas's
      instantiations at 2^16, a size it lacks refused, and its device time
-     at 2^20.
+     at 2^20; the safegcd inverse (`redesign_divstep`, here and for
+     BLS12-381 and Pallas in their phase 1): divstep_inv_mont (a warp a
+     lane) at 1, 512 and every root width of the main path at 2^16 and 2^20
+     (recorded from the batch-inversion tree), 10 fresh inputs each with 0,
+     1, p - 1, R mod p, [p, 2p) values and the most-batches input of 2^16
+     drawn in the first lanes, bit for bit; its device time at 512 lanes and
+     at 1 beside inv_mont_divstep's, its bound from the batches the inputs
+     need and its dependent-chain floor; divstep_inv at 512, 2^16, 2^18 and
+     2^18 + 17 lanes bit for bit and timed at 2^18.
      Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
@@ -175,6 +186,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -188,6 +200,7 @@ KERNEL_REPS = 200  # back-to-back launches per kernel timing (tens of ms on the 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
 LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "mul_latency.cu"
+DIVSTEP_LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "divstep_latency.cu"
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
 _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb",
@@ -270,10 +283,16 @@ ADD_SWEEP_REPS = 20  # launches of each body at each width, under the profiler
 # glv_digits: (log2 N, c) of the main paths at 2^16 and 2^20; every c of
 # the window table is checked at both
 GLV_CASES = ((16, 11), (20, 13))
+# the safegcd inverse: draws for the input that needs the most batches;
+# divstep_inv's check widths (timed at the third, the micro-bench's);
+# launches a device timing
+DIVSTEP_DRAW = 1 << 16
+DIVSTEP_INV_LANES = (ROOT_LANES, 1 << 16, 1 << 18, (1 << 18) + 17)
+DIVSTEP_TIMING_REPS = 20
 # the main path's launches (affine-unsafe at 2^20) of the kernels this
 # script's redesign phase holds to their new shapes
 MAIN_PATH_LAUNCHES = {"proj_combine_rcb": 1, "proj_dbl_rcb": 1, "proj_add_rcb": 37, "mont_mul": 236,
-                      "aff_post_packed_u": 12, "glv_digits": 1}
+                      "aff_post_packed_u": 12, "glv_digits": 1, "divstep_inv_mont": 12}
 
 
 def say(*a):
@@ -465,7 +484,7 @@ def phase_env() -> dict:
     say("card:", smi_line())
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
-    probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC)}
+    probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -491,6 +510,7 @@ def phase_env() -> dict:
                     say(f"  ptxas ({name}):", line.strip())
     rates = multiply_rates(probes[RATE_SRC][1], clock)
     rates.update(product_latency(probes[LATENCY_SRC][1]))
+    rates.update(divstep_latency(probes[DIVSTEP_LATENCY_SRC][1]))
     return rates
 
 
@@ -566,15 +586,65 @@ def product_latency(lib_path: Path) -> dict:
     return lat
 
 
+def divstep_latency(lib_path: Path) -> dict:
+    """Latency (s) of the safegcd core's steps on the card at BLS12-377
+    (`csrc/rates/divstep_latency.cu`): one batch of 30 divsteps (constant
+    and variable time) and one matrix application (f, g, d, e), each in one
+    thread, and one whole batch on a warp with its exit vote as
+    divstep_inv_mont runs it; each a chain of dependent steps in one launch
+    of a single warp."""
+    import torch
+
+    from montgomery_tpu_torch.concrete import BLS12_377
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.ops.field import create_field_ops
+    from montgomery_tpu_torch.ops.limbs import to_words
+
+    f = create_field_ops(BLS12_377.modulus)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.divstep_latency
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g = kernels.words(to_words(pow(3, 1000, f.p), f.n))
+    out = torch.empty(32, dtype=torch.int32, device="cuda")
+    lat = {}
+    for which, key, iters in ((0, "lat_divsteps", 4000), (3, "lat_divsteps_var", 4000),
+                              (1, "lat_apply_thread", 1000), (2, "lat_batch_warp", 4000)):
+        def launch(which=which, iters=iters):
+            rc = fn(which, iters, g, f.inv_params.kernel_words, ctypes.c_void_p(out.data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise RuntimeError(f"divstep_latency launch failed, CUDA error {rc}")
+
+        lat[key] = cuda_time_ms(launch, 5) * 1e-3 / iters
+    ends = []
+    for which in (0, 3):
+        if fn(which, 333, g, f.inv_params.kernel_words, ctypes.c_void_p(out.data_ptr()),
+              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)):
+            raise RuntimeError("divstep_latency launch failed")
+        ends.append(out[:3].clone())
+    if not torch.equal(*ends):
+        raise AssertionError("the variable-time divsteps differ from the constant-time ones")
+    say(f"safegcd core latency (BLS12-377, 13 limbs): 30 divsteps {lat['lat_divsteps'] * 1e6:.4f} us "
+        f"(variable time {lat['lat_divsteps_var'] * 1e6:.4f} us), one matrix application in one thread "
+        f"{lat['lat_apply_thread'] * 1e6:.4f} us, one batch on a warp with its exit vote "
+        f"{lat['lat_batch_warp'] * 1e6:.4f} us (chains of 4000, 4000, 1000 and 4000; the two divstep "
+        f"chains end equal)")
+    return lat
+
+
 # ------------------------------------------------------- bounds per kernel
 
 
-def kernel_work(ctx, name: str) -> tuple[int, int, int]:
+def kernel_work(ctx, name: str, batches: float | None = None) -> tuple[int, int, int]:
     """(bytes, wide multiplies, low multiplies) per lane of one call: each
     input read once, each output written once; the multiplies the formula
     needs. A wide multiply is one 32x32->64 product (a product of two
     factors below 2^32 in magnitude); one n-word CIOS Montgomery product
-    needs 2 n^2 of them and n low 32-bit products (the quotient digits)."""
+    needs 2 n^2 of them and n low 32-bit products (the quotient digits).
+    The divstep kernels' loop ends once g = 0: `batches` is the mean over
+    the call's lanes of the batches its inputs need (`divstep_batches`)."""
     from montgomery_tpu_torch.ops import divstep
 
     n = ctx.fops.n
@@ -598,12 +668,13 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
                   for a in range(gd.nu) for j in range(-(-abs(q).bit_length() // gd.w))
                   if a + j < gd.nw)
         return 4 * gd.ns + 8 * gd.num_windows(13), 0, 2 * msb + res
-    # per batch of divsteps: 10 products a 30-bit limb, each of two factors
-    # below 2^31 in magnitude, so one wide multiply each (the kernel holds
-    # its limbs in int64 and spends two), and the 2 low products of the
+    # per batch of divsteps: 10 products a 30-bit limb, each of two int32
+    # factors, so one wide multiply each, and the 2 low products of the
     # quotient digits md, me; the 30 serial divsteps' ALU work is left out
-    # of the floor
-    dsb, wide_b, lo_b = ctx.fops.inv_params.n_batches, 10 * divstep.kernel_limbs(n), 2
+    # of the bound (the dependent-chain floor of the redesign phase holds it)
+    if name in ("divstep_inv_mont", "divstep_inv") and batches is None:
+        raise ValueError(f"{name}'s work depends on its inputs: pass the batches they need")
+    dsb, wide_b, lo_b = batches or 0, 10 * divstep.kernel_limbs(n), 2
     wide, lo = products(2)
     return {
         "mul_const": (2 * W, *products(1)),
@@ -644,11 +715,22 @@ def kernel_work(ctx, name: str) -> tuple[int, int, int]:
     }[name]
 
 
-def bound(ctx, name: str, lanes: int, rates: dict) -> tuple[float, str]:
+def bound(ctx, name: str, lanes: int, rates: dict, batches: float | None = None) -> tuple[float, str]:
     """Least time (ms) for `lanes` lanes: bytes over the memory rate, or
     the multiplies over the card's measured multiply rates, whichever is
-    larger."""
-    return bound_of(*kernel_work(ctx, name), lanes, rates)
+    larger (`batches`: as in `kernel_work`)."""
+    return bound_of(*kernel_work(ctx, name, batches), lanes, rates)
+
+
+def divstep_batches(f, x, mont: bool = True) -> tuple[float, int]:
+    """(mean, most) batches the lanes of (n, M) planes x need before g = 0
+    in divstep_inv_mont (x Montgomery forms in [0, 2p)) or divstep_inv
+    (mont=False: canonical values), from the plain version on x's device."""
+    from montgomery_tpu_torch.ops import divstep
+
+    t = f.reduce(f.mul_const_plain(x, 1)) if mont else x
+    b = divstep.batches_needed(f.inv_params, t)
+    return float(b.double().mean()), int(b.max())
 
 
 def bound_of(nbytes: float, wide: float, lo: float, lanes: int, rates: dict) -> tuple[float, str]:
@@ -733,11 +815,11 @@ def phase_kernels(ctx, pts, rates: dict):
     rng = random.Random(1)
     results = {}
 
-    def record(name, err, ms=None, plain_ms=None, lanes=KERNEL_LANES[0]):
+    def record(name, err, ms=None, plain_ms=None, lanes=KERNEL_LANES[0], **extra):
         r = results.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if ms is not None:
-            r.update(ms=ms, plain_ms=plain_ms, lanes=lanes)
+            r.update(ms=ms, plain_ms=plain_ms, lanes=lanes, **extra)
 
     def diff(a, b):
         return int((a - b).abs().max()) if a.numel() else 0
@@ -801,7 +883,7 @@ def phase_kernels(ctx, pts, rates: dict):
     planar_kernels(ctx, pts, record, diff)
     torch.cuda.empty_cache()
     for name, r in results.items():
-        r["bound_ms"], r["bound_by"] = bound(ctx, name, r["lanes"], rates)
+        r["bound_ms"], r["bound_by"] = bound(ctx, name, r["lanes"], rates, r.get("batches"))
         say(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) per call at {r['lanes']} lanes")
     return results
@@ -934,9 +1016,9 @@ def affine_kernels(ctx, pts, record, diff):
     for M, names, timed in plan:
         x, y = _field_plane(f, M, gen, adv), _field_plane(f, M, gen, adv[::-1])
         cases = {}
-        if "divstep_inv_mont" in names:
+        if "divstep_inv_mont" in names:  # bit for bit
             cases["divstep_inv_mont"] = (M, lambda: f.inv_root(x),
-                                         lambda: divstep.inv_mont_plain(f, x), canon_err)
+                                         lambda: divstep.inv_mont_plain(f, x), lambda a, b: _raw_err([a], [b]))
         if "mont_sqr" in names:
             xs = x[:, 5:]  # a column slice
             cases["mont_sqr"] = (M, lambda: f.square(x), lambda: f.square_plain(x), canon_err)
@@ -991,7 +1073,8 @@ def affine_kernels(ctx, pts, record, diff):
             if err:
                 raise AssertionError(f"{label} at {lanes} lanes disagrees with its plain version")
             if label in timed:
-                record(label, err, cuda_time_ms(kern, KERNEL_REPS), cuda_time_ms(plain, 3, 1), lanes)
+                extra = {"batches": divstep_batches(f, x)[0]} if label == "divstep_inv_mont" else {}
+                record(label, err, cuda_time_ms(kern, KERNEL_REPS), cuda_time_ms(plain, 3, 1), lanes, **extra)
             else:
                 record(label.split()[0], err)
         del cases
@@ -1102,7 +1185,7 @@ class OneThreadDoublings:
         return self._adapter.proj.double_n(P, k, few=False)
 
 
-def phase_redesign(ctx, pts, rates: dict) -> dict:
+def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
     """The kernels redesigned for this card, at the main paths' shapes.
 
     - proj_combine_rcb for (K, c) = COMBINE_CASES, one launch on one lane
@@ -1126,12 +1209,13 @@ def phase_redesign(ctx, pts, rates: dict) -> dict:
       the full `batch_inv` with the plain chord; timed at the two widest,
       beside the descent level it replaces (`FieldOps._descend`).
 
-    - proj_add_rcb's two bodies (`redesign_add`) and glv_digits
-      (`redesign_glv`).
+    - proj_add_rcb's two bodies (`redesign_add`), glv_digits
+      (`redesign_glv`) and the safegcd inverse (`redesign_divstep`, on the
+      2^20 bench points `pts_full`).
 
     Returns per-kernel results: proj_combine_rcb's row, and the main-path
-    rows ("main_path") of proj_dbl_rcb, aff_post_packed_u, proj_add_rcb and
-    glv_digits."""
+    rows ("main_path") of proj_dbl_rcb, aff_post_packed_u, proj_add_rcb,
+    glv_digits and divstep_inv_mont (with divstep_inv's)."""
     import torch
 
     from montgomery_tpu_torch.bigint import WeierstrassCurve
@@ -1259,6 +1343,7 @@ def phase_redesign(ctx, pts, rates: dict) -> dict:
     out["aff_post_packed_u"] = dict(main_path=post)
     out["proj_add_rcb"] = redesign_add(ctx, pts, rng)
     out["glv_digits"] = redesign_glv(ctx, rates)
+    out["divstep_inv_mont"] = dict(main_path=redesign_divstep(ctx, pts_full, rates))
     return out
 
 
@@ -1347,7 +1432,8 @@ def redesign_glv(ctx, rates: dict) -> dict:
     scalars (`glv_edge_scalars`: 0, 1, q - 1, q - 2, 2^252 and near-integer
     s g / 2^m) in the first lanes; BLS12-381's and Pallas's instantiations
     the same way at 2^16; a GlvConst of sizes no instantiation has must be
-    refused; device time (torch.profiler) and bound at 2^20, c = 13."""
+    refused; device time (torch.profiler) and bound at 2^20, c = 13, on
+    all three curves (BLS12-381's and Pallas's on random scalars)."""
     import numpy as np
     import torch
 
@@ -1385,12 +1471,38 @@ def redesign_glv(ctx, rates: dict) -> dict:
             f"({len(edge)} edge scalars first)")
         return sl
 
+    def device_row(gd, sl, c, label):
+        """Device time a launch (profiler), events, plain and bound of one
+        call at sl's width."""
+        N = sl.shape[1]
+        per = device_times_whole(lambda: [digits_glv_device(gd, sl, c) for _ in range(ADD_SWEEP_REPS)],
+                                 lambda r: r[0].get("glv_digits", (0,))[0] == ADD_SWEEP_REPS)[0]
+        count, dev_ms = per.get("glv_digits", (0, 0.0))
+        dev = dev_ms / count if count else None  # None: the profiler kept none of the launches
+        ms = cuda_time_ms(lambda: digits_glv_device(gd, sl, c), 20)
+        plain_ms = cuda_time_ms(lambda: digits_glv_plain(gd, sl, c), 3, 1)
+        bms, by = bound(types.SimpleNamespace(glv_dev=gd, fops=ctx.fops), "glv_digits", N, rates)
+        say(f"glv_digits {label} N={N} c={c}: device "
+            + (f"{dev:.4f} ms a launch (profiler, share of the bound {bms / dev:.3f})" if dev else "not measured")
+            + f", {ms:.4f} ms (events), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+        return dict(lanes=N, c=c, device_ms=dev, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
     q = ctx.params.order
     for log2n, c in GLV_CASES:
         sl = check(ctx.glv_dev, q, log2n, sorted({c, *cs}), "BLS12-377")
+    others = {}
+    log2n, c = GLV_CASES[-1]
     for C in (BLS12_381, PALLAS):
         gd = glv_device(glv_params(C.order, C.endomorphism.lam), w=ctx.glv_dev.w)
-        check(gd, C.order, 16, cs, GLV_SHAPES[gd.kernel_shape])
+        label = GLV_SHAPES[gd.kernel_shape]
+        check(gd, C.order, 16, cs, label)
+        # the main path's call on this curve: 2^20 scalars
+        rnd = np.random.default_rng(log2n)
+        sl_c = torch.from_numpy(ints_to_limbs_np([int.from_bytes(rnd.bytes(32), "little") % C.order
+                                                  for _ in range(1 << log2n)], C.order.bit_length(), gd.w,
+                                                 gd.ns)).to(ctx.device)
+        others[label] = device_row(gd, sl_c, c, label)
+        del sl_c
     words = ctx.glv_dev.kernel_words(13)
     words[3] += 1  # nu: no instantiation has it
     try:
@@ -1401,21 +1513,149 @@ def redesign_glv(ctx, rates: dict) -> dict:
         say(f"glv_digits refuses a shape it lacks: {e}")
     else:
         raise AssertionError("glv_digits launched on sizes it has no instantiation for")
-    log2n, c = GLV_CASES[-1]
-    N = 1 << log2n
-    per = device_times_whole(lambda: [ctx.digits(sl, c) for _ in range(ADD_SWEEP_REPS)],
-                             lambda r: r[0].get("glv_digits", (0,))[0] == ADD_SWEEP_REPS)[0]
-    count, dev_ms = per.get("glv_digits", (0, 0.0))
-    dev = dev_ms / count if count else None  # None: the profiler kept none of the launches
-    ms = cuda_time_ms(lambda: ctx.digits(sl, c), 20)
-    plain_ms = cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, c), 3, 1)
-    bms, by = bound(ctx, "glv_digits", N, rates)
-    rows = dict(lanes=N, c=c, device_ms=dev, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                window_cs=cs)
-    say(f"glv_digits N=2^{log2n} c={c}: device "
-        + (f"{dev:.4f} ms a launch (profiler, share of the bound {bms / dev:.3f})" if dev else "not measured")
-        + f", {ms:.4f} ms (events), plain {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+    rows = dict(device_row(ctx.glv_dev, sl, c, "BLS12-377"), window_cs=cs, **others)
     return dict(main_path=rows)
+
+
+def root_widths(ctx, pts_full) -> dict:
+    """{log2 N: lane counts of the main path's divstep_inv_mont launches, in
+    launch order} for affine-unsafe at N = 2^16 and 2^20 on the bench
+    scalars, recorded from the batch-inversion tree of one run each."""
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, seen, out = ctx.fops, [], {}
+    inv_root = f.inv_root
+    f.inv_root = lambda x: (seen.append(x.shape[-1]), inv_root(x))[1]
+    try:
+        for log2n in MSM_LOG2N:
+            N = 1 << log2n
+            seen.clear()
+            ctx.msm_device_full(AffineBatch(*[a[..., :N] for a in pts_full]),
+                                ctx.scalars_to_limbs(bench_scalars(ctx.params.order, N)), ctx.default_c(N),
+                                affine=True, unsafe=True)
+            out[log2n] = list(seen)
+    finally:
+        del f.inv_root
+    return out
+
+
+def redesign_divstep(ctx, pts_full, rates: dict) -> dict:
+    """The safegcd inverse redesigned for this card, at the curve's limb
+    count (12, 13 or 9), at the main paths' shapes.
+
+    - divstep_inv_mont (one warp a lane) at 1 lane, 512 and every root width
+      the main path (affine-unsafe) gives it at 2^16 and 2^20 (`root_widths`),
+      REDESIGN_REPS fresh inputs each, bit for bit against the plain version
+      (one run over all of them); the first lanes 0, 1, p - 1, R mod p, p,
+      p + 1, 2p - 1 and the Montgomery forms (canonical and + p) of the
+      input that needs the most batches among DIVSTEP_DRAW drawn, rotated by
+      one lane each input (so one lane sees each). Device time a launch
+      (torch.profiler) at 512 lanes and at 1, beside inv_mont_divstep (the
+      one-thread divstep_inv between two mul_const, where divstep_inv is
+      instantiated); its bound from the batches its inputs need, and the
+      dependent-chain floor (most batches x a warp batch's latency + two
+      warp products, phase 0).
+    - divstep_inv (one thread a lane), where instantiated (12 and 9 limbs):
+      at 512, 2^16, 2^18 and 2^18 + 17 lanes bit for bit against its plain
+      version, the same first lanes (canonical); device time at 2^18, bound
+      and floor (most batches x (30 divsteps + one application in a thread)).
+    - ptxas of both (registers, stack frame, spill stores and loads).
+    Returns the rows (divstep_inv's under "divstep_inv")."""
+    import torch
+
+    from montgomery_tpu_torch.ops import divstep, kernels
+    from montgomery_tpu_torch.ops import limbs as codec
+
+    f, dev = ctx.fops, ctx.device
+    n, p, dp = f.n, f.p, f.inv_params
+    t0 = time.perf_counter()
+    say(f"== phase 1: the safegcd inverse at {n} limbs ({ctx.params.label}) at the main paths' shapes")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    roots = root_widths(ctx, pts_full)
+    draw = _canonical_plane(f, DIVSTEP_DRAW, gen, [])
+    b = divstep.batches_needed(dp, draw)
+    i = int(torch.argmax(b))
+    most, most_b = codec.unpack(draw[:, i:i + 1])[0], int(b[i])
+    adv = [0, 1, p - 1, f.R_mod_p, p, p + 1, 2 * p - 1, most * f.R % p, most * f.R % p + p]
+    widths = sorted({1, ROOT_LANES, *[w for ws in roots.values() for w in ws]})
+    err = 0
+    for M in widths:
+        xs = [_field_plane(f, M, gen, adv[r % len(adv):] + adv[:r % len(adv)]) for r in range(REDESIGN_REPS)]
+        want = divstep.inv_mont_plain(f, torch.cat(xs, dim=1))
+        for r, x in enumerate(xs):
+            err = max(err, _raw_err([f.inv_root(x)], [want[:, r * M:(r + 1) * M]]))
+        if err:
+            raise AssertionError(f"divstep_inv_mont at {n} limbs and {M} lanes disagrees (raw err {err})")
+    say(f"divstep_inv_mont n={n}: {REDESIGN_REPS} fresh inputs at each of {widths} lanes bit for bit with "
+        f"the plain version (root widths by launch: "
+        + "; ".join(f"2^{k} {v}" for k, v in roots.items()) + "; the most-batches "
+        f"input of {DIVSTEP_DRAW} drawn needs {most_b} of {dp.n_batches})")
+
+    def dev_ms(fn, names, reps=DIVSTEP_TIMING_REPS):
+        """Device ms a call of fn (the sum of `names`' kernels), None where
+        the profiler kept none of its launches."""
+        per = device_times_whole(lambda: [fn() for _ in range(reps)],
+                                 lambda r: all(r[0].get(k, (0,))[0] >= reps for k in names))[0]
+        if not all(per.get(k, (0,))[0] for k in names):
+            return None
+        return sum(per[k][1] / per[k][0] * (2 if k == "mul_const" else 1) for k in names)
+
+    x512 = _field_plane(f, ROOT_LANES, gen, adv)
+    x1 = _field_plane(f, 1, gen, adv[7:8])  # the most-batches input alone
+    mean_b, most512 = divstep_batches(f, x512)
+    bms, by = bound(ctx, "divstep_inv_mont", ROOT_LANES, rates, mean_b)
+    floor = (most512 * rates["lat_batch_warp"] + 2 * rates["lat_warp"]) * 1e3
+    row = dict(lanes=ROOT_LANES, widths=widths, root_widths={str(k): v for k, v in roots.items()},
+               max_abs_err=err, most_batches_drawn=most_b, n_batches=dp.n_batches,
+               device_ms=dev_ms(lambda: f.inv_root(x512), ["divstep_inv_mont"]),
+               ms=cuda_time_ms(lambda: f.inv_root(x512), DIVSTEP_TIMING_REPS),
+               plain_ms=cuda_time_ms(lambda: divstep.inv_mont_plain(f, x512), 1, 0),
+               device_ms_1_lane=dev_ms(lambda: f.inv_root(x1), ["divstep_inv_mont"]),
+               batches_mean=mean_b, batches_most=most512, bound_ms=bms, bound_by=by, floor_ms=floor)
+    if n in divstep.DIVSTEP_INV.symbols:
+        row["inv_mont_divstep_device_ms"] = dev_ms(lambda: divstep.inv_mont_divstep(dp, x512),
+                                                   ["mul_const", "divstep_inv"])
+    ptx = ptxas_by_limbs(kernels.LIBRARY.build_log)
+    row["ptxas"] = ptx.get(("divstep_inv_mont", n))
+    dm, d1 = row["device_ms"], row["device_ms_1_lane"]
+    say(f"divstep_inv_mont n={n} at {ROOT_LANES} lanes: device "
+        + (f"{dm * 1e3:.2f} us a launch (share of the bound {bms / dm:.4f}, of the floor {floor / dm:.3f})"
+           if dm else "not measured")
+        + f", events {row['ms'] * 1e3:.2f} us, plain {row['plain_ms']:.2f} ms; 1 lane: device "
+        + (f"{d1 * 1e3:.2f} us" if d1 else "not measured")
+        + f"; batches mean {mean_b:.3f}, most {most512}; bound {bms * 1e3:.4f} us ({by}); floor "
+        f"{most512} x {rates['lat_batch_warp'] * 1e6:.4f} + 2 x {rates['lat_warp'] * 1e6:.4f} us = "
+        f"{floor * 1e3:.3f} us; ptxas {row['ptxas']}"
+        + (f"; inv_mont_divstep (mul_const, divstep_inv, mul_const) device "
+           + (f"{row['inv_mont_divstep_device_ms'] * 1e3:.2f} us" if row["inv_mont_divstep_device_ms"]
+              else "not measured") if "inv_mont_divstep_device_ms" in row else ""))
+    if n in divstep.DIVSTEP_INV.symbols:
+        canon = [0, 1, 2, p - 1, p - 2, f.R_mod_p, most]
+        for M in DIVSTEP_INV_LANES:
+            x = _canonical_plane(f, M, gen, canon)
+            e = _raw_err([divstep.inv_divstep(dp, x)], [divstep.inv_plain(dp, x)])
+            if e:
+                raise AssertionError(f"divstep_inv at {n} limbs and {M} lanes disagrees (raw err {e})")
+        M = DIVSTEP_INV_LANES[2]
+        x = _canonical_plane(f, M, gen, canon)
+        mean_b, most_b = divstep_batches(f, x, mont=False)
+        bms, by = bound(ctx, "divstep_inv", M, rates, mean_b)
+        dm = dev_ms(lambda: divstep.inv_divstep(dp, x), ["divstep_inv"], 5)
+        inv_row = dict(lanes=M, widths=list(DIVSTEP_INV_LANES), max_abs_err=0, device_ms=dm,
+                       ms=cuda_time_ms(lambda: divstep.inv_divstep(dp, x), 5),
+                       plain_ms=cuda_time_ms(lambda: divstep.inv_plain(dp, x), 1, 0),
+                       batches_mean=mean_b, batches_most=most_b, bound_ms=bms, bound_by=by,
+                       floor_ms=most_b * (rates["lat_divsteps_var"] + rates["lat_apply_thread"]) * 1e3,
+                       ptxas=ptx.get(("divstep_inv", n)))
+        row["divstep_inv"] = inv_row
+        say(f"divstep_inv n={n}: bit for bit with the plain version at {list(DIVSTEP_INV_LANES)} lanes; at "
+            f"{M} lanes device " + (f"{dm:.4f} ms a launch (share of the bound {bms / dm:.3f})" if dm
+                                    else "not measured")
+            + f", events {inv_row['ms']:.4f} ms, plain {inv_row['plain_ms']:.2f} ms, bound {bms:.4f} ms "
+            f"({by}), floor {inv_row['floor_ms'] * 1e3:.2f} us; batches mean {mean_b:.3f}, most {most_b}; "
+            f"ptxas {inv_row['ptxas']}")
+    say(f"safegcd redesign phase at {n} limbs: {time.perf_counter() - t0:.1f} s")
+    return row
 
 
 # ----------------------------------------------------------------- phase 2
@@ -2111,7 +2351,7 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
         if "divstep_inv_mont" in names:
             cases["divstep_inv_mont"] = (min(M, ROOT_LANES), lambda x=x: f.inv_root(x[:, :ROOT_LANES]),
                                          lambda x=x: divstep.inv_mont_plain(f, x[:, :ROOT_LANES]),
-                                         canon_err)
+                                         lambda a, b: _raw_err([a], [b]))  # bit for bit
         if "mont_mul" in names:
             xs = x[:, 3:]  # a column slice
             cases["mont_mul"] = (M, lambda: f.mul(x, y), lambda: f.mul_plain(x, y), canon_err)
@@ -2160,6 +2400,8 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
             if label in timed or label == "ed_dbl k=1" and "ed_dbl" in timed:
                 r.update(ms=cuda_time_ms(kern, KERNEL_REPS), plain_ms=cuda_time_ms(plain, 3, 1),
                          lanes=lanes)
+                if name == "divstep_inv_mont":
+                    r["batches"] = divstep_batches(f, x[:, :ROOT_LANES])[0]
             elif label == "ed_add_packed" and M == W20:  # the kernel alone at the 2^20 level
                 r["ms_2^20_level"] = cuda_time_ms(kern, 20)
                 r["bound_ms_2^20_level"] = bound(te, name, lanes, rates)[0]
@@ -2168,7 +2410,7 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
         del cases
         torch.cuda.empty_cache()
     for name, r in results.items():
-        r["bound_ms"], r["bound_by"] = bound(te, name, r["lanes"], rates)
+        r["bound_ms"], r["bound_by"] = bound(te, name, r["lanes"], rates, r.get("batches"))
         say(f"{name} (n={n}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) per call at {r['lanes']} lanes")
     return results
@@ -2442,7 +2684,8 @@ def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
                 if M == timed_at:
                     ms = cuda_time_ms(kern, 20 if name == "divstep_inv" else KERNEL_REPS)
                     pms = cuda_time_ms(plain, 3, 1)
-                    bms, by = bound_of(*kernel_work(c, name), M, rates)
+                    batches = divstep_batches(f, x, mont=False)[0] if name == "divstep_inv" else None
+                    bms, by = bound_of(*kernel_work(c, name, batches), M, rates)
                     r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=M)
                     say(f"{name} n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
                         f"({by}) per call at {M} lanes")
@@ -3070,7 +3313,8 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
         dev_ms = dms / count if count else None
         plain_ms = cuda_time_ms(plain, 1, 0)
         lanes = 1 if name == "proj_combine_rcb" else W
-        bms, by = bound_of(*work, lanes, rates) if work else bound(ctx, name, W, rates)
+        batches = divstep_batches(f, x)[0] if name == "divstep_inv_mont" else None
+        bms, by = bound_of(*work, lanes, rates) if work else bound(ctx, name, W, rates, batches)
         share = bms / dev_ms if dev_ms else None
         results[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                              share=share, lanes=lanes)
@@ -3202,6 +3446,7 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
             f"{time.perf_counter() - t0:.1f} s")
         host = c.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
         out[label] = phase_curve_kernels(c, host, rates, widths)
+        out[label]["divstep_inv_mont"]["main_path"] = redesign_divstep(c, pts, rates)
         say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase 1 done")
         phase_oracle(c, host, label)
         sizes = {path: NEW_MSM_LOG2N for path in PATHS}
@@ -3276,6 +3521,8 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
         d.update({key: v for key, v in res.items()
                   if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms")})
         d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
+        d.update({f"{label}_main_path": r[name]["main_path"] for label, r in new_kres.items()
+                  if "main_path" in r.get(name, {})})
         if name in ptx:
             d["ptxas_new"] = ptx[name]
         return d
@@ -3322,7 +3569,7 @@ def main() -> int:
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
     te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
     kres = phase_kernels(ctx, host_pts, rates)
-    for name, res in phase_redesign(ctx, host_pts, rates).items():
+    for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
         kres.setdefault(name, {}).update(res)
     te_kres = phase_te_kernels(te, te_host, rates)
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)

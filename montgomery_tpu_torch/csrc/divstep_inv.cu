@@ -1,35 +1,44 @@
-// Kernel 22: plain-domain inverse by constant-iteration safegcd
-// (Bernstein-Yang divsteps), canonical values in [0, p) to x^-1 mod p in
-// [0, p), 0 -> 0.
+// Kernel 22: plain-domain inverse by safegcd (Bernstein-Yang divsteps),
+// canonical values in [0, p) to x^-1 mod p in [0, p), 0 -> 0.
 //
 // Replaces the Pallas kernel "divstep_inv" of montgomery_tpu/ops/divstep.py
 // (inv_divstep, :231-246, over _inv_formula): the safegcd inverse of plain
 // values, which inv_divstep and inv_mont_divstep (ops/divstep.py) launch and
-// the micro-benchmark times at 2^18 lanes. Per lane: the safegcd core of
-// csrc/divstep.cuh, the same lane body as divstep_inv_mont without its two
-// Montgomery products. Entry points: msm_divstep_inv (NL = 12, BLS12-377)
-// and msm_divstep_inv_n9 (NL = 9). The config is the DivstepConst<NL> of
-// divstep_inv_mont; this kernel does not read its r2.
+// the micro-benchmark times at 2^18 lanes. Entry points: msm_divstep_inv
+// (NL = 12, BLS12-377) and msm_divstep_inv_n9 (NL = 9). The config is the
+// DivstepConst<NL> of divstep_inv_mont; this kernel does not read its r2.
 //
-// Bound on this card: per lane 37 batches (BLS12-377) of 30 dependent
-// divsteps on 64-bit words and four 13-limb matrix applications (about 264
-// 64-bit products a batch) against 96 bytes moved, so integer multiply
-// throughput and the serial divstep chain bound it, never memory. Four
-// int64 arrays of DS_L limbs per lane put the register count above 100,
-// which caps occupancy at wide launches. Design: one thread per lane,
-// everything in registers, as divstep_inv_mont; the batched matrix form
-// touches the 390-bit numbers once per 30 divsteps.
+// Bound on this card: integer instruction throughput. 2^18 lanes fill the
+// card many times over, and per lane each batch is 30 divsteps and the
+// matrix applied to four numbers of 13 limbs, against 96 bytes moved. As
+// first ported, the core ran on int64 (two instructions for every 64-bit
+// select, add and shift, a multi-IMAD product for each 30 x 30-bit one) in
+// four int64 arrays of DS_L limbs (above 100 registers a thread, which
+// capped occupancy), for always the proven 37 batches.
+// Design: one thread a lane on the 32-bit core of csrc/divstep.cuh: the
+// divsteps on 32-bit words in variable time (runs of zeros and up to 6 odd
+// steps at once: about 7.7 rounds of a loop for 30 divsteps, fewer
+// instructions though a warp's lanes diverge), the limbs in int32 (half the
+// state's registers: 72 at 12 limbs, 70 at 9, no spill), one IMAD.WIDE a
+// product, full carries in the thread (fewer instructions than the warp
+// kernel's two-round scheme, whose range holds these limbs too); a warp
+// leaves the batch loop once g = 0 on all 32 of its lanes (__all_sync), so
+// lanes past N run on zeros and vote at once.
 #include "divstep.cuh"
 
 template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK)
 divstep_inv_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int sx, DivstepConst<NL> C, int N) {
   int i = lane_index();
-  if (i >= N) return;
   uint32_t t[NL], inv[NL];
-  fe_load(t, x, sx, i);
-  ds_inverse(inv, t, C);
-  fe_store(out, N, i, inv);
+  if (i < N) {
+    fe_load(t, x, sx, i);
+  } else {
+#pragma unroll
+    for (int k = 0; k < NL; k++) t[k] = 0;
+  }
+  ds_inverse(inv, t, C);  // every lane of the warp: the loop votes
+  if (i < N) fe_store(out, N, i, inv);
 }
 
 template <int NL>
