@@ -20,9 +20,11 @@ Phases, each printed as it runs:
      measured rates of the 32x32->64 and the low 32-bit multiply
      (`montgomery_tpu_torch/csrc/rates/imad_rate.cu`, built beside the
      kernels) that the operation bounds divide by; the latency of one
-     dependent Montgomery product in one thread and on one warp
-     (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit), which
-     the window combine's dependent-chain floor multiplies; the latency of
+     dependent Montgomery product in one thread and on one warp at 12 and 9
+     limbs (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit),
+     which the window combines' dependent-chain floors multiply; the
+     bit-by-bit sqrt window (`csrc/rates/sqrt_win_bitwise.cu`) that phase 1
+     times the table window against; the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
      and of a whole batch on a warp (`csrc/rates/divstep_latency.cu`),
      which the divstep inverses' floors multiply; ptxas of every
@@ -77,15 +79,24 @@ Phases, each printed as it runs:
      Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
-     combine's 208) and ed_add_packed up to the first super-round level at
-     2^20 points, with the identity on either side, P + P, P + (-P),
-     unreduced values and every sign and pair flag in the first lanes. Then
+     combine's first level before ed_combine) and ed_add_packed up to the
+     first super-round level at 2^20 points, with the identity on either
+     side, P + P, P + (-P), unreduced values and every sign and pair flag in
+     the first lanes; then the Twisted Edwards window combine ed_combine
+     (`redesign_te_combine`) at (K, c) = (20, 13) and (23, 11), 10 fresh
+     inputs each with identity windows, bit for bit against the plain Horner
+     and as points against the halving combine it replaced (ed_dbl and
+     ed_add a level), timed beside it (events, and the profiler's device ms
+     with the host ms), with its bound and dependent-chain floor. Then
      the sqrt slice's kernels (`phase_sqrt_kernels`) at 12 and 9 limbs:
      exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43 and every
      chain) and every sqrt_win window of one whole sqrt, bit for bit, at
-     2^16 and 2^16 + 17 lanes with 0, 1, p - 1, [p, 2p) values, known squares
-     and known non-squares in the first lanes; inv against inv_root; each
-     timed at the 2,621,456 candidates of a 2^20-point generation. Then the
+     1, 2^16 and 2^16 + 17 lanes with 0, 1, p - 1, [p, 2p) values, known
+     squares and known non-squares in the first lanes, and sqrt_win at every
+     window and the whole sqrt at the 2,621,456 candidates of a 2^20-point
+     generation (1,024 sampled lanes against pow() and Euler's criterion);
+     inv against inv_root; each timed at 2,621,456 lanes, sqrt_win also in
+     turns with the bit-by-bit window it replaced. Then the
      planar adds' kernels (`planar_kernels`: aff_pre, aff_post,
      aff_pre_unsafe with and without its validity mask, aff_post_unsafe)
      bit for bit at 2^16, 2^16 + 17 and 2^20 lanes, every flag class in the
@@ -129,7 +140,9 @@ Phases, each printed as it runs:
      on-curve check, against the closed form, with its ingestion and
      on-curve check timed apart. Then the Twisted Edwards MSM the same way at
      2^16 and 2^20 on random_points_fast_edwards(seed=42) points (msm_full,
-     so to_host's kernels count too), and compute_msm(curve=
+     so to_host's kernels count too; at 2^20 ed_combine, ed_dbl and ed_add
+     launch 1, 1 and 37 times, and the device time by kernel is profiled
+     with the halving combine and with ed_combine), and compute_msm(curve=
      "ed-on-bls12-377") at 2^20 from packed bytes;
   4. random_points_weierstrass (BLS12-377) and random_points_edwards
      (ed-on-bls12-377) at 2^20 points (`phase_points`): launch counts of one
@@ -160,7 +173,8 @@ Phases, each printed as it runs:
 Between phases 4 and 6, BLS12-381 and Pallas (`phase_new_curves`), each on
   its own 2^20 bench points: phase 1, every kernel at the curve's limb count bit
   for bit with its plain version at 1, 17, 40, 640, 2^16 and 2^16 + 17
-  lanes on adversarial inputs, and timed (events, the profiler's device
+  lanes on adversarial inputs (sqrt_win and the whole sqrt also at 2^20
+  lanes), and timed (events, the profiler's device
   time, bound, share) at the 12-limb table's widths; phase 2, every engine
   and compute_msm against the oracle at N = 16 and 512; phase 3, every
   engine at 2^16 and 2^20 (BLS12-381's unsafe one also at 2^18) against
@@ -201,12 +215,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
 LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "mul_latency.cu"
 DIVSTEP_LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "divstep_latency.cu"
+# the bit-by-bit sqrt window that the table lookup replaced, built apart and
+# timed in turns with it (phase 1)
+SQRT_BITWISE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "sqrt_win_bitwise.cu"
+PROBES: dict = {}  # probe source -> its built library (phase 0)
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
 _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb",
            "proj_combine_rcb"}
 _UNSAFE, _SAFE = {"aff_pre_packed_u", "aff_post_packed_u"}, {"aff_pre_packed", "aff_post_packed"}
-_EDWARDS = {"ed_add", "ed_dbl", "ed_add_packed"}
+_EDWARDS = {"ed_add", "ed_dbl", "ed_add_packed", "ed_combine"}
 _WEIERSTRASS = _AFFINE | _UNSAFE | _SAFE | {"mont_sqr"}
 # the planar adds' kernels: launched by AffineOps.batch_add / batch_add_unsafe,
 # never by an MSM path (sharded ones included)
@@ -230,7 +248,7 @@ PATH_KERNELS["points"] = _SOLVE | {"proj_add_rcb", "proj_dbl_rcb"}
 PATH_KERNELS["te_points"] = _SOLVE | {"ed_dbl"}
 PATH_FORBIDDEN["points"] = _UNSAFE | _SAFE | _EDWARDS | {"glv_digits", "pack_glv", "mont_sqr",
                                                          "proj_combine_rcb"}
-PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed"}
+PATH_FORBIDDEN["te_points"] = (_WEIERSTRASS - _SOLVE) | {"ed_add", "ed_add_packed", "ed_combine"}
 # the baselines' kernels: launched by inv_divstep, inv_mont_divstep and the
 # micro-bench's altmul section, never by an MSM or generation path
 _ALT = {"divstep_inv", "barrett_mul"}
@@ -261,9 +279,21 @@ GEN_SAMPLE_POINTS = 1024  # output lanes rebuilt with the bigint oracle
 GEN_SAMPLE_CANDIDATES = 4096  # candidates whose success flag meets Euler's criterion
 GEN_ORACLE_N = 512  # MSM on the generated points against the bigint oracle
 SQRT_CHAINS = (1, 42, 43)  # sqr_n's m: the shortest chain, and the first of each curve
+# the sqrt slice's widths: the kernels bit for bit at 1 lane and at
+# KERNEL_LANES, sqrt_win and the whole sqrt also at the candidates of a 2^20
+# generation (SQRT_SAMPLE sampled lanes against pow()); sqrt_win timed there
+# against the bit-by-bit window in SQRT_TURNS
+SQRT_LANES = (1, *KERNEL_LANES)
+SQRT_WIDE = int(GEN_OVERSAMPLE * (1 << GEN_LOG2N)) + 16
+SQRT_SAMPLE = 1024
+SQRT_TURNS = ("table", "bitwise", "bitwise", "table", "table", "bitwise")
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
-TE_COMBINE_K = 208  # ed_dbl's k on the 2^20 path's first combine level: c 16 = 13 x 16
+TE_COMBINE_K = 208  # ed_dbl's k on the halving combine's first level at 2^20: c 16 = 13 x 16
+# the Edwards combine's (K, c) at 2^20 and 2^16, and the Twisted Edwards
+# path's launches at 2^20 of the kernels the combine changed
+TE_COMBINE_CASES = ((20, 13), (23, 11))
+TE_PATH_LAUNCHES = {"ed_combine": 1, "ed_dbl": 1, "ed_add": 37}
 # the redesigned kernels at the main paths' shapes: the combine's (K, c) at
 # 2^20 and 2^16; window_sums' doublings at 2^20 (k = log2 S = 6 on K = 10
 # lanes); fresh-input checks of the combine and the fused post (the widest
@@ -484,7 +514,8 @@ def phase_env() -> dict:
     say("card:", smi_line())
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
-    probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC)}
+    probes = {src: start_probe_build(src)
+              for src in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -508,6 +539,7 @@ def phase_env() -> dict:
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"  ptxas ({name}):", line.strip())
+    PROBES.update({src: lib for src, (_, lib) in probes.items()})
     rates = multiply_rates(probes[RATE_SRC][1], clock)
     rates.update(product_latency(probes[LATENCY_SRC][1]))
     rates.update(divstep_latency(probes[DIVSTEP_LATENCY_SRC][1]))
@@ -547,42 +579,45 @@ def ptxas_by_limbs(log: str) -> dict:
 
 
 def product_latency(lib_path: Path) -> dict:
-    """Latency (s) of one dependent BLS12-377 Montgomery product on the
-    card: a chain of products in one thread (fe_mul) and on one warp
-    (coop_mul), each one launch of a single block; the two chains' last
-    products must agree bit for bit."""
+    """Latency (s) of one dependent Montgomery product on the card: a chain
+    of products in one thread (fe_mul) and on one warp (coop_mul), each one
+    launch of a single block, at BLS12-377's 12 limbs ("lat_thread",
+    "lat_warp") and ed-on-bls12-377's 9 ("lat_thread_n9", "lat_warp_n9");
+    the two chains' last products must agree bit for bit."""
     import torch
 
-    from montgomery_tpu_torch.concrete import BLS12_377
+    from montgomery_tpu_torch.concrete import BLS12_377, ED_ON_BLS12_377
     from montgomery_tpu_torch.ops import kernels
     from montgomery_tpu_torch.ops.field import create_field_ops
     from montgomery_tpu_torch.ops.limbs import to_words
 
-    f = create_field_ops(BLS12_377.modulus)
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.mul_latency
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.POINTER(ctypes.c_uint32)] * 4 + [ctypes.c_void_p] * 2
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_uint32)] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
-    x, y = (kernels.words(to_words(v * f.R % f.p, f.n)) for v in (3, 5))
-    mu = kernels.words(to_words(-pow(f.p, -1, f.R) % f.R, f.n))
-    field = kernels.words(to_words(f.p, f.n) + to_words(2 * f.p, f.n) + to_words(4 * f.p, f.n) + [f.mu])
-    outs = {w: torch.empty(f.n, dtype=torch.int32, device="cuda") for w in (0, 1)}
-
-    def launch(warp, iters):
-        rc = fn(warp, iters, x, y, mu, field, ctypes.c_void_p(outs[warp].data_ptr()),
-                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        if rc:
-            raise RuntimeError(f"mul_latency launch failed, CUDA error {rc}")
-
     lat = {}
-    for warp, key, iters in ((0, "lat_thread", 500), (1, "lat_warp", 4000)):
-        lat[key] = cuda_time_ms(lambda: launch(warp, iters), 5) * 1e-3 / iters
-    for warp in (0, 1):
-        launch(warp, 333)
-    if not torch.equal(outs[0], outs[1]):
-        raise AssertionError("the warp product chain differs from the one-thread chain")
-    say(f"dependent product latency: one thread {lat['lat_thread'] * 1e6:.3f} us, one warp "
-        f"{lat['lat_warp'] * 1e6:.3f} us (chains of 500 and 4000 products; equal bit for bit)")
+    for p, tag in ((BLS12_377.modulus, ""), (ED_ON_BLS12_377.modulus, "_n9")):
+        f = create_field_ops(p)
+        x, y = (kernels.words(to_words(v * f.R % f.p, f.n)) for v in (3, 5))
+        mu = kernels.words(to_words(-pow(f.p, -1, f.R) % f.R, f.n))
+        field = kernels.words(to_words(f.p, f.n) + to_words(2 * f.p, f.n) + to_words(4 * f.p, f.n) + [f.mu])
+        outs = {w: torch.empty(f.n, dtype=torch.int32, device="cuda") for w in (0, 1)}
+
+        def launch(warp, iters, f=f, x=x, y=y, mu=mu, field=field, outs=outs):
+            rc = fn(f.n, warp, iters, x, y, mu, field, ctypes.c_void_p(outs[warp].data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise RuntimeError(f"mul_latency launch failed, CUDA error {rc}")
+
+        for warp, key, iters in ((0, "lat_thread", 500), (1, "lat_warp", 4000)):
+            lat[key + tag] = cuda_time_ms(lambda: launch(warp, iters), 5) * 1e-3 / iters
+        for warp in (0, 1):
+            launch(warp, 333)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"the warp product chain differs from the one-thread chain at {f.n} limbs")
+        say(f"dependent product latency at {f.n} limbs: one thread {lat['lat_thread' + tag] * 1e6:.3f} us, "
+            f"one warp {lat['lat_warp' + tag] * 1e6:.3f} us (chains of 500 and 4000 products; equal bit "
+            f"for bit)")
     return lat
 
 
@@ -2416,22 +2451,140 @@ def phase_te_kernels(te, pts, rates: dict) -> dict:
     return results
 
 
+def _te_windows(te, pts, K: int, rng: random.Random, lanes: int = 1):
+    """K Twisted Edwards window sums of `lanes` combines as planes
+    (n, lanes, K) on the card: oracle points `pts` in extended coordinates
+    (x z : y z : z : x y z) with random z, a coordinate in 4 unreduced (+p),
+    and the identity (0 : 1 : 1 : 0) (times z) in two windows of each lane (the
+    top one among them in about half the lanes); returns (planes, the points
+    on the host, lane by lane)."""
+    from montgomery_tpu_torch.bigint import EdwardsPoint
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
+
+    f = te.fops
+    p, R = f.p, f.R
+    cols, host = ([], [], [], []), []
+    for i in range(lanes * K):
+        if i % K == 0:
+            ident = {rng.randrange(K), K - 1 if rng.random() < 0.5 else rng.randrange(K)}
+        pt = EdwardsPoint.zero() if i % K in ident else pts[rng.randrange(len(pts))]
+        z = rng.randrange(1, p)
+        for col, v in zip(cols, (pt.x * z, pt.y * z, z, pt.x * pt.y % p * z)):
+            col.append(v % p * R % p + (p if rng.random() < 0.25 else 0))
+        host.append(pt)
+    W = EdwardsBatch(*[f.pack_raw(col, te.device).reshape(f.n, lanes, K) for col in cols])
+    return W, host
+
+
+class HalvingCombine:
+    """An adapter without `combine`: `combine_windows` then takes the halving
+    combine (one ed_dbl launch and one ed_add a level), the Twisted Edwards
+    path as it ran before ed_combine."""
+
+    def __init__(self, adapter):
+        self._adapter = adapter
+
+    def __getattr__(self, name):
+        if name == "combine":
+            raise AttributeError(name)
+        return getattr(self._adapter, name)
+
+
+def redesign_te_combine(te, pts, rates: dict) -> dict:
+    """The Twisted Edwards window combine ed_combine at the TE paths' shapes,
+    (K, c) = TE_COMBINE_CASES, one launch on one lane for each of
+    REDESIGN_REPS fresh inputs (`_te_windows`: identity windows, unreduced
+    values): bit for bit against the plain Horner (`combine_plain`, one run
+    over all the inputs), as affine points against the halving combine it
+    replaced (`combine_halving`: ed_dbl and ed_add a level) and, for the
+    first input, against Python's ints. Timed beside the halving combine:
+    CUDA events and the profiler's device ms with the host ms of the same
+    run; the plain Horner's host time over all the inputs at once; the bound
+    (its multiplies on one lane) and the dependent-chain floor,
+    3 (K - 1)(c + 1) warp products x the latency of one at 9 limbs (phase
+    0). Returns ed_combine's row (the main path's shape first, both
+    under "main_path")."""
+    import torch
+
+    from montgomery_tpu_torch.bigint import EdwardsPoint
+    from montgomery_tpu_torch.curves.edwards import ADD_MULS, EdwardsBatch
+    from montgomery_tpu_torch.msm.pippenger import combine_halving
+
+    say("== phase 1: the Twisted Edwards window combine at the TE paths' shapes")
+    f, ed = te.fops, te.ed
+    n, W = f.n, 4 * f.n
+    E = oracle_curve(te.params)
+    rng = random.Random(13)
+    rows = {}
+    for K, c in TE_COMBINE_CASES:
+        Wall, host = _te_windows(te, pts, K, rng, lanes=REDESIGN_REPS)
+        t0 = time.perf_counter()  # the plain version's time: all the inputs in one run (launch-bound)
+        want = ed.combine_plain(Wall, c)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = 0
+        for rep in range(REDESIGN_REPS):
+            Wk = EdwardsBatch(*[a[:, rep:rep + 1].contiguous() for a in Wall])
+            got = ed.combine(Wk, c)
+            err = max(err, _raw_err(got, EdwardsBatch(*[a[:, rep:rep + 1] for a in want])))
+            flat = EdwardsBatch(*[a.reshape(n, K) for a in Wk])
+            halving = combine_halving(te.adapter, flat, c, K)
+            a = ed.to_host(EdwardsBatch(*[v.reshape(n, 1) for v in got]))[0]
+            b = ed.to_host(halving)[0]
+            if err or not E.equal(a, b):
+                raise AssertionError(f"ed_combine K={K} c={c} disagrees (rep {rep}, raw err {err})")
+            if rep == 0:
+                expect = EdwardsPoint.zero()
+                for k, pt in enumerate(host[:K]):
+                    expect = E.add(expect, E.scale(1 << (c * k), pt))
+                if not E.equal(a, expect):
+                    raise AssertionError(f"ed_combine K={K} c={c} differs from Python's ints")
+        ms = cuda_time_ms(lambda: ed.combine(Wk, c), 20)
+        half_ms = cuda_time_ms(lambda: combine_halving(te.adapter, flat, c, K), 10)
+        levels = (K - 1).bit_length()  # the halving combine's levels: log2 of K padded to a power of 2
+        per, busy, wall, others, _ = device_times_whole(
+            lambda: [ed.combine(Wk, c) for _ in range(REDESIGN_REPS)],
+            lambda r: r[0].get("ed_combine", (0,))[0] == REDESIGN_REPS)
+        dev_ms = per["ed_combine"][1] / per["ed_combine"][0] if per.get("ed_combine") else None
+        hper, hbusy, hwall, hothers, _ = device_times_whole(
+            lambda: combine_halving(te.adapter, flat, c, K),
+            lambda r: r[0].get("ed_dbl", (0,))[0] == levels and r[0].get("ed_add", (0,))[0] == levels)
+        products = (K - 1) * (c + 1) * ADD_MULS
+        bms, by = bound_of((K + 1) * W, products * 2 * n * n, products * n, 1, rates)
+        serial = 3 * (K - 1) * (c + 1)  # warp products on the critical path
+        floor = serial * rates["lat_warp_n9"] * 1e3
+        rows[f"K={K}, c={c}"] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=plain_ms, halving_ms=half_ms, halving_device_ms=hbusy,
+            halving_host_ms=hwall, halving_kernels={k: v for k, v in hper.items()}, bound_ms=bms,
+            bound_by=by, floor_ms=floor, serial_products=serial, max_abs_err=err)
+        say(f"ed_combine K={K} c={c}: {REDESIGN_REPS} fresh inputs bit for bit with the plain Horner and "
+            f"equal to the halving combine; kernel {ms:.4f} ms (device "
+            + (f"{dev_ms:.4f} ms" if dev_ms else "not measured")
+            + f"), plain {plain_ms:.1f} ms (the {REDESIGN_REPS} inputs in one run); halving "
+            f"{half_ms:.4f} ms (device {hbusy:.4f} ms of {hwall:.4f} ms host: " + ", ".join(f"{k} {v[0]} x, {v[1]:.4f} ms" for k, v in hper.items())
+            + f"; PyTorch's own {sum(v[1] for v in hothers.values()):.4f} ms); bound {bms * 1e3:.3f} us "
+            f"({by}); floor {serial} x {rates['lat_warp_n9'] * 1e6:.3f} us = {floor:.4f} ms (share "
+            f"{floor / (dev_ms or ms):.3f})")
+    main = rows[f"K={TE_COMBINE_CASES[0][0]}, c={TE_COMBINE_CASES[0][1]}"]
+    return dict(main, lanes=1, call=f"K={TE_COMBINE_CASES[0][0]}, c={TE_COMBINE_CASES[0][1]}",
+                main_path=rows)
+
+
 # ------------------------------------------------- sqrt slice: kernels
 
 
-def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, last: bool = False,
-              digits=None, s_is_t: bool = False) -> tuple[float, float, float]:
+def sqrt_work(f, name: str, e: int = 0, m: int = 0, last: bool = False,
+              s_is_t: bool = False) -> tuple[float, float, float]:
     """(bytes, wide multiplies, low multiplies) per lane of one call of a
-    kernel of the sqrt slice, for this call's exponent e, chain m or window
-    (k, lk, last): each plane read once and written once; the products the
-    function needs. exp_ladder: the table's 2 products, then 2 squarings a
-    digit and a product for each nonzero one; sqr_n: m squarings; sqrt_win:
-    lk (lk - 1) / 2 squarings and, for each set bit of `digits` (this run's
-    digit plane), its corrections (v below the top bit, t unless last, r
-    from bit position 1), averaged over the lanes; it reads t, r and s and
-    writes t, r and the digit, and where the window needs no chain s is t
-    itself (s_is_t), read once."""
-    from montgomery_tpu_torch.ops.field import SQRT_WINDOW, ladder_digits
+    kernel of the sqrt slice, for this call's exponent e, chain m or window:
+    each plane read once and written once; the products the function needs.
+    exp_ladder: the table's 2 products, then 2 squarings a digit and a
+    product for each nonzero one; sqr_n: m squarings; sqrt_win: one product
+    by the r row and one by the t row unless `last` (the table lookup's
+    compares are no multiplies), reading t, r and s and writing t, r and
+    the digit; where the window needs no chain s is t itself (s_is_t), read
+    once."""
+    from montgomery_tpu_torch.ops.field import ladder_digits, sqrt_window_products
 
     n = f.n
     W = 4 * n
@@ -2447,10 +2600,7 @@ def sqrt_work(f, name: str, e: int = 0, m: int = 0, k: int = 0, lk: int = 0, las
         return work(2 * W, 2 + nonzero, 2 * (nd - 1))
     if name == "sqr_n":
         return work(2 * W, 0, m)
-    bits = [((digits >> i) & 1).double().mean().item() for i in range(lk)]
-    fixes = sum(b * ((i < lk - 1) + (not last) + (SQRT_WINDOW * k + i >= 1))
-                for i, b in enumerate(bits))
-    return work((4 if s_is_t else 5) * W + 4, fixes, lk * (lk - 1) // 2)
+    return work((4 if s_is_t else 5) * W + 4, sqrt_window_products(last), 0)
 
 
 def _sqrt_plane(f, N: int, gen):
@@ -2525,6 +2675,91 @@ def sqrt_checks(f, N: int, gen, check) -> None:
         f"versions bit for bit; sqrt of 0, 1, p - 1, 16 squares and 16 non-squares right")
 
 
+def sqrt_wide(f, N: int, gen, check) -> None:
+    """sqrt_win at every window of one whole sqrt on N random lanes (the
+    chains by sqr_n), each through check(label, kernel, plain, N); then
+    FieldOps.sqrt's roots and flags against those windows run one by one,
+    and on SQRT_SAMPLE sampled lanes against Euler's criterion and
+    root^2 = x with Python's ints."""
+    import torch
+
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    n, p, M, q = f.n, f.p, f.sqrt_M, f.sqrt_q_odd
+    x = _random_planes(f, n, N, gen)
+    w = f.exp_const(x, (q - 1) // 2)
+    t, r = f.mul(x, f.mul(w, w)), f.mul(x, w)
+    done = k = 0
+    while done < M:
+        lk = min(SQRT_WINDOW, M - done)
+        last = done + lk >= M
+        s = f.sqr_n(t, M - done - lk)
+        t, r, dig = check(f"sqrt_win k={k}", lambda a=(t, r, s, k, lk, last): f.sqrt_window(*a),
+                          lambda a=(t, r, s, k, lk, last): f.sqrt_window_plain(*a), N)
+        if bool((dig < 0).any()):
+            raise AssertionError(f"sqrt_win at {n} limbs found no digit on some lane of window {k}")
+        if k == 0:
+            square = (dig[0] & 1) == 0
+        done, k = done + lk, k + 1
+    del w, s
+    root, ok = f.sqrt(x)
+    zmask = f.is_zero(x)
+    loop_root = f._sel(square & ~zmask, r, torch.zeros_like(r))
+    if _raw_err([root], [loop_root]) or not torch.equal(ok, square | zmask):
+        raise AssertionError(f"sqrt at {n} limbs and {N} lanes differs from its windows run one by one")
+    lanes = sorted(random.Random(N + n).sample(range(N), min(SQRT_SAMPLE, N)))
+    idx = torch.tensor(lanes, dtype=torch.long, device=x.device)
+    xs = f.unpack(x.index_select(1, idx), from_mont=True)
+    ys = f.unpack(root.index_select(1, idx), from_mont=True)
+    for v, y, sq in zip(xs, ys, ok.index_select(0, idx).tolist()):
+        if sq != (v == 0 or pow(v, (p - 1) // 2, p) == 1) or (y * y % p != v if sq else y):
+            raise AssertionError(f"sqrt at {n} limbs and {N} lanes is wrong for {v}")
+    say(f"sqrt_win n={n} N={N}: {k} windows bit for bit with the plain version; sqrt equal to them and, "
+        f"on {len(lanes)} sampled lanes, to pow() and Euler's criterion ({int(ok.sum())} squares)")
+
+
+def sqrt_win_in_turns(f, t, r, s, lk: int, last: bool) -> dict:
+    """The table window (sqrt_win) and the bit-by-bit window it replaced
+    (csrc/rates/sqrt_win_bitwise.cu, built apart in phase 0) on the same
+    window 0 inputs: equal digits and canonical t', r'; then each timed
+    (CUDA events, 10 launches) in SQRT_TURNS. Returns the times (ms) in
+    turn order under "table" and "bitwise"."""
+    import torch
+
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.ops import limbs as codec
+    from montgomery_tpu_torch.ops.field import SQRT_WIN
+
+    n, N = f.n, t.shape[-1]
+    fn = ctypes.CDLL(str(PROBES[SQRT_BITWISE_SRC])).sqrt_win_bitwise
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_uint32)] \
+        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    g_table = torch.from_numpy(codec.pack(f.sqrt_g_inv_pows, n).T.copy()).to(t.device)
+    one = kernels.words(codec.to_words(f.R_mod_p, n))
+    outs = (torch.empty_like(t), torch.empty_like(r), torch.empty((1, N), dtype=torch.int32, device=t.device))
+
+    def bitwise():
+        rc = fn(n, *[a.data_ptr() for a in (*outs, t, r, s, g_table)], one, 0, lk, f.sqrt_M, int(last),
+                f.field_words(SQRT_WIN), N, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"sqrt_win_bitwise launch failed, CUDA error {rc}")
+
+    bitwise()
+    new = f.sqrt_window(t, r, s, 0, lk, last)
+    if not (torch.equal(new[2], outs[2]) and all(torch.equal(_canon(f, a), _canon(f, b))
+                                                 for a, b in zip(new[:2], outs[:2]))):
+        raise AssertionError(f"sqrt_win at {n} limbs differs from the bit-by-bit window")
+    times = {"table": [], "bitwise": []}
+    for who in SQRT_TURNS:
+        times[who].append(cuda_time_ms((lambda: f.sqrt_window(t, r, s, 0, lk, last)) if who == "table"
+                                       else bitwise, 10))
+    say(f"sqrt_win n={n} window 0 at {N} lanes, in turns {SQRT_TURNS}: table "
+        + ", ".join(f"{v:.4f}" for v in times["table"]) + " ms; bit by bit "
+        + ", ".join(f"{v:.4f}" for v in times["bitwise"]) + " ms (equal digits and canonical values)")
+    return times
+
+
 def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
     """exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43) and every
     sqrt_win window of one whole sqrt against their plain versions, bit for
@@ -2563,8 +2798,10 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
             r["max_abs_err"] = max(r["max_abs_err"], err)
             return a
 
-        for N in KERNEL_LANES:
+        for N in SQRT_LANES:
             sqrt_checks(f, N, gen, check)
+        sqrt_wide(f, SQRT_WIDE, gen, check)
+        torch.cuda.empty_cache()
         x, _ = _sqrt_plane(f, KERNEL_LANES[0], gen)
         err = diff(_canon(f, f.inv(x)), _canon(f, f.inv_root(x)))
         if err:
@@ -2573,13 +2810,18 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
             f"canonical values")
 
         # timing at the generation's width, on random values
-        W = int(GEN_OVERSAMPLE * (1 << GEN_LOG2N)) + 16
+        W = SQRT_WIDE
         x = _random_planes(f, n, W, gen)
         e = (q - 1) // 2
         t = f.exp_ladder(x, q)  # x^q, in the 2-Sylow subgroup
         r = f.mul(x, f.exp_ladder(x, e))
         s = f.sqr_n(t, M - SQRT_WINDOW)
-        dig = f.sqrt_window(t, r, s, 0, SQRT_WINDOW, False)[2]
+        turns = sqrt_win_in_turns(f, t, r, s, SQRT_WINDOW, False)
+        per, busy, wall, others, _ = device_times_whole(
+            lambda: f.sqrt(x), lambda res_: res_[0].get("sqrt_win", (0,))[0] == -(-M // SQRT_WINDOW))
+        say_device_times(f"profiled FieldOps.sqrt n={n} at {W} lanes (the solve stage's sqrt)", per, busy,
+                         wall, others)
+        res.setdefault("sqrt_win", {})["sqrt_profile"] = {k: list(v) for k, v in per.items()}
         for name, kern, plain, call, work in (
                 ("exp_ladder", lambda: f.exp_ladder(x, e), lambda: f.exp_ladder_plain(x, e),
                  "e = (q - 1) / 2", sqrt_work(f, "exp_ladder", e=e)),
@@ -2588,15 +2830,16 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
                  sqrt_work(f, "sqr_n", m=M - SQRT_WINDOW)),
                 ("sqrt_win", lambda: f.sqrt_window(t, r, s, 0, SQRT_WINDOW, False),
                  lambda: f.sqrt_window_plain(t, r, s, 0, SQRT_WINDOW, False),
-                 f"window 0 (lk = {SQRT_WINDOW})",
-                 sqrt_work(f, "sqrt_win", k=0, lk=SQRT_WINDOW, last=False, digits=dig))):
+                 f"window 0 (lk = {SQRT_WINDOW})", sqrt_work(f, "sqrt_win"))):
             check(name, kern, plain, W)
             ms = cuda_time_ms(kern, 10)
             pms = cuda_time_ms(plain, 1, 0)
             bms, by = bound_of(*work, W, rates)
             res[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=W, call=call)
+            if name == "sqrt_win":
+                res[name].update(turns_ms=turns["table"], bitwise_turns_ms=turns["bitwise"])
             say(f"{name} n={n} ({call}): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                f"({by}) per call at {W} lanes")
+                f"({by}, share {bms / ms:.3f}) per call at {W} lanes")
         del x, t, r, s
         torch.cuda.empty_cache()
     return out
@@ -2839,6 +3082,11 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
     dev = te.device
     counts, first, got = counted(lambda: te.msm_full(limbs, P, c=c), "te", te.fops.n)
     say(f"te launches: {counts} (first run {first:.3f} s)")
+    top = log2n == max(MSM_LOG2N)
+    if top:
+        wrong = {k: (counts[k], v) for k, v in TE_PATH_LAUNCHES.items() if counts[k] != v}
+        if wrong:
+            raise AssertionError(f"Twisted Edwards path launches (got, expected): {wrong}")
     say(f"rounds: {te.adapter.rounds}")
     t0 = time.perf_counter()
     E = oracle_curve(te.params)
@@ -2858,6 +3106,17 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
     say(f"msm te N=2^{log2n}: median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; "
         f"peak memory {peak / 2**20:.1f} MiB")
     say("phase split:\n" + log.report())
+    if top:  # where its device time goes, with the halving combine (before) and ed_combine
+        home = te.adapter
+        for label, adapter, expect in (("halving combine", HalvingCombine(home), {"ed_dbl": 6, "ed_add": 42}),
+                                       ("ed_combine", home, TE_PATH_LAUNCHES)):
+            te.adapter = adapter
+            try:
+                per, busy, wall, others, _ = device_times_whole(
+                    run, lambda r, e=expect: all(r[0].get(k, (0,))[0] == v for k, v in e.items()))
+            finally:
+                te.adapter = home
+            say_device_times(f"profiled Twisted Edwards N=2^{log2n} ({label})", per, busy, wall, others)
     return counts
 
 
@@ -3213,6 +3472,9 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
             f"and the sqrt slice; {time.perf_counter() - t0:.1f} s into the phase)")
         del cases, x, y, P, Q, C, A, B, G, H, denom, inv1, numer, flags, pnumer, pflags
         torch.cuda.empty_cache()
+    sqrt_wide(f, NEW_SQRT_LANES, gen, check)
+    results["sqrt_win"]["widths"].append(NEW_SQRT_LANES)
+    torch.cuda.empty_cache()
 
     # -- proj_add_rcb's resident blocks a SM at this count, then timing at the
     # 12-limb table's widths, on random planes
@@ -3296,10 +3558,9 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
             r = f.mul(x, f.exp_ladder(x, (q - 1) // 2))
             s = f.sqr_n(t, M - lk)
             last = lk == M
-            dig = f.sqrt_window(t, r, s, 0, lk, last)[2]
             kern, plain = (lambda: f.sqrt_window(t, r, s, 0, lk, last),
                            lambda: f.sqrt_window_plain(t, r, s, 0, lk, last))
-            work = sqrt_work(f, "sqrt_win", k=0, lk=lk, last=last, digits=dig, s_is_t=s is t)
+            work = sqrt_work(f, "sqrt_win", last=last, s_is_t=s is t)
         else:
             raise AssertionError(f"no timing case for {name}")
         a, b = kern(), plain()
@@ -3467,6 +3728,8 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
 def _num(v):
     """A measured float to 6 significant digits (the kernels line stays
     within the tail of the output that a caller keeps); others unchanged."""
+    if isinstance(v, list):
+        return [_num(x) for x in v]
     return float(f"{v:.6g}") if isinstance(v, float) else v
 
 
@@ -3492,7 +3755,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
     new_home = {label: [f"{label}/{run}_2^{top}" for run in (*PATHS, "serve")]
                 + [f"{label}/points_2^{NEW_GEN_LOG2N}"] for label in NEW_CURVES}
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "share", "lanes", "max_abs_err",
-            "blocks_per_sm")
+            "blocks_per_sm", "turns_ms", "bitwise_turns_ms")
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
@@ -3519,7 +3782,8 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
         res = {**te_kres.get(name, {}), **kres.get(name, {})}
         d = {"launches_by_path": {run: c[name] for run, c in launches.items() if c[name]}}
         d.update({key: v for key, v in res.items()
-                  if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms")})
+                  if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms", "turns_ms",
+                                                     "bitwise_turns_ms", "sqrt_profile")})
         d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
         d.update({f"{label}_main_path": r[name]["main_path"] for label, r in new_kres.items()
                   if "main_path" in r.get(name, {})})
@@ -3572,6 +3836,7 @@ def main() -> int:
     for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
         kres.setdefault(name, {}).update(res)
     te_kres = phase_te_kernels(te, te_host, rates)
+    te_kres["ed_combine"] = redesign_te_combine(te, te_host, rates)
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)
     te_kres.update(sqrt9)

@@ -96,6 +96,20 @@ __device__ __forceinline__ void coop_mul(uint32_t* r, const uint32_t* a, const u
   if (lane >= NL && lane < 2 * NL) r[lane - NL] = u;
 }
 
+// a shared-memory slot to registers and back, for the additions that one
+// lane runs between the stages of a cooperative formula
+template <int NL>
+__device__ __forceinline__ void sm_get(uint32_t (&r)[NL], const uint32_t* a) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = a[k];
+}
+
+template <int NL>
+__device__ __forceinline__ void sm_put(uint32_t* r, const uint32_t (&a)[NL]) {
+#pragma unroll
+  for (int k = 0; k < NL; k++) r[k] = a[k];
+}
+
 // the field constants into shared memory, by the block's first thread
 template <int NL>
 __device__ __forceinline__ void coop_load_consts(CoopConsts<NL>& C, const FieldParams<NL>& F,

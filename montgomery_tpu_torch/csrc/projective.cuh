@@ -63,20 +63,6 @@ struct CoopPoint {
   CoopConsts<NL> C;
 };
 
-// a shared-memory slot to registers and back, for the additions that lane 0
-// runs between stages
-template <int NL>
-__device__ __forceinline__ void sm_get(uint32_t (&r)[NL], const uint32_t* a) {
-#pragma unroll
-  for (int k = 0; k < NL; k++) r[k] = a[k];
-}
-
-template <int NL>
-__device__ __forceinline__ void sm_put(uint32_t* r, const uint32_t (&a)[NL]) {
-#pragma unroll
-  for (int k = 0; k < NL; k++) r[k] = a[k];
-}
-
 // (X, Y, Z) <- 2 (X, Y, Z), as rcb_dbl; every thread of the block calls it
 // (warps 0-3 work, the others only meet the barriers)
 template <int NL>

@@ -4,6 +4,8 @@
 // serial product count by the warp product's latency for the combine's
 // dependent-chain floor: a kernel that carries one point through a chain of
 // products cannot beat that chain, however it uses the card.
+// Instantiated at 12 limbs (BLS12-377's base field, the Weierstrass combine)
+// and 9 (ed-on-bls12-377's, the Twisted Edwards combine).
 // Not part of the kernels' library: it is built on its own, beside it.
 //
 // One block of one warp runs `iters` products, each on the result of the one
@@ -11,8 +13,7 @@
 // over iters is the latency of one product (launch overhead amortised).
 #include "../coop.cuh"
 
-constexpr int NL = 12;
-
+template <int NL>
 __global__ void __launch_bounds__(32)
 one_thread_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iters) {
   if (threadIdx.x) return;
@@ -24,6 +25,7 @@ one_thread_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iter
   for (int k = 0; k < NL; k++) out[k] = x[k];
 }
 
+template <int NL>
 __global__ void __launch_bounds__(32)
 warp_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, Fe<NL> mu, FieldParams<NL> F, int iters) {
   __shared__ uint32_t x[NL], ys[NL];
@@ -41,15 +43,24 @@ warp_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, Fe<NL> mu, FieldParams<NL> F, int
   if (threadIdx.x < NL) out[threadIdx.x] = x[threadIdx.x];
 }
 
-// One launch of `iters` dependent products: warp = 0 one thread, 1 a warp;
-// out holds the NL words of the last product. Returns cudaGetLastError().
-extern "C" int mul_latency(int warp, int iters, const uint32_t* x, const uint32_t* y, const uint32_t* mu,
-                           const uint32_t* field, void* out, void* stream) {
+template <int NL>
+static int launch(int warp, int iters, const uint32_t* x, const uint32_t* y, const uint32_t* mu,
+                  const uint32_t* field, void* out, void* stream) {
   if (warp)
-    warp_chain<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
-                                                   fe_from<NL>(mu), field_from<NL>(field), iters);
+    warp_chain<NL><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
+                                                       fe_from<NL>(mu), field_from<NL>(field), iters);
   else
-    one_thread_chain<<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
-                                                         field_from<NL>(field), iters);
+    one_thread_chain<NL><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
+                                                             field_from<NL>(field), iters);
   return (int)cudaGetLastError();
+}
+
+// One launch of `iters` dependent products at nl = 12 or 9 limbs: warp = 0
+// one thread, 1 a warp; out holds the nl words of the last product. Returns
+// cudaGetLastError().
+extern "C" int mul_latency(int nl, int warp, int iters, const uint32_t* x, const uint32_t* y,
+                           const uint32_t* mu, const uint32_t* field, void* out, void* stream) {
+  if (nl == 12) return launch<12>(warp, iters, x, y, mu, field, out, stream);
+  if (nl == 9) return launch<9>(warp, iters, x, y, mu, field, out, stream);
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,106 +1,121 @@
-// Kernel 17: one 4-bit window of the 2-Sylow discrete log of FieldOps.sqrt.
+// Kernel 17: one 4-bit window of the 2-Sylow discrete log of FieldOps.sqrt,
+// as a table lookup.
 //
 // Replaces the Pallas kernel "sqrt_win_{M}_{k}_{lk}" of
 // montgomery_tpu/ops/field.py (FieldOps._sqrt_window_formula, :859-914,
-// driven by FieldOps.sqrt, :916-970), which was built once per window. Here
-// the window k, its width lk <= 4, M and `last` are run-time parameters, so
-// one binary serves every window of every field. Inputs t (the 2-Sylow part
-// still to solve), r (the root so far) and s = t^(2^(M - 4k - lk)); outputs
-// t', r' and the window's digit. For bit i of the window: square a copy of
-// v (= s corrected by the bits found so far) lk - 1 - i times and compare it
-// with one in canonical values; the bit is set where they differ, and then
-// v (while later bits of the window need it) takes v g^(-2^(M - lk + i)),
-// t (unless this is the last window) t g^(-2^j) and r (from bit position
-// j = 4k + i >= 1 on) r g^(-2^(j - 1)), exactly the JAX package's indices.
-// Entry points: msm_sqrt_win (12 limbs), msm_sqrt_win_n13 (13 limbs:
-// BLS12-381's one window of lk = 1) and msm_sqrt_win_n9 (9 limbs).
+// driven by FieldOps.sqrt, :916-970), which was built once per window and
+// found the window's digit bit by bit: lk (lk - 1) / 2 squarings, lk compares
+// with one and every correction product of every bit (up to 3 lk), each
+// computed on every lane and selected. Inputs t (the 2-Sylow part still to
+// solve), r (the root so far) and s = t^(2^(M - 4k - lk)); outputs t', r' and
+// the window's digit d. Once the earlier windows have corrected t, s equals
+// zeta^d with zeta = g^(2^(M - lk)) a primitive 2^lk-th root of unity (g
+// generates the 2-Sylow subgroup, of order 2^M), and the JAX formula's
+// per-bit corrections fold into one product each, since g has order 2^M:
+//   t' = t g^(-d 2^(4k))               (none on the last window)
+//   r' = r g^(-floor(d 2^(4k) / 2))    (at k = 0: without the parity bit)
+// Both are unique mod p, so t', r' and d are the JAX package's values (the
+// reference's table-based sqrt, field-sqrt.ts:113-265, which the TPU turned
+// into masked products). The host builds the 3 x 2^lk rows of each window
+// once (FieldOps.sqrt_window_rows): the t rows, the r rows and the compare
+// values zeta^d in canonical Montgomery form, row j's NL words at j NL.
+// A lane whose s matches no compare value is not in the state the earlier
+// windows leave: its digit is -1 and t, r pass through unchanged (the plain
+// version does the same). Entry points: msm_sqrt_win (12 limbs),
+// msm_sqrt_win_n13 (13 limbs: BLS12-381's one window of lk = 1) and
+// msm_sqrt_win_n9 (9 limbs); one binary serves every window of every field.
 //
-// Bound on this card: lk (lk - 1) / 2 squarings and up to 3 lk products per
-// lane against 20 NL + 4 bytes moved: integer multiply throughput. Design:
-// one thread per lane; the M x NL words of g^(-2^j) (Montgomery form) sit in
-// a device buffer, 2.2 KB at NL = 12, and every lane of a warp reads the
-// same row, so each read is one broadcast through the L1 cache; the
-// corrections depend on the lane's bit, so each is computed and then
-// selected (no divergence), as the JAX formula does.
+// Bound on this card: bytes. Per lane 3 planes in and 2 planes plus the
+// digit out (244 B at NL = 12) against two products (one on the last
+// window): 0.19 ms of memory at 2,621,456 lanes and 3.35 TB/s, about as much
+// as the products' multiplies. Design: one thread per lane; the window's
+// rows go into shared memory once per block (48 rows of NL words at lk = 4:
+// 2.3 KB at NL = 12); s is made canonical by one conditional subtraction,
+// then compared with all 2^lk values, branch-free (every lane reads the same
+// word: a broadcast); d = 0 selects the rows for one, so the products are
+// computed on every lane and stay products (no select but the no-match one,
+// no branch on the value).
 #include "field.cuh"
 
-template <int NL>
-__device__ __forceinline__ void load_row(uint32_t (&g)[NL], const uint32_t* __restrict__ table, int row) {
-#pragma unroll
-  for (int k = 0; k < NL; k++) g[k] = __ldg(table + row * NL + k);
-}
-
-// a <- bit ? a * g : a
-template <int NL>
-__device__ __forceinline__ void correct(uint32_t (&a)[NL], bool bit, const uint32_t* __restrict__ table,
-                                        int row, const FieldParams<NL>& F) {
-  uint32_t g[NL], p[NL];
-  load_row(g, table, row);
-  fe_mul(p, a, g, F);
-  fe_select(a, bit, p, a);
-}
+#define SQRT_WIN_THREADS 256
+#define SQRT_WIN_MAX_ROWS 16  // 2^lk for lk <= 4
 
 template <int NL>
-__global__ void __launch_bounds__(LANES_PER_BLOCK)
+__global__ void __launch_bounds__(SQRT_WIN_THREADS)
 sqrt_win_kernel(int32_t* __restrict__ t_out, int32_t* __restrict__ r_out, int32_t* __restrict__ digit_out,
                 const int32_t* __restrict__ t_in, const int32_t* __restrict__ r_in,
-                const int32_t* __restrict__ s_in, const uint32_t* __restrict__ g_table, Fe<NL> one, int k,
-                int lk, int M, int last, FieldParams<NL> F, int N) {
-  int i = lane_index();
+                const int32_t* __restrict__ s_in, const uint32_t* __restrict__ table, int lk, int last,
+                FieldParams<NL> F, int N) {
+  __shared__ uint32_t rows[3 * SQRT_WIN_MAX_ROWS * NL];
+  const int nrow = 1 << lk;
+  for (int j = threadIdx.x; j < 3 * nrow * NL; j += blockDim.x) rows[j] = table[j];
+  __syncthreads();
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N) return;
-  uint32_t t[NL], r[NL], v[NL], chk[NL];
-  fe_load(t, t_in, N, i);
-  fe_load(r, r_in, N, i);
-  fe_load(v, s_in, N, i);
-  int digit = 0;
-  for (int b = 0; b < lk; b++) {
+  uint32_t s[NL];
+  fe_load(s, s_in, N, i);
+  fe_reduce(s, s, F);
+  const uint32_t* cmp = rows + 2 * nrow * NL;
+  int digit = -1;
+#pragma unroll 4
+  for (int d = 0; d < nrow; d++) {
+    uint32_t diff = 0;
 #pragma unroll
-    for (int q = 0; q < NL; q++) chk[q] = v[q];
-    for (int q = 0; q < lk - 1 - b; q++) fe_sqr(chk, chk, F);
-    bool bit = !fe_is_equal(chk, one.v, F);
-    digit |= (int)bit << b;
-    int j = 4 * k + b;  // the bit's position in the discrete log
-    if (b < lk - 1) correct(v, bit, g_table, M - lk + b, F);
-    if (!last) correct(t, bit, g_table, j, F);
-    if (j >= 1) correct(r, bit, g_table, j - 1, F);
+    for (int q = 0; q < NL; q++) diff |= s[q] ^ cmp[d * NL + q];
+    digit = diff == 0 ? d : digit;
   }
-  fe_store(t_out, N, i, t);
-  fe_store(r_out, N, i, r);
+  const bool hit = digit >= 0;
+  const int row = hit ? digit : 0;
+  uint32_t a[NL], g[NL], prod[NL];
+  fe_load(a, t_in, N, i);
+  if (!last) {
+#pragma unroll
+    for (int q = 0; q < NL; q++) g[q] = rows[row * NL + q];
+    fe_mul(prod, a, g, F);
+    fe_select(a, hit, prod, a);
+  }
+  fe_store(t_out, N, i, a);
+  fe_load(a, r_in, N, i);
+#pragma unroll
+  for (int q = 0; q < NL; q++) g[q] = rows[(nrow + row) * NL + q];
+  fe_mul(prod, a, g, F);
+  fe_select(a, hit, prod, a);
+  fe_store(r_out, N, i, a);
   digit_out[i] = digit;
 }
 
 template <int NL>
 static int launch(void* t_out, void* r_out, void* digit_out, const void* t, const void* r, const void* s,
-                  const void* g_table, const uint32_t* one, int k, int lk, int M, int last,
-                  const uint32_t* field, int N, void* stream) {
+                  const void* table, int lk, int last, const uint32_t* field, int N, void* stream) {
+  if (lk < 1 || lk > 4) return (int)cudaErrorInvalidValue;
   if (N > 0)
-    sqrt_win_kernel<NL><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+    sqrt_win_kernel<NL><<<(N + SQRT_WIN_THREADS - 1) / SQRT_WIN_THREADS, SQRT_WIN_THREADS, 0,
+                          (cudaStream_t)stream>>>(
         (int32_t*)t_out, (int32_t*)r_out, (int32_t*)digit_out, (const int32_t*)t, (const int32_t*)r,
-        (const int32_t*)s, (const uint32_t*)g_table, fe_from<NL>(one), k, lk, M, last,
-        field_from<NL>(field), N);
+        (const int32_t*)s, (const uint32_t*)table, lk, last, field_from<NL>(field), N);
   return (int)cudaGetLastError();
 }
 
 #if MSM_AT(12)
 extern "C" int msm_sqrt_win(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
-                            const void* s, const void* g_table, const uint32_t* one, int k, int lk, int M,
-                            int last, const uint32_t* field, int N, void* stream) {
-  return launch<12>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
+                            const void* s, const void* table, int lk, int last, const uint32_t* field, int N,
+                            void* stream) {
+  return launch<12>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
 }
 #endif
 
 #if MSM_AT(13)
 extern "C" int msm_sqrt_win_n13(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
-                                const void* s, const void* g_table, const uint32_t* one, int k, int lk,
-                                int M, int last, const uint32_t* field, int N, void* stream) {
-  return launch<13>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
+                                const void* s, const void* table, int lk, int last, const uint32_t* field,
+                                int N, void* stream) {
+  return launch<13>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
 }
 #endif
 
 #if MSM_AT(9)
 extern "C" int msm_sqrt_win_n9(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
-                               const void* s, const void* g_table, const uint32_t* one, int k, int lk,
-                               int M, int last, const uint32_t* field, int N, void* stream) {
-  return launch<9>(t_out, r_out, digit_out, t, r, s, g_table, one, k, lk, M, last, field, N, stream);
+                               const void* s, const void* table, int lk, int last, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<9>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
 }
 #endif

@@ -7,11 +7,13 @@ add is add-2008-hwcd-3, strongly unified (valid for P == Q and the
 identity), so it is also the doubling and needs no masks.
 
 Kernels (`csrc/`): `ed_add` (the planar add) and `ed_dbl` (k doublings in
-one launch, the TPU's fori_loop of `ed_add`) in `ed_add.cu`, and
+one launch, the TPU's fori_loop of `ed_add`) in `ed_add.cu`,
 `ed_add_packed` (the sign-applied add with pass-through on packed rows, every
-accumulation round of the MSM) in `ed_add_packed.cu`, over the shared device
-function of `edwards.cuh`. Each wrapper runs its kernel on CUDA tensors and
-its plain version on CPU tensors.
+accumulation round of the MSM) in `ed_add_packed.cu`, and `ed_combine` (the
+MSM's window combine in one Horner launch, a block of cooperating warps) in
+`ed_combine.cu`, over the shared device functions of `edwards.cuh`. Each
+wrapper runs its kernel on CUDA tensors and its plain version on CPU
+tensors.
 
 The packed form keeps a point as ONE column of 4n int32 rows [X | Y | Z | T]
 of whole 32-bit limbs (36 rows for ed-on-bls12-377, n = 9). The JAX package
@@ -50,6 +52,11 @@ ED_ADD_PACKED = kernels.Kernel(
     "montgomery_tpu/curves/edwards.py:184",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
 )
+ED_COMBINE = kernels.Kernel(
+    "ed_combine", {9: "msm_ed_combine_n9"}, "montgomery_tpu_torch/csrc/ed_combine.cu",
+    "montgomery_tpu/msm/pippenger.py:508",
+    [_VP] * 8 + [_INT, _INT, _U32P, _U32P, _U32P, _INT],
+)
 # Montgomery products of one add (the JAX formula's 8 and 1 by k = 2d), for
 # MulCounter
 ADD_MULS = 9
@@ -77,6 +84,8 @@ class EdwardsOps:
         self.d_mont = params.d % p * fops.R % p
         self.k_mont = 2 * params.d % p * fops.R % p  # k = 2d
         self._k_words = kernels.words(to_words(self.k_mont, fops.n))
+        # mu = -p^-1 mod R, all n words: the warp product's (csrc/coop.cuh)
+        self._mu_words = kernels.words(to_words(-pow(p, -1, fops.R) % fops.R, fops.n))
 
     # ------------------------------------------------------------- structure
 
@@ -163,6 +172,41 @@ class EdwardsOps:
         for _ in range(k):
             P16 = self._add16(P16, P16)
         return EdwardsBatch(*[from16(a) for a in P16])
+
+    def combine(self, W: EdwardsBatch, c: int) -> EdwardsBatch:
+        """S = sum_k 2^(c k) W_k over the last axis of planes (n, *B, K), in
+        Horner order (acc = W_{K-1}; acc = 2^c acc + W_k for k = K-2 .. 0,
+        each doubling the unified add of (P, P)): one `ed_combine` launch on
+        CUDA tensors, `combine_plain` on CPU tensors. Returns planes
+        (n, *B, 1); any W_k may be the identity."""
+        K = W.X.shape[-1]
+        if K < 1 or c < 1:
+            raise ValueError(f"combine needs K >= 1 windows and c >= 1, got K = {K}, c = {c}")
+        MulCounter.record(W.X.shape[:-1], (K - 1) * (c + 1) * ADD_MULS)
+        if not kernels.on_cuda(*W):
+            return self.combine_plain(W, c)
+        n = self.f.n
+        batch = W.X.shape[1:-1]
+        flat = [a.reshape(n, -1).contiguous() for a in W]
+        kernels.check_planes(n, *flat)
+        N = flat[0].shape[-1] // K
+        outs = [torch.empty((n, N), dtype=torch.int32, device=flat[0].device) for _ in range(4)]
+        if N:
+            ED_COMBINE.launch(*[kernels.ptr(t) for t in outs + flat], K, int(c), self._k_words,
+                              self._mu_words, self.f.field_words(ED_COMBINE), N, n=n,
+                              device=outs[0].device)
+        return EdwardsBatch(*[o.reshape(n, *batch, 1) for o in outs])
+
+    def combine_plain(self, W: EdwardsBatch, c: int) -> EdwardsBatch:
+        """The Horner combine over `_add16`, in the kernel's order (the
+        accumulator first in every add)."""
+        K = W.X.shape[-1]
+        acc = [to16(a[..., K - 1:K]) for a in W]
+        for k in range(K - 2, -1, -1):
+            for _ in range(c):
+                acc = self._add16(acc, acc)
+            acc = self._add16(acc, [to16(a[..., k:k + 1]) for a in W])
+        return EdwardsBatch(*[from16(a) for a in acc])
 
     def scale(self, k: int, P: EdwardsBatch) -> EdwardsBatch:
         """k P for a constant k: the doublings between set bits as one

@@ -112,9 +112,10 @@ class AffineAccumAdapter:
 class EdwardsAdapter:
     """Twisted Edwards MSM in extended coordinates: packed accumulation
     rounds (one `ed_add_packed` launch each, no inversion) and the bucket
-    reduction and window combine in the same coordinates (`ed_add`, and
-    `ed_dbl` for double_n). The unified add needs no masks: an empty bucket
-    is the identity (0 : 1 : 1 : 0)."""
+    reduction in the same coordinates (`ed_add`, and `ed_dbl` for
+    double_n) and the window combine in one Horner launch (`ed_combine`).
+    The unified add needs no masks: an empty bucket is the identity
+    (0 : 1 : 1 : 0)."""
 
     def __init__(self, ed: EdwardsOps):
         self.ed = ed
@@ -132,6 +133,9 @@ class EdwardsAdapter:
 
     def double_n(self, P, k: int):
         return self.ed.double_n(P, k)
+
+    def combine(self, W, c: int):
+        return self.ed.combine(W, c)
 
     def select(self, mask, a, b):
         return self.ed.select(mask, a, b)

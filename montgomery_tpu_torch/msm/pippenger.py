@@ -18,9 +18,10 @@ Both paths:
   The first rounds shrink by static sizes, the tail repeats at a fixed size
   until every bucket holds at most one element (one `.item()` per round).
 - The bucket sums W_k = sum_j (j+1) B_{k,j} use row and column trees and
-  suffix scans; the complete projective group combines the windows in one
-  Horner launch (`combine`), the Twisted Edwards group in log2(K) levels of
-  one `double_n` launch and one add each.
+  suffix scans; the complete projective and the Twisted Edwards groups
+  combine the windows in one Horner launch each (`combine`);
+  `combine_halving`, log2(K) levels of one `double_n` launch and one add
+  each, serves any group without one.
 """
 
 from __future__ import annotations
@@ -339,8 +340,8 @@ def window_sums(group, buckets, K: int, L: int):
 
 def combine_windows(group, W, c: int, K: int):
     """S = sum_k 2^(ck) W_k, W planes (n, K): the group's one-launch Horner
-    combine where it has one (`combine`: the complete projective group),
-    else `combine_halving`."""
+    combine where it has one (`combine`: the complete projective and the
+    Twisted Edwards groups), else `combine_halving`."""
     if hasattr(group, "combine"):
         return group.combine(W, c)
     return combine_halving(group, W, c, K)
@@ -348,8 +349,9 @@ def combine_windows(group, W, c: int, K: int):
 
 def combine_halving(group, W, c: int, K: int):
     """S = sum_k 2^(ck) W_k by halves: W_i += 2^(c h) W_{i+h}, one double_n
-    launch and one add per level (the JAX package's log-depth combine; the
-    Twisted Edwards group's). W planes (n, K)."""
+    launch and one add per level (the JAX package's log-depth combine, kept
+    for groups without `combine` and as the one-launch combines'
+    comparison). W planes (n, K)."""
     K2 = _next_pow2(K)
     if K2 != K:
         ident = group.zero_like((K2 - K,), W.X.device)

@@ -61,7 +61,7 @@ SQRT_WIN = kernels.Kernel(
     "sqrt_win", kernels.symbols("sqrt_win", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/sqrt_win.cu",
     "montgomery_tpu/ops/field.py:955",
-    [kernels.VP] * 7 + [kernels.U32P] + [kernels.INT] * 4 + [kernels.U32P, kernels.INT],
+    [kernels.VP] * 7 + [kernels.INT] * 2 + [kernels.U32P, kernels.INT],
 )
 
 # bits of the 2-Sylow discrete log that one sqrt_win launch extracts (the
@@ -218,7 +218,7 @@ class FieldOps:
         self.R_inv = pow(self.R, -1, p)
         self.plain = Plain16(p, 2 * n)
         self.sqrt_M, self.sqrt_q_odd, self.sqrt_g_inv_pows = sqrt_constants(p, self.R)
-        self._g_tables: dict = {}
+        self._sqrt_tables: dict = {}
 
     def field_words(self, kernel: kernels.Kernel):
         """The FieldParams that `kernel` takes; raises NotImplementedError
@@ -503,24 +503,31 @@ class FieldOps:
             a = F.mul(a, a)
         return from16(a)
 
-    @functools.cached_property
-    def _one_words(self):
-        return kernels.words(codec.to_words(self.R_mod_p, self.n))
+    def sqrt_window_rows(self, k: int, lk: int) -> tuple[int, ...]:
+        """The 3 * 2^lk rows of window k (lk bits) in Montgomery form, for
+        d < 2^lk: the t rows g^(-d 2^(4k)), the r rows g^(-floor(d 2^(4k) / 2))
+        and the canonical compare values zeta^d, zeta = g^(2^(M - lk)) (a
+        primitive 2^lk-th root of unity), where g generates the 2-Sylow
+        subgroup. Built once per window (`sqrt_window_table`)."""
+        return sqrt_window_rows(self.p, self.R, self.sqrt_M, self.sqrt_g_inv_pows[0], k, lk)
 
-    def _g_table(self, device) -> torch.Tensor:
-        """The M x n words of g^(-2^j) (Montgomery form) on `device`."""
-        t = self._g_tables.get(device)
+    def sqrt_window_table(self, k: int, lk: int, device) -> torch.Tensor:
+        """`sqrt_window_rows` as one int32 buffer on `device`, row by row (row
+        j's n words at j n): the table one `sqrt_win` launch reads."""
+        key = (k, lk, torch.device(device))
+        t = self._sqrt_tables.get(key)
         if t is None:
-            t = torch.from_numpy(codec.pack(self.sqrt_g_inv_pows, self.n).T.copy()).to(device)
-            self._g_tables[device] = t
+            rows = codec.pack(self.sqrt_window_rows(k, lk), self.n)  # (n, rows)
+            t = torch.from_numpy(rows.T.copy().reshape(-1)).to(device)
+            self._sqrt_tables[key] = t
         return t
 
     def sqrt_window(self, t, r, s, k: int, lk: int, last: bool):
         """Window k of the 2-Sylow discrete log (lk <= SQRT_WINDOW bits),
         given s = t^(2^(M - 4k - lk)): (t', r', digit) with the digit an int32
         (1, *B) plane. Kernel `sqrt_win` on CUDA tensors, `sqrt_window_plain`
-        on CPU tensors."""
-        MulCounter.record(t.shape, sqrt_window_products(k, lk, last))
+        on CPU tensors; both read the window's rows (`sqrt_window_rows`)."""
+        MulCounter.record(t.shape, sqrt_window_products(last))
         if not kernels.on_cuda(t, r, s):
             return self.sqrt_window_plain(t, r, s, k, lk, last)
         tf, rf, sf = [a.reshape(self.n, -1).contiguous() for a in (t, r, s)]
@@ -528,38 +535,41 @@ class FieldOps:
         t2, r2 = torch.empty_like(tf), torch.empty_like(rf)
         digit = torch.empty((1, N), dtype=torch.int32, device=tf.device)
         if N:
-            planes = (t2, r2, digit, tf, rf, sf, self._g_table(tf.device))
-            SQRT_WIN.launch(*[kernels.ptr(a) for a in planes], self._one_words, int(k), int(lk),
-                            self.sqrt_M, int(bool(last)), self.field_words(SQRT_WIN), N, n=self.n,
-                            device=t2.device)
+            planes = (t2, r2, digit, tf, rf, sf, self.sqrt_window_table(k, lk, tf.device))
+            SQRT_WIN.launch(*[kernels.ptr(a) for a in planes], int(lk), int(bool(last)),
+                            self.field_words(SQRT_WIN), N, n=self.n, device=t2.device)
         return t2.reshape(t.shape), r2.reshape(r.shape), digit.reshape(1, *t.shape[1:])
 
     def sqrt_window_plain(self, t, r, s, k: int, lk: int, last: bool):
-        """The JAX package's _sqrt_window_formula on 16-bit limbs, in the
-        kernel's order: for bit i of the window, square a copy of v
-        lk - 1 - i times and compare it with one (canonical values); where
-        it differs, the bit is set, and v (while later bits need it), t
-        (unless this is the last window) and the root r (from bit position
-        1 on) take their products with g^(-2^j) (computed on every lane,
-        then selected)."""
-        F, M, g = self.plain, self.sqrt_M, self.sqrt_g_inv_pows
-        t16, r16, v = to16(t), to16(r), to16(s)
-        one = F.const(self.R_mod_p, v)
-        digit = torch.zeros(s.shape[1:], dtype=torch.int32, device=s.device)
-        for i in range(lk):
-            chk = v
-            for _ in range(lk - 1 - i):
-                chk = F.mul(chk, chk)
-            bit = ~(F.reduce(chk) == one).all(dim=0)
-            digit |= bit.to(torch.int32) << i
-            j = SQRT_WINDOW * k + i
-            if i < lk - 1:
-                v = torch.where(bit[None], F.mul_const(v, g[M - lk + i]), v)
-            if not last:
-                t16 = torch.where(bit[None], F.mul_const(t16, g[j]), t16)
-            if j >= 1:
-                r16 = torch.where(bit[None], F.mul_const(r16, g[j - 1]), r16)
-        return from16(t16), from16(r16), digit[None]
+        """The kernel's table lookup on 16-bit limbs. Once the earlier
+        windows have corrected t, s = zeta^d for this window's digit d (the
+        JAX package's _sqrt_window_formula finds the same d bit by bit): s
+        made canonical by one conditional subtraction of p is compared with
+        every row's zeta^d, then t (unless this is the last window) and r
+        take one product each by the rows d selects. The values are the JAX
+        formula's (t' = t g^(-d 2^(4k)), r' = r g^(-floor(d 2^(4k) / 2))),
+        each in [0, 2p). A lane whose s matches no row (not the state the
+        earlier windows leave) gets digit -1 and t, r unchanged."""
+        F, L = self.plain, 2 * self.n
+        nrow = 1 << lk
+        rows = self.sqrt_window_rows(k, lk)
+        table = torch.tensor([[(v >> (16 * j)) & _M16 for j in range(L)] for v in rows],
+                             dtype=torch.int64, device=s.device)  # (3 nrow, L)
+        s16 = F.reduce(to16(s))
+        digit = torch.full(s.shape[1:], -1, dtype=torch.int32, device=s.device)
+        for d in range(nrow):
+            hit = (s16 == table[2 * nrow + d].reshape(L, *([1] * (s.dim() - 1)))).all(dim=0)
+            digit = torch.where(hit, d, digit)
+        miss = digit < 0
+        row = digit.clamp(min=0).to(torch.int64)
+
+        def by_digit(base):  # (L, *B): the row base + d of every lane
+            return table[base:base + nrow].T[:, row]
+
+        t16, r16 = to16(t), to16(r)
+        t2 = t16 if last else torch.where(miss[None], t16, F.mul(t16, by_digit(0)))
+        r2 = torch.where(miss[None], r16, F.mul(r16, by_digit(nrow)))
+        return from16(t2), from16(r2), digit[None]
 
     def sqrt(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Square roots of Montgomery-form x in [0, 2p) over the batch:
@@ -622,12 +632,10 @@ def ladder_products(e: int) -> int:
     return 2 + sum(2 + bool((e >> (2 * k)) & 3) for k in range(nd - 1))
 
 
-def sqrt_window_products(k: int, lk: int, last: bool) -> int:
-    """Montgomery products of one `sqrt_win` launch: bit i squares a copy of
-    v lk - 1 - i times, then computes its corrections of v (below the top
-    bit), t (unless last) and r (from bit position 1) on every lane."""
-    return sum((lk - 1 - i) + (i < lk - 1) + (not last) + (SQRT_WINDOW * k + i >= 1)
-               for i in range(lk))
+def sqrt_window_products(last: bool) -> int:
+    """Montgomery products of one `sqrt_win` launch: one by the r row, and
+    one by the t row unless this is the last window."""
+    return 1 + (not last)
 
 
 def sqrt_constants(p: int, R: int) -> tuple[int, int, list[int]]:
@@ -648,6 +656,21 @@ def sqrt_constants(p: int, R: int) -> tuple[int, int, list[int]]:
         pows.append(cur * R % p)
         cur = cur * cur % p
     return M, q, pows
+
+
+@functools.lru_cache(maxsize=None)
+def sqrt_window_rows(p: int, R: int, M: int, g_inv_mont: int, k: int, lk: int) -> tuple[int, ...]:
+    """`FieldOps.sqrt_window_rows` from p, R, M and g^(-1) in Montgomery
+    form (`sqrt_constants`' first power): t rows, r rows, compare rows."""
+    if not 1 <= lk <= SQRT_WINDOW or SQRT_WINDOW * k + lk > M:
+        raise ValueError(f"window k={k} of lk={lk} bits lies outside M={M}")
+    g = pow(g_inv_mont * pow(R, -1, p) % p, -1, p)
+    zeta = pow(g, 1 << (M - lk), p)
+    ds = range(1 << lk)
+    t_rows = [pow(g, -(d << (SQRT_WINDOW * k)), p) for d in ds]
+    r_rows = [pow(g, -((d << (SQRT_WINDOW * k)) >> 1), p) for d in ds]
+    cmp = [pow(zeta, d, p) for d in ds]
+    return tuple(v * R % p for v in t_rows + r_rows + cmp)
 
 
 @functools.lru_cache(maxsize=None)

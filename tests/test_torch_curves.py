@@ -55,7 +55,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # kernels of the Twisted Edwards engine (9 limbs), the GLV digits (sizes fixed
 # per curve at compile time) and the micro-benchmark's baselines (12 and 9):
 # every other kernel is a Weierstrass one, built at 12, 13 and 9 limbs
-NOT_WEIERSTRASS = {"ed_add", "ed_dbl", "ed_add_packed", "glv_digits", "divstep_inv", "barrett_mul"}
+NOT_WEIERSTRASS = {"ed_add", "ed_dbl", "ed_add_packed", "ed_combine", "glv_digits", "divstep_inv",
+                   "barrett_mul"}
 
 
 @pytest.fixture(scope="module", params=sorted(CURVES))

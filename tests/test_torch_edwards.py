@@ -306,7 +306,7 @@ def test_launch_guard_by_kernel():
     and for every Weierstrass kernel (Pallas), 12 for every field kernel but
     the Edwards ones, 13 (BLS12-381) for the Weierstrass kernels alone, and
     15 for none: no launch can hand planes of another width to a kernel."""
-    nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed",
+    nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed", "ed_combine",
             "exp_ladder", "sqr_n", "sqrt_win", divstep.DIVSTEP_INV.name, alt_mul.BARRETT_MUL.name}
     field_kernels = {k for k in kernels.REGISTRY.values() if None not in k.symbols}
     assert {k.name for k in field_kernels} >= nine | {"proj_add_rcb", "aff_pre_packed", "mont_sqr"}

@@ -118,7 +118,8 @@ def test_cpu_tensors_launch_no_kernel(ctx):
                            "glv_digits", "mont_mul",
                            "divstep_inv_mont", "pack_glv", "aff_pre_packed_u", "aff_post_packed_u",
                            "mont_sqr", "aff_pre_packed", "aff_post_packed", "ed_add", "ed_dbl",
-                           "ed_add_packed", "exp_ladder", "sqr_n", "sqrt_win", "aff_pre", "aff_post",
+                           "ed_add_packed", "ed_combine", "exp_ladder", "sqr_n", "sqrt_win", "aff_pre",
+                           "aff_post",
                            "aff_pre_unsafe", "aff_post_unsafe", "divstep_inv", alt_mul.BARRETT_MUL.name}
     assert all(v == 0 for v in counts.values()), counts
 

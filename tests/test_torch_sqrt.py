@@ -6,7 +6,9 @@ plain versions run. The JAX package's generators and its eager sqrt are slow
 on this CPU at the curve fields (tens of seconds a call), so the whole-op
 comparisons with it run at Goldilocks (p = 2^64 - 2^32 + 1, M = 32: every
 window of the discrete log is full) and the per-window formula is compared at
-the two curve fields, first and last window. Inputs are drawn from numpy
+every window of the four curve fields (eagerly: the first window of a field
+compiles the JAX side's operations, 7-21 s, every later one runs in about a
+second). Inputs are drawn from numpy
 with a fixed seed and handed to both packages as the Montgomery forms of the
 same canonical values; results are compared as canonical integers, with
 tolerance zero (the root itself, not only its square).
@@ -22,7 +24,7 @@ import torch
 from montgomery_tpu.ops import limbs as jcodec
 from montgomery_tpu.ops.field import create_field_ops as jax_field_ops
 from montgomery_tpu_torch import interop
-from montgomery_tpu_torch.concrete import BLS12_377, ED_ON_BLS12_377
+from montgomery_tpu_torch.concrete import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
 from montgomery_tpu_torch.ops import kernels
 from montgomery_tpu_torch.ops.field import SQRT_WINDOW, create_field_ops
 
@@ -32,6 +34,8 @@ W_JAX = 13
 GOLDILOCKS = 2**64 - 2**32 + 1
 FIELDS = {"bls12-377": BLS12_377.modulus, "ed-on-bls12-377": ED_ON_BLS12_377.modulus,
           "goldilocks": GOLDILOCKS}
+ALL_FIELDS = {"bls12-377": BLS12_377.modulus, "ed-on-bls12-377": ED_ON_BLS12_377.modulus,
+              "pallas": PALLAS.modulus, "bls12-381": BLS12_381.modulus}
 # (M, bits of q) for p - 1 = 2^M q
 SYLOW = {"bls12-377": (46, 331), "ed-on-bls12-377": (47, 206), "goldilocks": (32, 32)}
 
@@ -124,56 +128,125 @@ def test_sqrt_goldilocks(gold):
     assert not all(ok.tolist()) and any(ok.tolist())
 
 
-def _window_state(f, k: int, lk: int, seed: int):
-    """Canonical (t, r, s) for window k: t = g^a in the 2-Sylow subgroup,
-    with a drawn so the window's bits vary (for the last window, t in the
-    subgroup of order 2^lk), s = t^(2^(M - 4k - lk)); some lanes are plain
-    random values and 0."""
+def _generator(f) -> int:
+    """g = z^q for the least non-residue z, from Python's ints alone."""
+    p, z = f.p, 2
+    while pow(z, (p - 1) // 2, p) == 1:
+        z += 1
+    return pow(z, f.sqrt_q_odd, p)
+
+
+def _window_state(f, k: int, lk: int, seed: int, lanes: int = 12):
+    """Canonical (t, r, s) for window k in the state the earlier windows
+    leave: t = g^a with the low 4k bits of a zero, s = t^(2^(M - 4k - lk)) =
+    zeta^d for the window's digit d; lane 0 has d = 0, lane 1 d = 2^lk - 1,
+    lane 2 d = 1 (at k = 0 an odd exponent: a non-square), the rest random
+    bits above and in the window; r random."""
     p, M = f.p, f.sqrt_M
-    g = pow(f.sqrt_g_inv_pows[0] * f.R_inv % p, -1, p)
+    g = _generator(f)
     rng = random.Random(seed)
-    last = SQRT_WINDOW * k + lk >= M
+    lo, hi = SQRT_WINDOW * k, SQRT_WINDOW * k + lk
     ts, rs = [], []
-    for i in range(12):
-        a = rng.randrange(1 << lk) << (M - lk) if last else rng.randrange(1 << M)
-        ts.append(pow(g, a, p) if i < 10 else (0 if i == 10 else rng.randrange(p)))
+    for i in range(lanes):
+        d = {0: 0, 1: (1 << lk) - 1, 2: 1}.get(i, rng.randrange(1 << lk))
+        a = (rng.randrange(1 << (M - hi)) << hi) | (d << lo)
+        ts.append(pow(g, a, p))
         rs.append(rng.randrange(p))
-    chain = M - SQRT_WINDOW * k - lk
-    return ts, rs, [pow(t, 1 << chain, p) for t in ts]
+    return ts, rs, [pow(t, 1 << (M - hi), p) for t in ts]
 
 
-@pytest.mark.parametrize("field,window", [("bls12-377", "first"), ("bls12-377", "last"),
-                                          ("ed-on-bls12-377", "first"),
-                                          ("ed-on-bls12-377", "last")])
-def test_sqrt_window_plain_against_jax(field, window):
-    """sqrt_window_plain and the JAX package's _sqrt_window_formula on the
-    same (t, r, s): the last window has lk = 2 at BLS12-377 (M = 46) and
-    lk = 3 at ed-on-bls12-377 (M = 47) and leaves t alone."""
-    p = FIELDS[field]
+def _windows(M: int):
+    """(k, lk, last) of every window of a discrete log of M bits."""
+    return [(k, min(SQRT_WINDOW, M - SQRT_WINDOW * k), SQRT_WINDOW * (k + 1) >= M)
+            for k in range(-(-M // SQRT_WINDOW))]
+
+
+@pytest.mark.parametrize("field", ["bls12-377", "ed-on-bls12-377", "pallas", "bls12-381"])
+def test_sqrt_window_plain_against_jax(field):
+    """sqrt_window_plain (the table lookup) and the JAX package's
+    _sqrt_window_formula (bit by bit) on the same (t, r, s), at every window
+    of the field's discrete log: 12 at BLS12-377 (M = 46, the last of
+    lk = 2), 12 at ed-on-bls12-377 (M = 47, lk = 3), 8 at Pallas (M = 32),
+    and BLS12-381's one window (M = 1, lk = 1). Equal t', r' as canonical
+    values and equal digits, d = 0 and d = 2^lk - 1 among them; a quarter
+    of the lanes hold [p, 2p) representatives; the last window leaves t as
+    it was."""
+    p = ALL_FIELDS[field]
     f, jf = create_field_ops(p), jax_field_ops(p, w=W_JAX)
     M = f.sqrt_M
-    k = 0 if window == "first" else (M - 1) // SQRT_WINDOW
-    lk = min(SQRT_WINDOW, M - SQRT_WINDOW * k)
-    last = window == "last"
-    assert lk == {"first": 4, "last": M - 44}[window]
-    ts, rs, ss = _window_state(f, k, lk, seed=k + lk)
-    up = [i % 4 == 1 for i in range(len(ts))]
-    t2, r2, dig = f.sqrt_window_plain(*[_port_planes(f, v, up) for v in (ts, rs, ss)], k, lk, last)
-    jt, jr, jd = jf._sqrt_window_formula(k, lk, M, last)(*[_jax_planes(jf, v, up)
-                                                           for v in (ts, rs, ss)])
-    assert f.unpack(t2, from_mont=True) == _jax_canon(jf, jt)
-    assert f.unpack(r2, from_mont=True) == _jax_canon(jf, jr)
-    assert dig.tolist() == np.asarray(jd).tolist()
-    assert len(set(dig[0].tolist())) > 1  # the window's bits vary over the lanes
-    if last:
-        assert f.unpack(t2, from_mont=True) == ts
+    wins = _windows(M)
+    assert (M, len(wins), wins[-1][1]) == {"bls12-377": (46, 12, 2), "ed-on-bls12-377": (47, 12, 3),
+                                          "pallas": (32, 8, 4), "bls12-381": (1, 1, 1)}[field]
+    for k, lk, last in wins:
+        ts, rs, ss = _window_state(f, k, lk, seed=100 * k + lk)
+        up = [i % 4 == 1 for i in range(len(ts))]
+        t2, r2, dig = f.sqrt_window_plain(*[_port_planes(f, v, up) for v in (ts, rs, ss)], k, lk, last)
+        jt, jr, jd = jf._sqrt_window_formula(k, lk, M, last)(*[_jax_planes(jf, v, up)
+                                                               for v in (ts, rs, ss)])
+        assert f.unpack(t2, from_mont=True) == _jax_canon(jf, jt), k
+        assert f.unpack(r2, from_mont=True) == _jax_canon(jf, jr), k
+        assert dig.tolist() == np.asarray(jd).tolist(), k
+        assert dig[0, :3].tolist() == [0, (1 << lk) - 1, 1], k
+        if last:
+            assert f.unpack(t2, from_mont=True) == ts
 
 
-@pytest.mark.parametrize("field", ["bls12-377", "ed-on-bls12-377"])
+@pytest.mark.parametrize("field", ["bls12-377", "ed-on-bls12-377", "pallas", "bls12-381"])
+def test_sqrt_window_rows_against_pow(field):
+    """Every window's rows against pow() on Python's ints: the t rows
+    g^(-d 2^(4k)), the r rows g^(-floor(d 2^(4k) / 2)) and the compare values
+    zeta^d, zeta = g^(2^(M - lk)) of order exactly 2^lk (so 2^lk distinct
+    values), all canonical Montgomery forms; the launch's buffer holds them
+    row by row."""
+    p = ALL_FIELDS[field]
+    f = create_field_ops(p)
+    M, g = f.sqrt_M, _generator(f)
+    assert pow(g, 1 << M, p) == 1 and pow(g, 1 << (M - 1), p) == p - 1
+    for k, lk, _ in _windows(M):
+        rows = f.sqrt_window_rows(k, lk)
+        assert all(v < p for v in rows)
+        canon = [v * f.R_inv % p for v in rows]
+        ds, sh = range(1 << lk), SQRT_WINDOW * k
+        assert canon[:1 << lk] == [pow(g, -(d << sh), p) for d in ds]
+        assert canon[1 << lk:2 << lk] == [pow(g, -((d << sh) >> 1), p) for d in ds]
+        zeta = pow(g, 1 << (M - lk), p)
+        assert pow(zeta, 1 << (lk - 1), p) == p - 1
+        assert canon[2 << lk:] == [pow(zeta, d, p) for d in ds] and len(set(canon[2 << lk:])) == 1 << lk
+        buf = f.sqrt_window_table(k, lk, "cpu")
+        assert buf.dtype == torch.int32 and tuple(buf.shape) == (3 * f.n << lk,)
+        assert interop.planes_to_ints(buf.reshape(3 << lk, f.n).T.numpy(), 32) == list(rows)
+    with pytest.raises(ValueError):
+        f.sqrt_window_rows(len(_windows(M)), 1)
+
+
+def test_sqrt_window_plain_no_matching_row():
+    """A lane whose s matches no compare value (not the state the earlier
+    windows leave: here 0, a random value, and a root of unity of order 32,
+    which no 4-bit window holds) gets digit -1 and t, r back bit for bit;
+    the other lanes of the same call are solved as usual."""
+    f = create_field_ops(BLS12_377.modulus)
+    p, k, lk = f.p, 2, 4
+    ts, rs, ss = _window_state(f, k, lk, seed=3)
+    bad = {3: 0, 5: random.Random(5).randrange(p), 7: pow(_generator(f), 1 << (f.sqrt_M - 5), p)}
+    for i, v in bad.items():
+        ss[i] = v
+    t, r, s = [_port_planes(f, v, [i % 4 == 1 for i in range(len(v))]) for v in (ts, rs, ss)]
+    t2, r2, dig = f.sqrt_window_plain(t, r, s, k, lk, False)
+    miss = sorted(i for i, d in enumerate(dig[0].tolist()) if d < 0)
+    assert miss == sorted(bad)
+    for out, inp in ((t2, t), (r2, r)):
+        assert torch.equal(out[:, miss], inp[:, miss])
+    good = [i for i in range(len(ts)) if i not in bad]
+    want, _, _ = f.sqrt_window_plain(t[:, good], r[:, good], s[:, good], k, lk, False)
+    assert torch.equal(t2[:, good], want)
+    assert all(0 <= d < 1 << lk for d in dig[0, good].tolist())
+
+
+@pytest.mark.parametrize("field", ["bls12-377", "ed-on-bls12-377", "pallas", "bls12-381"])
 def test_exp_inv_sqrt_against_pow(field):
     """At the curve fields (the plain versions alone): exp_const, inv and
     sqrt against pow() and Euler's criterion, on [0, 2p) representatives."""
-    p = FIELDS[field]
+    p = ALL_FIELDS[field]
     f = create_field_ops(p)
     vals, up = _values(p, 5)
     x = _port_planes(f, vals, up)
