@@ -20,9 +20,15 @@ Phases, each printed as it runs:
      measured rates of the 32x32->64 and the low 32-bit multiply
      (`montgomery_tpu_torch/csrc/rates/imad_rate.cu`, built beside the
      kernels) that the operation bounds divide by; the latency of one
-     dependent Montgomery product in one thread and on one warp at 12 and 9
-     limbs (`csrc/rates/mul_latency.cu`, the two chains equal bit for bit),
-     which the window combines' dependent-chain floors multiply; the
+     dependent Montgomery product in one thread (fe_mul and the carry-chain
+     fe_mul_cc of `csrc/madc.cuh`) and on one warp at 12, 13 and 9 limbs
+     (`csrc/rates/mul_latency.cu`, the chains equal bit for bit), which the
+     window combines' dependent-chain floors multiply; the SASS opcode
+     histograms of one product (the two one-thread chains) and of
+     proj_dbl_rcb's wide body and ed_add_packed beside the bodies they
+     replaced (`csrc/rates/proj_dbl_rcb_cios.cu`, built once per limb
+     count, and `csrc/rates/ed_add_packed_cios.cu`), with the
+     two pairs' ptxas registers and spills; the
      bit-by-bit sqrt window (`csrc/rates/sqrt_win_bitwise.cu`) that phase 1
      times the table window against; the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
@@ -75,7 +81,18 @@ Phases, each printed as it runs:
      drawn in the first lanes, bit for bit; its device time at 512 lanes and
      at 1 beside inv_mont_divstep's, its bound from the batches the inputs
      need and its dependent-chain floor; divstep_inv at 512, 2^16, 2^18 and
-     2^18 + 17 lanes bit for bit and timed at 2^18.
+     2^18 + 17 lanes bit for bit and timed at 2^18. Then proj_dbl_rcb's
+     wide body on the carry-chain product (`redesign_dbl`, here at 12
+     limbs, and for BLS12-381 and Pallas in their phase 1) at 1, 3,072,
+     2^16 + 17 and 2^20 lanes for k = 1, 5 and 92 on the bench points with
+     random Z, infinity and [p, 2p) values, bit for bit against the
+     parent's CIOS body on every lane and the plain version (on every
+     lane, or 1,024 at each end); at 12 and 13 limbs both timed in turns
+     (new, parent, parent, new: events and the profiler's device time) at
+     2^20 lanes for k = 1 and 92, and the wide and the few-lane body swept
+     at 10 to 8,192 lanes (the few-lane threshold); then the cofactor stage of
+     the random points at 2^20 (`profile_cofactor`), each launch's device
+     time with its k, lanes and bound, on either doubling body.
      Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
@@ -87,7 +104,11 @@ Phases, each printed as it runs:
      inputs each with identity windows, bit for bit against the plain Horner
      and as points against the halving combine it replaced (ed_dbl and
      ed_add a level), timed beside it (events, and the profiler's device ms
-     with the host ms), with its bound and dependent-chain floor. Then
+     with the host ms), with its bound and dependent-chain floor; and
+     ed_add_packed on the carry-chain product (`redesign_ed_packed`) at 1
+     lane and at the 2^20 path's first level (10,813,448 lanes), bit for
+     bit against the plain version and the parent's body, both timed in
+     turns at that level. Then
      the sqrt slice's kernels (`phase_sqrt_kernels`) at 12 and 9 limbs:
      exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43 and every
      chain) and every sqrt_win window of one whole sqrt, bit for bit, at
@@ -143,7 +164,9 @@ Phases, each printed as it runs:
      so to_host's kernels count too; at 2^20 ed_combine, ed_dbl and ed_add
      launch 1, 1 and 37 times, and the device time by kernel is profiled
      with the halving combine and with ed_combine), and compute_msm(curve=
-     "ed-on-bls12-377") at 2^20 from packed bytes;
+     "ed-on-bls12-377") at 2^20 from packed bytes; then the Twisted Edwards
+     MSM at 2^20 profiled on either ed_add_packed body
+     (`profile_te_packed`: each launch's device time, lanes and bound);
   4. random_points_weierstrass (BLS12-377) and random_points_edwards
      (ed-on-bls12-377) at 2^20 points (`phase_points`): launch counts of one
      generation (exp_ladder 1, sqr_n 11, sqrt_win 12, every launch at the
@@ -192,6 +215,7 @@ script exits 1 before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -218,7 +242,12 @@ DIVSTEP_LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "divste
 # the bit-by-bit sqrt window that the table lookup replaced, built apart and
 # timed in turns with it (phase 1)
 SQRT_BITWISE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "sqrt_win_bitwise.cu"
-PROBES: dict = {}  # probe source -> its built library (phase 0)
+# the CIOS bodies that proj_dbl_rcb's wide body and ed_add_packed on the
+# carry-chain product replaced, built apart (the first once per limb count)
+# and timed in turns with them
+DBL_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "proj_dbl_rcb_cios.cu"
+EDP_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_packed_cios.cu"
+PROBES: dict = {}  # probe source, or (source, limbs), -> its built library (phase 0)
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
 _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb",
@@ -319,6 +348,17 @@ GLV_CASES = ((16, 11), (20, 13))
 DIVSTEP_DRAW = 1 << 16
 DIVSTEP_INV_LANES = (ROOT_LANES, 1 << 16, 1 << 18, (1 << 18) + 17)
 DIVSTEP_TIMING_REPS = 20
+# proj_dbl_rcb's wide body: checked at these widths (3,072 above the
+# few-lane threshold, 2^20 the cofactor stage's) and k (92 the cofactor stage's
+# longest launch), against the plain version on every lane up to 2
+# DBL_PLAIN_LANES lanes and on that many at each end beyond; timed in turns
+# at 2^20 lanes for each k of DBL_TURN_K; both bodies swept at FEW_SWEEP
+# lanes (from the window sums' 10 up) for the few-lane threshold
+DBL_CHECK_LANES = (1, 3072, (1 << 16) + 17, 1 << 20)
+DBL_CHECK_K = (1, 5, 92)
+DBL_PLAIN_LANES = 1024
+DBL_TURN_K = (1, 92)
+FEW_SWEEP = (10, 20, 40, 80, 160, 320, 640, 1024, 2048, 3072, 4096, 8192)
 # the main path's launches (affine-unsafe at 2^20) of the kernels this
 # script's redesign phase holds to their new shapes
 MAIN_PATH_LAUNCHES = {"proj_combine_rcb": 1, "proj_dbl_rcb": 1, "proj_add_rcb": 37, "mont_mul": 236,
@@ -438,19 +478,22 @@ def say_device_times(label: str, per: dict, busy: float, wall: float, others: di
 # ----------------------------------------------------------------- phase 0
 
 
-def start_probe_build(src: Path):
-    """Start nvcc on a probe (a multiply-rate or latency microbenchmark),
-    which is built apart from the kernels' library; returns (process or
-    None if built, path)."""
+def start_probe_build(src: Path, limbs: int | None = None):
+    """Start nvcc on a probe (a multiply-rate or latency microbenchmark, or
+    a body a kernel's redesign replaced), which is built apart from the
+    kernels' library (with -DMSM_LIMBS=limbs where given, its entry points
+    at that limb count only); returns (process or None if built, path)."""
     from montgomery_tpu_torch.ops import kernels
 
-    key = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    text = b"".join(p.read_bytes() for p in (src, *sorted(kernels.CSRC.glob("*.cuh"))))
+    key = hashlib.sha256(text).hexdigest()[:16]
     out = ROOT / "build" / "rates" / key
-    lib = out / f"lib{src.stem}.so"
+    lib = out / f"lib{src.stem}{'' if limbs is None else f'_n{limbs}'}.so"
     if lib.exists():
         return None, lib
     out.mkdir(parents=True, exist_ok=True)
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I",
+    defs = [] if limbs is None else [f"-DMSM_LIMBS={limbs}"]
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", "-I",
            str(kernels.CSRC), "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
@@ -483,16 +526,45 @@ def multiply_rates(lib_path: Path, clock_hz: float) -> dict:
         rates[key] = blocks * threads * chains * iters / (ms * 1e-3)
         say(f"multiply rate {key}: {rates[key]:.4e} /s, {rates[key] / (sms * clock_hz):.2f} per SM "
             f"per clock at the max clock ({ms:.3f} ms a launch, {sms} SMs)")
-    dump = subprocess.run([str(Path(kernels._nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)],
+    for name, ops in sass_histograms(lib_path).items():
+        say(f"  sass {name}: {ops}")
+    return rates
+
+
+def sass_histograms(lib_path: Path, only: str = ".", names: list | None = None) -> dict:
+    """{function: {SASS opcode: count}, most frequent first} of the
+    functions of a built library whose mangled name matches the regex
+    `only` (cuobjdump -sass; only the functions `names` where given and
+    cuobjdump takes them, else all); {} where cuobjdump is missing."""
+    from montgomery_tpu_torch.ops import kernels
+
+    cmd = [str(Path(kernels._nvcc()).parent / "cuobjdump"), "-sass", str(lib_path)]
+    dump = subprocess.run(cmd[:2] + ["-fun", ",".join(names)] + cmd[2:] if names else cmd,
                           capture_output=True, text=True)
+    if names and (dump.returncode or "Function : " not in dump.stdout):
+        dump = subprocess.run(cmd, capture_output=True, text=True)
+    if dump.returncode:
+        say("  cuobjdump unavailable:", dump.stderr.strip()[-200:])
+    out = {}
     for sec in dump.stdout.split("Function : ")[1:]:
+        name = sec.split()[0]
+        if not re.search(only, name):
+            continue
         ops: dict[str, int] = {}
         for op in re.findall(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", sec):
             ops[op] = ops.get(op, 0) + 1
-        say(f"  sass {sec.split()[0]}: {dict(sorted(ops.items(), key=lambda kv: -kv[1]))}")
-    if dump.returncode:
-        say("  cuobjdump unavailable:", dump.stderr.strip()[-200:])
-    return rates
+        out[name] = dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+    return out
+
+
+def say_sass_mix(label: str, ops: dict) -> None:
+    """A histogram with its 32x32 multiplies (IMAD.WIDE*, IMAD.HI*, IMAD
+    and IMAD.U32, on either datapath; not the IMAD forms that only add or
+    move) counted apart from the rest."""
+    mul = sum(c for op, c in ops.items()
+              if op.lstrip("U").startswith(("IMAD.WIDE", "IMAD.HI")) or op.lstrip("U") in ("IMAD", "IMAD.U32"))
+    rest = sum(ops.values()) - mul
+    say(f"  sass {label}: {mul} multiplies, {rest} other ({rest / max(mul, 1):.3f} a multiply): {ops}")
 
 
 def phase_env() -> dict:
@@ -501,6 +573,7 @@ def phase_env() -> dict:
 
     from montgomery_tpu_torch.ops import kernels
 
+    t0 = time.perf_counter()
     say("== phase 0: environment")
     say(f"torch {torch.__version__} cuda {torch.version.cuda}")
     nv = subprocess.run([kernels._nvcc(), "--version"], capture_output=True, text=True)
@@ -514,8 +587,9 @@ def phase_env() -> dict:
     say("card:", smi_line())
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
-    probes = {src: start_probe_build(src)
-              for src in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC)}
+    probes = {key: start_probe_build(*key) if isinstance(key, tuple) else start_probe_build(key)
+              for key in ((DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 9), RATE_SRC,
+                          LATENCY_SRC, DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC, EDP_PROBE_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -530,20 +604,55 @@ def phase_env() -> dict:
     say(f"glv_digits instantiations (stack frame, spill stores, spill loads in bytes): {glv}")
     if len(glv) != 3 or any(any(v) for v in glv.values()):
         raise AssertionError("each of glv_digits' three instantiations must have no stack frame and no spill")
-    for src, (proc, _) in probes.items():
+    probe_ptxas = {}
+    for key, (proc, _) in probes.items():
         if proc is not None:
             log, _ = proc.communicate()
-            name = src.name
+            name = key[0].name if isinstance(key, tuple) else key.name
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"  ptxas ({name}):", line.strip())
-    PROBES.update({src: lib for src, (_, lib) in probes.items()})
+            probe_ptxas.update(ptxas_by_limbs(log))
+    PROBES.update({key: lib for key, (_, lib) in probes.items()})
+    say(f"[{time.perf_counter() - t0:.1f} s] probes built")
+    redesigned_ptxas(ptxas_by_limbs(kernels.LIBRARY.build_log), probe_ptxas)
+    redesigned_sass(probes)
+    say(f"[{time.perf_counter() - t0:.1f} s] SASS read")
     rates = multiply_rates(probes[RATE_SRC][1], clock)
     rates.update(product_latency(probes[LATENCY_SRC][1]))
     rates.update(divstep_latency(probes[DIVSTEP_LATENCY_SRC][1]))
     return rates
+
+
+def redesigned_ptxas(new: dict, parent: dict) -> None:
+    """ptxas (registers, stack frame, spill stores, spill loads, shared
+    memory bytes) of the two bodies redesigned on the carry-chain product
+    beside the parent's (the probes); `parent` is empty where the probes
+    were built before this run."""
+    say("ptxas of the redesigned bodies (registers, stack, spill stores, spill loads, smem): new / parent")
+    for name, nl in (("proj_dbl_rcb", 12), ("proj_dbl_rcb", 13), ("proj_dbl_rcb", 9), ("ed_add_packed", 9)):
+        say(f"  {name} n={nl}: {new.get((name, nl))} / {parent.get((name, nl), 'built before this run')}")
+
+
+def redesigned_sass(probes: dict) -> None:
+    """The SASS mix of one product, fe_mul against fe_mul_cc (the one-thread
+    chains of csrc/rates/mul_latency.cu, whose loop body is one product),
+    and of the redesigned bodies against the parent's, from the built
+    libraries."""
+    from montgomery_tpu_torch.ops import kernels
+
+    chains = sass_histograms(probes[LATENCY_SRC][1], r"one_thread_chain|cc_chain")
+    for name, ops in sorted(chains.items()):
+        say_sass_mix(f"{'fe_mul_cc' if 'cc_chain' in name else 'fe_mul'} chain {name}", ops)
+    only = r"proj_dbl_rcb_kernel|ed_add_packed_kernel"
+    names = [f for f in ptxas_functions(kernels.LIBRARY.build_log) if re.search(only, f)]
+    for name, ops in sorted(sass_histograms(kernels.LIBRARY.path, only, names).items()):
+        say_sass_mix(f"new {name}", ops)
+    for key in ((DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 9), EDP_PROBE_SRC):
+        for name, ops in sass_histograms(probes[key][1], r"_kernel").items():
+            say_sass_mix(f"parent {name}", ops)
 
 
 def ptxas_functions(log: str) -> dict:
@@ -580,13 +689,14 @@ def ptxas_by_limbs(log: str) -> dict:
 
 def product_latency(lib_path: Path) -> dict:
     """Latency (s) of one dependent Montgomery product on the card: a chain
-    of products in one thread (fe_mul) and on one warp (coop_mul), each one
-    launch of a single block, at BLS12-377's 12 limbs ("lat_thread",
-    "lat_warp") and ed-on-bls12-377's 9 ("lat_thread_n9", "lat_warp_n9");
-    the two chains' last products must agree bit for bit."""
+    of products in one thread (fe_mul), on one warp (coop_mul) and in one
+    thread on carry chains (fe_mul_cc), each one launch of a single block,
+    at BLS12-377's 12 limbs ("lat_thread", "lat_warp", "lat_cc"),
+    BLS12-381's 13 ("_n13") and ed-on-bls12-377's 9 ("_n9"); the chains'
+    last products must agree bit for bit."""
     import torch
 
-    from montgomery_tpu_torch.concrete import BLS12_377, ED_ON_BLS12_377
+    from montgomery_tpu_torch.concrete import BLS12_377, BLS12_381, ED_ON_BLS12_377
     from montgomery_tpu_torch.ops import kernels
     from montgomery_tpu_torch.ops.field import create_field_ops
     from montgomery_tpu_torch.ops.limbs import to_words
@@ -596,12 +706,12 @@ def product_latency(lib_path: Path) -> dict:
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_uint32)] * 4 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lat = {}
-    for p, tag in ((BLS12_377.modulus, ""), (ED_ON_BLS12_377.modulus, "_n9")):
+    for p, tag in ((BLS12_377.modulus, ""), (BLS12_381.modulus, "_n13"), (ED_ON_BLS12_377.modulus, "_n9")):
         f = create_field_ops(p)
         x, y = (kernels.words(to_words(v * f.R % f.p, f.n)) for v in (3, 5))
         mu = kernels.words(to_words(-pow(f.p, -1, f.R) % f.R, f.n))
         field = kernels.words(to_words(f.p, f.n) + to_words(2 * f.p, f.n) + to_words(4 * f.p, f.n) + [f.mu])
-        outs = {w: torch.empty(f.n, dtype=torch.int32, device="cuda") for w in (0, 1)}
+        outs = {w: torch.empty(f.n, dtype=torch.int32, device="cuda") for w in (0, 1, 2)}
 
         def launch(warp, iters, f=f, x=x, y=y, mu=mu, field=field, outs=outs):
             rc = fn(f.n, warp, iters, x, y, mu, field, ctypes.c_void_p(outs[warp].data_ptr()),
@@ -609,15 +719,15 @@ def product_latency(lib_path: Path) -> dict:
             if rc:
                 raise RuntimeError(f"mul_latency launch failed, CUDA error {rc}")
 
-        for warp, key, iters in ((0, "lat_thread", 500), (1, "lat_warp", 4000)):
+        for warp, key, iters in ((0, "lat_thread", 500), (1, "lat_warp", 4000), (2, "lat_cc", 500)):
             lat[key + tag] = cuda_time_ms(lambda: launch(warp, iters), 5) * 1e-3 / iters
-        for warp in (0, 1):
+        for warp in (0, 1, 2):
             launch(warp, 333)
-        if not torch.equal(outs[0], outs[1]):
-            raise AssertionError(f"the warp product chain differs from the one-thread chain at {f.n} limbs")
-        say(f"dependent product latency at {f.n} limbs: one thread {lat['lat_thread' + tag] * 1e6:.3f} us, "
-            f"one warp {lat['lat_warp' + tag] * 1e6:.3f} us (chains of 500 and 4000 products; equal bit "
-            f"for bit)")
+        if not (torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])):
+            raise AssertionError(f"the product chains differ at {f.n} limbs")
+        say(f"dependent product latency at {f.n} limbs: one thread {lat['lat_thread' + tag] * 1e6:.3f} us "
+            f"(carry chains {lat['lat_cc' + tag] * 1e6:.3f} us), one warp {lat['lat_warp' + tag] * 1e6:.3f} us "
+            f"(chains of 500, 500 and 4000 products; equal bit for bit)")
     return lat
 
 
@@ -672,14 +782,15 @@ def divstep_latency(lib_path: Path) -> dict:
 # ------------------------------------------------------- bounds per kernel
 
 
-def kernel_work(ctx, name: str, batches: float | None = None) -> tuple[int, int, int]:
+def kernel_work(ctx, name: str, batches: float | None = None, k: int = 1) -> tuple[int, int, int]:
     """(bytes, wide multiplies, low multiplies) per lane of one call: each
     input read once, each output written once; the multiplies the formula
     needs. A wide multiply is one 32x32->64 product (a product of two
     factors below 2^32 in magnitude); one n-word CIOS Montgomery product
     needs 2 n^2 of them and n low 32-bit products (the quotient digits).
     The divstep kernels' loop ends once g = 0: `batches` is the mean over
-    the call's lanes of the batches its inputs need (`divstep_batches`)."""
+    the call's lanes of the batches its inputs need (`divstep_batches`).
+    proj_dbl_rcb runs k doublings on the point it reads and writes once."""
     from montgomery_tpu_torch.ops import divstep
 
     n = ctx.fops.n
@@ -715,7 +826,10 @@ def kernel_work(ctx, name: str, batches: float | None = None) -> tuple[int, int,
         "mul_const": (2 * W, *products(1)),
         "mont_mul": (3 * W, *products(1)),
         "proj_add_rcb": (9 * W, *products(14)),
-        "proj_dbl_rcb": (6 * W, *products(9)),  # k = 1
+        # a doubling: 7 products (3b Z^2 among them: 3b is a whole field
+        # element in Montgomery form, and the result's representative is the
+        # product's) and the 2 squares Y^2, Z^2
+        "proj_dbl_rcb": (6 * W, k * (products(7)[0] + 2 * sqr[0]), k * 9 * n),
         "divstep_inv_mont": (2 * W, wide + dsb * wide_b, lo + dsb * lo_b),
         "pack_glv": (2 * W + 1 + 2 * (2 * W + 4), *products(1)),  # per point: 2 packed columns out
         "aff_pre_packed_u": (2 * W + 4 + W, 0, 0),
@@ -750,11 +864,12 @@ def kernel_work(ctx, name: str, batches: float | None = None) -> tuple[int, int,
     }[name]
 
 
-def bound(ctx, name: str, lanes: int, rates: dict, batches: float | None = None) -> tuple[float, str]:
+def bound(ctx, name: str, lanes: int, rates: dict, batches: float | None = None,
+          k: int = 1) -> tuple[float, str]:
     """Least time (ms) for `lanes` lanes: bytes over the memory rate, or
     the multiplies over the card's measured multiply rates, whichever is
-    larger (`batches`: as in `kernel_work`)."""
-    return bound_of(*kernel_work(ctx, name, batches), lanes, rates)
+    larger (`batches`, k: as in `kernel_work`)."""
+    return bound_of(*kernel_work(ctx, name, batches, k), lanes, rates)
 
 
 def divstep_batches(f, x, mont: bool = True) -> tuple[float, int]:
@@ -1334,7 +1449,7 @@ def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
     out["proj_dbl_rcb"] = dict(main_path=dict(
         k=k, lanes=lanes, ms=few_ms, one_thread_ms=wide_ms, bound_ms=bms, bound_by=by,
         us_a_doubling=per_dbl, us_a_doubling_one_thread=per_dbl_wide, max_abs_err=err,
-        few_lanes=proj.FEW_LANES))
+        few_lanes=proj.FEW_LANES), carry_chain=redesign_dbl(ctx, pts_full, rates, turns=True))
 
     # -- the fused post
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1691,6 +1806,322 @@ def redesign_divstep(ctx, pts_full, rates: dict) -> dict:
             f"ptxas {inv_row['ptxas']}")
     say(f"safegcd redesign phase at {n} limbs: {time.perf_counter() - t0:.1f} s")
     return row
+
+
+# ------------------------------ the carry-chain product: the two redesigned
+# bodies (proj_dbl_rcb's wide body, ed_add_packed) against the parent's
+
+
+def probe_fn(src: Path, n: int | None, symbol: str, argtypes: list):
+    """Entry point `symbol` of a probe that phase 0 built (per limb count
+    where n is given), typed like a kernel entry with these arguments."""
+    fn = getattr(ctypes.CDLL(str(PROBES[src if n is None else (src, n)])), symbol)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@contextlib.contextmanager
+def kernel_body(kernel, n: int, fn):
+    """Launches of `kernel` at n limbs go to `fn` (a probe's entry point
+    with the kernel's arguments; None: the library's own) inside the block.
+    The wrapper counts them as the kernel's."""
+    if fn is None:
+        yield
+        return
+    own = kernel._fns.get(n)
+    kernel._fns[n] = fn
+    try:
+        yield
+    finally:
+        if own is None:
+            kernel._fns.pop(n, None)
+        else:
+            kernel._fns[n] = own
+
+
+def bodies_of(name: str, n: int) -> dict:
+    """{label: entry point or None} of a redesigned kernel's bodies timed in
+    turns: "new", the library's, and "parent", the probe of the body it
+    replaced."""
+    from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED
+    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB
+
+    if name == "proj_dbl_rcb":
+        return {"new": None, "parent": probe_fn(DBL_PROBE_SRC, n, f"probe_proj_dbl_rcb_n{n}",
+                                                PROJ_DBL_RCB.argtypes)}
+    return {"new": None, "parent": probe_fn(EDP_PROBE_SRC, None, "probe_ed_add_packed_n9",
+                                            ED_ADD_PACKED.argtypes)}
+
+
+def in_turns(kernel, n: int, bodies: dict, run, reps: int) -> dict:
+    """Each body of `bodies` (`bodies_of`) running run() in turns: the
+    labels in order, then reversed (new, parent, parent, new). A turn is
+    the CUDA-event mean of `reps` back-to-back runs and the profiler's
+    device time a launch over `reps` more. Returns {label: {"ms": [...],
+    "device_ms": [...]}}, one value a turn."""
+    out = {label: {"ms": [], "device_ms": []} for label in bodies}
+    for label in [*bodies, *reversed(list(bodies))]:
+        with kernel_body(kernel, n, bodies[label]):
+            out[label]["ms"].append(cuda_time_ms(run, reps, 1))
+            per = device_times_whole(lambda: [run() for _ in range(reps)],
+                                     lambda r: r[0].get(kernel.name, (0,))[0] == reps)[0]
+            count, ms = per.get(kernel.name, (0, 0.0))
+            out[label]["device_ms"].append(ms / count if count else None)
+    return out
+
+
+def say_turns(label: str, turns: dict, bound_ms: float, by: str) -> None:
+    for body, t in turns.items():
+        dev = [v for v in t["device_ms"] if v]
+        say(f"{label} {body}: events " + " / ".join(f"{v:.4f}" for v in t["ms"]) + " ms, device "
+            + (" / ".join(f"{v:.4f}" for v in dev) + f" ms (share of the bound {bound_ms / min(dev):.3f})"
+               if dev else "not measured"))
+    say(f"{label}: bound {bound_ms:.4f} ms ({by})")
+
+
+def _dbl_inputs(ctx, pts_full, N: int, gen):
+    """N projective points on the card from the 2^20 bench points (lane i
+    holds point i mod 2^20), each scaled by a random z; lanes i = 3 mod 7
+    the point at infinity (0 : z : 0), lanes i = 1 mod 5 canonical values
+    plus p (in [p, 2p))."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch, ProjectiveBatch
+
+    f, proj, dev = ctx.fops, ctx.proj, ctx.device
+    lane = torch.arange(N, device=dev)
+    idx = lane % pts_full.x.shape[-1]
+    P = proj.from_affine(AffineBatch(pts_full.x[:, idx], pts_full.y[:, idx], pts_full.inf[idx]))
+    z = _random_planes(f, f.n, N, gen)
+    X, Y, Z = f.mul_list([(P.X, z), (P.Y, z), (P.Z, z)])
+    inf = lane % 7 == 3
+    X, Y, Z = (torch.where(inf, torch.zeros_like(X), X), torch.where(inf, z, Y),
+               torch.where(inf, torch.zeros_like(Z), Z))
+    up = lane % 5 == 1
+    p = f.const_plane(f.p, X)
+    return ProjectiveBatch(*[torch.where(up, f.add_lazy(f.reduce(a), p), a).contiguous() for a in (X, Y, Z)])
+
+
+def redesign_dbl(ctx, pts_full, rates: dict, turns: bool) -> dict:
+    """proj_dbl_rcb's wide body (few=False) at the curve's limb count: at
+    every width of DBL_CHECK_LANES and k of DBL_CHECK_K, on `_dbl_inputs`,
+    bit for bit against the parent's CIOS body on every lane and
+    against the plain version on every lane up to 2 DBL_PLAIN_LANES lanes,
+    else on the first and the last DBL_PLAIN_LANES. Where `turns`: the new
+    and the parent's body in turns (`in_turns`) at 2^20 lanes for each k of
+    DBL_TURN_K, with the bound of k doublings. Then the wide and the
+    few-lane body's device time a launch at k = FEW_DBL[0] on each width of
+    FEW_SWEEP (the few-lane threshold ProjectiveOps.FEW_LANES)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB, ProjectiveBatch
+
+    f, proj, n = ctx.fops, ctx.proj, ctx.fops.n
+    t0 = time.perf_counter()
+    bodies = bodies_of("proj_dbl_rcb", n)
+    gen = torch.Generator(device=ctx.device).manual_seed(14)
+    err = 0
+    for N in DBL_CHECK_LANES:
+        P = _dbl_inputs(ctx, pts_full, N, gen)
+        if N <= 2 * DBL_PLAIN_LANES:
+            sel = torch.arange(N, device=ctx.device)
+        else:
+            sel = torch.cat([torch.arange(DBL_PLAIN_LANES), torch.arange(N - DBL_PLAIN_LANES, N)]).to(ctx.device)
+        Ps = ProjectiveBatch(*[a[:, sel] for a in P])
+        for k in DBL_CHECK_K:
+            got = proj.double_n(P, k, few=False)
+            with kernel_body(PROJ_DBL_RCB, n, bodies["parent"]):
+                err = max(err, _raw_err(got, proj.double_n(P, k, few=False)))
+            err = max(err, _raw_err([a[:, sel] for a in got], proj.double_n_plain(Ps, k)))
+            say(f"proj_dbl_rcb wide body n={n} k={k} N={N}: raw err {err} (parent: every lane; plain: "
+                f"{len(sel)} lanes)")
+            if err:
+                raise AssertionError(f"proj_dbl_rcb's wide body disagrees at {n} limbs, k={k}, N={N}")
+        del P, Ps, got
+    row = {"checks": dict(lanes=list(DBL_CHECK_LANES), k=list(DBL_CHECK_K), max_abs_err=err)}
+    if turns:
+        N = DBL_CHECK_LANES[-1]
+        P = ProjectiveBatch(*_random_planes(f, 3 * n, N, gen).split(n))
+        for k in DBL_TURN_K:
+            times = in_turns(PROJ_DBL_RCB, n, bodies, lambda k=k: proj.double_n(P, k, few=False),
+                             20 if k == 1 else 3)
+            bms, by = bound(ctx, "proj_dbl_rcb", N, rates, k=k)
+            say_turns(f"proj_dbl_rcb n={n} k={k} N={N}", times, bms, by)
+            row[f"turns_k{k}"] = dict(times, bound_ms=bms, bound_by=by, lanes=N)
+    sweep = {}
+    for N in FEW_SWEEP:
+        P = ProjectiveBatch(*_random_planes(f, 3 * n, N, gen).split(n))
+        sweep[N] = {}
+        for body, few in (("few", True), ("wide", False)):
+            per = device_times_whole(lambda: [proj.double_n(P, FEW_DBL[0], few=few) for _ in range(10)],
+                                     lambda r: r[0].get("proj_dbl_rcb", (0,))[0] == 10)[0]
+            count, ms = per.get("proj_dbl_rcb", (0, 0.0))
+            sweep[N][body] = ms / count * 1e3 if count else None
+        say(f"proj_dbl_rcb n={n} k={FEW_DBL[0]} {N} lanes, device us a launch: few "
+            f"{sweep[N]['few']}, wide {sweep[N]['wide']} (FEW_LANES {proj.FEW_LANES})")
+    row["few_sweep_us"] = sweep
+    del P
+    torch.cuda.empty_cache()
+    say(f"proj_dbl_rcb redesign checks at {n} limbs: {time.perf_counter() - t0:.1f} s")
+    return row
+
+
+def scale_launches(k: int) -> list[tuple[str, int]]:
+    """The launches of `scale_by` for the constant k, in order: ("dbl", its
+    doublings) and ("add", 1)."""
+    out, run = [], 0
+    for bit in bin(k)[3:]:
+        run += 1
+        if bit == "1":
+            out += [("dbl", run), ("add", 1)]
+            run = 0
+    return out + ([("dbl", run)] if run else [])
+
+
+def profile_cofactor(ctx, pts_full, rates: dict) -> dict:
+    """The cofactor stage of random_points_weierstrass at 2^20 points
+    (ProjectiveOps.scale by the cofactor, as curves/random.py runs it) on
+    the bench points, with proj_dbl_rcb's new body and with the parent's:
+    each launch's device time (torch.profiler) beside its k, its lanes and
+    its bound, the device time by kernel and the host ms of one stage
+    (median of 3)."""
+    import statistics
+
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB
+
+    proj, n = ctx.proj, ctx.fops.n
+    P = proj.from_affine(pts_full)
+    N, h = P.X.shape[-1], ctx.params.cofactor
+    plan = scale_launches(h)
+
+    def run():
+        return proj.scale(h, P)
+
+    out = {}
+    for label, fn in bodies_of("proj_dbl_rcb", n).items():
+        with kernel_body(PROJ_DBL_RCB, n, fn):
+            per, busy, wall, others, traced = device_times_whole(
+                run, lambda r: len(r[4]) == len(plan), r"proj_(dbl|add)_rcb(_few)?_kernel")
+            host = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                host.append((time.perf_counter() - t0) * 1e3)
+        say_device_times(f"cofactor stage n={n} ({label} doubling body), 2^20 points", per, busy, wall, others)
+        say(f"  host ms of the stage: median {statistics.median(host):.2f} of {['%.2f' % v for v in host]}")
+        out[label] = dict(host_ms=host, busy_ms=busy, per_kernel={k: list(v) for k, v in per.items()})
+        if len(traced) != len(plan):  # a partial trace would pair launches with the wrong k
+            say(f"  by launch: not measured (the profiler kept {len(traced)} of {len(plan)} launches in "
+                f"every try)")
+            continue
+        rows = []
+        for (kind, k), (_, ms) in zip(plan, traced):
+            bms = (bound(ctx, "proj_dbl_rcb", N, rates, k=k) if kind == "dbl"
+                   else bound(ctx, "proj_add_rcb", N, rates))[0]
+            rows.append(dict(kernel=kind, k=k, lanes=N, device_ms=ms, bound_ms=bms))
+        for kind in ("dbl", "add"):
+            sel = [r for r in rows if r["kernel"] == kind]
+            dev, bnd = sum(r["device_ms"] for r in sel), sum(r["bound_ms"] for r in sel)
+            say(f"  {kind}: {len(sel)} launches, device {dev:.4f} ms, bound {bnd:.4f} ms (share {bnd / dev:.3f}); "
+                + ", ".join((f"k={r['k']} " if kind == "dbl" else "") + f"{r['device_ms']:.3f}" for r in sel))
+        out[label]["launches"] = rows
+    return out
+
+
+def redesign_ed_packed(te, host, rates: dict) -> dict:
+    """ed_add_packed at 1 lane and at the first super-round level of the
+    2^20 path (first_level_width), on `_te_flag_lanes`' classes in the first
+    lanes (oracle points `host`; every sign and pair flag, the identity on
+    either side, P + P,
+    P + (-P), unreduced values) and random planes after them, bit for bit
+    against the plain version (1 lane) and the parent's CIOS body
+    (both widths); then the new and the parent's CIOS body in turns at the
+    level's width (`in_turns`). Its 2^16 + 17 and 847,880-lane checks
+    against the plain version are phase_te_kernels'."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED
+
+    f, ed, dev = te.fops, te.ed, te.device
+    bodies = bodies_of("ed_add_packed", 9)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rng = random.Random(15)
+    out, err = {}, 0
+    for M in (1, first_level_width(te, 20)):
+        C = _random_planes(f, 4 * f.n, 2 * M, gen)
+        sg = torch.randint(0, 2, (1, 2 * M), dtype=torch.int32, device=dev, generator=gen)
+        hp = torch.randint(0, 2, (1, M), dtype=torch.int32, device=dev, generator=gen)
+        K = min(M, 1200)
+        FA, FB, fsa, fsb, fhp = _te_flag_lanes(te, host, K, rng)
+        C[:, :K], C[:, M:M + K] = FA, FB
+        sg[:, :K], sg[:, M:M + K], hp[:, :K] = fsa, fsb, fhp
+        ops = (C[:, :M], C[:, M:], sg[:, :M], sg[:, M:], hp)
+        got = ed.add_packed(*ops)
+        with kernel_body(ED_ADD_PACKED, 9, bodies["parent"]):
+            err = max(err, _raw_err([got], [ed.add_packed(*ops)]))
+        if M == 1:
+            err = max(err, _raw_err([got], [ed.add_packed_plain(*ops)]))
+        say(f"ed_add_packed N={M}: raw err {err} against the parent's body" + (" and the plain version"
+                                                                               if M == 1 else ""))
+        if err:
+            raise AssertionError(f"ed_add_packed disagrees at {M} lanes")
+    turns = in_turns(ED_ADD_PACKED, 9, bodies, lambda: ed.add_packed(*ops), 10)
+    bms, by = bound(te, "ed_add_packed", M, rates)
+    say_turns(f"ed_add_packed N={M}", turns, bms, by)
+    out["turns"] = dict(turns, bound_ms=bms, bound_by=by, lanes=M, max_abs_err=err)
+    del C, sg, hp, ops, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_te_packed(te, pts_full, rates: dict) -> dict:
+    """The Twisted Edwards MSM at 2^20 (msm_device_full) with ed_add_packed's
+    new body and with the parent's: each ed_add_packed launch's device time
+    (torch.profiler) beside its lanes (recorded at the wrapper) and its
+    bound, summed, and the device time by kernel."""
+    from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED, EdwardsBatch
+
+    N = 1 << max(MSM_LOG2N)
+    c = te.default_c(N)
+    P = EdwardsBatch(*[a[..., :N] for a in pts_full])
+    limbs = te.scalars_to_limbs(bench_scalars(te.params.order, N))
+    ed, widths = te.ed, []
+    own = ed.add_packed
+
+    def recorded(A, *rest):
+        widths.append(A.shape[-1])
+        return own(A, *rest)
+
+    def run():
+        widths.clear()
+        return te.msm_device_full(P, limbs, c)
+
+    out = {}
+    ed.add_packed = recorded
+    try:
+        for label, fn in bodies_of("ed_add_packed", 9).items():
+            with kernel_body(ED_ADD_PACKED, 9, fn):
+                per, busy, wall, others, traced = device_times_whole(
+                    run, lambda r: len(r[4]) == len(widths), r"ed_add_packed_kernel")
+            say_device_times(f"Twisted Edwards MSM 2^20 ({label} ed_add_packed body)", per, busy, wall, others)
+            out[label] = dict(busy_ms=busy, per_kernel={k: list(v) for k, v in per.items()})
+            if len(traced) != len(widths):  # a partial trace would pair launches with the wrong widths
+                say(f"  ed_add_packed by launch: not measured (the profiler kept {len(traced)} of "
+                    f"{len(widths)} launches in every try)")
+                continue
+            dev = sum(ms for _, ms in traced)
+            bnd = sum(bound(te, "ed_add_packed", M, rates)[0] for M in widths)
+            say(f"  ed_add_packed: {len(traced)} launches, device {dev:.4f} ms, bound summed over their "
+                f"widths {bnd:.4f} ms (share {bnd / dev:.3f}); lanes " + ", ".join(
+                    f"{M} {ms:.4f}" for M, (_, ms) in zip(widths, traced)))
+            out[label].update(lanes=list(widths), device_ms=[ms for _, ms in traced], bound_ms=bnd)
+    finally:
+        del ed.add_packed
+    return out
 
 
 # ----------------------------------------------------------------- phase 2
@@ -3708,6 +4139,7 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
         host = c.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
         out[label] = phase_curve_kernels(c, host, rates, widths)
         out[label]["divstep_inv_mont"]["main_path"] = redesign_divstep(c, pts, rates)
+        out[label]["proj_dbl_rcb"]["carry_chain"] = redesign_dbl(c, pts, rates, turns=c.fops.n == 13)
         say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase 1 done")
         phase_oracle(c, host, label)
         sizes = {path: NEW_MSM_LOG2N for path in PATHS}
@@ -3783,10 +4215,11 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
         d = {"launches_by_path": {run: c[name] for run, c in launches.items() if c[name]}}
         d.update({key: v for key, v in res.items()
                   if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms", "turns_ms",
-                                                     "bitwise_turns_ms", "sqrt_profile")})
+                                                     "bitwise_turns_ms", "sqrt_profile", "carry_chain",
+                                                     "path_profile")})
         d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
-        d.update({f"{label}_main_path": r[name]["main_path"] for label, r in new_kres.items()
-                  if "main_path" in r.get(name, {})})
+        d.update({f"{label}_{key}": r[name][key] for label, r in new_kres.items()
+                  for key in ("main_path", "carry_chain") if key in r.get(name, {})})
         if name in ptx:
             d["ptxas_new"] = ptx[name]
         return d
@@ -3835,7 +4268,9 @@ def main() -> int:
     kres = phase_kernels(ctx, host_pts, rates)
     for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
         kres.setdefault(name, {}).update(res)
+    kres["proj_dbl_rcb"]["path_profile"] = profile_cofactor(ctx, pts, rates)
     te_kres = phase_te_kernels(te, te_host, rates)
+    te_kres["ed_add_packed"]["carry_chain"] = redesign_ed_packed(te, te_host, rates)
     te_kres["ed_combine"] = redesign_te_combine(te, te_host, rates)
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)
@@ -3858,6 +4293,7 @@ def main() -> int:
         launches[f"te_2^{log2n}"] = phase_te_msm(te, log2n, te_pts, expected)
     launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
                                                            TE_CURVE, "te_serve")
+    te_kres["ed_add_packed"]["path_profile"] = profile_te_packed(te, te_pts, rates)
     say(f"[{time.perf_counter() - t_start:.1f} s] phases 2 and 3 done")
     launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
     say(f"[{time.perf_counter() - t_start:.1f} s] phase 5 done")

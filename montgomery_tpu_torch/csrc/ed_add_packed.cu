@@ -15,9 +15,14 @@
 // NL = 9) against 2 x 144 + 12 bytes read and 144 written; the multiplies
 // bound it (about 0.18 ns a lane at the rate csrc/rates/imad_rate.cu
 // measures, against 0.13 ns of memory at 3.35 TB/s). Design: one thread per
-// lane; A and B are column ranges of packed arrays (a round's gathered
-// operands, a super-round level's two halves) read in place through their
-// row strides.
+// lane, the add's products on madc.cuh's carry chains (ed_add on
+// CarryChainMul); A and B are column ranges of packed arrays (a round's
+// gathered operands, a super-round level's two halves) read in place
+// through their row strides. On an H100 the carry chains took a launch of
+// 10,813,448 lanes (the 2^20 path's first level) from 4.11 to 2.66 ms,
+// 0.73 of the multiply bound (chip_smoke.py, in turns with the CIOS body,
+// csrc/rates/ed_add_packed_cios.cu); four threads a lane, one product
+// each of the add's stages 4 | 1 | 4, took 3.88 ms.
 #include "edwards.cuh"
 
 // column i of packed rows [X | Y | Z | T] with row stride s, negated where neg
@@ -47,7 +52,7 @@ ed_add_packed_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, i
   uint32_t x1[NL], y1[NL], z1[NL], t1[NL], x2[NL], y2[NL], z2[NL], t2[NL];
   load_signed_ext(x1, y1, z1, t1, A, sa, i, sA[i] != 0, F);
   load_signed_ext(x2, y2, z2, t2, B, sb, i, sB[i] != 0, F);
-  if (hp[i] != 0) ed_add(x1, y1, z1, t1, x1, y1, z1, t1, x2, y2, z2, t2, k2d, F);
+  if (hp[i] != 0) ed_add<NL, CarryChainMul>(x1, y1, z1, t1, x1, y1, z1, t1, x2, y2, z2, t2, k2d, F);
   fe_store(out, N, i, x1);
   fe_store(out + (size_t)NL * N, N, i, y1);
   fe_store(out + (size_t)2 * NL * N, N, i, z1);

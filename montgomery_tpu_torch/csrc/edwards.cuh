@@ -9,7 +9,9 @@
 //   C = (k T1) T2, D = 2 ZZ, E = B - A, F = D - C, G = D + C, H = B + A,
 //   (X3 : Y3 : Z3 : T3) = (E F : G H : F G : E H).
 // 8 products and 1 product by the constant k. ed_add.cu (planar planes, and
-// k-fold doubling) and ed_add_packed.cu (packed rows) call it per lane.
+// k-fold doubling) calls it per lane on field.cuh's fe_mul, ed_add_packed.cu
+// (packed rows) on madc.cuh's carry-chain fe_mul_cc (the template argument
+// Mul; the two products agree bit for bit).
 //
 // Bounds (inputs in [0, 2p), every product's result in [0, 2p)): the sums
 // stay lazy as in the JAX formula. Y - X + 4p < 6p, Y + X < 4p, so A < 2p is
@@ -29,10 +31,11 @@
 // ed_add, coop_ed_add and the plain version agree bit for bit.
 #pragma once
 #include "coop.cuh"
+#include "madc.cuh"
 
-// (X3, Y3, Z3, T3) = P1 + P2; the outputs may alias the inputs (every input
-// is read before the first output is written)
-template <int NL>
+// (X3, Y3, Z3, T3) = P1 + P2 on the product Mul; the outputs may alias the
+// inputs (every input is read before the first output is written)
+template <int NL, class Mul = CiosMul>
 __device__ __forceinline__ void ed_add(uint32_t (&X3)[NL], uint32_t (&Y3)[NL], uint32_t (&Z3)[NL],
                                        uint32_t (&T3)[NL], const uint32_t (&X1)[NL], const uint32_t (&Y1)[NL],
                                        const uint32_t (&Z1)[NL], const uint32_t (&T1)[NL],
@@ -42,23 +45,23 @@ __device__ __forceinline__ void ed_add(uint32_t (&X3)[NL], uint32_t (&Y3)[NL], u
   uint32_t A[NL], B[NL], C[NL], ZZ[NL], u[NL], v[NL];
   fe_sub_lazy(u, Y1, X1, F);
   fe_sub_lazy(v, Y2, X2, F);
-  fe_mul(A, u, v, F);
+  Mul::mul(A, u, v, F);
   fe_add_lazy(u, Y1, X1);
   fe_add_lazy(v, Y2, X2);
-  fe_mul(B, u, v, F);
-  fe_mul(ZZ, Z1, Z2, F);
-  fe_mul(u, T1, k.v, F);
-  fe_mul(C, u, T2, F);
+  Mul::mul(B, u, v, F);
+  Mul::mul(ZZ, Z1, Z2, F);
+  Mul::mul(u, T1, k.v, F);
+  Mul::mul(C, u, T2, F);
   uint32_t D[NL], E[NL], Fd[NL], G[NL], H[NL];
   fe_add_lazy(D, ZZ, ZZ);
   fe_sub_lazy(E, B, A, F);
   fe_sub_lazy(Fd, D, C, F);
   fe_add_lazy(G, D, C);
   fe_add_lazy(H, B, A);
-  fe_mul(X3, E, Fd, F);
-  fe_mul(Y3, G, H, F);
-  fe_mul(Z3, Fd, G, F);
-  fe_mul(T3, E, H, F);
+  Mul::mul(X3, E, Fd, F);
+  Mul::mul(Y3, G, H, F);
+  Mul::mul(Z3, Fd, G, F);
+  Mul::mul(T3, E, H, F);
 }
 
 // ---------------------------------------------------------- cooperative form

@@ -1,0 +1,197 @@
+// The Montgomery product on PTX carry chains, for the one-thread-a-product
+// kernels that are bound by the integer multiply pipe (proj_dbl_rcb.cu's
+// wide body, ed_add_packed.cu).
+//
+// field.cuh's fe_mul adds each 64-bit product to the running word and its
+// carry in C (`(uint64_t)t[j] + a[j] b[i] + c`), so every step waits on the
+// carry of the step before, twice a row. Here the rows are PTX carry chains
+// (mad.lo.cc / madc.lo.cc / madc.hi.cc / addc.cc, the 32-bit halves of each
+// product added where they land), and, as in sppark's mont_t, the products
+// of even words a_j (j = 0, 2, ...) and of odd words (j = 1, 3, ...) go
+// into two accumulators: L, whose word k sits at position k (w^k, w = 2^32),
+// and H, whose word k sits at position k + 1. The lo and hi halves of an
+// even product fall on consecutive words of L, those of an odd product on
+// consecutive words of H, so each chain is one unbroken run of adds and
+// neither waits on the other. Per row i (b_i the row's word):
+//   a-phase: H += odd products of a b_i, L += even products;
+//   m = L[0] mu (H has no word at position 0);
+//   p-phase: H += odd products of m p, L += even products; now L[0] = 0;
+//   shift one word down: L takes H's words, H takes L's words 2.., and L's
+//   word 1 (now at position 0) is added into L[0] at the start of the next
+//   row, its carry taken by the next row's first chain.
+// A carry out of the top of either accumulator lands in X, one word at
+// position NL + 1, which the shift moves to H's top word. With an odd NL
+// (9, 13) the hi half of the last even product lands at position NL, on
+// H's top word. The rows end with H + (L >> one word).
+//
+// The result is fe_mul's bit for bit: both compute (a b + m p) / R for the
+// unique m < R with a b + m p = 0 mod R, and neither ends with a
+// subtraction, so it lies in [0, 2p) for a b < R p. No carry is dropped:
+// between rows T = L + H w + X w^(NL+1) is CIOS's running value, below
+// a + p <= R + p, and within a row below (a + p) w < 2 w^(NL+1); each part
+// is at most T, so L fits NL words, H NL words and X one bit, and each
+// chain's last add into X cannot carry (tests/test_torch_madc.py models the
+// word order op by op and asserts it). The word count of a product is
+// fe_mul's: 2 NL^2 32x32 products, each as its lo and hi half.
+//
+// Every op that reads or writes the carry flag is one `asm volatile`, so
+// the compiler keeps them in program order; nothing between them touches
+// the flag (plain C never does).
+#pragma once
+#include "field.cuh"
+
+__device__ __forceinline__ uint32_t cc_mul_lo(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.lo.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cc_mul_hi(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm("mul.hi.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// lo(a b) + c, carry out
+__device__ __forceinline__ uint32_t cc_mad_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// lo(a b) + c + carry, carry out
+__device__ __forceinline__ uint32_t cc_madc_lo(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// hi(a b) + c + carry, carry out
+__device__ __forceinline__ uint32_t cc_madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+
+// a + b, carry out
+__device__ __forceinline__ uint32_t cc_add(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// a + b + carry, carry out
+__device__ __forceinline__ uint32_t cc_addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// a + b + carry, no carry out (the caller's bound says there is none)
+__device__ __forceinline__ uint32_t cc_addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// H += sum over odd j of v_j s w^(j-1); the carry out of H's top word goes
+// into X. CARRY_IN: the chain's first add takes the carry flag (the fold of
+// the shift), else it starts afresh.
+template <int NL, bool CARRY_IN>
+__device__ __forceinline__ void cc_odd_chain(uint32_t (&H)[NL], uint32_t& X, const uint32_t (&v)[NL],
+                                             uint32_t s) {
+#pragma unroll
+  for (int j = 1; j < NL; j += 2) {
+    H[j - 1] = (CARRY_IN || j > 1) ? cc_madc_lo(v[j], s, H[j - 1]) : cc_mad_lo(v[j], s, H[j - 1]);
+    H[j] = cc_madc_hi(v[j], s, H[j]);
+  }
+  if (NL % 2) H[NL - 1] = cc_addc_cc(H[NL - 1], 0);  // the last odd product ends at position NL - 1
+  X = cc_addc(X, 0);
+}
+
+// L += sum over even j of v_j s w^j; with an odd NL the last product's hi
+// half lands on H's top word (position NL); the carry out goes into X
+template <int NL>
+__device__ __forceinline__ void cc_even_chain(uint32_t (&L)[NL], uint32_t (&H)[NL], uint32_t& X,
+                                              const uint32_t (&v)[NL], uint32_t s) {
+#pragma unroll
+  for (int j = 0; j + 1 < NL; j += 2) {
+    L[j] = j == 0 ? cc_mad_lo(v[j], s, L[j]) : cc_madc_lo(v[j], s, L[j]);
+    L[j + 1] = cc_madc_hi(v[j], s, L[j + 1]);
+  }
+  if (NL % 2) {
+    L[NL - 1] = cc_madc_lo(v[NL - 1], s, L[NL - 1]);
+    H[NL - 1] = cc_madc_hi(v[NL - 1], s, H[NL - 1]);
+  } else {
+    H[NL - 1] = cc_addc_cc(H[NL - 1], 0);  // position NL
+  }
+  X = cc_addc(X, 0);
+}
+
+// Montgomery product a b / R mod p on carry chains, equal to fe_mul bit for
+// bit: in [0, 2p) for a b < R p
+template <int NL>
+__device__ __forceinline__ void fe_mul_cc(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                          const FieldParams<NL>& F) {
+  uint32_t L[NL], H[NL], X = 0;
+  // row 0: the products alone
+#pragma unroll
+  for (int j = 0; j + 1 < NL; j += 2) {
+    L[j] = cc_mul_lo(a[j], b[0]);
+    L[j + 1] = cc_mul_hi(a[j], b[0]);
+  }
+#pragma unroll
+  for (int j = 1; j < NL; j += 2) {
+    H[j - 1] = cc_mul_lo(a[j], b[0]);
+    H[j] = cc_mul_hi(a[j], b[0]);
+  }
+  if (NL % 2) {
+    L[NL - 1] = cc_mul_lo(a[NL - 1], b[0]);
+    H[NL - 1] = cc_mul_hi(a[NL - 1], b[0]);
+  }
+#pragma unroll
+  for (int i = 0; i < NL; i++) {
+    if (i > 0) {
+      // shift one word down: L <- H; H <- L[2..], 0 at position NL - 1 and
+      // X at NL; L's word 1 is folded into L[0], its carry into the chain
+      uint32_t fold = L[1];
+#pragma unroll
+      for (int k = 0; k < NL; k++) {
+        uint32_t h = H[k];
+        H[k] = k + 2 < NL ? L[k + 2] : k == NL - 2 ? 0u : X;
+        L[k] = h;
+      }
+      X = 0;
+      L[0] = cc_add(L[0], fold);
+      cc_odd_chain<NL, true>(H, X, a, b[i]);
+      cc_even_chain(L, H, X, a, b[i]);
+    }
+    uint32_t m = L[0] * F.mu;
+    cc_odd_chain<NL, false>(H, X, F.p, m);
+    cc_even_chain(L, H, X, F.p, m);
+  }
+  // (L + H w) / w: L's word 0 is zero, X is zero
+  r[0] = cc_add(H[0], L[1]);
+#pragma unroll
+  for (int k = 1; k < NL - 1; k++) r[k] = cc_addc_cc(H[k], L[k + 1]);
+  r[NL - 1] = cc_addc(H[NL - 1], 0);
+}
+
+// the two products as types, for a formula written once over its product
+// (edwards.cuh's ed_add, projective.cuh's rcb_dbl): field.cuh's CIOS fe_mul
+// and fe_mul_cc
+struct CiosMul {
+  template <int NL>
+  __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                             const FieldParams<NL>& F) {
+    fe_mul(r, a, b, F);
+  }
+};
+
+struct CarryChainMul {
+  template <int NL>
+  __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
+                                             const FieldParams<NL>& F) {
+    fe_mul_cc(r, a, b, F);
+  }
+};

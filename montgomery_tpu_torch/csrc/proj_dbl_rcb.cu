@@ -8,16 +8,25 @@
 // double_n (:225-276). One binary serves every k.
 //
 // Two bodies, chosen by the wrapper from the lane count:
-// - wide (one thread a lane): bound by integer multiply throughput, 9 CIOS
-//   products a doubling; the point stays in registers across all k
-//   doublings, so a launch reads and writes one point per lane whatever k is.
+// - wide (one thread a lane): bound by integer multiply throughput, 9
+//   products a doubling on madc.cuh's carry chains (projective.cuh's
+//   rcb_dbl); the point stays in registers across all k doublings, so a
+//   launch reads and writes one point per lane whatever k is. On an H100
+//   the carry-chain product took the k = 92 launch of the cofactor stage
+//   at 2^20 lanes from 67.9 to 38.5 ms at 12 limbs (0.75 of the multiply
+//   bound of 7 products and 2 squares a doubling) and from 111.4 to 50.3
+//   ms at 13 (chip_smoke.py, in turns with the CIOS body,
+//   csrc/rates/proj_dbl_rcb_cios.cu). Four threads a lane, one product
+//   each of the formula's stages 4 | 1 | 4, read 0.56-0.60 of that bound:
+//   stage 2's one product costs a warp the issue slots of four.
 // - few (one block of 4 warps a lane, below the wrapper's lane threshold):
 //   bound by latency, since a few lanes cannot fill the card and each
 //   doubling waits on the one before. projective.cuh's coop_dbl runs each
 //   stage's products on separate warps and each product on a whole warp
 //   (coop.cuh), so a doubling is 3 dependent warp products; the point stays
 //   in shared memory across all k doublings.
-// Both give the same values bit for bit.
+// Both give the same values bit for bit (fe_mul_cc and coop_mul equal
+// fe_mul).
 #include "projective.cuh"
 
 template <int NL>

@@ -1,9 +1,10 @@
 // Complete projective addition and doubling for a = 0 (Renes-Costello-Batina
 // 2015/1060, Alg. 7 and Alg. 9):
 //
-// - rcb_dbl: one point in one thread's registers (wide launches, one lane a
-//   thread: proj_dbl_rcb.cu; the wide add spreads a lane over six threads
-//   in proj_add_rcb.cu itself);
+// - rcb_dbl: one point in one thread's registers, its products on
+//   madc.cuh's carry chains (wide launches, one lane a thread:
+//   proj_dbl_rcb.cu; the wide add spreads a lane over six threads in
+//   proj_add_rcb.cu itself);
 // - coop_add, coop_dbl: one point in shared memory, carried by a block
 //   (few-lane launches and the window combine: proj_add_rcb.cu,
 //   proj_dbl_rcb.cu, proj_combine_rcb.cu). A formula's products fall into
@@ -14,35 +15,38 @@
 //   critical path is 3 warp products instead of 9 one-thread products.
 //
 // Both forms run the same field operations in the same order on the same
-// values (coop_mul equals fe_mul bit for bit), so they agree with each other
-// and with the plain versions bit for bit. The lazy sums stay below 8p, as
-// in the JAX formulas (_add_rcb_formula, _dbl_rcb_formula of
+// values (fe_mul_cc and coop_mul equal fe_mul bit for bit), so they agree
+// with each other and with the plain versions bit for bit. The lazy sums
+// stay below 8p, as in the JAX formulas (_add_rcb_formula, _dbl_rcb_formula of
 // montgomery_tpu/curves/projective.py).
 #pragma once
 #include "coop.cuh"
+#include "madc.cuh"
 
-template <int NL>
+// (X, Y, Z) <- 2 (X, Y, Z) on the product Mul (madc.cuh; CiosMul for the
+// parent's body kept as a probe, csrc/rates/proj_dbl_rcb_cios.cu)
+template <int NL, class Mul = CarryChainMul>
 __device__ __forceinline__ void rcb_dbl(uint32_t (&X)[NL], uint32_t (&Y)[NL], uint32_t (&Z)[NL],
                                         const Fe<NL>& b3, const FieldParams<NL>& F) {
   uint32_t YY[NL], ZZ[NL], YZ[NL], XY[NL], Z3d[NL], t2[NL], u[NL], v[NL];
-  fe_mul(YY, Y, Y, F);
-  fe_mul(ZZ, Z, Z, F);
-  fe_mul(YZ, Y, Z, F);
-  fe_mul(XY, X, Y, F);
+  Mul::mul(YY, Y, Y, F);
+  Mul::mul(ZZ, Z, Z, F);
+  Mul::mul(YZ, Y, Z, F);
+  Mul::mul(XY, X, Y, F);
   fe_add(Z3d, YY, YY, F);
   fe_add(Z3d, Z3d, Z3d, F);   // 4 Y^2, reduced
   fe_add_lazy(Z3d, Z3d, Z3d);  // 8 Y^2 < 4p
-  fe_mul(t2, ZZ, b3.v, F);     // 3b Z^2
-  fe_add_lazy(u, YY, t2);      // Y3t < 4p
+  Mul::mul(t2, ZZ, b3.v, F);  // 3b Z^2
+  fe_add_lazy(u, YY, t2);     // Y3t < 4p
   fe_add(v, t2, t2, F);
-  fe_add(v, v, t2, F);         // 9b Z^2 reduced
-  fe_sub_lazy(YY, YY, v, F);   // t0m = Y^2 - 9b Z^2 + 4p < 6p
-  fe_mul(X, t2, Z3d, F);       // X3a
-  fe_mul(Z, YZ, Z3d, F);       // Z3
-  fe_mul(v, YY, u, F);         // Y3a
-  fe_add(Y, X, v, F);          // Y3 = X3a + Y3a
-  fe_mul(v, YY, XY, F);        // X3b
-  fe_add(X, v, v, F);          // X3 = 2 X3b
+  fe_add(v, v, t2, F);        // 9b Z^2 reduced
+  fe_sub_lazy(YY, YY, v, F);  // t0m = Y^2 - 9b Z^2 + 4p < 6p
+  Mul::mul(X, t2, Z3d, F);    // X3a
+  Mul::mul(Z, YZ, Z3d, F);    // Z3
+  Mul::mul(v, YY, u, F);      // Y3a
+  fe_add(Y, X, v, F);         // Y3 = X3a + Y3a
+  Mul::mul(v, YY, XY, F);     // X3b
+  fe_add(X, v, v, F);         // X3 = 2 X3b
 }
 
 // ---------------------------------------------------------- cooperative form

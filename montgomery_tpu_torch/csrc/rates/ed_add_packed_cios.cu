@@ -1,0 +1,55 @@
+// The body of ed_add_packed on CIOS products (field.cuh's fe_mul) that
+// csrc/ed_add_packed.cu's carry-chain body replaced, kept as a probe so
+// that chip_smoke.py can time the two in turns on one card and run the
+// Twisted Edwards MSM on either. Not part of the kernels' library: it is
+// built on its own, beside it. Per lane: negate X and T of A where sA != 0
+// and of B where sB != 0, add with edwards.cuh's ed_add on CiosMul (9 CIOS
+// products) and write the sum where hp != 0, the signed A where hp == 0;
+// bit for bit the kernel's values. Its entry point takes the kernel's
+// arguments, so chip_smoke.py can put it in place of the kernel's behind
+// EdwardsOps.add_packed.
+#include "../edwards.cuh"
+
+// column i of packed rows [X | Y | Z | T] with row stride s, negated where neg
+template <int NL>
+__device__ __forceinline__ void load_signed_ext(uint32_t (&x)[NL], uint32_t (&y)[NL], uint32_t (&z)[NL],
+                                                uint32_t (&t)[NL], const int32_t* P, int s, int i, bool neg,
+                                                const FieldParams<NL>& F) {
+  uint32_t u[NL];
+  fe_load(u, P, s, i);
+  fe_neg(x, u, F);
+  fe_select(x, neg, x, u);
+  fe_load(y, P + (size_t)NL * s, s, i);
+  fe_load(z, P + (size_t)2 * NL * s, s, i);
+  fe_load(u, P + (size_t)3 * NL * s, s, i);
+  fe_neg(t, u, F);
+  fe_select(t, neg, t, u);
+}
+
+template <int NL>
+__global__ void __launch_bounds__(LANES_PER_BLOCK)
+ed_add_packed_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ A, int sa,
+                     const int32_t* __restrict__ B, int sb, const int32_t* __restrict__ sA,
+                     const int32_t* __restrict__ sB, const int32_t* __restrict__ hp, Fe<NL> k2d,
+                     FieldParams<NL> F, int N) {
+  int i = lane_index();
+  if (i >= N) return;
+  uint32_t x1[NL], y1[NL], z1[NL], t1[NL], x2[NL], y2[NL], z2[NL], t2[NL];
+  load_signed_ext(x1, y1, z1, t1, A, sa, i, sA[i] != 0, F);
+  load_signed_ext(x2, y2, z2, t2, B, sb, i, sB[i] != 0, F);
+  if (hp[i] != 0) ed_add(x1, y1, z1, t1, x1, y1, z1, t1, x2, y2, z2, t2, k2d, F);
+  fe_store(out, N, i, x1);
+  fe_store(out + (size_t)NL * N, N, i, y1);
+  fe_store(out + (size_t)2 * NL * N, N, i, z1);
+  fe_store(out + (size_t)3 * NL * N, N, i, t1);
+}
+
+extern "C" int probe_ed_add_packed_n9(void* out, const void* A, int sa, const void* B, int sb, const void* sA,
+                                      const void* sB, const void* hp, const uint32_t* k2d,
+                                      const uint32_t* field, int N, void* stream) {
+  if (N > 0)
+    ed_add_packed_kernel<9><<<grid_for(N), LANES_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+        (int32_t*)out, (const int32_t*)A, sa, (const int32_t*)B, sb, (const int32_t*)sA, (const int32_t*)sB,
+        (const int32_t*)hp, fe_from<9>(k2d), field_from<9>(field), N);
+  return (int)cudaGetLastError();
+}

@@ -1,17 +1,22 @@
-// Latency of one dependent Montgomery product on the card at hand, in the two
-// forms the field kernels use: fe_mul in one thread (field.cuh) and coop_mul
-// on a whole warp (coop.cuh). chip_smoke.py multiplies the window combine's
+// Latency of one dependent Montgomery product on the card at hand, in the
+// three forms the field kernels use: fe_mul in one thread (field.cuh),
+// fe_mul_cc on carry chains in one thread (madc.cuh) and coop_mul on a
+// whole warp (coop.cuh). chip_smoke.py multiplies the window combine's
 // serial product count by the warp product's latency for the combine's
 // dependent-chain floor: a kernel that carries one point through a chain of
 // products cannot beat that chain, however it uses the card.
-// Instantiated at 12 limbs (BLS12-377's base field, the Weierstrass combine)
-// and 9 (ed-on-bls12-377's, the Twisted Edwards combine).
+// Instantiated at 12 limbs (BLS12-377's base field, the Weierstrass combine),
+// 13 (BLS12-381's) and 9 (ed-on-bls12-377's, the Twisted Edwards combine).
+// chip_smoke.py also prints the SASS of the two one-thread chains: each
+// loop body is one product, so they give the instruction mix of fe_mul and
+// fe_mul_cc.
 // Not part of the kernels' library: it is built on its own, beside it.
 //
 // One block of one warp runs `iters` products, each on the result of the one
 // before (x <- x y), and stores x, so none is optimised away; the launch time
 // over iters is the latency of one product (launch overhead amortised).
 #include "../coop.cuh"
+#include "../madc.cuh"
 
 template <int NL>
 __global__ void __launch_bounds__(32)
@@ -21,6 +26,22 @@ one_thread_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iter
 #pragma unroll
   for (int k = 0; k < NL; k++) x[k] = x0.v[k];
   for (int i = 0; i < iters; i++) fe_mul(x, x, y.v, F);
+#pragma unroll
+  for (int k = 0; k < NL; k++) out[k] = x[k];
+}
+
+template <int NL>
+__global__ void __launch_bounds__(32)
+cc_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iters) {
+  if (threadIdx.x) return;
+  // plus %laneid (0 here), so that ptxas keeps the chain on the per-thread
+  // datapath, as in a kernel, rather than on the uniform one
+  uint32_t lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  uint32_t x[NL];
+#pragma unroll
+  for (int k = 0; k < NL; k++) x[k] = x0.v[k] + lane;
+  for (int i = 0; i < iters; i++) fe_mul_cc(x, x, y.v, F);
 #pragma unroll
   for (int k = 0; k < NL; k++) out[k] = x[k];
 }
@@ -46,7 +67,10 @@ warp_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, Fe<NL> mu, FieldParams<NL> F, int
 template <int NL>
 static int launch(int warp, int iters, const uint32_t* x, const uint32_t* y, const uint32_t* mu,
                   const uint32_t* field, void* out, void* stream) {
-  if (warp)
+  if (warp == 2)
+    cc_chain<NL><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
+                                                     field_from<NL>(field), iters);
+  else if (warp)
     warp_chain<NL><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
                                                        fe_from<NL>(mu), field_from<NL>(field), iters);
   else
@@ -55,12 +79,13 @@ static int launch(int warp, int iters, const uint32_t* x, const uint32_t* y, con
   return (int)cudaGetLastError();
 }
 
-// One launch of `iters` dependent products at nl = 12 or 9 limbs: warp = 0
-// one thread, 1 a warp; out holds the nl words of the last product. Returns
+// One launch of `iters` dependent products at nl = 12, 13 or 9 limbs: warp =
+// 0 one thread (fe_mul), 1 a warp, 2 one thread on carry chains; out holds the nl words of the last product. Returns
 // cudaGetLastError().
 extern "C" int mul_latency(int nl, int warp, int iters, const uint32_t* x, const uint32_t* y,
                            const uint32_t* mu, const uint32_t* field, void* out, void* stream) {
   if (nl == 12) return launch<12>(warp, iters, x, y, mu, field, out, stream);
+  if (nl == 13) return launch<13>(warp, iters, x, y, mu, field, out, stream);
   if (nl == 9) return launch<9>(warp, iters, x, y, mu, field, out, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -125,11 +125,14 @@ class ProjectiveOps:
         self._mu_words = kernels.words(to_words(-pow(p, -1, fops.R) % fops.R, fops.n))
 
     # double_n launches on fewer lanes than this take the few-lane body (one
-    # block a lane, latency-bound); wider ones one thread a lane. Both bodies
-    # timed at k = 6 from 1 to 65,536 lanes on an H100 80GB HBM3 at 700 W:
-    # the few-lane body is faster up to 3,072 lanes (0.178 against 0.202
-    # ms), the one-thread body from 4,096 (0.205 against 0.239 ms)
-    FEW_LANES = 3072
+    # block a lane, latency-bound); wider ones one thread a lane on carry-
+    # chain products. Both bodies timed at k = 6 from 10 to 8,192 lanes on an
+    # H100 80GB HBM3 at 700 W (device time a launch, chip_smoke.py): the
+    # few-lane body is faster up to 640 lanes (41.1 against 58.5 us at 12
+    # limbs, 45.1 against 71.2 at 13, 31.5 against 33.7 at 9), the
+    # one-thread body from 1,024 (58.5 against 67.9 us, 71.2 against 75.4,
+    # 33.7 against 47.7)
+    FEW_LANES = 1024
 
     # add launches on fewer lanes than this take the few-lane body (a block
     # a lane), wider ones six threads a lane. Both bodies timed from 1 to

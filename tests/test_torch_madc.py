@@ -1,0 +1,191 @@
+"""The carry-chain Montgomery product of `csrc/madc.cuh` (`fe_mul_cc`),
+modelled op by op in Python ints: the even and odd accumulators, the carry
+flag as PTX sets it, the row shift with its fold and the top word X. Each
+op that the header issues without a carry out asserts that none was lost.
+The model is held bit for bit against `fe_mul`'s plain version
+(`FieldOps.mul_plain`, the CIOS product on 16-bit halves that the card's
+kernels are held to) and against (a b + m p) / R in Python ints, at 9, 12
+and 13 limbs: 0, 1, p - 1, values in [p, 2p) and up to 8p, pairs at the
+a b < R p limit with either operand near R, and seeded random operands.
+Tolerance zero. CPU only: the CUDA header itself is checked on the card by
+`chip_smoke.py` through the kernels that use it.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from montgomery_tpu_torch.concrete import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
+from montgomery_tpu_torch.ops import limbs as codec
+from montgomery_tpu_torch.ops.field import create_field_ops
+
+torch.set_num_threads(1)
+
+M32 = 0xFFFFFFFF
+CURVES = {"ed-on-bls12-377": ED_ON_BLS12_377, "pallas": PALLAS, "bls12-377": BLS12_377,
+          "bls12-381": BLS12_381}
+
+
+class Ptx:
+    """The 32-bit PTX integer ops of madc.cuh with the carry flag CC;
+    `ops` counts each op by its PTX name."""
+
+    def __init__(self):
+        self.cc = 0
+        self.ops: dict[str, int] = {}
+
+    def _count(self, name):
+        self.ops[name] = self.ops.get(name, 0) + 1
+
+    def mul_lo(self, a, b):
+        self._count("mul.lo")
+        return a * b & M32
+
+    def mul_hi(self, a, b):
+        self._count("mul.hi")
+        return a * b >> 32
+
+    def _set(self, name, s):
+        self._count(name)
+        self.cc = s >> 32
+        return s & M32
+
+    def mad_lo(self, a, b, c):
+        return self._set("mad.lo.cc", (a * b & M32) + c)
+
+    def madc_lo(self, a, b, c):
+        return self._set("madc.lo.cc", (a * b & M32) + c + self.cc)
+
+    def madc_hi(self, a, b, c):
+        return self._set("madc.hi.cc", (a * b >> 32) + c + self.cc)
+
+    def add(self, a, b):
+        return self._set("add.cc", a + b)
+
+    def addc_cc(self, a, b):
+        return self._set("addc.cc", a + b + self.cc)
+
+    def addc(self, a, b):
+        """addc.u32 keeps no carry: the header relies on there being none."""
+        self._count("addc")
+        s = a + b + self.cc
+        assert s >> 32 == 0, "addc.u32 dropped a carry"
+        return s
+
+
+def odd_chain(P, H, X, v, s, carry_in):
+    n = len(H)
+    for j in range(1, n, 2):
+        H[j - 1] = P.madc_lo(v[j], s, H[j - 1]) if carry_in or j > 1 else P.mad_lo(v[j], s, H[j - 1])
+        H[j] = P.madc_hi(v[j], s, H[j])
+    if n % 2:
+        H[n - 1] = P.addc_cc(H[n - 1], 0)
+    return P.addc(X, 0)
+
+
+def even_chain(P, L, H, X, v, s):
+    n = len(L)
+    for j in range(0, n - 1, 2):
+        L[j] = P.mad_lo(v[j], s, L[j]) if j == 0 else P.madc_lo(v[j], s, L[j])
+        L[j + 1] = P.madc_hi(v[j], s, L[j + 1])
+    if n % 2:
+        L[n - 1] = P.madc_lo(v[n - 1], s, L[n - 1])
+        H[n - 1] = P.madc_hi(v[n - 1], s, H[n - 1])
+    else:
+        H[n - 1] = P.addc_cc(H[n - 1], 0)
+    return P.addc(X, 0)
+
+
+def fe_mul_cc_model(a, b, p, mu, P=None):
+    """fe_mul_cc of csrc/madc.cuh on word lists (little-endian, n words),
+    in the header's order of ops. Returns the n result words."""
+    P = P or Ptx()
+    n = len(a)
+    L, H, X = [0] * n, [0] * n, 0
+    for j in range(0, n - 1, 2):
+        L[j], L[j + 1] = P.mul_lo(a[j], b[0]), P.mul_hi(a[j], b[0])
+    for j in range(1, n, 2):
+        H[j - 1], H[j] = P.mul_lo(a[j], b[0]), P.mul_hi(a[j], b[0])
+    if n % 2:
+        L[n - 1], H[n - 1] = P.mul_lo(a[n - 1], b[0]), P.mul_hi(a[n - 1], b[0])
+    for i in range(n):
+        if i > 0:
+            fold = L[1]
+            L, H, X = H, L[2:] + [0, X], 0
+            L[0] = P.add(L[0], fold)
+            X = odd_chain(P, H, X, a, b[i], True)
+            X = even_chain(P, L, H, X, a, b[i])
+        m = L[0] * mu & M32
+        X = odd_chain(P, H, X, p, m, False)
+        X = even_chain(P, L, H, X, p, m)
+        assert L[0] == 0, "the row's quotient left a nonzero low word"
+    r = [P.add(H[0], L[1])]
+    r += [P.addc_cc(H[k], L[k + 1]) for k in range(1, n - 1)]
+    r.append(P.addc(H[n - 1], 0))
+    assert X == 0
+    return r
+
+
+def _words(v, n):
+    return [(v >> (32 * k)) & M32 for k in range(n)]
+
+
+def _value(words):
+    return sum(w << (32 * k) for k, w in enumerate(words))
+
+
+def _operands(f, rng: np.random.Generator, count: int):
+    """(a, b) pairs: edge values, [p, 2p) and up to 8p, the a b < R p limit
+    with either operand near R, then seeded random values below 8p."""
+    p, R = f.p, f.R
+    edge = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, 8 * p - 1, f.R_mod_p, R // 2]
+    pairs = [(x, y) for x in edge for y in edge if x * y < R * p]
+    for big in (R - 1, R - 2, R - p, R - p - 1, R // 2 + 1, 64 * p):
+        small = (R * p - 1) // big  # the largest partner with big * small < R p
+        pairs += [(big, small), (small, big), (big, small - 1), (small // 3, big)]
+    # a big operand against a partner whose low words are all ones
+    for k in range(1, f.n):
+        ones = (1 << (32 * k)) - 1
+        if (R - 1) * ones < R * p:
+            pairs += [(R - 1, ones), (ones, R - 1)]
+    nb = (8 * p).bit_length() // 8 + 8
+    raw = rng.bytes(2 * count * nb)
+    vals = [int.from_bytes(raw[i * nb:(i + 1) * nb], "little") % (8 * p) for i in range(2 * count)]
+    pairs += list(zip(vals[::2], vals[1::2]))
+    for x, y in pairs:
+        assert 0 <= x < R and 0 <= y < R and x * y < R * p
+    return pairs
+
+
+@pytest.mark.parametrize("curve", list(CURVES))
+def test_model_equals_plain_product(curve):
+    """fe_mul_cc's word order gives fe_mul's words: against mul_plain on
+    the same planes and against (a b + m p) / R."""
+    f = create_field_ops(CURVES[curve].modulus)
+    n, p, R = f.n, f.p, f.R
+    assert n == {"ed-on-bls12-377": 9, "pallas": 9, "bls12-377": 12, "bls12-381": 13}[curve]
+    pairs = _operands(f, np.random.default_rng(14), 300)
+    pw, mu = _words(p, n), f.mu
+    got = [_value(fe_mul_cc_model(_words(x, n), _words(y, n), pw, mu)) for x, y in pairs]
+    plain = f.mul_plain(f.pack_raw([x for x, _ in pairs], "cpu"), f.pack_raw([y for _, y in pairs], "cpu"))
+    assert got == codec.unpack(plain)
+    minv = -pow(p, -1, R) % R
+    for (x, y), g in zip(pairs, got):
+        m = x * y * minv % R
+        assert g == (x * y + m * p) // R
+        assert g < 2 * p
+
+
+@pytest.mark.parametrize("n", (9, 12, 13))
+def test_model_issues_the_products_of_fe_mul(n):
+    """One product issues the 2 n^2 32x32 products of fe_mul (each as its
+    lo and hi half) and n quotient digits; the chains' extra adds are the
+    fold and the tails: at most 3 a chain."""
+    f = create_field_ops({9: PALLAS, 12: BLS12_377, 13: BLS12_381}[n].modulus)
+    P = Ptx()
+    fe_mul_cc_model(_words(f.p - 1, n), _words(f.p - 2, n), _words(f.p, n), f.mu, P)
+    lo = P.ops["mul.lo"] + P.ops["mad.lo.cc"] + P.ops["madc.lo.cc"]
+    hi = P.ops["mul.hi"] + P.ops["madc.hi.cc"]
+    assert lo == hi == 2 * n * n
+    adds = P.ops["add.cc"] + P.ops["addc.cc"] + P.ops["addc"]
+    assert adds <= 4 * n * 2 + n
