@@ -23,12 +23,19 @@ Phases, each printed as it runs:
      dependent Montgomery product in one thread (fe_mul and the carry-chain
      fe_mul_cc of `csrc/madc.cuh`) and on one warp at 12, 13 and 9 limbs
      (`csrc/rates/mul_latency.cu`, the chains equal bit for bit), which the
-     window combines' dependent-chain floors multiply; the SASS opcode
-     histograms of one product (the two one-thread chains) and of
+     window combines' dependent-chain floors multiply; one dependent
+     square's latency and the squares' throughput in three forms (CIOS-row
+     fe_sqr, the carry-chain fe_sqr_cc, fe_mul_cc(a, a); `square_rates`,
+     equal bit for bit), from which exp_ladder takes its square; the SASS
+     opcode histograms of one product and one square (the one-thread
+     chains) and of
      proj_dbl_rcb's wide body and ed_add_packed beside the bodies they
      replaced (`csrc/rates/proj_dbl_rcb_cios.cu`, built once per limb
      count, and `csrc/rates/ed_add_packed_cios.cu`), with the
-     two pairs' ptxas registers and spills; the
+     two pairs' ptxas registers and spills, and those of exp_ladder and
+     ed_add/ed_dbl beside the parents' bodies kept as probes
+     (`csrc/rates/exp_ladder_2bit.cu`, once per limb count, and
+     `csrc/rates/ed_add_cios.cu`); the
      bit-by-bit sqrt window (`csrc/rates/sqrt_win_bitwise.cu`) that phase 1
      times the table window against; the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
@@ -104,7 +111,12 @@ Phases, each printed as it runs:
      inputs each with identity windows, bit for bit against the plain Horner
      and as points against the halving combine it replaced (ed_dbl and
      ed_add a level), timed beside it (events, and the profiler's device ms
-     with the host ms), with its bound and dependent-chain floor; and
+     with the host ms), with its bound and dependent-chain floor; ed_add and
+     ed_dbl (k = 1 and 6) on both bodies (one thread a lane; the
+     narrow-launch body below EdwardsOps.FEW_ADD_LANES / FEW_DBL_LANES) and
+     the parent's CIOS body at 1 to 2^20 lanes (`redesign_ed_add`), bit for
+     bit against the plain version, then swept (device time a launch) with
+     the bound and dependent-chain floor; and
      ed_add_packed on the carry-chain product (`redesign_ed_packed`) at 1
      lane and at the 2^20 path's first level (10,813,448 lanes), bit for
      bit against the plain version and the parent's body, both timed in
@@ -117,7 +129,13 @@ Phases, each printed as it runs:
      window and the whole sqrt at the 2,621,456 candidates of a 2^20-point
      generation (1,024 sampled lanes against pow() and Euler's criterion);
      inv against inv_root; each timed at 2,621,456 lanes, sqrt_win also in
-     turns with the bit-by-bit window it replaced. Then the
+     turns with the bit-by-bit window it replaced; exp_ladder (the sliding
+     window on carry chains, `ladder_checks`; here and for BLS12-381 and
+     Pallas at 2^20 in their phase 1) at e = (q - 1) / 2 and p - 2 on 1, 17,
+     2^16 + 17 lanes and the path's width, bit for bit against its plain
+     version and in canonical values against the parent's 2-bit ladder, in
+     turns with it (new, parent, parent, new) at the path's width, with the
+     new and the old bound, and at every window w = 2-5. Then the
      planar adds' kernels (`planar_kernels`: aff_pre, aff_post,
      aff_pre_unsafe with and without its validity mask, aff_post_unsafe)
      bit for bit at 2^16, 2^16 + 17 and 2^20 lanes, every flag class in the
@@ -166,7 +184,11 @@ Phases, each printed as it runs:
      with the halving combine and with ed_combine), and compute_msm(curve=
      "ed-on-bls12-377") at 2^20 from packed bytes; then the Twisted Edwards
      MSM at 2^20 profiled on either ed_add_packed body
-     (`profile_te_packed`: each launch's device time, lanes and bound);
+     (`profile_te_packed`: each launch's device time, lanes and bound), and
+     on ed_add's and ed_dbl's bodies in turns with the parent's CIOS body
+     (`profile_te_add`: each of the 37 ed_add and the ed_dbl launch's device
+     time, lanes and body, summed beside the bound and dependent-chain
+     floor);
   4. random_points_weierstrass (BLS12-377) and random_points_edwards
      (ed-on-bls12-377) at 2^20 points (`phase_points`): launch counts of one
      generation (exp_ladder 1, sqr_n 11, sqrt_win 12, every launch at the
@@ -247,6 +269,11 @@ SQRT_BITWISE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "sqrt_win_
 # and timed in turns with them
 DBL_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "proj_dbl_rcb_cios.cu"
 EDP_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_packed_cios.cu"
+# the bodies that exp_ladder's sliding window on carry chains and ed_add's
+# and ed_dbl's bodies replaced: the 2-bit CIOS ladder (built once per limb
+# count) and the one-thread CIOS add and doubling
+LADDER_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "exp_ladder_2bit.cu"
+EDA_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_cios.cu"
 PROBES: dict = {}  # probe source, or (source, limbs), -> its built library (phase 0)
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
@@ -316,6 +343,12 @@ SQRT_LANES = (1, *KERNEL_LANES)
 SQRT_WIDE = int(GEN_OVERSAMPLE * (1 << GEN_LOG2N)) + 16
 SQRT_SAMPLE = 1024
 SQRT_TURNS = ("table", "bitwise", "bitwise", "table", "table", "bitwise")
+# exp_ladder: its check widths below the path's (one lane, a ragged warp, a
+# ragged 2^16), the windows swept at the path's width, back-to-back calls a
+# timing (about 40-70 ms each)
+LADDER_LANES = (1, 17, (1 << 16) + 17)
+LADDER_WINDOWS = (2, 3, 4, 5)
+LADDER_TURN_REPS = 3
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
 TE_COMBINE_K = 208  # ed_dbl's k on the halving combine's first level at 2^20: c 16 = 13 x 16
@@ -323,6 +356,14 @@ TE_COMBINE_K = 208  # ed_dbl's k on the halving combine's first level at 2^20: c
 # path's launches at 2^20 of the kernels the combine changed
 TE_COMBINE_CASES = ((20, 13), (23, 11))
 TE_PATH_LAUNCHES = {"ed_combine": 1, "ed_dbl": 1, "ed_add": 37}
+# ed_add's and ed_dbl's bodies: checked and swept at these widths (one lane,
+# the window sums' launches at 2^20 from 20 to 40,960 lanes, the kernel
+# table's 2^16 and the cofactor scale's 2^20), the doubling at k of
+# ED_DBL_K and swept at ED_SWEEP_K (the window sums' k = log2 S = 6)
+ED_WIDTHS = (1, 20, 640, 1280, 5120, 20480, 40960, 1 << 16, 1 << 20)
+ED_DBL_K = (1, 6)
+ED_SWEEP_K = 6
+ED_SWEEP_REPS = 20
 # the redesigned kernels at the main paths' shapes: the combine's (K, c) at
 # 2^20 and 2^16; window_sums' doublings at 2^20 (k = log2 S = 6 on K = 10
 # lanes); fresh-input checks of the combine and the fused post (the widest
@@ -588,8 +629,9 @@ def phase_env() -> dict:
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
     probes = {key: start_probe_build(*key) if isinstance(key, tuple) else start_probe_build(key)
-              for key in ((DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 9), RATE_SRC,
-                          LATENCY_SRC, DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC, EDP_PROBE_SRC)}
+              for key in ((DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 9), (LADDER_PROBE_SRC, 13),
+                          (LADDER_PROBE_SRC, 12), (LADDER_PROBE_SRC, 9), RATE_SRC, LATENCY_SRC,
+                          DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC, EDP_PROBE_SRC, EDA_PROBE_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -622,6 +664,7 @@ def phase_env() -> dict:
     say(f"[{time.perf_counter() - t0:.1f} s] SASS read")
     rates = multiply_rates(probes[RATE_SRC][1], clock)
     rates.update(product_latency(probes[LATENCY_SRC][1]))
+    rates.update(square_rates(probes[LATENCY_SRC][1]))
     rates.update(divstep_latency(probes[DIVSTEP_LATENCY_SRC][1]))
     return rates
 
@@ -632,8 +675,12 @@ def redesigned_ptxas(new: dict, parent: dict) -> None:
     beside the parent's (the probes); `parent` is empty where the probes
     were built before this run."""
     say("ptxas of the redesigned bodies (registers, stack, spill stores, spill loads, smem): new / parent")
-    for name, nl in (("proj_dbl_rcb", 12), ("proj_dbl_rcb", 13), ("proj_dbl_rcb", 9), ("ed_add_packed", 9)):
+    for name, nl in (("proj_dbl_rcb", 12), ("proj_dbl_rcb", 13), ("proj_dbl_rcb", 9), ("ed_add_packed", 9),
+                     ("exp_ladder", 12), ("exp_ladder", 13), ("exp_ladder", 9)):
         say(f"  {name} n={nl}: {new.get((name, nl))} / {parent.get((name, nl), 'built before this run')}")
+    for name in ("ed_add", "ed_dbl"):  # the parent had the one-thread body alone
+        say(f"  {name} n=9: wide {new.get((name, 9))}, narrow {new.get((name + '_few', 9))} / "
+            f"{parent.get((name, 9), 'built before this run')}")
 
 
 def redesigned_sass(probes: dict) -> None:
@@ -643,9 +690,12 @@ def redesigned_sass(probes: dict) -> None:
     libraries."""
     from montgomery_tpu_torch.ops import kernels
 
-    chains = sass_histograms(probes[LATENCY_SRC][1], r"one_thread_chain|cc_chain")
+    chains = sass_histograms(probes[LATENCY_SRC][1], r"one_thread_chain|cc_chain|sqr_chain")
+    squares = ("fe_sqr", "fe_sqr_cc", "fe_mul_cc(a, a)")
     for name, ops in sorted(chains.items()):
-        say_sass_mix(f"{'fe_mul_cc' if 'cc_chain' in name else 'fe_mul'} chain {name}", ops)
+        m = re.search(r"sqr_chainILi\d+ELi(\d)E", name)
+        label = squares[int(m.group(1))] if m else "fe_mul_cc" if "cc_chain" in name else "fe_mul"
+        say_sass_mix(f"{label} chain {name}", ops)
     only = r"proj_dbl_rcb_kernel|ed_add_packed_kernel"
     names = [f for f in ptxas_functions(kernels.LIBRARY.build_log) if re.search(only, f)]
     for name, ops in sorted(sass_histograms(kernels.LIBRARY.path, only, names).items()):
@@ -731,6 +781,57 @@ def product_latency(lib_path: Path) -> dict:
     return lat
 
 
+SQUARES = ("fe_sqr", "fe_sqr_cc", "fe_mul_cc(a, a)")  # csrc/rates/mul_latency.cu sqr_rate's `which`
+
+
+def square_rates(lib_path: Path) -> dict:
+    """One square's latency (s, a chain of 2,000 dependent squares in one
+    thread) and the squares' throughput (squares/s, 100 dependent squares in
+    each of 1,024 threads a SM) in the three forms of
+    csrc/rates/mul_latency.cu (field.cuh's CIOS-row fe_sqr, madc.cuh's
+    fe_sqr_cc, fe_mul_cc(a, a)) at 12, 13 and 9 limbs; the three chains'
+    last squares must agree bit for bit. Keys "sqr_lat_<i>" and
+    "sqr_rate_<i>" with the limb tag, i the form's index in SQUARES."""
+    import torch
+
+    from montgomery_tpu_torch.concrete import BLS12_377, BLS12_381, ED_ON_BLS12_377
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.ops.field import create_field_ops
+    from montgomery_tpu_torch.ops.limbs import to_words
+
+    fn = ctypes.CDLL(str(lib_path)).sqr_rate
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_uint32)] * 2 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    threads = 1024 * torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for p, tag in ((BLS12_377.modulus, ""), (BLS12_381.modulus, "_n13"), (ED_ON_BLS12_377.modulus, "_n9")):
+        f = create_field_ops(p)
+        x = kernels.words(to_words(3 * f.R % p, f.n))
+        field = kernels.words(to_words(p, f.n) + to_words(2 * p, f.n) + to_words(4 * p, f.n) + [f.mu])
+        buf = torch.empty(threads * f.n, dtype=torch.int32, device="cuda")
+
+        def launch(which, nthreads, iters, f=f, x=x, field=field, buf=buf):
+            rc = fn(f.n, which, nthreads, iters, x, field, ctypes.c_void_p(buf.data_ptr()),
+                    ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            if rc:
+                raise RuntimeError(f"sqr_rate launch failed, CUDA error {rc}")
+
+        ends = []
+        for which in range(len(SQUARES)):
+            out[f"sqr_lat_{which}{tag}"] = cuda_time_ms(lambda: launch(which, 1, 2000), 3) * 1e-3 / 2000
+            out[f"sqr_rate_{which}{tag}"] = threads * 100 / (cuda_time_ms(lambda: launch(which, threads, 100), 3)
+                                                             * 1e-3)
+            launch(which, 4096, 333)
+            ends.append(buf[:4096 * f.n].clone())
+        if not all(torch.equal(ends[0], e) for e in ends[1:]):
+            raise AssertionError(f"the square chains differ at {f.n} limbs")
+        say(f"square at {f.n} limbs (a dependent chain of 2,000 in one thread; throughput over {threads} threads, "
+            f"100 each; equal bit for bit): " + "; ".join(
+                f"{name} {out[f'sqr_lat_{i}{tag}'] * 1e6:.4f} us, {out[f'sqr_rate_{i}{tag}']:.4e} /s"
+                for i, name in enumerate(SQUARES)))
+    return out
+
+
 def divstep_latency(lib_path: Path) -> dict:
     """Latency (s) of the safegcd core's steps on the card at BLS12-377
     (`csrc/rates/divstep_latency.cu`): one batch of 30 divsteps (constant
@@ -790,7 +891,8 @@ def kernel_work(ctx, name: str, batches: float | None = None, k: int = 1) -> tup
     needs 2 n^2 of them and n low 32-bit products (the quotient digits).
     The divstep kernels' loop ends once g = 0: `batches` is the mean over
     the call's lanes of the batches its inputs need (`divstep_batches`).
-    proj_dbl_rcb runs k doublings on the point it reads and writes once."""
+    proj_dbl_rcb and ed_dbl run k doublings on the point they read and
+    write once."""
     from montgomery_tpu_torch.ops import divstep
 
     n = ctx.fops.n
@@ -847,7 +949,7 @@ def kernel_work(ctx, name: str, batches: float | None = None, k: int = 1) -> tup
         # moved by the add, 2 by k = 1 doublings, and for the packed add two
         # packed columns, two signs and hp in, one column out
         "ed_add": (12 * W, *products(9)),
-        "ed_dbl": (8 * W, *products(9)),
+        "ed_dbl": (8 * W, *products(9 * k)),
         "ed_add_packed": (2 * 4 * W + 12 + 4 * W, *products(9)),
         # the planar adds: x1, y1, x2, y2 and two bool infinity bytes in;
         # pre: denom, numer, flags out; post: dinv, numer, flags in too, x3,
@@ -1850,6 +1952,16 @@ def bodies_of(name: str, n: int) -> dict:
     if name == "proj_dbl_rcb":
         return {"new": None, "parent": probe_fn(DBL_PROBE_SRC, n, f"probe_proj_dbl_rcb_n{n}",
                                                 PROJ_DBL_RCB.argtypes)}
+    if name == "exp_ladder":
+        from montgomery_tpu_torch.ops.field import EXP_LADDER
+
+        return {"new": None, "parent": probe_fn(LADDER_PROBE_SRC, n, "probe_exp_ladder_2bit"
+                                                + ("" if n == 12 else f"_n{n}"), EXP_LADDER.argtypes)}
+    if name in ("ed_add", "ed_dbl"):
+        from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL
+
+        return {"new": None, "parent": probe_fn(EDA_PROBE_SRC, None, f"probe_{name}_n9",
+                                                (ED_ADD if name == "ed_add" else ED_DBL).argtypes)}
     return {"new": None, "parent": probe_fn(EDP_PROBE_SRC, None, "probe_ed_add_packed_n9",
                                             ED_ADD_PACKED.argtypes)}
 
@@ -2075,6 +2187,140 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
     out["turns"] = dict(turns, bound_ms=bms, bound_by=by, lanes=M, max_abs_err=err)
     del C, sg, hp, ops, got
     torch.cuda.empty_cache()
+    return out
+
+
+def redesign_ed_add(te, host, rates: dict) -> dict:
+    """ed_add and ed_dbl (k = 1, and 6, the window sums' doubling) on both
+    bodies (`few=False`: one thread a lane; `few=True`: the narrow-launch
+    body) at every width of ED_WIDTHS, on `_te_flag_lanes`' classes in the
+    first lanes and random planes after them, bit for bit against the plain
+    version and the parent's CIOS body (csrc/rates/ed_add_cios.cu); then each
+    body and the parent swept at those widths (the profiler's device time a
+    launch over ED_SWEEP_REPS launches; ed_dbl at k = 6), with the bound and
+    the dependent-chain floor of a launch: 9 dependent products on one
+    thread (the wide body and the parent: lat_cc_n9, lat_thread_n9) or 3 on
+    the narrow body, k times for the doubling. Returns {"ed_add": ...,
+    "ed_dbl": ...}, each {"max_abs_err", "sweep": {lanes: {body: us}},
+    "bound_us", "floor_us"}."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL, EdwardsBatch
+
+    f, ed, dev = te.fops, te.ed, te.device
+    n = f.n
+    gen = torch.Generator(device=dev).manual_seed(16)
+    rng = random.Random(16)
+    par = {name: bodies_of(name, 9)["parent"] for name in ("ed_add", "ed_dbl")}
+    out = {name: {"max_abs_err": 0, "sweep": {}, "bound_us": {}} for name in ("ed_add", "ed_dbl")}
+    for M in ED_WIDTHS:
+        C = _random_planes(f, 4 * n, 2 * M, gen)
+        K = min(M, 1200)
+        FA, FB, _, _, _ = _te_flag_lanes(te, host, K, rng)
+        C[:, :K], C[:, M:M + K] = FA, FB
+        PA, PB = (EdwardsBatch(*[a.contiguous() for a in ed.unpack_rows(t)]) for t in (C[:, :M], C[:, M:]))
+        del C
+        cases = {"ed_add": (lambda few: ed.add(PA, PB, few=few), lambda: ed.add_plain(PA, PB), ED_ADD)}
+        for k in ED_DBL_K:
+            cases[f"ed_dbl k={k}"] = (lambda few, k=k: ed.double_n(PA, k, few=few),
+                                      lambda k=k: ed.double_n_plain(PA, k), ED_DBL)
+        for label, (kern, plain, K_) in cases.items():
+            want = plain()
+            with kernel_body(K_, 9, par[K_.name]):
+                got = {"parent": kern(None)}
+            got.update({"wide": kern(False), "narrow": kern(True)})
+            err = max(_raw_err(list(g), list(want)) for g in got.values())
+            if err:
+                raise AssertionError(f"{label} at {M} lanes: a body differs from the plain version "
+                                     f"({ {b: _raw_err(list(g), list(want)) for b, g in got.items()} })")
+            del want, got
+        say(f"ed_add, ed_dbl k={ED_DBL_K} N={M}: both bodies and the parent's bit for bit with the plain version")
+        for name, K_, call in (("ed_add", ED_ADD, lambda few: ed.add(PA, PB, few=few)),
+                               ("ed_dbl", ED_DBL, lambda few: ed.double_n(PA, ED_SWEEP_K, few=few))):
+            row = {}
+            for body, few in (("wide", False), ("narrow", True), ("parent", None)):
+                with kernel_body(K_, 9, par[name] if body == "parent" else None):
+                    per = device_times_whole(lambda: [call(few) for _ in range(ED_SWEEP_REPS)],
+                                             lambda r: r[0].get(name, (0,))[0] == ED_SWEEP_REPS)[0]
+                count, ms = per.get(name, (0, 0.0))
+                row[body] = ms / count * 1e3 if count == ED_SWEEP_REPS else None
+            k = 1 if name == "ed_add" else ED_SWEEP_K
+            out[name]["sweep"][M] = row
+            out[name]["bound_us"][M] = bound(te, name, M, rates, k=k)[0] * 1e3
+            say(f"  {name} N={M}{'' if name == 'ed_add' else f' k={k}'} device us a launch: " + ", ".join(
+                f"{b} {v:.2f}" if v else f"{b} not measured" for b, v in row.items())
+                + f"; bound {out[name]['bound_us'][M]:.3f} us")
+        del PA, PB
+        torch.cuda.empty_cache()
+    for name, k in (("ed_add", 1), ("ed_dbl", ED_SWEEP_K)):
+        out[name]["floor_us"] = {"wide": 9 * k * rates["lat_cc_n9"] * 1e6, "narrow": 3 * k * rates["lat_cc_n9"] * 1e6,
+                                 "parent": 9 * k * rates["lat_thread_n9"] * 1e6}
+        say(f"{name} dependent-chain floor a launch (k = {k}): " + ", ".join(
+            f"{b} {v:.3f} us" for b, v in out[name]["floor_us"].items())
+            + f"; thresholds: narrow body below {ed.FEW_ADD_LANES if name == 'ed_add' else ed.FEW_DBL_LANES} lanes")
+    return out
+
+
+def profile_te_add(te, pts_full, rates: dict) -> dict:
+    """The Twisted Edwards MSM at 2^20 (msm_device_full) with ed_add's and
+    ed_dbl's bodies and with the parent's (csrc/rates/ed_add_cios.cu), in
+    turns new, parent, parent, new: each launch's device time (the
+    profiler) beside its lanes and body (recorded at the wrapper), summed,
+    with the summed bound and dependent-chain floor."""
+    from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL, EdwardsBatch
+
+    N = 1 << max(MSM_LOG2N)
+    c = te.default_c(N)
+    P = EdwardsBatch(*[a[..., :N] for a in pts_full])
+    limbs = te.scalars_to_limbs(bench_scalars(te.params.order, N))
+    ed, widths = te.ed, []
+    own_add, own_dbl = ed.add, ed.double_n
+
+    def add(A, B, few=None):
+        widths.append(("ed_add", A.X.reshape(A.X.shape[0], -1).shape[-1], 1))
+        return own_add(A, B, few=few)
+
+    def dbl(A, k, few=None):
+        if k > 0:
+            widths.append(("ed_dbl", A.X.reshape(A.X.shape[0], -1).shape[-1], k))
+        return own_dbl(A, k, few=few)
+
+    def run():
+        widths.clear()
+        return te.msm_device_full(P, limbs, c)
+
+    par = {name: bodies_of(name, 9)["parent"] for name in ("ed_add", "ed_dbl")}
+    out = {"new": [], "parent": []}
+    ed.add, ed.double_n = add, dbl
+    try:
+        for label in ("new", "parent", "parent", "new"):
+            with kernel_body(ED_ADD, 9, par["ed_add"] if label == "parent" else None), \
+                    kernel_body(ED_DBL, 9, par["ed_dbl"] if label == "parent" else None):
+                per, busy, wall, others, traced = device_times_whole(
+                    run, lambda r: len(r[4]) == len(widths), r"ed_(add|dbl)(_few)?_kernel\b")
+            if len(traced) != len(widths):
+                say(f"  Twisted Edwards MSM 2^20 ({label} ed_add/ed_dbl bodies) by launch: not measured (the "
+                    f"profiler kept {len(traced)} of {len(widths)} launches in every try)")
+                continue
+            turn = {"launches": [], "busy_ms": busy}
+            for (name, M, k), (kname, ms) in zip(widths, traced):
+                if not kname.split("<")[0].split()[-1].startswith(name):
+                    raise AssertionError(f"launch order: {name} recorded, {kname} traced")
+                body = "parent" if label == "parent" else "narrow" if "_few_kernel" in kname else "wide"
+                turn["launches"].append((name, M, k, body, ms))
+            for name in ("ed_add", "ed_dbl"):
+                ls = [x for x in turn["launches"] if x[0] == name]
+                dev = sum(x[4] for x in ls)
+                bnd = sum(bound(te, name, M, rates, k=k)[0] for _, M, k, _, _ in ls)
+                lat = rates["lat_thread_n9"] if label == "parent" else rates["lat_cc_n9"]
+                flo = sum((9 if b in ("wide", "parent") else 3) * k * lat for _, _, k, b, _ in ls) * 1e3
+                turn[name] = dict(count=len(ls), device_ms=dev, bound_ms=bnd, floor_ms=flo)
+                say(f"  TE MSM 2^20 ({label}): {name} {len(ls)} launches, device {dev:.4f} ms, bound summed "
+                    f"{bnd:.5f} ms, dependent-chain floor summed {flo:.4f} ms; lanes, body, us: " + ", ".join(
+                        f"{M}{'' if k == 1 else f' k={k}'} {b[0]} {ms * 1e3:.1f}" for _, M, k, b, ms in ls))
+            out[label].append(turn)
+    finally:
+        del ed.add, ed.double_n
     return out
 
 
@@ -3004,18 +3250,23 @@ def redesign_te_combine(te, pts, rates: dict) -> dict:
 # ------------------------------------------------- sqrt slice: kernels
 
 
-def sqrt_work(f, name: str, e: int = 0, m: int = 0, last: bool = False,
-              s_is_t: bool = False) -> tuple[float, float, float]:
+def sqrt_work(f, name: str, e: int = 0, m: int = 0, last: bool = False, s_is_t: bool = False,
+              w: int | None = None, two_bit: bool = False) -> tuple[float, float, float]:
     """(bytes, wide multiplies, low multiplies) per lane of one call of a
     kernel of the sqrt slice, for this call's exponent e, chain m or window:
-    each plane read once and written once; the products the function needs.
-    exp_ladder: the table's 2 products, then 2 squarings a digit and a
-    product for each nonzero one; sqr_n: m squarings; sqrt_win: one product
-    by the r row and one by the t row unless `last` (the table lookup's
-    compares are no multiplies), reading t, r and s and writing t, r and
-    the digit; where the window needs no chain s is t itself (s_is_t), read
-    once."""
-    from montgomery_tpu_torch.ops.field import ladder_digits, sqrt_window_products
+    each plane read once and written once; the products the function needs,
+    a square priced at n (n + 1) / 2 + n^2 wide multiplies. exp_ladder: the
+    schedule `ladder_schedule(e, w)` walks (w: the field's window unless
+    given): the table's x^2 and one product an entry after x, each step's
+    squarings and its product unless its digit is 0; with two_bit, the
+    parent's fixed 2-bit digits (x^2 and x^3 as products, two squarings a
+    digit and a product for each nonzero one), for the old bound; sqr_n: m
+    squarings; sqrt_win: one product by the r row and one by the t row
+    unless `last` (the table lookup's compares are no multiplies), reading
+    t, r and s and writing t, r and the digit; where the window needs no
+    chain s is t itself (s_is_t), read once."""
+    from montgomery_tpu_torch.ops.field import (ladder_entries, ladder_schedule, schedule_products,
+                                                sqrt_window_products)
 
     n = f.n
     W = 4 * n
@@ -3025,10 +3276,14 @@ def sqrt_work(f, name: str, e: int = 0, m: int = 0, last: bool = False,
         return (nbytes, products * prod[0] + squarings * sqr[0],
                 products * prod[1] + squarings * sqr[1])
 
-    if name == "exp_ladder":
-        nd = ladder_digits(e)
+    if name == "exp_ladder" and two_bit:
+        nd = (e.bit_length() + 1) // 2
         nonzero = sum(1 for j in range(nd - 1) if (e >> (2 * j)) & 3)
         return work(2 * W, 2 + nonzero, 2 * (nd - 1))
+    if name == "exp_ladder":
+        sched = ladder_schedule(e, w or f.ladder_window)
+        squarings = sum(s for s, _ in sched[1:]) + (ladder_entries(sched) > 1)
+        return work(2 * W, schedule_products(sched) - squarings, squarings)
     if name == "sqr_n":
         return work(2 * W, 0, m)
     return work((4 if s_is_t else 5) * W + 4, sqrt_window_products(last), 0)
@@ -3191,6 +3446,65 @@ def sqrt_win_in_turns(f, t, r, s, lk: int, last: bool) -> dict:
     return times
 
 
+def ladder_checks(f, W: int, gen, rates: dict) -> dict:
+    """exp_ladder at e = (q - 1) / 2 (sqrt's first launch) and p - 2 (inv)
+    on `_sqrt_plane` at LADDER_LANES and W lanes (the path's width): bit for
+    bit against exp_ladder_plain (the same schedule on 16-bit limbs) and, as
+    canonical values, against the parent's 2-bit CIOS ladder (the probe
+    csrc/rates/exp_ladder_2bit.cu, another sequence of products, so another
+    representative in [0, 2p) on some lanes); at W the plain version's time
+    (CUDA events, one call); then at W the new ladder and the parent in
+    turns (`in_turns`: new, parent, parent, new), and the new one at every
+    window of LADDER_WINDOWS (events, the window's own bound beside it).
+    Returns {"max_abs_err", "plain_ms": {exponent: ms}, exponent: {"turns",
+    "bound_ms", "bound_by", "bound_2bit_ms", "window_ms", "window_bound_ms",
+    "raw_differs"}}."""
+    import torch
+
+    from montgomery_tpu_torch.ops.field import EXP_LADDER
+
+    n, p, q = f.n, f.p, f.sqrt_q_odd
+    bodies = bodies_of("exp_ladder", n)
+    exps = {"(q-1)/2": (q - 1) // 2, "p-2": p - 2}
+    out = {"max_abs_err": 0, "plain_ms": {}, "window": f.ladder_window}
+    for N in (*LADDER_LANES, W):
+        x, _ = _sqrt_plane(f, N, gen)
+        for tag, e in exps.items():
+            a = f.exp_ladder(x, e)
+            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0.record()
+            b = f.exp_ladder_plain(x, e)
+            t1.record()
+            torch.cuda.synchronize()
+            with kernel_body(EXP_LADDER, n, bodies["parent"]):
+                c = f.exp_ladder(x, e)
+            err, perr = _raw_err([a], [b]), _raw_err([_canon(f, a)], [_canon(f, c)])
+            if err or perr:
+                raise AssertionError(f"exp_ladder at {n} limbs, {N} lanes, e = {tag}: max_abs_err {err} against "
+                                     f"the plain version, {perr} against the 2-bit ladder in canonical values")
+            if N == W:
+                out["plain_ms"][tag] = t0.elapsed_time(t1)
+                out.setdefault(tag, {})["raw_differs"] = int((a != c).any(dim=0).sum())
+        del a, b, c
+        say(f"exp_ladder n={n} N={N} (e = (q - 1) / 2, p - 2; w = {f.ladder_window}): bit for bit with the plain "
+            f"version, canonical values equal to the 2-bit ladder's")
+    for tag, e in exps.items():
+        turns = in_turns(EXP_LADDER, n, bodies, lambda: f.exp_ladder(x, e), LADDER_TURN_REPS)
+        bms, by = bound_of(*sqrt_work(f, "exp_ladder", e=e), W, rates)
+        old = bound_of(*sqrt_work(f, "exp_ladder", e=e, two_bit=True), W, rates)[0]
+        say_turns(f"exp_ladder n={n} N={W} e={tag}", turns, bms, by)
+        win = {w: cuda_time_ms(lambda w=w: f.exp_ladder(x, e, w=w), LADDER_TURN_REPS, 1) for w in LADDER_WINDOWS}
+        wb = {w: bound_of(*sqrt_work(f, "exp_ladder", e=e, w=w), W, rates)[0] for w in LADDER_WINDOWS}
+        say(f"exp_ladder n={n} N={W} e={tag}: the 2-bit ladder's bound {old:.4f} ms; by window (events ms, "
+            f"bound ms): " + ", ".join(f"w={w} {win[w]:.4f} ({wb[w]:.4f})" for w in LADDER_WINDOWS)
+            + f"; lanes whose raw words differ from the 2-bit ladder's: {out[tag]['raw_differs']}")
+        out[tag].update(turns=turns, bound_ms=bms, bound_by=by, bound_2bit_ms=old, window_ms=win,
+                        window_bound_ms=wb)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
     """exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43) and every
     sqrt_win window of one whole sqrt against their plain versions, bit for
@@ -3233,6 +3547,7 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
             sqrt_checks(f, N, gen, check)
         sqrt_wide(f, SQRT_WIDE, gen, check)
         torch.cuda.empty_cache()
+        ladder = ladder_checks(f, SQRT_WIDE, gen, rates)
         x, _ = _sqrt_plane(f, KERNEL_LANES[0], gen)
         err = diff(_canon(f, f.inv(x)), _canon(f, f.inv_root(x)))
         if err:
@@ -3253,9 +3568,15 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
         say_device_times(f"profiled FieldOps.sqrt n={n} at {W} lanes (the solve stage's sqrt)", per, busy,
                          wall, others)
         res.setdefault("sqrt_win", {})["sqrt_profile"] = {k: list(v) for k, v in per.items()}
+        ms = cuda_time_ms(lambda: f.exp_ladder(x, e), 10)
+        bms, by = bound_of(*sqrt_work(f, "exp_ladder", e=e), W, rates)
+        res["exp_ladder"].update(ms=ms, plain_ms=ladder["plain_ms"]["(q-1)/2"], bound_ms=bms, bound_by=by,
+                                 lanes=W, call="e = (q - 1) / 2", ladder=ladder)
+        res["exp_ladder"]["max_abs_err"] = max(res["exp_ladder"]["max_abs_err"], ladder["max_abs_err"])
+        say(f"exp_ladder n={n} (e = (q - 1) / 2, w = {f.ladder_window}): kernel {ms:.4f} ms, plain "
+            f"{ladder['plain_ms']['(q-1)/2']:.4f} ms, bound {bms:.4f} ms ({by}, share {bms / ms:.3f}) per call at "
+            f"{W} lanes")
         for name, kern, plain, call, work in (
-                ("exp_ladder", lambda: f.exp_ladder(x, e), lambda: f.exp_ladder_plain(x, e),
-                 "e = (q - 1) / 2", sqrt_work(f, "exp_ladder", e=e)),
                 ("sqr_n", lambda: f.sqr_n(x, M - SQRT_WINDOW),
                  lambda: f.sqr_n_plain(x, M - SQRT_WINDOW), f"m = {M - SQRT_WINDOW}",
                  sqrt_work(f, "sqr_n", m=M - SQRT_WINDOW)),
@@ -3735,15 +4056,16 @@ def new_instantiations() -> list[tuple[str, int]]:
 def phase_new_ptxas() -> dict:
     """Registers, stack frame, spill and shared memory of each kernel
     function of every Weierstrass kernel at 13 and 9 limbs (a kernel with a
-    few-lane body has two), from the build's ptxas log; each must be
-    there."""
+    few-lane body has two), and of the kernels redesigned last (exp_ladder
+    at 12 limbs too, ed_add and ed_dbl at 9), from the build's ptxas log;
+    each must be there."""
     from montgomery_tpu_torch.ops import kernels
 
     found = ptxas_by_limbs(kernels.LIBRARY.build_log)
     out = {}
-    say("ptxas of the instantiations for BLS12-381 (13 limbs) and Pallas (9 limbs): registers, stack "
-        "frame, spill stores, spill loads, shared memory (bytes)")
-    for name, n in new_instantiations():
+    say("ptxas of the instantiations for BLS12-381 (13 limbs) and Pallas (9 limbs), and of exp_ladder at 12, "
+        "ed_add and ed_dbl at 9: registers, stack frame, spill stores, spill loads, shared memory (bytes)")
+    for name, n in [*new_instantiations(), ("exp_ladder", 12), ("ed_add", 9), ("ed_dbl", 9)]:
         funcs = {f: v for (f, nl), v in found.items() if nl == n and f in (name, f"{name}_few")}
         if name not in {f.removesuffix("_few") for f in funcs}:
             raise AssertionError(f"no ptxas record of {name} at {n} limbs")
@@ -3906,6 +4228,7 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
     sqrt_wide(f, NEW_SQRT_LANES, gen, check)
     results["sqrt_win"]["widths"].append(NEW_SQRT_LANES)
     torch.cuda.empty_cache()
+    results["exp_ladder"]["ladder"] = ladder_checks(f, NEW_SQRT_LANES, gen, rates)
 
     # -- proj_add_rcb's resident blocks a SM at this count, then timing at the
     # 12-limb table's widths, on random planes
@@ -4215,6 +4538,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
         d = {"launches_by_path": {run: c[name] for run, c in launches.items() if c[name]}}
         d.update({key: v for key, v in res.items()
                   if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms", "turns_ms",
+                                                     "ladder", "bodies", "te_path",
                                                      "bitwise_turns_ms", "sqrt_profile", "carry_chain",
                                                      "path_profile")})
         d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
@@ -4272,6 +4596,8 @@ def main() -> int:
     te_kres = phase_te_kernels(te, te_host, rates)
     te_kres["ed_add_packed"]["carry_chain"] = redesign_ed_packed(te, te_host, rates)
     te_kres["ed_combine"] = redesign_te_combine(te, te_host, rates)
+    for name, res in redesign_ed_add(te, te_host, rates).items():
+        te_kres[name]["bodies"] = res
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)
     te_kres.update(sqrt9)
@@ -4294,6 +4620,7 @@ def main() -> int:
     launches[f"te_serve_2^{max(MSM_LOG2N)}"] = phase_serve(te, te_pts, max(MSM_LOG2N), expected,
                                                            TE_CURVE, "te_serve")
     te_kres["ed_add_packed"]["path_profile"] = profile_te_packed(te, te_pts, rates)
+    te_kres["ed_add"]["te_path"] = profile_te_add(te, te_pts, rates)
     say(f"[{time.perf_counter() - t_start:.1f} s] phases 2 and 3 done")
     launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
     say(f"[{time.perf_counter() - t_start:.1f} s] phase 5 done")

@@ -8,10 +8,11 @@
 //   A = (Y1 - X1)(Y2 - X2), B = (Y1 + X1)(Y2 + X2), ZZ = Z1 Z2,
 //   C = (k T1) T2, D = 2 ZZ, E = B - A, F = D - C, G = D + C, H = B + A,
 //   (X3 : Y3 : Z3 : T3) = (E F : G H : F G : E H).
-// 8 products and 1 product by the constant k. ed_add.cu (planar planes, and
-// k-fold doubling) calls it per lane on field.cuh's fe_mul, ed_add_packed.cu
-// (packed rows) on madc.cuh's carry-chain fe_mul_cc (the template argument
-// Mul; the two products agree bit for bit).
+// 8 products and 1 product by the constant k. ed_add.cu's wide bodies
+// (planar planes, and k-fold doubling) and ed_add_packed.cu (packed rows)
+// call it per lane on madc.cuh's carry-chain fe_mul_cc, the probes under
+// rates/ on field.cuh's CIOS fe_mul (the template argument Mul; the two
+// products agree bit for bit).
 //
 // Bounds (inputs in [0, 2p), every product's result in [0, 2p)): the sums
 // stay lazy as in the JAX formula. Y - X + 4p < 6p, Y + X < 4p, so A < 2p is
@@ -35,7 +36,7 @@
 
 // (X3, Y3, Z3, T3) = P1 + P2 on the product Mul; the outputs may alias the
 // inputs (every input is read before the first output is written)
-template <int NL, class Mul = CiosMul>
+template <int NL, class Mul = CarryChainMul>
 __device__ __forceinline__ void ed_add(uint32_t (&X3)[NL], uint32_t (&Y3)[NL], uint32_t (&Z3)[NL],
                                        uint32_t (&T3)[NL], const uint32_t (&X1)[NL], const uint32_t (&Y1)[NL],
                                        const uint32_t (&Z1)[NL], const uint32_t (&T1)[NL],

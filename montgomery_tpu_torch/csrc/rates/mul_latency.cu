@@ -1,8 +1,12 @@
 // Latency of one dependent Montgomery product on the card at hand, in the
 // three forms the field kernels use: fe_mul in one thread (field.cuh),
 // fe_mul_cc on carry chains in one thread (madc.cuh) and coop_mul on a
-// whole warp (coop.cuh). chip_smoke.py multiplies the window combine's
-// serial product count by the warp product's latency for the combine's
+// whole warp (coop.cuh); and of one dependent square in its three forms
+// (field.cuh's CIOS-row fe_sqr, madc.cuh's fe_sqr_cc, fe_mul_cc(a, a)),
+// with the squares' throughput over a launch that fills the card
+// (sqr_rate), from which exp_ladder takes its square. chip_smoke.py
+// multiplies the window combine's serial product count by the warp
+// product's latency for the combine's
 // dependent-chain floor: a kernel that carries one point through a chain of
 // products cannot beat that chain, however it uses the card.
 // Instantiated at 12 limbs (BLS12-377's base field, the Weierstrass combine),
@@ -46,6 +50,32 @@ cc_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, FieldParams<NL> F, int iters) {
   for (int k = 0; k < NL; k++) out[k] = x[k];
 }
 
+// which: 0 fe_sqr, 1 fe_sqr_cc, 2 fe_mul_cc(x, x)
+template <int NL>
+__device__ __forceinline__ void square_by(uint32_t (&x)[NL], int which, const FieldParams<NL>& F) {
+  if (which == 0) fe_sqr(x, x, F);
+  else if (which == 1) fe_sqr_cc(x, x, F);
+  else fe_mul_cc(x, x, x, F);
+}
+
+// iters dependent squares of x0 + %laneid in each thread of the launch; a
+// single thread gives a square's latency, a launch that fills the card its
+// throughput. Thread t stores its last square at out[t NL ..]
+template <int NL, int WHICH>
+__global__ void __launch_bounds__(128)
+sqr_chain(uint32_t* out, Fe<NL> x0, FieldParams<NL> F, int iters, int threads) {
+  int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= threads) return;
+  uint32_t lane;
+  asm("mov.u32 %0, %%laneid;" : "=r"(lane));
+  uint32_t x[NL];
+#pragma unroll
+  for (int k = 0; k < NL; k++) x[k] = x0.v[k] + (k == 0 ? lane + (t >> 5) : 0u);
+  for (int i = 0; i < iters; i++) square_by<NL>(x, WHICH, F);
+#pragma unroll
+  for (int k = 0; k < NL; k++) out[(size_t)t * NL + k] = x[k];
+}
+
 template <int NL>
 __global__ void __launch_bounds__(32)
 warp_chain(uint32_t* out, Fe<NL> x0, Fe<NL> y, Fe<NL> mu, FieldParams<NL> F, int iters) {
@@ -77,6 +107,30 @@ static int launch(int warp, int iters, const uint32_t* x, const uint32_t* y, con
     one_thread_chain<NL><<<1, 32, 0, (cudaStream_t)stream>>>((uint32_t*)out, fe_from<NL>(x), fe_from<NL>(y),
                                                              field_from<NL>(field), iters);
   return (int)cudaGetLastError();
+}
+
+template <int NL>
+static int sqr_launch(int which, int threads, int iters, const uint32_t* x, const uint32_t* field, void* out,
+                      void* stream) {
+  int blocks = (threads + 127) / 128, bt = threads < 128 ? threads : 128;
+  cudaStream_t st = (cudaStream_t)stream;
+  uint32_t* o = (uint32_t*)out;
+  if (which == 0) sqr_chain<NL, 0><<<blocks, bt, 0, st>>>(o, fe_from<NL>(x), field_from<NL>(field), iters, threads);
+  else if (which == 1) sqr_chain<NL, 1><<<blocks, bt, 0, st>>>(o, fe_from<NL>(x), field_from<NL>(field), iters, threads);
+  else sqr_chain<NL, 2><<<blocks, bt, 0, st>>>(o, fe_from<NL>(x), field_from<NL>(field), iters, threads);
+  return (int)cudaGetLastError();
+}
+
+// One launch of `iters` dependent squares in each of `threads` threads at nl
+// = 12, 13 or 9 limbs: which = 0 fe_sqr, 1 fe_sqr_cc, 2 fe_mul_cc(x, x);
+// out holds nl words a thread. Returns cudaGetLastError().
+extern "C" int sqr_rate(int nl, int which, int threads, int iters, const uint32_t* x, const uint32_t* field,
+                        void* out, void* stream) {
+  if (which < 0 || which > 2 || threads < 1) return (int)cudaErrorInvalidValue;
+  if (nl == 12) return sqr_launch<12>(which, threads, iters, x, field, out, stream);
+  if (nl == 13) return sqr_launch<13>(which, threads, iters, x, field, out, stream);
+  if (nl == 9) return sqr_launch<9>(which, threads, iters, x, field, out, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 // One launch of `iters` dependent products at nl = 12, 13 or 9 limbs: warp =

@@ -7,7 +7,9 @@ add is add-2008-hwcd-3, strongly unified (valid for P == Q and the
 identity), so it is also the doubling and needs no masks.
 
 Kernels (`csrc/`): `ed_add` (the planar add) and `ed_dbl` (k doublings in
-one launch, the TPU's fori_loop of `ed_add`) in `ed_add.cu`,
+one launch, the TPU's fori_loop of `ed_add`) in `ed_add.cu`, each with a
+one-thread body for wide launches and a narrow-launch body (four threads
+a lane) below `EdwardsOps.FEW_ADD_LANES` / `FEW_DBL_LANES` lanes,
 `ed_add_packed` (the sign-applied add with pass-through on packed rows, every
 accumulation round of the MSM) in `ed_add_packed.cu`, and `ed_combine` (the
 MSM's window combine in one Horner launch, a block of cooperating warps) in
@@ -35,17 +37,19 @@ from .projective import scale_by
 
 _VP, _U32P, _INT = kernels.VP, kernels.U32P, kernels.INT
 
+# planes out and in, k = 2d, the field words, the lane count and the body
+# (few: 1 the narrow-launch body, four threads a lane)
 ED_ADD = kernels.Kernel(
     "ed_add", {9: "msm_ed_add_n9"}, "montgomery_tpu_torch/csrc/ed_add.cu",
     "montgomery_tpu/curves/edwards.py:87",
-    [_VP] * 12 + [_U32P, _U32P, _INT],
+    [_VP] * 12 + [_U32P, _U32P, _INT, _INT],
 )
 # the doubling of EdwardsAdapter.double_n, which the TPU ran as a fori_loop
 # of the "ed_add" kernel
 ED_DBL = kernels.Kernel(
     "ed_dbl", {9: "msm_ed_dbl_n9"}, "montgomery_tpu_torch/csrc/ed_add.cu",
     "montgomery_tpu/curves/edwards.py:87",
-    [_VP] * 8 + [_INT, _U32P, _U32P, _INT],
+    [_VP] * 8 + [_INT, _U32P, _U32P, _INT, _INT],
 )
 ED_ADD_PACKED = kernels.Kernel(
     "ed_add_packed", {9: "msm_ed_add_packed_n9"}, "montgomery_tpu_torch/csrc/ed_add_packed.cu",
@@ -129,25 +133,39 @@ class EdwardsOps:
         G, H = F.add_lazy(D, C), F.add_lazy(B, A)
         return F.mul(E, Fd), F.mul(G, H), F.mul(Fd, G), F.mul(E, H)
 
-    def _launch(self, kernel, ins, extra=()) -> EdwardsBatch:
-        """One launch of a planar kernel over flattened planes; 4 planes out."""
+    # ed_add and ed_dbl launches on fewer lanes than these take the kernel's
+    # narrow-launch body (csrc/ed_add.cu: four threads a lane), wider ones
+    # the one-thread body. On an H100 the two cross between 20,480 lanes
+    # (add 10.30 against 10.43 us, the doubling at k = 6 45.0 against 46.9)
+    # and 40,960 (18.0 against 15.1; 83.9 against 70.7), PERF.md row 19
+    FEW_ADD_LANES = 1 << 15
+    FEW_DBL_LANES = 1 << 15
+
+    def _launch(self, kernel, ins, extra, few: bool | None, threshold: int) -> EdwardsBatch:
+        """One launch of a planar kernel over flattened planes; 4 planes out.
+        Below `threshold` lanes the kernel's narrow-launch body unless `few`
+        says otherwise."""
         shape = ins[0].shape
         n = self.f.n
         flat = [a.reshape(n, -1).contiguous() for a in ins]
         N = kernels.check_planes(n, *flat)
         outs = [torch.empty_like(flat[0]) for _ in range(4)]
+        if few is None:
+            few = N < threshold
         if N:
             kernel.launch(*[kernels.ptr(t) for t in outs + flat], *extra, self._k_words,
-                          self.f.field_words(kernel), N, n=n, device=outs[0].device)
+                          self.f.field_words(kernel), N, int(few), n=n, device=outs[0].device)
         return EdwardsBatch(*[o.reshape(shape) for o in outs])
 
-    def add(self, P: EdwardsBatch, Q: EdwardsBatch) -> EdwardsBatch:
+    def add(self, P: EdwardsBatch, Q: EdwardsBatch, *, few: bool | None = None) -> EdwardsBatch:
         """Unified add (valid for P == Q and the identity): kernel `ed_add`
-        on CUDA tensors, `add_plain` on CPU tensors."""
+        on CUDA tensors, `add_plain` on CPU tensors. Below FEW_ADD_LANES
+        lanes the kernel's narrow-launch body, with equal values; `few`
+        picks the body instead."""
         MulCounter.record(P.X.shape, ADD_MULS)
         if not kernels.on_cuda(*P, *Q):
             return self.add_plain(P, Q)
-        return self._launch(ED_ADD, [*P, *Q])
+        return self._launch(ED_ADD, [*P, *Q], (), few, self.FEW_ADD_LANES)
 
     def add_plain(self, P: EdwardsBatch, Q: EdwardsBatch) -> EdwardsBatch:
         P16 = [to16(a) for a in P]
@@ -157,15 +175,17 @@ class EdwardsOps:
     def double(self, P: EdwardsBatch) -> EdwardsBatch:
         return self.double_n(P, 1)
 
-    def double_n(self, P: EdwardsBatch, k: int) -> EdwardsBatch:
+    def double_n(self, P: EdwardsBatch, k: int, *, few: bool | None = None) -> EdwardsBatch:
         """k doublings P <- P + P in one launch (k at run time): kernel
-        `ed_dbl` on CUDA tensors, `double_n_plain` on CPU tensors."""
+        `ed_dbl` on CUDA tensors, `double_n_plain` on CPU tensors. Below
+        FEW_DBL_LANES lanes the kernel's narrow-launch body, with equal
+        values; `few` picks the body instead."""
         if k <= 0:
             return P
         MulCounter.record(P.X.shape, k * ADD_MULS)
         if not kernels.on_cuda(*P):
             return self.double_n_plain(P, k)
-        return self._launch(ED_DBL, list(P), (int(k),))
+        return self._launch(ED_DBL, list(P), (int(k),), few, self.FEW_DBL_LANES)
 
     def double_n_plain(self, P: EdwardsBatch, k: int) -> EdwardsBatch:
         P16 = [to16(a) for a in P]

@@ -43,12 +43,17 @@ MONT_SQR = kernels.Kernel(
     "montgomery_tpu/ops/field.py:533",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
+# out, x, the schedule's steps (`ladder_steps`) and their count, the table's
+# entries, the field words, the lane count
 EXP_LADDER = kernels.Kernel(
     "exp_ladder", kernels.symbols("exp_ladder", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/exp_ladder.cu",
     "montgomery_tpu/ops/field.py:668",
-    [kernels.VP, kernels.VP, kernels.U32P, kernels.INT, kernels.U32P, kernels.INT],
+    [kernels.VP, kernels.VP, kernels.U32P, kernels.INT, kernels.INT, kernels.U32P, kernels.INT],
 )
+# the most steps one exp_ladder launch takes (csrc/exp_ladder.cu
+# LADDER_MAX_STEPS): e < R <= 2^416 at w >= 2 needs at most 210
+LADDER_MAX_STEPS = 256
 # one run-time-m kernel for both of the JAX package's call sites: sqr_n_dyn
 # (:839) and the static-m sqr_n_{m} (:850)
 SQR_N = kernels.Kernel(
@@ -430,41 +435,55 @@ class FieldOps:
 
     # ------------------------------------------------------------------- exp
 
-    def exp_ladder(self, x: torch.Tensor, e: int) -> torch.Tensor:
+    # exp_ladder's sliding window (bits) by limb count, from the sweep over
+    # w = 2..5 at the random points' width on the card (PERF.md row 22)
+    LADDER_WINDOW = {9: 4, 12: 4, 13: 4}
+
+    @property
+    def ladder_window(self) -> int:
+        return self.LADDER_WINDOW.get(self.n, 4)
+
+    def exp_ladder(self, x: torch.Tensor, e: int, *, w: int | None = None) -> torch.Tensor:
         """x^e in Montgomery form for e >= 1, in [0, 2p): kernel
-        `exp_ladder` on CUDA tensors, `exp_ladder_plain` on CPU tensors. The
-        exponent rides in the launch's parameters, so one binary serves every
+        `exp_ladder` on CUDA tensors, `exp_ladder_plain` on CPU tensors, both
+        on `ladder_schedule(e, w)` (w: `ladder_window` unless given). The
+        schedule rides in the launch's parameters, so one binary serves every
         e (the JAX package built one kernel per exponent)."""
         if e < 1 or e >= self.R:
             raise ValueError("exp_ladder needs 1 <= e < R")
-        MulCounter.record(x.shape, ladder_products(e))
+        sched = ladder_schedule(e, w or self.ladder_window)
+        MulCounter.record(x.shape, schedule_products(sched))
         if not kernels.on_cuda(x):
-            return self.exp_ladder_plain(x, e)
+            return self.exp_ladder_plain(x, e, w=w)
         xf, N = self._flat(x)
         out = torch.empty_like(xf)
         if N:
-            e_words = kernels.words(codec.to_words(e, self.n))
-            EXP_LADDER.launch(kernels.ptr(out), kernels.ptr(xf), e_words, ladder_digits(e),
-                              self.field_words(EXP_LADDER), N, n=self.n, device=out.device)
+            steps = ladder_steps(sched)
+            EXP_LADDER.launch(kernels.ptr(out), kernels.ptr(xf), kernels.words(steps), len(steps),
+                              ladder_entries(sched), self.field_words(EXP_LADDER), N, n=self.n,
+                              device=out.device)
         return out.reshape(x.shape)
 
-    def exp_ladder_plain(self, x: torch.Tensor, e: int) -> torch.Tensor:
-        """The kernel's sequence on 16-bit limbs: the table {x, x^2, x^3},
-        then MSB first per 2-bit digit two squarings and, unless the digit
-        is 0, a product by the table entry (the JAX package multiplied by one
-        there: the same value, another representative)."""
+    def exp_ladder_plain(self, x: torch.Tensor, e: int, *, w: int | None = None) -> torch.Tensor:
+        """The kernel's sequence on 16-bit limbs: the table of odd powers
+        x, x^3, ... up to the schedule's largest digit (x^2 once, then each
+        entry the one before times x^2), acc = the first step's entry, then
+        per step its squarings and, unless its digit is 0, a product by the
+        digit's entry (the JAX package ran fixed 2-bit digits and multiplied
+        by one at a digit 0: the same value, another representative)."""
         F = self.plain
-        x1 = to16(x)
-        x2 = F.mul(x1, x1)
-        table = (None, x1, x2, F.mul(x2, x1))
-        nd = ladder_digits(e)
-        acc = table[(e >> (2 * (nd - 1))) & 3]
-        for k in range(nd - 2, -1, -1):
-            acc = F.mul(acc, acc)
-            acc = F.mul(acc, acc)
-            d = (e >> (2 * k)) & 3
+        sched = ladder_schedule(e, w or self.ladder_window)
+        table = [to16(x)]
+        if ladder_entries(sched) > 1:
+            x2 = F.mul(table[0], table[0])
+            while len(table) < ladder_entries(sched):
+                table.append(F.mul(table[-1], x2))
+        acc = table[sched[0][1] >> 1]
+        for squarings, d in sched[1:]:
+            for _ in range(squarings):
+                acc = F.mul(acc, acc)
             if d:
-                acc = F.mul(acc, table[d])
+                acc = F.mul(acc, table[d >> 1])
         return from16(acc)
 
     def exp_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
@@ -620,16 +639,60 @@ class FieldOps:
         return codec.pack(values, self.n)
 
 
-def ladder_digits(e: int) -> int:
-    """Count of 2-bit digits of e >= 1 (the ladder's steps are this less 1)."""
-    return (e.bit_length() + 1) // 2
+@functools.lru_cache(maxsize=None)
+def ladder_schedule(e: int, w: int) -> tuple[tuple[int, int], ...]:
+    """The left-to-right sliding-window schedule of x^e for e >= 1 and a
+    window of w bits: steps (squarings, digit). The first step is (0, d)
+    with acc = x^d; each later one squares acc that many times and, unless
+    its digit is 0 (only a last step of trailing zeros), multiplies by x^d.
+    Every digit but that 0 is odd and below 2^w: a window starts at the
+    highest unread set bit and ends at the lowest set bit within w bits of
+    it. `exp_ladder` (kernel and plain version), `ladder_products` and the
+    chip smoke's bound all walk this one schedule."""
+    if e < 1:
+        raise ValueError("ladder_schedule needs e >= 1")
+    if not 2 <= w <= 5:
+        raise ValueError(f"ladder window of {w} bits: the kernel takes 2 to 5")
+    steps, i, zeros = [], e.bit_length() - 1, 0
+    while i >= 0:
+        if not (e >> i) & 1:
+            zeros, i = zeros + 1, i - 1
+            continue
+        j = max(i - w + 1, 0)
+        while not (e >> j) & 1:
+            j += 1
+        d = (e >> j) & ((1 << (i - j + 1)) - 1)
+        steps.append((zeros + i - j + 1 if steps else 0, d))
+        zeros, i = 0, j - 1
+    if zeros:
+        steps.append((zeros, 0))
+    return tuple(steps)
 
 
-def ladder_products(e: int) -> int:
-    """Montgomery products of `exp_ladder` for e: the table's two, then two
-    squarings a digit below the top and a product for each nonzero one."""
-    nd = ladder_digits(e)
-    return 2 + sum(2 + bool((e >> (2 * k)) & 3) for k in range(nd - 1))
+def ladder_entries(sched) -> int:
+    """Entries x, x^3, ... of the table a schedule reads: up to its largest
+    digit."""
+    return max(d for _, d in sched) + 1 >> 1
+
+
+def ladder_steps(sched) -> list[int]:
+    """A schedule as the kernel's step words, squarings << 5 | digit."""
+    if len(sched) > LADDER_MAX_STEPS:
+        raise ValueError(f"{len(sched)} ladder steps: the kernel takes at most {LADDER_MAX_STEPS}")
+    return [s << 5 | d for s, d in sched]
+
+
+def schedule_products(sched) -> int:
+    """Montgomery products (squarings among them) of `exp_ladder` on a
+    schedule: the table's (x^2 and one product an entry after x), then each
+    step's squarings and its product unless its digit is 0."""
+    entries = ladder_entries(sched)
+    return (entries if entries > 1 else 0) + sum(s + bool(d) for s, d in sched[1:])
+
+
+def ladder_products(e: int, w: int) -> int:
+    """Montgomery products of `exp_ladder` for e at a window of w bits."""
+    return schedule_products(ladder_schedule(e, w))
 
 
 def sqrt_window_products(last: bool) -> int:

@@ -10,8 +10,10 @@ Port tensors live on the CPU, so the kernels' plain versions run; the launch
 guard of the card is checked without a device.
 """
 
+import contextlib
 import dataclasses
 import random
+import types
 
 import jax
 import numpy as np
@@ -35,6 +37,7 @@ from montgomery_tpu_torch.msm import WeierstrassMsm, api
 from montgomery_tpu_torch.ops import alt_mul, divstep, kernels
 from montgomery_tpu_torch.ops import limbs as codec
 from montgomery_tpu_torch.ops.field import MONT_MUL, MONT_SQR, MUL_CONST, create_field_ops
+from montgomery_tpu_torch.ops.limbs import to_words
 from montgomery_tpu_torch.scalar.device import ints_to_limbs_np, signed_digits_device
 
 # several test workers share few cores; these small tensors gain nothing
@@ -338,3 +341,65 @@ def test_weierstrass_guard_on_cuda(monkeypatch):
     assert WeierstrassMsm(PALLAS, device="cuda").fops.n == 9
     with pytest.raises(NotImplementedError, match="this field needs 15"):
         WeierstrassMsm(dataclasses.replace(PALLAS, modulus=(1 << 448) - (1 << 224) - 1), device="cuda")
+
+@pytest.fixture
+def ed_recorded(monkeypatch):
+    """ed_add and ed_dbl launches reach a fake library (no card): the
+    wrappers take their kernel path on CPU tensors and the fake entries
+    record their arguments."""
+    calls = []
+
+    def entry(name):
+        def fn(*args):
+            calls.append((name, args))
+            return 0
+        return fn
+
+    lib = types.SimpleNamespace(msm_ed_add_n9=entry("add"), msm_ed_dbl_n9=entry("dbl"))
+    monkeypatch.setattr(kernels.LIBRARY, "get", lambda: lib)
+    monkeypatch.setattr(kernels, "on_cuda", lambda *ts: True)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=7))
+    for k in (edwards.ED_ADD, edwards.ED_DBL):
+        monkeypatch.setattr(k, "_fns", {})
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "launches_by_n", {})
+    return calls
+
+
+def test_add_and_double_n_body_by_lanes(ed_recorded):
+    """Below FEW_ADD_LANES / FEW_DBL_LANES lanes `add` / `double_n` ask
+    for the kernel's narrow-launch body (four threads a lane), from there on
+    for the one-thread body: the Twisted Edwards MSM's window-sum launches
+    from 20 to 20,480 lanes and its doubling (20 lanes) take the first, its
+    two 40,960-lane adds and the cofactor's 2^20-lane doubling the second;
+    `few` picks the body by name. Each launch carries k = 2d, the field
+    words and the lane count; one registry count a launch."""
+    f = create_field_ops(P)
+    ed = EdwardsOps(f, ED_ON_BLS12_377)
+    k2d = [w % (1 << 32) for w in to_words(ed.k_mont, f.n)]
+    field = [w % (1 << 32) for w in to_words(P, f.n) + to_words(2 * P, f.n) + to_words(4 * P, f.n) + [f.mu]]
+    fa, fd = EdwardsOps.FEW_ADD_LANES, EdwardsOps.FEW_DBL_LANES
+    assert 20480 < fa <= 40960 and 20480 < fd <= 40960
+    widths = (1, 20, 640, 20480, fa - 1, fa, 40960, 1 << 20)
+    for N in widths:
+        z = torch.zeros((f.n, N), dtype=torch.int32)
+        Pz = EdwardsBatch(z, z, z, z)
+        ed.add(Pz, Pz)
+        name, args = ed_recorded[-1]
+        assert name == "add" and args[-3:] == (N, int(N < fa), 7), (N, args[-3:])
+        assert list(args[12]) == k2d and list(args[13]) == field
+        ed.double_n(Pz, 6)
+        name, args = ed_recorded[-1]
+        assert name == "dbl" and args[8] == 6 and args[-3:] == (N, int(N < fd), 7), (N, args[-3:])
+        assert list(args[9]) == k2d and list(args[10]) == field
+    for N, few in ((20, False), (1 << 20, True)):  # the body asked for by name
+        z = torch.zeros((f.n, N), dtype=torch.int32)
+        Pz = EdwardsBatch(z, z, z, z)
+        ed.add(Pz, Pz, few=few)
+        assert ed_recorded[-1][1][-3:-1] == (N, int(few))
+        ed.double_n(Pz, 2, few=few)
+        assert ed_recorded[-1][1][-3:-1] == (N, int(few))
+    assert edwards.ED_ADD.launches == edwards.ED_DBL.launches == len(widths) + 2
+    ed.double_n(Pz, 0)  # no doubling: no launch
+    assert edwards.ED_DBL.launches == len(widths) + 2

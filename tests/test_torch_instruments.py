@@ -134,12 +134,16 @@ def _plain_products(monkeypatch, fn):
 
 @pytest.mark.parametrize("e", [1, 2, 3, 4, 0b1001101, (1 << 20) - 3, BLS12_377.modulus - 2])
 def test_ladder_products_count_the_plain_ladder(monkeypatch, e):
-    """`ladder_products(e)`, which MulCounter records for one exp_ladder
-    launch, is the count of products the kernel's plain sequence runs."""
+    """`ladder_products(e, w)`, which MulCounter records for one exp_ladder
+    launch, is the count of products the kernel's plain sequence runs on the
+    sliding-window schedule, at the field's window and at every other."""
     f = create_field_ops(BLS12_377.modulus)
     x = f.pack([3, 5], "cpu", to_mont=True)
     calls, ran = _plain_products(monkeypatch, lambda: f.exp_ladder(x, e))
-    assert calls == ladder_products(e) == ran
+    assert calls == ladder_products(e, f.ladder_window) == ran
+    for w in (2, 3, 5):
+        calls, ran = _plain_products(monkeypatch, lambda w=w: f.exp_ladder(x, e, w=w))
+        assert calls == ladder_products(e, w) == ran
 
 
 @pytest.mark.parametrize("k,lk,last", [(0, 4, False), (1, 4, False), (0, 1, True), (11, 2, True)])

@@ -1,15 +1,21 @@
-"""The carry-chain Montgomery product of `csrc/madc.cuh` (`fe_mul_cc`),
-modelled op by op in Python ints: the even and odd accumulators, the carry
-flag as PTX sets it, the row shift with its fold and the top word X. Each
-op that the header issues without a carry out asserts that none was lost.
-The model is held bit for bit against `fe_mul`'s plain version
-(`FieldOps.mul_plain`, the CIOS product on 16-bit halves that the card's
-kernels are held to) and against (a b + m p) / R in Python ints, at 9, 12
-and 13 limbs: 0, 1, p - 1, values in [p, 2p) and up to 8p, pairs at the
-a b < R p limit with either operand near R, and seeded random operands.
-Tolerance zero. CPU only: the CUDA header itself is checked on the card by
+"""The carry-chain Montgomery product and square of `csrc/madc.cuh`
+(`fe_mul_cc`, `fe_sqr_cc`), modelled op by op in Python ints: the even and
+odd accumulators, the carry flag as PTX sets it, the row shift with its fold
+and the top word X; for the square the cross-product rows with their live
+extents, the doubling, the diagonal and the reduction rows that take T's
+high words in. Each op that the header issues without a carry out asserts
+that none was lost. The product model is held bit for bit against `fe_mul`'s
+plain version (`FieldOps.mul_plain`, the CIOS product on 16-bit halves that
+the card's kernels are held to) and against (a b + m p) / R in Python ints,
+at 9, 12 and 13 limbs: 0, 1, p - 1, values in [p, 2p) and up to 8p, pairs at
+the a b < R p limit with either operand near R, and seeded random operands;
+the square model against `mul_plain(a, a)` and (a^2 + m p) / R on 0, 1,
+p - 1, [p, 2p), up to 8p, the largest a with a^2 < R p and seeded random
+values. Tolerance zero. CPU only: the CUDA header itself is checked on the card by
 `chip_smoke.py` through the kernels that use it.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -58,6 +64,16 @@ class Ptx:
 
     def madc_hi(self, a, b, c):
         return self._set("madc.hi.cc", (a * b >> 32) + c + self.cc)
+
+    def mad_hi(self, a, b, c):
+        return self._set("mad.hi.cc", (a * b >> 32) + c)
+
+    def madc_hi_end(self, a, b, c):
+        """madc.hi.u32 keeps no carry: the header relies on there being none."""
+        self._count("madc.hi")
+        s = (a * b >> 32) + c + self.cc
+        assert s >> 32 == 0, "madc.hi.u32 dropped a carry"
+        return s
 
     def add(self, a, b):
         return self._set("add.cc", a + b)
@@ -126,6 +142,71 @@ def fe_mul_cc_model(a, b, p, mu, P=None):
     return r
 
 
+def sqr_top(n, q, i):
+    """Top position of row i's cross-product chain in accumulator q (1: the
+    products a_i a_j with j - i odd, 0: even), as madc.cuh's sqr_top."""
+    return i + (n - 1 if (n - 1 - i) % 2 == q else n - 2) + 1
+
+
+def fe_sqr_cc_model(a, p, mu, P=None):
+    """fe_sqr_cc of csrc/madc.cuh on word lists, in the header's order of
+    ops. Returns the n result words."""
+    P = P or Ptx()
+    n = len(a)
+    acc = {1: [0] * (2 * n), 0: [0] * (2 * n)}
+    live = {}
+    for i in range(n - 1):
+        for q in (1, 0):
+            A, js = acc[q], list(range(i + 2 - q, n, 2))
+            if not js:
+                continue
+            if i == 0:  # the first row's words do not overlap: plain products
+                for j in js:
+                    A[j], A[j + 1] = P.mul_lo(a[0], a[j]), P.mul_hi(a[0], a[j])
+                live[q] = sqr_top(n, q, 0)
+                continue
+            for j in js:
+                A[i + j] = (P.mad_lo if j == js[0] else P.madc_lo)(a[i], a[j], A[i + j])
+                A[i + j + 1] = P.madc_hi(a[i], a[j], A[i + j + 1])
+            top = sqr_top(n, q, i)
+            assert top == i + js[-1] + 1
+            for k in range(top + 1, live[q] + 1):
+                A[k] = P.addc_cc(A[k], 0)
+            live[q] = max(top, live[q]) + 1
+            assert acc[q][live[q]] == 0, "the carry word held data"
+            A[live[q]] = P.addc(0, 0)
+    O, E = acc[1], acc[0]
+    assert E[:2] == [0, 0] and O[0] == 0
+    D = [0, O[1], P.add(O[2], E[2])]
+    D += [P.addc_cc(O[k], E[k]) for k in range(3, 2 * n - 1)]
+    D.append(P.addc(O[2 * n - 1], E[2 * n - 1]))
+    T = [0] + [((D[k] << 1) | (D[k - 1] >> 31)) & M32 for k in range(1, 2 * n)]
+    assert D[2 * n - 1] >> 31 == 0, "the doubling lost the top bit"
+    T[0] = P.mul_lo(a[0], a[0])
+    T[1] = P.mad_hi(a[0], a[0], T[1])
+    for k in range(1, n):
+        T[2 * k] = P.madc_lo(a[k], a[k], T[2 * k])
+        T[2 * k + 1] = (P.madc_hi if k < n - 1 else P.madc_hi_end)(a[k], a[k], T[2 * k + 1])
+    L, H, X = T[:n], [0] * n, 0
+    for i in range(n):
+        if i > 0:
+            fold = L[1]
+            L, H, X = H, L[2:] + [T[n + i - 1], X], 0
+            m = (L[0] + fold) * mu & M32
+            L[0] = P.add(L[0], fold)
+            X = odd_chain(P, H, X, p, m, True)
+        else:
+            m = L[0] * mu & M32
+            X = odd_chain(P, H, X, p, m, False)
+        X = even_chain(P, L, H, X, p, m)
+        assert L[0] == 0, "the row's quotient left a nonzero low word"
+        assert X == 0, "the square's window reached position NL + 1"
+    r = [P.add(H[0], L[1])]
+    r += [P.addc_cc(H[k], L[k + 1]) for k in range(1, n - 1)]
+    r.append(P.addc(H[n - 1], T[2 * n - 1]))
+    return r
+
+
 def _words(v, n):
     return [(v >> (32 * k)) & M32 for k in range(n)]
 
@@ -189,3 +270,49 @@ def test_model_issues_the_products_of_fe_mul(n):
     assert lo == hi == 2 * n * n
     adds = P.ops["add.cc"] + P.ops["addc.cc"] + P.ops["addc"]
     assert adds <= 4 * n * 2 + n
+
+
+def _square_operands(f, rng: np.random.Generator, count: int) -> list[int]:
+    """Edge values, the largest a with a^2 < R p and its neighbours below,
+    then seeded random values below 8p and below that largest a."""
+    p, R = f.p, f.R
+    top = math.isqrt(R * p - 1)
+    vals = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, 8 * p - 1, f.R_mod_p, top, top - 1, top - (1 << 32)]
+    vals += [top >> k for k in (1, 32, 33)] + [(1 << (32 * f.n // 2 + 16)) - 1]
+    nb = (top.bit_length() + 7) // 8 + 8
+    raw = rng.bytes(2 * count * nb)
+    draws = [int.from_bytes(raw[i * nb:(i + 1) * nb], "little") for i in range(2 * count)]
+    vals += [v % (8 * p) for v in draws[:count]] + [v % (top + 1) for v in draws[count:]]
+    assert all(0 <= v and v * v < R * p for v in vals)
+    return vals
+
+
+@pytest.mark.parametrize("curve", list(CURVES))
+def test_square_model_equals_plain_square(curve):
+    """fe_sqr_cc's word order gives fe_sqr's (and fe_mul's) words: against
+    mul_plain(a, a) on the same planes and against (a^2 + m p) / R, with no
+    carry lost on any op."""
+    f = create_field_ops(CURVES[curve].modulus)
+    n, p, R = f.n, f.p, f.R
+    vals = _square_operands(f, np.random.default_rng(15), 200)
+    pw = _words(p, n)
+    got = [_value(fe_sqr_cc_model(_words(x, n), pw, f.mu)) for x in vals]
+    x = f.pack_raw(vals, "cpu")
+    assert got == codec.unpack(f.mul_plain(x, x))
+    minv = -pow(p, -1, R) % R
+    for v, g in zip(vals, got):
+        assert g == (v * v + (v * v * minv % R) * p) // R
+        assert g < 2 * p
+
+
+@pytest.mark.parametrize("n", (9, 12, 13))
+def test_square_model_issues_fewer_products(n):
+    """One square issues n (n - 1) / 2 cross products, n diagonal squares
+    and n^2 reduction products (each as its lo and hi half): 222 at 12
+    limbs against the product's 288."""
+    f = create_field_ops({9: PALLAS, 12: BLS12_377, 13: BLS12_381}[n].modulus)
+    P = Ptx()
+    fe_sqr_cc_model(_words(f.p - 1, n), _words(f.p, n), f.mu, P)
+    lo = P.ops["mul.lo"] + P.ops["mad.lo.cc"] + P.ops["madc.lo.cc"]
+    hi = P.ops["mul.hi"] + P.ops["madc.hi.cc"] + P.ops["mad.hi.cc"] + P.ops["madc.hi"]
+    assert lo == hi == n * (n - 1) // 2 + n + n * n

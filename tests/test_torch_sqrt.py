@@ -26,7 +26,8 @@ from montgomery_tpu.ops.field import create_field_ops as jax_field_ops
 from montgomery_tpu_torch import interop
 from montgomery_tpu_torch.concrete import BLS12_377, BLS12_381, ED_ON_BLS12_377, PALLAS
 from montgomery_tpu_torch.ops import kernels
-from montgomery_tpu_torch.ops.field import SQRT_WINDOW, create_field_ops
+from montgomery_tpu_torch.ops.field import (SQRT_WINDOW, create_field_ops, ladder_entries, ladder_products,
+                                            ladder_schedule, ladder_steps)
 
 torch.set_num_threads(1)
 
@@ -96,6 +97,63 @@ def test_exp_const_goldilocks(gold, e):
     e = {"sqrt": (f.sqrt_q_odd - 1) // 2, "p-2": p - 2}.get(e, e)
     got = f.unpack(f.exp_const(x, e), from_mont=True)
     assert got == _jax_canon(jf, jf.exp_const(jx, e)) == [pow(v, e, p) for v in vals]
+
+
+def _exponents(f) -> dict:
+    """The ladder's exponents: small ones, 2^k and 2^k - 1 (a long zero
+    tail, a run of ones), p - 2 (inv), (q - 1) / 2 (sqrt's first launch)
+    and q."""
+    p, q = f.p, f.sqrt_q_odd
+    return {"1": 1, "2": 2, "3": 3, "2^k": 1 << (p.bit_length() - 2), "2^k-1": (1 << (p.bit_length() - 2)) - 1,
+            "p-2": p - 2, "(q-1)/2": (q - 1) // 2, "q": q}
+
+
+@pytest.mark.parametrize("w", [2, 3, 4, 5])
+@pytest.mark.parametrize("field", ["goldilocks", "bls12-377"])
+def test_ladder_schedule_against_pow(field, w):
+    """ladder_schedule(e, w) rebuilds e (e = e 2^s + d over its steps), its
+    first step squares nothing, every digit is odd and below 2^w but a
+    trailing 0, each window's squarings cover its digit; the kernel's step
+    words hold the same steps; exp_ladder_plain on it equals pow() on 0, 1,
+    p - 1, squares and random values with [p, 2p) representatives."""
+    p = FIELDS[field]
+    f = create_field_ops(p)
+    vals, up = _values(p, 7)
+    x = _port_planes(f, vals, up)
+    for tag, e in _exponents(f).items():
+        sched = ladder_schedule(e, w)
+        acc = 0
+        for s, d in sched:
+            assert d < 1 << w and (d % 2 == 1 or (d == 0 and (s, d) == sched[-1]))
+            assert d < 1 << s or (s, d) == sched[0]
+            acc = (acc << s) + d
+        assert acc == e and sched[0][0] == 0, tag
+        assert ladder_steps(sched) == [s << 5 | d for s, d in sched]
+        assert ladder_entries(sched) == (max(d for _, d in sched) + 1) // 2
+        got = f.unpack(f.exp_ladder(x, e, w=w), from_mont=True)
+        assert got == [pow(v, e, p) for v in vals], tag
+    assert ladder_schedule(1 << 40, w) == ((0, 1), (40, 0))
+    assert ladder_products(1 << 40, w) == 40
+
+
+def test_exp_ladder_window_against_jax_goldilocks(gold):
+    """The port's ladder at every window against the JAX package's
+    exp_ladder (2-bit digits) on the same values: equal canonical values
+    (tolerance zero) for every exponent of _exponents."""
+    f, jf, vals, x, jx = gold
+    for tag, e in _exponents(f).items():
+        want = _jax_canon(jf, jf.exp_ladder(jx, e))
+        assert want == [pow(v, e, f.p) for v in vals], tag
+        for w in (2, 3, 4, 5):
+            assert f.unpack(f.exp_ladder(x, e, w=w), from_mont=True) == want, (tag, w)
+
+
+def test_ladder_schedule_refuses():
+    with pytest.raises(ValueError):
+        ladder_schedule(0, 4)
+    for w in (1, 6):
+        with pytest.raises(ValueError):
+            ladder_schedule(5, w)
 
 
 def test_inv_goldilocks(gold):
