@@ -35,7 +35,10 @@ Phases, each printed as it runs:
      two pairs' ptxas registers and spills, and those of exp_ladder and
      ed_add/ed_dbl beside the parents' bodies kept as probes
      (`csrc/rates/exp_ladder_2bit.cu`, once per limb count, and
-     `csrc/rates/ed_add_cios.cu`); the
+     `csrc/rates/ed_add_cios.cu`), and of aff_post_packed_u and
+     aff_post_unsafe beside the chord's CIOS bodies
+     (`csrc/rates/aff_post_packed_u_cios.cu`, `aff_post_unsafe_cios.cu`,
+     once per limb count); the
      bit-by-bit sqrt window (`csrc/rates/sqrt_win_bitwise.cu`) that phase 1
      times the table window against; the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
@@ -99,7 +102,16 @@ Phases, each printed as it runs:
      2^20 lanes for k = 1 and 92, and the wide and the few-lane body swept
      at 10 to 8,192 lanes (the few-lane threshold); then the cofactor stage of
      the random points at 2^20 (`profile_cofactor`), each launch's device
-     time with its k, lanes and bound, on either doubling body.
+     time with its k, lanes and bound, on either doubling body. Then the
+     unsafe chord on carry chains (`redesign_chord`, here at 12 limbs and
+     for BLS12-381 and Pallas in their phase 1): aff_post_packed_u at the
+     first super-round level of the 2^16 and 2^20 paths and aff_post_unsafe
+     at 2^20 lanes, flag classes and 0, 1, p - 1, [p, 2p) values in the
+     first lanes, bit for bit on every lane against the plain version and
+     the CIOS body it replaced (`csrc/rates/aff_post_packed_u_cios.cu`,
+     `csrc/rates/aff_post_unsafe_cios.cu`), both timed in turns; then
+     mul_const's device time at 2^20 and 2,621,456 lanes
+     (`mul_const_widths`).
      Then the Twisted Edwards path's kernels
      the same way (`phase_te_kernels`): mont_mul, mul_const and
      divstep_inv_mont at 9 limbs, ed_add, ed_dbl (k = 1, 13 and the 2^20
@@ -225,9 +237,9 @@ Between phases 4 and 6, BLS12-381 and Pallas (`phase_new_curves`), each on
   engine at 2^16 and 2^20 (BLS12-381's unsafe one also at 2^18) against
   the closed form, every launch at the curve's limb count and none at 12,
   with the main path's profile, and compute_msm at 2^20 from bytes; phase
-  4, random_points_weierstrass at 2^16; and aff_post_packed_u at 13 and 9
-  limbs built at other __launch_bounds__ minimums and timed beside its own
-  (`post_u_minimums`).
+  4, random_points_weierstrass at 2^16; and aff_post_packed_u at 12, 13
+  and 9 limbs built at other __launch_bounds__ minimums and timed beside
+  its own (`post_u_minimums`).
 The last lines are a JSON object of per-kernel details, the JSON object of
 per-kernel results (13- and 9-limb measurements under "n13" and "n9" or
 "n9_weierstrass"), the card's name and power limit, and a JSON object
@@ -274,6 +286,13 @@ EDP_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_packe
 # count) and the one-thread CIOS add and doubling
 LADDER_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "exp_ladder_2bit.cu"
 EDA_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_cios.cu"
+# the CIOS bodies that the unsafe chord on carry chains replaced in
+# aff_post_packed_u and aff_post_unsafe, each built once per limb count
+POST_U_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_post_packed_u_cios.cu"
+POST_UNSAFE_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_post_unsafe_cios.cu"
+CHORD_TURN_REPS = 10  # launches a turn of the chord's two kernels (CUDA events, then the profiler)
+CHORD_PLANAR_LANES = 1 << 20  # aff_post_unsafe's checks and turns
+MUL_CONST_WIDTHS = (1 << 20, 2_621_456)  # mul_const's widths on its paths at 12 limbs: expand, points
 PROBES: dict = {}  # probe source, or (source, limbs), -> its built library (phase 0)
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
@@ -630,7 +649,9 @@ def phase_env() -> dict:
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
     probes = {key: start_probe_build(*key) if isinstance(key, tuple) else start_probe_build(key)
               for key in ((DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 9), (LADDER_PROBE_SRC, 13),
-                          (LADDER_PROBE_SRC, 12), (LADDER_PROBE_SRC, 9), RATE_SRC, LATENCY_SRC,
+                          (LADDER_PROBE_SRC, 12), (LADDER_PROBE_SRC, 9), (POST_U_PROBE_SRC, 13),
+                          (POST_U_PROBE_SRC, 12), (POST_U_PROBE_SRC, 9), (POST_UNSAFE_PROBE_SRC, 13),
+                          (POST_UNSAFE_PROBE_SRC, 12), (POST_UNSAFE_PROBE_SRC, 9), RATE_SRC, LATENCY_SRC,
                           DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC, EDP_PROBE_SRC, EDA_PROBE_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
@@ -676,7 +697,9 @@ def redesigned_ptxas(new: dict, parent: dict) -> None:
     were built before this run."""
     say("ptxas of the redesigned bodies (registers, stack, spill stores, spill loads, smem): new / parent")
     for name, nl in (("proj_dbl_rcb", 12), ("proj_dbl_rcb", 13), ("proj_dbl_rcb", 9), ("ed_add_packed", 9),
-                     ("exp_ladder", 12), ("exp_ladder", 13), ("exp_ladder", 9)):
+                     ("exp_ladder", 12), ("exp_ladder", 13), ("exp_ladder", 9), ("aff_post_packed_u", 12),
+                     ("aff_post_packed_u", 13), ("aff_post_packed_u", 9), ("aff_post_unsafe", 12),
+                     ("aff_post_unsafe", 13), ("aff_post_unsafe", 9)):
         say(f"  {name} n={nl}: {new.get((name, nl))} / {parent.get((name, nl), 'built before this run')}")
     for name in ("ed_add", "ed_dbl"):  # the parent had the one-thread body alone
         say(f"  {name} n=9: wide {new.get((name, 9))}, narrow {new.get((name + '_few', 9))} / "
@@ -696,11 +719,12 @@ def redesigned_sass(probes: dict) -> None:
         m = re.search(r"sqr_chainILi\d+ELi(\d)E", name)
         label = squares[int(m.group(1))] if m else "fe_mul_cc" if "cc_chain" in name else "fe_mul"
         say_sass_mix(f"{label} chain {name}", ops)
-    only = r"proj_dbl_rcb_kernel|ed_add_packed_kernel"
+    only = r"proj_dbl_rcb_kernel|ed_add_packed_kernel|aff_post_packed_u_kernelILi12|aff_post_unsafe_kernelILi12"
     names = [f for f in ptxas_functions(kernels.LIBRARY.build_log) if re.search(only, f)]
     for name, ops in sorted(sass_histograms(kernels.LIBRARY.path, only, names).items()):
         say_sass_mix(f"new {name}", ops)
-    for key in ((DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 9), EDP_PROBE_SRC):
+    for key in ((DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 9), EDP_PROBE_SRC, (POST_U_PROBE_SRC, 12),
+                (POST_UNSAFE_PROBE_SRC, 12)):
         for name, ops in sass_histograms(probes[key][1], r"_kernel").items():
             say_sass_mix(f"parent {name}", ops)
 
@@ -1962,6 +1986,12 @@ def bodies_of(name: str, n: int) -> dict:
 
         return {"new": None, "parent": probe_fn(EDA_PROBE_SRC, None, f"probe_{name}_n9",
                                                 (ED_ADD if name == "ed_add" else ED_DBL).argtypes)}
+    if name in ("aff_post_packed_u", "aff_post_unsafe"):
+        from montgomery_tpu_torch.curves.affine import AFF_POST_PACKED_U, AFF_POST_UNSAFE
+
+        src, kern = ((POST_U_PROBE_SRC, AFF_POST_PACKED_U) if name == "aff_post_packed_u"
+                     else (POST_UNSAFE_PROBE_SRC, AFF_POST_UNSAFE))
+        return {"new": None, "parent": probe_fn(src, n, f"probe_{name}_n{n}", kern.argtypes)}
     return {"new": None, "parent": probe_fn(EDP_PROBE_SRC, None, "probe_ed_add_packed_n9",
                                             ED_ADD_PACKED.argtypes)}
 
@@ -2186,6 +2216,145 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
     say_turns(f"ed_add_packed N={M}", turns, bms, by)
     out["turns"] = dict(turns, bound_ms=bms, bound_by=by, lanes=M, max_abs_err=err)
     del C, sg, hp, ops, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def _chord_adversarial(f, t, rows: list[int], start: int, adv: list[int]) -> None:
+    """Writes the field values `adv` (Montgomery-form words, below 2p) into
+    lanes start, start + 1, ... of each n-row block of t that begins at a
+    row of `rows`, rotated by one value from block to block."""
+    k = len(adv)
+    for j, r in enumerate(rows):
+        t[r:r + f.n, start:start + k] = f.pack_raw(adv[j % k:] + adv[:j % k], t.device)
+
+
+def redesign_chord(ctx, pts, rates: dict) -> dict:
+    """aff_post_packed_u and aff_post_unsafe on the carry-chain chord at the
+    curve's limb count, against their plain versions and the parent's CIOS
+    bodies (`bodies_of`: the probes csrc/rates/aff_post_packed_u_cios.cu and
+    aff_post_unsafe_cios.cu) on every lane, bit for bit, then timed in turns
+    (new, parent, parent, new; `in_turns`).
+
+    - aff_post_packed_u at the first super-round level of the 2^16 and the
+      2^20 path (first_level_width): A and B column slices of one random
+      array, `_flag_lanes`' classes (oracle points `pts`) in the first
+      1,200 lanes with their signs and pairs, then 0, 1, p - 1, p, p + 1,
+      2p - 1 and R mod p in x and y of both operands, and y2 = y1 lanes;
+      inv1 (h = M // 2) and denom random with the same values first.
+    - aff_post_unsafe at CHORD_PLANAR_LANES (2^20): the same flag classes
+      (signs folded into y) and values in the planes and in dinv.
+
+    Returns {kernel: {lanes: {turns, bound_ms, bound_by, max_abs_err}}}."""
+    import torch
+
+    from montgomery_tpu_torch.curves.affine import AFF_POST_PACKED_U, AFF_POST_UNSAFE
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, aff, dev, n, p = ctx.fops, ctx.affine, ctx.device, ctx.fops.n, ctx.fops.p
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    adv = [0, 1, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p]
+    out = {"aff_post_packed_u": {}, "aff_post_unsafe": {}}
+
+    def bits(M):
+        return torch.randint(0, 2, (1, M), dtype=torch.int32, device=dev, generator=gen)
+
+    def check(kernel, label, run, plain):
+        def planes(r):
+            return r if isinstance(r, tuple) else (r,)
+
+        got = planes(run())
+        with kernel_body(kernel, n, bodies_of(kernel.name, n)["parent"]):
+            parent = planes(run())
+        err = max(_raw_err(got, parent), _raw_err(got, planes(plain())))
+        say(f"{label}: raw err {err} against the CIOS body and the plain version (every lane)")
+        if err:
+            raise AssertionError(f"{label} disagrees")
+        return err
+
+    def timed(kernel, label, M, run):
+        turns = in_turns(kernel, n, bodies_of(kernel.name, n), run, CHORD_TURN_REPS)
+        bms, by = bound(ctx, kernel.name, M, rates)
+        say_turns(label, turns, bms, by)
+        return dict(turns, bound_ms=bms, bound_by=by)
+
+    for log2n in (16, 20):
+        M = first_level_width(ctx, log2n)
+        K = min(M, 1200)
+        C = _random_planes(f, 2 * n + 1, 2 * M, gen)
+        C[2 * n] = 0
+        sg, hp = bits(2 * M), bits(M)
+        FA, FB, fsa, fsb, fhp = _flag_lanes(ctx, pts, K)
+        C[:, :K], C[:, M:M + K] = FA, FB
+        sg[:, :K], sg[:, M:M + K], hp[:, :K] = fsa, fsb, fhp
+        k = len(adv)
+        _chord_adversarial(f, C, [0, n], K, adv)  # A's x and y
+        _chord_adversarial(f, C, [0, n], M + K + k, adv[2:] + adv[:2])  # B's, in the next lanes
+        lo = K + 2 * k  # then y2 = y1 (same sign), x2 random
+        C[n:2 * n, M + lo:M + lo + k] = C[n:2 * n, lo:lo + k]
+        sg[:, M + lo:M + lo + k] = sg[:, lo:lo + k]
+        hp[:, K:K + 3 * k] = 1
+        A, B = C[:, :M], C[:, M:]
+        h = M // 2
+        inv1 = _random_planes(f, n, (M + 1) // 2, gen)
+        denom = _random_planes(f, n, M, gen)
+        _chord_adversarial(f, inv1, [0], 0, adv)  # lane i < h: inv1[i] denom[i + h]
+        _chord_adversarial(f, denom, [0], h, adv[::-1])
+        ops = (A, B, sg[:, :M], sg[:, M:], inv1, denom, h, hp)
+        label = f"aff_post_packed_u n={n} N={M}"
+        err = check(AFF_POST_PACKED_U, label, lambda: aff.post_packed_u(*ops), lambda: aff.post_packed_u_plain(*ops))
+        out["aff_post_packed_u"][str(M)] = dict(timed(AFF_POST_PACKED_U, label, M, lambda: aff.post_packed_u(*ops)),
+                                                lanes=M, max_abs_err=err)
+        del C, sg, hp, A, B, inv1, denom, ops
+        torch.cuda.empty_cache()
+
+    M, K = CHORD_PLANAR_LANES, 1200
+    X, Y = _random_planes(f, n, 2 * M, gen), _random_planes(f, n, 2 * M, gen)
+    FA, FB, fsa, fsb, _ = _flag_lanes(ctx, pts, K)
+    for off, F, sgn in ((0, FA, fsa), (M, FB, fsb)):
+        X[:, off:off + K] = F[:n]
+        Y[:, off:off + K] = torch.where(sgn != 0, f.neg(F[n:2 * n]), F[n:2 * n])
+    _chord_adversarial(f, X, [0], K, adv)
+    _chord_adversarial(f, Y, [0], K, adv[::-1])
+    Y[:, M + K:M + K + len(adv)] = Y[:, K:K + len(adv)]  # y2 = y1
+    inf = torch.zeros(M, dtype=torch.bool, device=dev)
+    G, H = AffineBatch(X[:, :M], Y[:, :M], inf), AffineBatch(X[:, M:], Y[:, M:], inf)
+    dinv = _field_plane(f, M, gen, adv)
+    label = f"aff_post_unsafe n={n} N={M}"
+    err = check(AFF_POST_UNSAFE, label, lambda: aff.post_unsafe(G, H, dinv), lambda: aff.post_unsafe_plain(G, H, dinv))
+    out["aff_post_unsafe"][str(M)] = dict(timed(AFF_POST_UNSAFE, label, M, lambda: aff.post_unsafe(G, H, dinv)),
+                                          lanes=M, max_abs_err=err)
+    del X, Y, G, H, dinv
+    torch.cuda.empty_cache()
+    say(f"the chord's redesign checks and turns at {n} limbs: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mul_const_widths(ctx, rates: dict) -> dict:
+    """mul_const's device time a launch (the profiler, NEW_TIMING_REPS
+    launches) at the curve's limb count on random planes at each width of
+    MUL_CONST_WIDTHS, with its bound and share; checked bit for bit with the
+    plain version first."""
+    import torch
+
+    f = ctx.fops
+    gen = torch.Generator(device=ctx.device).manual_seed(18)
+    c = ctx.proj.beta_mont
+    out = {}
+    for W in MUL_CONST_WIDTHS:
+        x = _random_planes(f, f.n, W, gen)
+        if _raw_err([f.mul_const(x, c)], [f.mul_const_plain(x, c)]):
+            raise AssertionError(f"mul_const at {W} lanes disagrees with its plain version")
+        per = device_times_whole(lambda: [f.mul_const(x, c) for _ in range(NEW_TIMING_REPS)],
+                                 lambda r: r[0].get("mul_const", (0,))[0] == NEW_TIMING_REPS)[0]
+        count, ms = per.get("mul_const", (0, 0.0))
+        dev_ms = ms / count if count else None
+        bms, by = bound(ctx, "mul_const", W, rates)
+        out[str(W)] = dict(device_ms=dev_ms, bound_ms=bms, bound_by=by, share=bms / dev_ms if dev_ms else None)
+        say(f"mul_const n={f.n} at {W} lanes: device " + (f"{dev_ms:.5f} ms" if dev_ms else "not measured")
+            + f", bound {bms:.5f} ms ({by})" + (f", share {bms / dev_ms:.3f}" if dev_ms else ""))
+        del x
     torch.cuda.empty_cache()
     return out
 
@@ -4428,7 +4597,7 @@ def post_u_minimums(ctxs: dict) -> dict:
     return res
 
 
-def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_start: float) -> dict:
+def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: dict, t_start: float) -> dict:
     """BLS12-381 (13 limbs) and Pallas (9 limbs), each on its own 2^20 bench
     points (random_points_fast(seed=42)): phase 1, every kernel at the
     curve's limb count against its plain version and timed at the 12-limb
@@ -4438,7 +4607,9 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
     closed form, with its launches (every one at the curve's limb count),
     median of 5, peak memory and phase split, the profile of affine-unsafe
     at 2^20, and compute_msm at 2^20 from bytes; phase 4,
-    random_points_weierstrass at 2^16. Then aff_post_packed_u's minimums at
+    random_points_weierstrass at 2^16; phase 1 also holds the chord's two
+    kernels against their CIOS bodies, in turns (`redesign_chord`). Then
+    aff_post_packed_u's minimums at 12 (on `ctx12`, BLS12-377's context),
     13 and 9 limbs (`post_u_minimums`). Launch counts go into `launches` as
     "<curve>/<run>_2^<log2 N>"; returns ({curve: kernel results}, the
     minimums' results)."""
@@ -4449,7 +4620,7 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
     from montgomery_tpu_torch.msm import WeierstrassMsm
 
     widths = {name: r["lanes"] for name, r in kres.items() if "lanes" in r}
-    out, ctxs = {}, {}
+    out, ctxs = {}, {ctx12.fops.n: ctx12}
     for label in NEW_CURVES:
         c = WeierstrassMsm(WEIERSTRASS_CURVES[label], device=torch.device("cuda", 0))
         ctxs[c.fops.n] = c
@@ -4463,6 +4634,8 @@ def phase_new_curves(rates: dict, kres: dict, launches: dict, expected: dict, t_
         out[label] = phase_curve_kernels(c, host, rates, widths)
         out[label]["divstep_inv_mont"]["main_path"] = redesign_divstep(c, pts, rates)
         out[label]["proj_dbl_rcb"]["carry_chain"] = redesign_dbl(c, pts, rates, turns=c.fops.n == 13)
+        for name, res in redesign_chord(c, host, rates).items():
+            out[label][name]["carry_chain"] = res
         say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase 1 done")
         phase_oracle(c, host, label)
         sizes = {path: NEW_MSM_LOG2N for path in PATHS}
@@ -4540,7 +4713,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
                   if key.endswith("_level") or key in ("call", "main_path", "floor_ms", "halving_ms", "turns_ms",
                                                      "ladder", "bodies", "te_path",
                                                      "bitwise_turns_ms", "sqrt_profile", "carry_chain",
-                                                     "path_profile")})
+                                                     "path_profile", "path_widths")})
         d.update({f"{label}_checked_lanes": r[name]["widths"] for label, r in new_kres.items() if name in r})
         d.update({f"{label}_{key}": r[name][key] for label, r in new_kres.items()
                   for key in ("main_path", "carry_chain") if key in r.get(name, {})})
@@ -4593,6 +4766,9 @@ def main() -> int:
     for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
         kres.setdefault(name, {}).update(res)
     kres["proj_dbl_rcb"]["path_profile"] = profile_cofactor(ctx, pts, rates)
+    for name, res in redesign_chord(ctx, host_pts, rates).items():
+        kres[name]["carry_chain"] = res
+    kres["mul_const"]["path_widths"] = mul_const_widths(ctx, rates)
     te_kres = phase_te_kernels(te, te_host, rates)
     te_kres["ed_add_packed"]["carry_chain"] = redesign_ed_packed(te, te_host, rates)
     te_kres["ed_combine"] = redesign_te_combine(te, te_host, rates)
@@ -4629,7 +4805,7 @@ def main() -> int:
     for c, path in ((ctx, "points"), (te, "te_points")):
         launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
     say(f"[{time.perf_counter() - t_start:.1f} s] phase 4 done")
-    new_kres, post_u = phase_new_curves(rates, kres, launches, expected, t_start)
+    new_kres, post_u = phase_new_curves(ctx, rates, kres, launches, expected, t_start)
     launches[f"micro_2^{MICRO_LOG2N}"] = phase_micro(ctx)
     line, details = kernels_line(kres, te_kres, launches, new_kres, ptx)
     details["aff_post_packed_u_minimums"] = {f"n{n}": {str(m): row for m, row in by_m.items()}

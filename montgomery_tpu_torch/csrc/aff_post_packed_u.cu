@@ -29,32 +29,35 @@
 // 3 products and a square a lane (1,086 32x32->64 multiplies), about 0.11 ms
 // of multiplies at 835,592 lanes against 0.095 ms of bytes. Design: one
 // thread per lane, operands read in place through their row strides, the
-// chord of affine.cuh (shared with the planar aff_post_unsafe.cu), and
-// __launch_bounds__ with a minimum of 5 blocks of 128 threads an SM, so that
-// enough warps are resident for one warp's loads to overlap another's
-// products. Chosen by measurement on an H100 80GB HBM3 at 700 W, with the
-// kernel built at other minimums and timed beside this one: 5 blocks (96
-// registers, 68 bytes of spill) ran 0.2401 ms at 835,592 lanes and 2.955 ms
-// at 10,649,608, against 0.2455 and 3.006 at 4 (127 registers), 0.2443 and
-// 2.977 with no minimum (151 registers), and 0.2761 and 3.306 at 6 (80
-// registers, 300 bytes of spill).
+// chord of affine.cuh (shared with the planar aff_post_unsafe.cu) and the
+// fused level's product on madc.cuh's carry chains (fe_mul_cc, fe_sqr_cc),
+// and __launch_bounds__ with a minimum of resident blocks of 128 threads an
+// SM, so that enough warps are resident for one warp's loads to overlap
+// another's products. The body it replaced, the same on field.cuh's CIOS
+// fe_mul and fe_sqr at that body's minimums (5 blocks at 12 and 9 limbs, 3
+// at 13), is kept as the probe rates/aff_post_packed_u_cios.cu; the two
+// agree bit for bit.
 //
 // The minimum is chosen per limb count (post_u_min_blocks): the least
-// spill, then the faster of two neighbouring minimums by device time, the
-// kernel built at minimums of none and 3 to 7 and timed a launch at the
-// first super-round level of the 2^16 and 2^20 paths (chip_smoke.py
-// post_u_minimums, H100 80GB HBM3 at 700 W). At 13 limbs (BLS12-381) no
-// spill needs a minimum of 4 or less: 3 (161 registers, as with no
-// minimum) ran 0.2818 ms at 835,592 lanes and 3.489 ms at 10,649,608,
-// against 0.2831 and 3.529 at 4 (128 registers); 5 (96 registers, 116
-// bytes of spill) ran 0.2794 and 3.461, 6 (368 bytes) 0.3161 and 3.919. At
-// 9 limbs (Pallas) 5 gives 95 registers and no spill, 0.1311 ms at 835,592
-// lanes and 1.769 at 11,714,568, against 0.1360 and 1.840 at 4 (113
-// registers) and 0.1350 and 1.808 at 6 (80 registers, 16 bytes of spill).
+// spill, then the faster of the two highest minimums without it by device
+// time, the kernel built at minimums of none and 3 to 7 and timed a launch
+// at the first super-round level of the 2^16 and 2^20 paths (chip_smoke.py
+// post_u_minimums, H100 80GB HBM3 at 700 W), ms at 835,592 lanes and at
+// 10,649,608 (11,714,568 at 9 limbs):
+//   12 limbs: 4 (127 registers, no spill) 0.1793 and 2.204; 3 (149) 0.2091
+//     and 2.598; none (123) 0.1889 and 2.263; 5 (96 registers, 48 bytes of
+//     spill) 0.1843 and 2.192; 6 (184 bytes) 0.2016 and 2.481; 7 (296)
+//     0.2386 and 2.967.
+//   13 limbs: 4 (126 registers, no spill) 0.2181 and 2.698; 3 (166) 0.2361
+//     and 2.908; none (126) 0.2183 and 2.693; 5 (96 registers, 88 bytes of
+//     spill) 0.2147 and 2.635; 6 (248 bytes) 0.2507 and 3.105.
+//   9 limbs: 5 (96 registers, no spill) 0.1141 and 1.512; 4 (120) 0.1278
+//     and 1.712; none (96) 0.1256 and 1.638; 6 (80 registers, 8 bytes of
+//     spill) 0.1178 and 1.553; 7 (36 bytes) 0.1149 and 1.482.
 #include "affine.cuh"
 
 // the minimum of resident blocks an SM asked of ptxas at each limb count
-__host__ __device__ constexpr int post_u_min_blocks(int NL) { return NL == 13 ? 3 : 5; }
+__host__ __device__ constexpr int post_u_min_blocks(int NL) { return NL == 9 ? 5 : 4; }
 
 template <int NL>
 __global__ void __launch_bounds__(LANES_PER_BLOCK, post_u_min_blocks(NL))
@@ -72,7 +75,7 @@ aff_post_packed_u_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ 
     uint32_t a[NL], b[NL];
     fe_load(a, inv1, si, i < h ? i : i - h);
     fe_load(b, denom, sd, i < h ? i + h : i - h);
-    fe_mul(d, a, b, F);
+    fe_mul_cc(d, a, b, F);
   }
   load_signed(x1, y1, A, sa, i, sA[i] != 0, F);
   load_signed(x2, y2, B, sb, i, sB[i] != 0, F);

@@ -18,8 +18,32 @@
 // denominator would be 0 or meaningless (cancel, a tangent at y = 0, any
 // infinite operand) gets the Montgomery form of 1 instead, so that no lane
 // brings a zero into the shared inversion.
+//
+// aff_chord runs on the product and square of its template argument Mul
+// (madc.cuh): the carry-chain fe_mul_cc and fe_sqr_cc in the kernels,
+// field.cuh's CIOS fe_mul and fe_sqr in the parents' bodies kept as probes
+// under rates/ (the two agree bit for bit). The safe adds' triage and
+// completion stay on CIOS. Both products are exact only for a b < R p, so
+// the chord's operands, each in [0, 2p):
+//   - x1, y1, x2, y2 as loaded: every producer writes [0, 2p) (Montgomery
+//     forms from pack_raw, mont_mul or mul_const; pack_glv's beta x, a
+//     product; the adds' outputs, fe_sub results; the unreduced [p, 2p)
+//     representatives that the checks feed); load_signed's y is fe_neg of a
+//     [0, 2p) value, 2p - y reduced into [0, 2p) (0 stays 0);
+//   - dinv, and the fused level's inv1: FieldOps.batch_inv and
+//     batch_inv_parent return products (mont_mul, and the root's
+//     divstep_inv_mont ends in a Montgomery product), in [0, 2p);
+//   - the fused level's denom: aff_pre_packed_u's fe_sub, or the Montgomery
+//     form of 1 (below p);
+//   - every fe_sub result: x - y mod 2p, in [0, 2p) for x, y in [0, 2p);
+//   - lambda, and the fused level's dinv: products of two [0, 2p) factors.
+// So every product and square takes a b < 4 p^2, and R > 64p (field.cuh)
+// puts that below R p / 16: no operand comes near R, and nothing is reduced
+// before a product (tests/test_torch_madc.py composes the chord from the
+// product's and the square's op-by-op models and asserts a b < R p at these
+// ranges).
 #pragma once
-#include "field.cuh"
+#include "madc.cuh"
 
 #define AFF_DBL 1
 #define AFF_CANCEL 2
@@ -93,19 +117,19 @@ __device__ __forceinline__ bool aff_complete(uint32_t (&x3)[NL], uint32_t (&y3)[
 
 // the chord of the unsafe add (no edge cases): lambda = (y2 - y1) dinv,
 // x3 = lambda^2 - x1 - x2, y3 = lambda (x1 - x3) - y1; two products and a
-// square (fe_sqr, equal to fe_mul(lam, lam) bit for bit)
-template <int NL>
+// square on Mul (the square equal to the product lam lam bit for bit)
+template <int NL, class Mul = CarryChainMul>
 __device__ __forceinline__ void aff_chord(uint32_t (&x3)[NL], uint32_t (&y3)[NL], const uint32_t (&x1)[NL],
                                           const uint32_t (&y1)[NL], const uint32_t (&x2)[NL],
                                           const uint32_t (&y2)[NL], const uint32_t (&dinv)[NL],
                                           const FieldParams<NL>& F) {
   uint32_t lam[NL], t[NL];
   fe_sub(t, y2, y1, F);
-  fe_mul(lam, t, dinv, F);
-  fe_sqr(t, lam, F);
+  Mul::mul(lam, t, dinv, F);
+  Mul::sqr(t, lam, F);
   fe_sub(t, t, x1, F);
   fe_sub(x3, t, x2, F);
   fe_sub(t, x1, x3, F);
-  fe_mul(y3, lam, t, F);
+  Mul::mul(y3, lam, t, F);
   fe_sub(y3, y3, y1, F);
 }

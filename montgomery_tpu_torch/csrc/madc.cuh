@@ -1,7 +1,8 @@
 // The Montgomery product and square on PTX carry chains, for the
 // one-thread-a-product kernels that are bound by the integer multiply pipe
-// (proj_dbl_rcb.cu's wide body, ed_add_packed.cu, ed_add.cu, exp_ladder.cu;
-// the square fe_sqr_cc is at the end of this file).
+// (proj_dbl_rcb.cu's wide body, ed_add_packed.cu, ed_add.cu, exp_ladder.cu,
+// and the unsafe chord of aff_post_unsafe.cu and aff_post_packed_u.cu; the
+// square fe_sqr_cc is at the end of this file).
 //
 // field.cuh's fe_mul adds each 64-bit product to the running word and its
 // carry in C (`(uint64_t)t[j] + a[j] b[i] + c`), so every step waits on the
@@ -332,14 +333,19 @@ __device__ __forceinline__ void fe_sqr_cc(uint32_t (&r)[NL], const uint32_t (&a)
   r[NL - 1] = cc_addc(H[NL - 1], T[2 * NL - 1]);
 }
 
-// the two products as types, for a formula written once over its product
-// (edwards.cuh's ed_add, projective.cuh's rcb_dbl): field.cuh's CIOS fe_mul
-// and fe_mul_cc
+// the two products and squares as types, for a formula written once over
+// its arithmetic (edwards.cuh's ed_add, projective.cuh's rcb_dbl,
+// affine.cuh's aff_chord): field.cuh's CIOS fe_mul and CIOS-row fe_sqr, and
+// fe_mul_cc and fe_sqr_cc; the two agree bit for bit
 struct CiosMul {
   template <int NL>
   __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
                                              const FieldParams<NL>& F) {
     fe_mul(r, a, b, F);
+  }
+  template <int NL>
+  __device__ static __forceinline__ void sqr(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
+    fe_sqr(r, a, F);
   }
 };
 
@@ -348,5 +354,9 @@ struct CarryChainMul {
   __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
                                              const FieldParams<NL>& F) {
     fe_mul_cc(r, a, b, F);
+  }
+  template <int NL>
+  __device__ static __forceinline__ void sqr(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
+    fe_sqr_cc(r, a, F);
   }
 };

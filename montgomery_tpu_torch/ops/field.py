@@ -487,11 +487,16 @@ class FieldOps:
         return from16(acc)
 
     def exp_const(self, x: torch.Tensor, e: int) -> torch.Tensor:
-        """x^e for a constant e >= 0 (x^0 = one, in Montgomery form)."""
+        """x^e for a constant e >= 0 (x^0 = one, in Montgomery form). An
+        e >= p runs as (e - 1) mod (p - 1) + 1: x^(p - 1) = 1 for x != 0, and
+        the exponent stays at least 1, so 0 still gives 0; every e < p runs
+        its own schedule."""
         if e < 0:
             raise ValueError("negative exponent")
         if e == 0:
             return self.const_plane(self.R_mod_p, x).contiguous()
+        if e >= self.p:
+            e = (e - 1) % (self.p - 1) + 1
         return self.exp_ladder(x, e)
 
     def inv(self, x: torch.Tensor) -> torch.Tensor:

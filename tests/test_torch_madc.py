@@ -316,3 +316,155 @@ def test_square_model_issues_fewer_products(n):
     lo = P.ops["mul.lo"] + P.ops["mad.lo.cc"] + P.ops["madc.lo.cc"]
     hi = P.ops["mul.hi"] + P.ops["madc.hi.cc"] + P.ops["mad.hi.cc"] + P.ops["madc.hi"]
     assert lo == hi == n * (n - 1) // 2 + n + n * n
+
+
+# ------------------------------------------------------------------- chord
+#
+# affine.cuh's aff_chord on CarryChainMul, and aff_post_packed_u.cu's fused
+# last descent level, composed from the two models: every operand held to
+# the range the header states ([0, 2p)) and every product to a b < R p.
+
+
+class ChordModel:
+    """The unsafe chord and the fused post of csrc/affine.cuh and
+    csrc/aff_post_packed_u.cu on Python ints, each product and square by the
+    op-by-op models; `products` records every product's operands."""
+
+    def __init__(self, f):
+        self.f, self.n, self.p, self.R = f, f.n, f.p, f.R
+        self.pw = _words(f.p, f.n)
+        self.products: list[tuple[int, int]] = []
+
+    def _check(self, *vals):
+        assert all(0 <= v < 2 * self.p for v in vals), "an operand left [0, 2p)"
+
+    def mul(self, a, b):
+        self._check(a, b)
+        self.products.append((a, b))
+        r = _value(fe_mul_cc_model(_words(a, self.n), _words(b, self.n), self.pw, self.f.mu))
+        self._check(r)
+        return r
+
+    def sqr(self, a):
+        self._check(a)
+        self.products.append((a, a))
+        r = _value(fe_sqr_cc_model(_words(a, self.n), self.pw, self.f.mu))
+        self._check(r)
+        return r
+
+    def sub(self, x, y):
+        """fe_sub: x - y mod R, plus 2p mod R on a borrow."""
+        self._check(x, y)
+        d = x - y
+        r = (d + 2 * self.p) % self.R if d < 0 else d
+        self._check(r)
+        return r
+
+    def neg(self, y):
+        """fe_neg: 2p - y, less 2p where that does not borrow."""
+        self._check(y)
+        d = 2 * self.p - y
+        return d - 2 * self.p if d >= 2 * self.p else d
+
+    def chord(self, x1, y1, x2, y2, dinv):
+        lam = self.mul(self.sub(y2, y1), dinv)
+        x3 = self.sub(self.sub(self.sqr(lam), x1), x2)
+        return x3, self.sub(self.mul(lam, self.sub(x1, x3)), y1)
+
+    def post_packed_u(self, A, B, sA, sB, inv1, denom, h, hp):
+        """Lane by lane as the kernel: the lane's inverse (one product with
+        the partner's denominator below 2h), the signs folded into y, the
+        chord, the sum where hp, the signed A elsewhere; packed columns."""
+        out = []
+        for i, ((x1, y1, inf1), (x2, y2, _)) in enumerate(zip(A, B)):
+            if h == 0 or i >= 2 * h:
+                d = inv1[h if h else i]
+            else:
+                d = self.mul(inv1[i if i < h else i - h], denom[i + h if i < h else i - h])
+            y1 = self.neg(y1) if sA[i] else y1
+            y2 = self.neg(y2) if sB[i] else y2
+            x3, y3 = self.chord(x1, y1, x2, y2, d)
+            out.append((x3, y3, 0) if hp[i] else (x1, y1, inf1))
+        return out
+
+
+def _below(rng: np.random.Generator, bound: int):
+    """Seeded random ints in [0, bound), without end."""
+    nb = bound.bit_length() // 8 + 8
+    while True:
+        yield int.from_bytes(rng.bytes(nb), "little") % bound
+
+
+def _chord_lanes(f, rng: np.random.Generator, count: int) -> list[tuple[int, int, int, int, int]]:
+    """(x1, y1, x2, y2, dinv) lanes: every edge value (0, 1, p - 1, p,
+    p + 1, 2p - 1, R mod p) in each position, y2 = y1 (with x2 = x1 too),
+    then seeded random values in [0, 2p)."""
+    p = f.p
+    edge = [0, 1, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p]
+    vals = _below(rng, 2 * p)
+    lanes = []
+    for k, v in enumerate(edge):
+        for pos in range(5):
+            lane = [next(vals) for _ in range(5)]
+            lane[pos] = v
+            lanes.append(tuple(lane))
+        x, y = next(vals), edge[(k + 3) % len(edge)]
+        lanes += [(x, y, next(vals), y, v), (x, y, x, y, v)]
+    lanes += [tuple(next(vals) for _ in range(5)) for _ in range(count)]
+    return lanes
+
+
+@pytest.mark.parametrize("curve", ["pallas", "bls12-377", "bls12-381"])
+def test_chord_model_equals_plain(curve):
+    """The carry-chain chord equals AffineOps' plain chord (`post_unsafe_plain`,
+    `_chord16` on 16-bit limbs) and the fused post equals `post_packed_u_plain`
+    bit for bit at 9, 12 and 13 limbs, on edge and seeded random lanes with
+    both signs, paired and unpaired lanes, an odd width (the carried lane
+    i = 2h) and the h = 0 form; every operand stays in [0, 2p) and every
+    product takes a b < R p."""
+    from montgomery_tpu_torch.curves.affine import AffineOps
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    params = CURVES[curve]
+    f = create_field_ops(params.modulus)
+    n, p, R = f.n, f.p, f.R
+    assert n == {"pallas": 9, "bls12-377": 12, "bls12-381": 13}[curve]
+    aff = AffineOps(f, params)
+    rng = np.random.default_rng(16)
+    lanes = _chord_lanes(f, rng, 24)
+    model = ChordModel(f)
+
+    # the planar chord
+    x1, y1, x2, y2, dinv = (f.pack_raw(list(col), "cpu") for col in zip(*lanes))
+    inf = torch.zeros(len(lanes), dtype=torch.bool)
+    got = [model.chord(*lane) for lane in lanes]
+    want = aff.post_unsafe_plain(AffineBatch(x1, y1, inf), AffineBatch(x2, y2, inf), dinv)
+    assert [g[0] for g in got] == codec.unpack(want[0])
+    assert [g[1] for g in got] == codec.unpack(want[1])
+
+    # the fused post, h = M // 2 on an odd width and h = 0
+    M = len(lanes) | 1
+    lanes = lanes[:M] if len(lanes) >= M else lanes + lanes[:M - len(lanes)]
+    vals = _below(rng, 2 * p)
+    A = [(x, y, int(i % 5 == 0)) for i, (x, y, _, _, _) in enumerate(lanes)]
+    B = [(x, y, 0) for _, _, x, y, _ in lanes]
+    sA, sB, hp = ([int(v) for v in rng.integers(0, 2, M)] for _ in range(3))
+    denom = [next(vals) for _ in range(M)]
+    denom[:3] = [f.R_mod_p, 0, 2 * p - 1]
+
+    def packed(cols):
+        return torch.cat([f.pack_raw([c[0] for c in cols], "cpu"), f.pack_raw([c[1] for c in cols], "cpu"),
+                          torch.tensor([[c[2] for c in cols]], dtype=torch.int32)])
+
+    def row(v):
+        return torch.tensor([v], dtype=torch.int32)
+
+    for h in (M // 2, 0):
+        inv1 = [lane[4] for lane in lanes[:(M + 1) // 2 if h else M]]
+        got = model.post_packed_u(A, B, sA, sB, inv1, denom, h, hp)
+        want = aff.post_packed_u_plain(packed(A), packed(B), row(sA), row(sB), f.pack_raw(inv1, "cpu"),
+                                       f.pack_raw(denom, "cpu"), h, row(hp))
+        assert torch.equal(packed(got), want), f"h = {h}"
+    assert len(model.products) > 4 * len(lanes)
+    assert all(a * b < R * p for a, b in model.products)
+    assert max(a * b for a, b in model.products) < 4 * p * p <= R * p // 16

@@ -90,13 +90,34 @@ def test_sqrt_constants(field):
     assert pow(g, 1 << f.sqrt_M, p) == 1 and pow(g, 1 << (f.sqrt_M - 1), p) == p - 1
 
 
-@pytest.mark.parametrize("e", [0, 1, 2, 5, "sqrt", "p-2"])
+@pytest.mark.parametrize("e", [0, 1, 2, 5, "sqrt", "p-2", "3R+5"])
 def test_exp_const_goldilocks(gold, e):
     f, jf, vals, x, jx = gold
     p = f.p
-    e = {"sqrt": (f.sqrt_q_odd - 1) // 2, "p-2": p - 2}.get(e, e)
+    e = {"sqrt": (f.sqrt_q_odd - 1) // 2, "p-2": p - 2, "3R+5": 3 * f.R + 5}.get(e, e)
     got = f.unpack(f.exp_const(x, e), from_mont=True)
     assert got == _jax_canon(jf, jf.exp_const(jx, e)) == [pow(v, e, p) for v in vals]
+
+
+@pytest.mark.parametrize("e", ["R", "3R+5", "2^300", "p-2", "R-1"])
+def test_exp_const_any_exponent_pallas(e):
+    """exp_const takes any e >= 0 (R = 2^288 at Pallas's 9 limbs): e >= p
+    runs as (e - 1) mod (p - 1) + 1, equal to pow() on 0, 1, 2, 12345 and
+    p - 1 with [p, 2p) representatives; an e below p keeps its own schedule,
+    exp_ladder's words."""
+    f = create_field_ops(PALLAS.modulus)
+    p, R = f.p, f.R
+    assert R == 1 << 288
+    e = {"R": R, "3R+5": 3 * R + 5, "2^300": 1 << 300, "p-2": p - 2, "R-1": R - 1}[e]
+    vals = [0, 1, 2, 12345, p - 1]
+    x = _port_planes(f, vals, [i % 2 == 1 for i in range(len(vals))])
+    got = f.exp_const(x, e)
+    assert f.unpack(got, from_mont=True) == [pow(v, e, p) for v in vals]
+    if e < p:
+        assert torch.equal(got, f.exp_ladder(x, e))
+    elif e >= R:
+        with pytest.raises(ValueError):
+            f.exp_ladder(x, e)
 
 
 def _exponents(f) -> dict:
