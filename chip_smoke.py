@@ -10,7 +10,9 @@ runs the planar batched-affine adds against the oracle and the sharded MSM
 on logical meshes of the one card, generates random points of both curves
 on the card by sqrt trial and runs MSMs on them, runs the micro-benchmark
 with the baselines' kernels (the divstep inverse of plain values, the
-Barrett product), and times them.
+Barrett product), runs the rest of the JAX package's API (host and non-GLV
+MSM entries, window_chunk, the curve predicates, the example fields' ops),
+and times them.
 
     python3 chip_smoke.py
 
@@ -220,6 +222,22 @@ Phases, each printed as it runs:
      msm_sharded with the Twisted Edwards adapter at 2 shards and 2^16.
      Every MSM path, sharded ones included, must launch none of the planar
      adds' kernels;
+  7. (after phase 5) the rest of the JAX package's API (`phase_api`,
+     `phase_example_fields`), each run's launches counted: the non-GLV
+     engines at 2^20 (msm_device on signed_digits_device digits, c = 13),
+     window_chunk 4 on the affine-unsafe msm_device_full and 5 on the
+     Twisted Edwards msm_device at 2^20 beside no chunking, msm, msm_glv and
+     EdwardsMsm.msm at 2^16 from Python ints and the size sweep at
+     2^12 -+ 17 (safe and unsafe, msm_full and msm), all against the
+     closed form with medians of 5 and peak memory where timed;
+     is_on_curve and is_in_subgroup at 2^20 lanes with 18 adversarial
+     lanes (BLS12-377's order-2 point (p - 1, 0), points without cofactor
+     clearing, infinity; on Twisted Edwards the order-2 and order-4 points)
+     against the oracle; the ten example fields of 9, 12 and 13 limbs at
+     2^20 lanes (mul, square, add_no_reduce, sub_positive, left_shift, inv,
+     batch_inv, sqrt: each kernel bit for bit with its plain version on
+     2^16 lanes, every op against Python's ints on 1,024 lanes, each
+     timed), and the 1-3 limb fields must raise on the card;
   6. (last) the micro-benchmark (`phase_micro`): micro_bench.main with every
      section at 2^18 lanes, the Barrett chain against the plain chain, and
      inv_divstep and inv_mont_divstep at 2^18 against the Fermat ladder on
@@ -1143,7 +1161,7 @@ def phase_kernels(ctx, pts, rates: dict):
         # kernel 4: GLV digits at the main path's window sizes
         sl = ctx.scalars_to_limbs(_scalar_inputs(ctx.params.order, N, rng))
         for c in (11, 13):
-            k_out = ctx.digits(sl, c)
+            k_out = ctx.digits_device(sl, c)
             p_out = digits_glv_plain(ctx.glv_dev, sl, c)
             err = diff(k_out.to(torch.int64), p_out.to(torch.int64))
             say(f"glv_digits c={c} N={N}: shape {tuple(k_out.shape)} max_abs_err {err}")
@@ -1151,7 +1169,7 @@ def phase_kernels(ctx, pts, rates: dict):
                 raise AssertionError(f"glv_digits c={c} disagrees with its plain version")
             record("glv_digits", err)
         if timed:
-            record("glv_digits", 0, cuda_time_ms(lambda: ctx.digits(sl, 13), KERNEL_REPS),
+            record("glv_digits", 0, cuda_time_ms(lambda: ctx.digits_device(sl, 13), KERNEL_REPS),
                    cuda_time_ms(lambda: digits_glv_plain(ctx.glv_dev, sl, 13), 3, 1))
 
     affine_kernels(ctx, pts, record, diff)
@@ -2816,7 +2834,7 @@ def phase_sharded(ctx, te, pts_full, te_full, host_pts, expected) -> dict:
     N = 1 << min(MSM_LOG2N)
     c = te.default_c(N)
     P = type(te_full)(*[a[..., :N] for a in te_full])
-    digits = te.digits(te.scalars_to_limbs(bench_scalars(te.params.order, N)), c)
+    digits = te.digits_device(te.scalars_to_limbs(bench_scalars(te.params.order, N)), c)
     mesh = meshes[2]
     Ps, ds = shard_points(P, digits, mesh)
     counts, secs, got = counted(lambda: te.ed.to_host(msm_sharded(te.adapter, Ps, ds, c, mesh)), "te",
@@ -4191,6 +4209,434 @@ def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
     return counts
 
 
+# ------------------------------ phase 7: the rest of the JAX package's API
+
+# the example fields' kernel checks: every op at EXAMPLE_LANES lanes, held
+# bit for bit against its plain version on the first EXAMPLE_PLAIN lanes
+# and against Python's ints on EXAMPLE_SAMPLE sampled lanes
+EXAMPLE_LANES = 1 << 20
+EXAMPLE_PLAIN = 1 << 16
+EXAMPLE_SAMPLE = 1024
+EXAMPLE_SHIFTS = (0, 1, 31, 255)
+EXAMPLE_REPS = {"mul": 20, "square": 20, "add_no_reduce": 20, "sub_positive": 20, "left_shift": 20,
+                "inv": 3, "batch_inv": 3, "sqrt": 2}
+# the kernel each op launches (None: torch's own kernels, as in the JAX
+# package, where these are no Pallas kernel either)
+EXAMPLE_KERNEL = {"mul": "mont_mul", "square": "mont_sqr", "add_no_reduce": None, "sub_positive": None,
+                  "left_shift": "mul_const", "inv": "exp_ladder", "batch_inv": "divstep_inv_mont",
+                  "sqrt": "sqrt_win"}
+API_WIDE_LOG2N = 20  # the non-GLV engines, window_chunk and the predicates
+NONGLV_C = 13  # the non-GLV engines at 2^20: K = 20 windows of BLS12-377's 253-bit scalars
+API_LOG2N = 16  # msm, msm_glv and EdwardsMsm.msm from Python ints
+SWEEP_N = ((1 << 12) - 17, (1 << 12) + 17)  # the size sweep's widths (the CPU tests run 1, 2^5, 2^9)
+WINDOW_CHUNK = {"bls12-377": 4, TE_CURVE: 5}  # K = 10 GLV windows (K_pad 12) and 20 (K_pad 20)
+SUBGROUP_ADV = 18  # adversarial lanes at the head of the predicates' 2^20 lanes
+_NONGLV = {"proj_add_rcb", "proj_dbl_rcb", "proj_combine_rcb"}
+_TO_HOST = {"mont_mul", "divstep_inv_mont"}  # to_host: one batch inversion of Z and a product
+PATH_KERNELS.update({
+    "fields": _SOLVE | {"mont_sqr"},
+    "nonglv_projective": _NONGLV,
+    "nonglv_affine_unsafe": _NONGLV | _UNSAFE | _TO_HOST,
+    "nonglv_affine_safe": _NONGLV | _SAFE | _TO_HOST,
+    "chunk_affine_unsafe": _AFFINE | _UNSAFE,
+    "chunk_te": _EDWARDS,
+    # the host entries from Python ints: to_montgomery (mul_const), the MSM, to_host
+    "api_msm": _NONGLV | _TO_HOST | {"mul_const"},
+    "api_msm_glv": _NONGLV | _TO_HOST | {"mul_const"},
+    "api_te_msm": _EDWARDS | _TO_HOST | {"mul_const"},
+    "sweep_safe": _AFFINE | _SAFE,
+    "sweep_unsafe": _AFFINE | _UNSAFE,
+    "sweep_msm_safe": _NONGLV | _SAFE | _TO_HOST,
+    "sweep_msm_unsafe": _NONGLV | _UNSAFE | _TO_HOST,
+    "on_curve": {"mont_mul"},
+    "subgroup": {"proj_add_rcb", "proj_dbl_rcb"},
+    "te_on_curve": {"mont_mul"},
+    "te_subgroup": {"ed_add", "ed_dbl"},
+})
+_ALL = _WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR | _ALT
+PATH_FORBIDDEN.update({
+    "fields": _ALL - PATH_KERNELS["fields"],
+    "nonglv_projective": _ALL - _NONGLV,
+    "nonglv_affine_unsafe": _ALL - PATH_KERNELS["nonglv_affine_unsafe"],
+    "nonglv_affine_safe": _ALL - PATH_KERNELS["nonglv_affine_safe"],
+    "chunk_affine_unsafe": _ALL - PATH_KERNELS["chunk_affine_unsafe"],
+    "chunk_te": _ALL - _EDWARDS,
+    "api_msm": _ALL - PATH_KERNELS["api_msm"],
+    "api_msm_glv": _ALL - PATH_KERNELS["api_msm_glv"],
+    "api_te_msm": _ALL - PATH_KERNELS["api_te_msm"],
+    "sweep_safe": _ALL - PATH_KERNELS["sweep_safe"],
+    "sweep_unsafe": _ALL - PATH_KERNELS["sweep_unsafe"],
+    "sweep_msm_safe": _ALL - PATH_KERNELS["sweep_msm_safe"],
+    "sweep_msm_unsafe": _ALL - PATH_KERNELS["sweep_msm_unsafe"],
+    "on_curve": _ALL - {"mont_mul"},
+    "subgroup": _ALL - PATH_KERNELS["subgroup"],
+    "te_on_curve": _ALL - {"mont_mul"},
+    "te_subgroup": _ALL - PATH_KERNELS["te_subgroup"],
+})
+
+
+def _sample_lanes(N: int, head: int, k: int, seed: int) -> list[int]:
+    """The first `head` lanes and k - head distinct others, drawn from seed."""
+    rng = random.Random(seed)
+    return list(range(head)) + sorted(rng.sample(range(head, N), k - head))
+
+
+def _lanes_ints(t, lanes: list[int]) -> list[int]:
+    """Raw ints of int32 planes at `lanes`."""
+    import torch
+
+    from montgomery_tpu_torch.ops import limbs as codec
+
+    return codec.unpack(t[:, torch.tensor(lanes, device=t.device)])
+
+
+def example_field(name: str, f, gen, rates: dict) -> dict:
+    """One example field at 9, 12 or 13 limbs on the card: mul, square,
+    add_no_reduce, sub_positive, left_shift (k in EXAMPLE_SHIFTS), inv
+    (Fermat, exp_ladder), batch_inv (its root divstep_inv_mont) and sqrt at
+    EXAMPLE_LANES lanes, the first lanes 0, 1, p - 1, p, p + 1, 2p - 1,
+    R mod p and R^2 mod p. Each kernel's result equals its plain version
+    on the same CUDA tensors, bit for bit, on the first EXAMPLE_PLAIN lanes
+    (batch_inv's root at its 512 lanes; sqrt's exp_ladder, sqr_n and
+    sqrt_win through `sqrt_checks` on EXAMPLE_PLAIN lanes of `_sqrt_plane`),
+    and every op equals Python's ints on EXAMPLE_SAMPLE sampled lanes. Each
+    op's launches are counted with the counts set to 0 just before it and
+    timed at EXAMPLE_LANES lanes (CUDA events). Returns {op: result}."""
+    import torch
+
+    from montgomery_tpu_torch.ops import divstep
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    n, p, R, N, H = f.n, f.p, f.R, EXAMPLE_LANES, EXAMPLE_PLAIN
+    Ri = f.R_inv
+    adv = [0, 1, p - 1, p, p + 1, 2 * p - 1, f.R_mod_p, f.R2]
+    x = _field_plane(f, N, gen, adv)
+    y = _field_plane(f, N, gen, adv[::-1])
+    lanes = _sample_lanes(N, len(adv), EXAMPLE_SAMPLE, n + p % 1000)
+    xs, ys = _lanes_ints(x, lanes), _lanes_ints(y, lanes)
+    out = {}
+
+    def diff(a, b):
+        return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+    ops = {
+        "mul": (lambda: f.mul(x, y), lambda: f.mul_plain(x[:, :H], y[:, :H]),
+                lambda o: all(v < 2 * p and v % p == a * b * Ri % p for v, a, b in zip(o, xs, ys))),
+        "square": (lambda: f.square(x), lambda: f.square_plain(x[:, :H]),
+                   lambda o: all(v < 2 * p and v % p == a * a * Ri % p for v, a in zip(o, xs))),
+        "add_no_reduce": (lambda: f.add_no_reduce(x, y), None,
+                          lambda o: o == [a + b for a, b in zip(xs, ys)]),
+        "sub_positive": (lambda: f.sub_positive(x, y), None,
+                         lambda o: o == [a - b + 2 * p for a, b in zip(xs, ys)]),
+        "inv": (lambda: f.inv(x), lambda: f.exp_ladder_plain(x[:, :H], p - 2),
+                lambda o: all(v < 2 * p and v * Ri % p == pow(a * Ri % p, p - 2, p) for v, a in zip(o, xs))),
+        "batch_inv": (lambda: f.batch_inv(x, handle_zero=True), None,
+                      lambda o: all(v * Ri % p == (pow(a * Ri % p, -1, p) if a % p else 0)
+                                    for v, a in zip(o, xs))),
+    }
+    for k in EXAMPLE_SHIFTS:
+        ops[f"left_shift k={k}"] = (lambda k=k: f.left_shift(x, k),
+                                    lambda k=k: f.mul_const_plain(x[:, :H], pow(2, k, p) * R % p),
+                                    lambda o, k=k: all(v < 2 * p and v % p == a * pow(2, k, p) % p
+                                                       for v, a in zip(o, xs)))
+    for label, (kern, plain, exact) in ops.items():
+        op = label.split()[0]
+        counts, _, got = counted(kern, "fields", n, kernels_of={EXAMPLE_KERNEL[op]} - {None})
+        err = diff(got[:, :H], plain()) if plain is not None else 0
+        if err:
+            raise AssertionError(f"{name} {label}: the kernel disagrees with its plain version "
+                                 f"(max_abs_err {err})")
+        if not exact(_lanes_ints(got, lanes)):
+            raise AssertionError(f"{name} {label}: wrong on the sampled lanes against Python's ints")
+        r = out.setdefault(op, {"kernel": EXAMPLE_KERNEL[op], "max_abs_err": 0, "launches": {}})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["launches"][label] = {k: v for k, v in counts.items() if v}
+    # batch_inv's root: divstep_inv_mont on BATCH_INV_STOP lanes, bit for bit
+    root = x[:, :f.BATCH_INV_STOP].contiguous()
+    err = diff(f.inv_root(root), divstep.inv_mont_plain(f, root))
+    if err:
+        raise AssertionError(f"{name}: divstep_inv_mont disagrees with its plain version ({err})")
+
+    # sqrt: its kernels bit for bit on H lanes, then the whole sqrt at N lanes
+    def check(label, kern, plain, lanes_):
+        a, b = kern(), plain()
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        e = max(diff(u, v) for u, v in zip(a, b))
+        if e:
+            raise AssertionError(f"{name} {label} disagrees with its plain version (max_abs_err {e})")
+        return a
+
+    sqrt_checks(f, H, gen, check)
+    # sqr_n runs only where a window lies below the first (M > SQRT_WINDOW)
+    chains = {"sqr_n"} if f.sqrt_M > SQRT_WINDOW else set()
+    counts, _, (root_, ok) = counted(lambda: f.sqrt(x), "fields", n,
+                                     kernels_of={"exp_ladder", "sqrt_win", "mont_mul"} | chains)
+    roots, flags = _lanes_ints(root_, lanes), ok[torch.tensor(lanes, device=ok.device)].tolist()
+    for a, r_, sq in zip(xs, roots, flags):
+        v = a * Ri % p
+        if sq != (v == 0 or pow(v, (p - 1) // 2, p) == 1) or (r_ * Ri % p) ** 2 % p != (v if sq else 0):
+            raise AssertionError(f"{name} sqrt is wrong for {v}")
+    out["sqrt"] = {"kernel": "sqrt_win", "max_abs_err": 0, "launches": {"sqrt": {k: v for k, v in counts.items() if v}},
+                   "M": f.sqrt_M}
+
+    # times at N lanes, and the kernels' bounds
+    ctx_f = type("FieldCtx", (), {"fops": f})()
+    work = {"mul": kernel_work(ctx_f, "mont_mul"), "square": kernel_work(ctx_f, "mont_sqr"),
+            "left_shift": kernel_work(ctx_f, "mul_const"), "inv": sqrt_work(f, "exp_ladder", e=p - 2)}
+    for op, fn in (("mul", lambda: f.mul(x, y)), ("square", lambda: f.square(x)),
+                   ("add_no_reduce", lambda: f.add_no_reduce(x, y)),
+                   ("sub_positive", lambda: f.sub_positive(x, y)), ("left_shift", lambda: f.left_shift(x, 255)),
+                   ("inv", lambda: f.inv(x)), ("batch_inv", lambda: f.batch_inv(x, handle_zero=True)),
+                   ("sqrt", lambda: f.sqrt(x))):
+        ms = cuda_time_ms(fn, EXAMPLE_REPS[op], 1)
+        out[op]["ms"] = ms
+        if op in work:
+            out[op]["bound_ms"], out[op]["bound_by"] = bound_of(*work[op], N, rates)
+    say(f"{name} (n={n}, M={f.sqrt_M}) at {N} lanes, ms a call: "
+        + ", ".join(f"{op} {r['ms']:.4f}" + (f" (bound {r['bound_ms']:.4f}, {r['bound_by']})" if "bound_ms" in r
+                                              else "") for op, r in out.items())
+        + f"; kernels equal their plain versions on {H} lanes, every op Python's ints on {len(lanes)} lanes")
+    return out
+
+
+def phase_example_fields(rates: dict) -> dict:
+    """Every example field of `concrete.example_fields` whose limb count
+    has kernels (9, 12, 13) through `example_field`; the 1-, 2- and 3-limb
+    fields (small, babybear, goldilocks) must raise NotImplementedError on
+    CUDA tensors in every op that launches a kernel."""
+    import torch
+
+    from montgomery_tpu_torch.concrete import example_fields
+    from montgomery_tpu_torch.ops import kernels
+    from montgomery_tpu_torch.ops.field import create_field_ops
+
+    say("== phase 7: the example fields' ops on the card")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for name, F in example_fields().items():
+        f = create_field_ops(F.p)
+        if f.n not in kernels.WEIERSTRASS_LIMBS:
+            x = f.pack_raw([1, 2, F.p - 1], dev)
+            for label, fn in (("mul", lambda: f.mul(x, x)), ("square", lambda: f.square(x)),
+                              ("left_shift", lambda: f.left_shift(x, 1)), ("inv", lambda: f.inv(x)),
+                              ("batch_inv", lambda: f.batch_inv(x)), ("sqrt", lambda: f.sqrt(x))):
+                try:
+                    fn()
+                except NotImplementedError:
+                    continue
+                raise AssertionError(f"{name} ({f.n} limbs) {label} on the card did not raise")
+            say(f"{name} (n={f.n}): every kernel op raises NotImplementedError on the card")
+            out[name] = {"n": f.n, "raises": True}
+            continue
+        t0 = time.perf_counter()
+        out[name] = {"n": f.n, **example_field(name, f, gen, rates),
+                     "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    return out
+
+
+def _msm_stats(run, dev) -> tuple[float, list, float]:
+    """Median of 5 host-clock runs (after one warm-up) and the peak memory
+    (MiB) of one more run."""
+    import torch
+
+    from montgomery_tpu_torch.utils.timing import timeit
+
+    med, times = timeit(run, device=dev, reps=5, warmup=1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    run()
+    torch.cuda.synchronize(dev)
+    return med, times, torch.cuda.max_memory_allocated(dev) / 2**20
+
+
+def phase_api(ctx, te, pts_full, te_full, expected: dict) -> tuple[dict, dict]:
+    """The JAX package's API entries that the earlier phases do not run, on
+    BLS12-377 and ed-on-bls12-377 bench points, each against the closed form
+    and each with its launches counted (counts set to 0 just before it):
+    (b) the non-GLV engines at 2^20 through msm_device on
+    signed_digits_device digits (c = 13), median of 5 and peak memory;
+    (c) window_chunk None and 4 on the affine-unsafe msm_device_full, None
+    and 5 on the Twisted Edwards msm_device, at 2^20, side by side;
+    (d) msm, msm_glv and EdwardsMsm.msm at 2^16 from Python ints, and the
+    size sweep N = 2^12 -+ 17 on the safe and the unsafe engine through
+    msm_full and msm; (e) is_on_curve and is_in_subgroup at 2^20 lanes,
+    lanes 0-17 adversarial. Returns (launch counts by run, results)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+    from montgomery_tpu_torch.msm.api import SCALAR_W
+    from montgomery_tpu_torch.scalar.device import signed_digits_device
+    from montgomery_tpu_torch.scalar.slicing import num_windows
+
+    dev, q, qe = ctx.device, ctx.params.order, te.params.order
+    E, Ee = oracle_curve(ctx.params), oracle_curve(te.params)
+    N = 1 << API_WIDE_LOG2N
+    launches, res = {}, {}
+    A = AffineBatch(*[a[..., :N] for a in pts_full])
+    P = EdwardsBatch(*[a[..., :N] for a in te_full])
+    limbs = ctx.scalars_to_limbs(bench_scalars(q, N))
+    te_limbs = te.scalars_to_limbs(bench_scalars(qe, N))
+    want, te_want = (expected_sum(expected, c.params, N, pf.count) for c, pf in ((ctx, pts_full), (te, te_full)))
+
+    def check(label, got, E_, w):
+        if got.is_zero or not E_.equal(got, w):
+            raise AssertionError(f"{label} differs from the closed form")
+
+    # (b) the non-GLV engines
+    say(f"== phase 7: the non-GLV engines of BLS12-377 at N=2^{API_WIDE_LOG2N}, c={NONGLV_C}")
+    for path in PATHS:
+        affine, unsafe = path != "projective", path == "affine_unsafe"
+
+        def run(affine=affine, unsafe=unsafe):
+            d = signed_digits_device(limbs, SCALAR_W, ctx.scalar_bits, NONGLV_C)
+            return ctx.msm_device(A, d, NONGLV_C, affine=affine, unsafe=unsafe)
+
+        counts, first, S = counted(run, f"nonglv_{path}", ctx.fops.n)
+        check(f"non-GLV {path} at 2^{API_WIDE_LOG2N}", ctx.proj.to_host(S)[0], E, want)
+        med, times, peak = _msm_stats(run, dev)
+        launches[f"nonglv_{path}_2^{API_WIDE_LOG2N}"] = counts
+        res[f"nonglv_{path}"] = {"median_s": med, "times_s": times, "peak_mib": peak}
+        say(f"non-GLV {path} N=2^{API_WIDE_LOG2N} c={NONGLV_C} K={num_windows(ctx.scalar_bits, NONGLV_C)}: equal to the closed form; "
+            f"median {med:.6f} s over 5 runs {['%.6f' % t for t in times]}; peak memory {peak:.1f} MiB; "
+            f"launches {dict((k, v) for k, v in counts.items() if v)}")
+
+    # (c) window_chunk
+    c_te = te.default_c(N)
+    te_d = te.digits_device(te_limbs, c_te)
+    for label, path, runs in (
+            ("bls12-377", "chunk_affine_unsafe",
+             {wc: (lambda wc=wc: ctx.msm_device_full(A, limbs, ctx.default_c(N), affine=True, unsafe=True,
+                                                     window_chunk=wc)) for wc in (None, WINDOW_CHUNK["bls12-377"])}),
+            (TE_CURVE, "chunk_te",
+             {wc: (lambda wc=wc: te.msm_device(P, te_d, c_te, window_chunk=wc)) for wc in (None, WINDOW_CHUNK[TE_CURVE])})):
+        row = {}
+        for wc, run in runs.items():
+            counts, first, S = counted(run, path, ctx.fops.n if label == "bls12-377" else te.fops.n)
+            got = ctx.proj.to_host(S)[0] if label == "bls12-377" else te.ed.to_host(S)[0]
+            check(f"{label} window_chunk={wc}", got, E if label == "bls12-377" else Ee,
+                  want if label == "bls12-377" else te_want)
+            med, times, peak = _msm_stats(run, dev)
+            launches[f"{path}_{wc}_2^{API_WIDE_LOG2N}"] = counts
+            row[str(wc)] = {"median_s": med, "times_s": times, "peak_mib": peak}
+        res[path] = row
+        say(f"window_chunk on {label} N=2^{API_WIDE_LOG2N} ({path}): equal to the closed form; "
+            + "; ".join(f"window_chunk={wc}: median {r['median_s']:.6f} s, peak {r['peak_mib']:.1f} MiB"
+                        for wc, r in row.items()))
+
+    # (d) the host entries from Python ints, and the size sweep
+    n16 = 1 << API_LOG2N
+    say(f"== phase 7: msm, msm_glv and EdwardsMsm.msm at N=2^{API_LOG2N} from Python ints")
+    host = ctx.proj.affine_to_host(AffineBatch(*[a[..., :n16] for a in pts_full]))
+    te_host = te.ed.to_host(EdwardsBatch(*[a[..., :n16] for a in te_full]))
+    sc, te_sc = bench_scalars(q, n16), bench_scalars(qe, n16)
+    w16, te_w16 = expected_sum(expected, ctx.params, n16, pts_full.count), expected_sum(
+        expected, te.params, n16, te_full.count)
+    for path, fn, E_, w in (("api_msm", lambda: ctx.msm(sc, host), E, w16),
+                            ("api_msm_glv", lambda: ctx.msm_glv(sc, host), E, w16),
+                            ("api_te_msm", lambda: te.msm(te_sc, te_host), Ee, te_w16)):
+        counts, secs, got = counted(fn, path, ctx.fops.n if E_ is E else te.fops.n)
+        check(path, got, E_, w)
+        launches[f"{path}_2^{API_LOG2N}"] = counts
+        res[path] = {"seconds": secs}
+        say(f"{path} N=2^{API_LOG2N}: equal to the closed form in {secs:.3f} s (host digits and "
+            f"points included); launches {dict((k, v) for k, v in counts.items() if v)}")
+    for n in SWEEP_N:
+        An = AffineBatch(*[a[..., :n] for a in pts_full])
+        scn = bench_scalars(q, n)
+        wn = closed_form(ctx.params, scn, SEED_POINTS, pts_full.count)
+        for unsafe in (False, True):
+            kind = "unsafe" if unsafe else "safe"
+            for path, fn in ((f"sweep_{kind}", lambda: ctx.msm_full(scn, An, unsafe=unsafe)),
+                             (f"sweep_msm_{kind}", lambda: ctx.msm(scn, An, affine=True, unsafe=unsafe))):
+                counts, secs, got = counted(fn, path, ctx.fops.n)
+                check(f"{path} N={n}", got, E, wn)
+                launches[f"{path}_{n}"] = counts
+                res.setdefault("sweep", {})[f"{path}_{n}"] = secs
+        say(f"size sweep N={n}: msm_full and msm on the safe and the unsafe engine equal the closed form")
+
+    # (e) the predicates at 2^20 lanes
+    res.update(predicates(ctx, te, A, P, launches))
+    return launches, res
+
+
+def _adversarial_weierstrass(E, rng) -> list:
+    """(p - 1, 0) (order 2 when b = 1), 16 points (x, sqrt(x^3 + b))
+    without cofactor clearing, and the point at infinity."""
+    from montgomery_tpu_torch.bigint import AffinePoint
+
+    F, out = E.field, [AffinePoint(E.field.p - 1, 0)]
+    while len(out) < SUBGROUP_ADV - 1:
+        x = rng.randrange(F.p)
+        y = F.sqrt((x * x * x + E.b) % F.p)
+        if y is not None:
+            out.append(AffinePoint(x, y))
+    return out + [AffinePoint.zero()]
+
+
+def _adversarial_edwards(E, rng) -> list:
+    """(0, -1) (order 2), (+-1 / sqrt(-1), 0) (order 4), 14 points without
+    cofactor clearing, and the identity."""
+    from montgomery_tpu_torch.bigint import EdwardsPoint
+
+    F = E.field
+    i = F.inv(F.sqrt(F.p - 1))
+    out = [EdwardsPoint(0, F.p - 1), EdwardsPoint(i, 0), EdwardsPoint(F.p - i, 0)]
+    while len(out) < SUBGROUP_ADV - 1:
+        x = rng.randrange(F.p)
+        den = (1 - E.d * x * x) % F.p
+        y = F.sqrt((1 + x * x) * F.inv(den) % F.p) if den else None
+        if y is not None:
+            out.append(EdwardsPoint(x, y))
+    return out + [EdwardsPoint.zero()]
+
+
+def predicates(ctx, te, A, P, launches: dict) -> dict:
+    """is_on_curve and is_in_subgroup at 2^20 lanes: BLS12-377's bench
+    points (projective, from_affine) and the Twisted Edwards ones, lanes
+    0-17 replaced by `_adversarial_weierstrass` / `_adversarial_edwards`.
+    The flags equal the oracle's on those lanes and are True on every other
+    lane. Each call counted and timed (one run, host clock)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    say(f"== phase 7: is_on_curve and is_in_subgroup at {A.count} lanes, lanes 0-{SUBGROUP_ADV - 1} adversarial")
+    rng = random.Random(21)
+    out = {}
+    for label, c in (("bls12-377", ctx), (TE_CURVE, te)):
+        E = oracle_curve(c.params)
+        if label == "bls12-377":
+            adv = _adversarial_weierstrass(E, rng)
+            head = c.proj.affine_to_device(adv, c.device)
+            Pt = c.proj.from_affine(AffineBatch(*[torch.cat([h, a[..., SUBGROUP_ADV:]], dim=-1)
+                                                  for h, a in zip(head, A)]))
+            ops, tags = c.proj, ("on_curve", "subgroup")
+        else:
+            adv = _adversarial_edwards(E, rng)
+            head = c.ed.to_device(adv, c.device)
+            Pt = EdwardsBatch(*[torch.cat([h, a[..., SUBGROUP_ADV:]], dim=-1) for h, a in zip(head, P)])
+            ops, tags = c.ed, ("te_on_curve", "te_subgroup")
+        row = {}
+        for tag, fn, oracle in ((tags[0], ops.is_on_curve, E.is_on_curve),
+                                (tags[1], ops.is_in_subgroup, E.is_in_subgroup)):
+            counts, secs, flags = counted(lambda fn=fn: fn(Pt), tag, c.fops.n)
+            want = [oracle(p_) for p_ in adv]
+            got = flags[:SUBGROUP_ADV].tolist()
+            if got != want or not bool(flags[SUBGROUP_ADV:].all()):
+                raise AssertionError(f"{label} {tag}: {got} against the oracle's {want}, or a bench "
+                                     "point flagged False")
+            launches[f"{tag}_2^{API_WIDE_LOG2N}"] = counts
+            row[tag] = {"seconds": secs, "launches": {k: v for k, v in counts.items() if v},
+                        "adversarial": got}
+            say(f"{label} {tag} at {A.count} lanes: {secs:.4f} s (host clock, one run); adversarial lanes "
+                f"{got} equal the oracle's, the rest True; launches {row[tag]['launches']}")
+        out[label] = row
+    return out
+
+
 # ------------------------------------ BLS12-381 and Pallas: 13 and 9 limbs
 
 # the Weierstrass curves beside BLS12-377, by their serve labels: their base
@@ -4800,6 +5246,11 @@ def main() -> int:
     say(f"[{time.perf_counter() - t_start:.1f} s] phases 2 and 3 done")
     launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
     say(f"[{time.perf_counter() - t_start:.1f} s] phase 5 done")
+    t7 = time.perf_counter()
+    api_launches, api = phase_api(ctx, te, pts, te_pts, expected)
+    launches.update(api_launches)
+    api["fields"] = phase_example_fields(rates)
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 7 done ({time.perf_counter() - t7:.1f} s)")
     del pts, te_pts
     torch.cuda.empty_cache()
     for c, path in ((ctx, "points"), (te, "te_points")):
@@ -4810,6 +5261,7 @@ def main() -> int:
     line, details = kernels_line(kres, te_kres, launches, new_kres, ptx)
     details["aff_post_packed_u_minimums"] = {f"n{n}": {str(m): row for m, row in by_m.items()}
                                              for n, by_m in post_u.items()}
+    details["api"] = api
     say(json.dumps(details))
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))

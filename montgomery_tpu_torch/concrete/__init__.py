@@ -1,4 +1,4 @@
 """Concrete curve parameter records."""
 
 from .params import (BLS12_377, BLS12_381, ED_ON_BLS12_377, EDWARDS_CURVES, PALLAS,
-                     WEIERSTRASS_CURVES)
+                     WEIERSTRASS_CURVES, example_fields)

@@ -1,11 +1,13 @@
 """Concrete curve parameter records.
 
 A copy of the curves of `montgomery_tpu/concrete/params.py` (public curve
-standards: BLS12-377, BLS12-381, Pallas, ed-on-bls12-377).
+standards: BLS12-377, BLS12-381, Pallas, ed-on-bls12-377) and of its
+example fields.
 """
 
 from __future__ import annotations
 
+from ..bigint.field import Field
 from ..bigint.twisted_edwards import EdwardsParams
 from ..bigint.weierstrass import CurveParams, Endomorphism
 
@@ -127,3 +129,32 @@ ED_ON_BLS12_377 = EdwardsParams(
 
 WEIERSTRASS_CURVES = {c.label: c for c in (BLS12_377, BLS12_381, PALLAS)}
 EDWARDS_CURVES = {ED_ON_BLS12_377.label: ED_ON_BLS12_377}
+
+
+# --- example fields for the field tests (reference concrete/example-fields.ts) ---
+
+def example_fields() -> dict[str, Field]:
+    """The thirteen example fields of montgomery_tpu's `example_fields`. In
+    32-bit limbs (n = ceil((bits + 6) / 32)) small, babybear and goldilocks
+    need 1, 2 and 3 limbs, bls12377 12, bls12381 13, and the others 9."""
+    p_small = 101
+    p_babybear = (1 << 31) - 1
+    p_goldilocks = (1 << 64) - (1 << 32) + 1
+    p_25519 = (1 << 255) - 19
+    p_secp256k1 = (1 << 256) - (1 << 32) - 0b1111010001
+    p_secq256k1 = (1 << 256) - 0x14551231950B75FC4402DA1732FC9BEBF
+    return {
+        "pastaFp": Field(PALLAS_P),
+        "pastaFq": Field(PALLAS_Q),
+        "small": Field(p_small),
+        "babybear": Field(p_babybear),
+        "goldilocks": Field(p_goldilocks),
+        "f25519": Field(p_25519),
+        "secp256k1": Field(p_secp256k1),
+        "secq256k1": Field(p_secq256k1),
+        "bls12381": Field(BLS12_381_P),
+        "bls12381Scalar": Field(BLS12_381_Q),
+        "bls12377": Field(BLS12_377_P),
+        "edBls12377": Field(BLS12_377_Q),
+        "edBls12377Scalar": Field(ED_ON_BLS12_377.order),
+    }

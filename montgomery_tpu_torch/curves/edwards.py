@@ -228,6 +228,9 @@ class EdwardsOps:
             acc = self._add16(acc, [to16(a[..., k:k + 1]) for a in W])
         return EdwardsBatch(*[from16(a) for a in acc])
 
+    def sub(self, P: EdwardsBatch, Q: EdwardsBatch) -> EdwardsBatch:
+        return self.add(P, self.neg(Q))
+
     def scale(self, k: int, P: EdwardsBatch) -> EdwardsBatch:
         """k P for a constant k: the doublings between set bits as one
         `ed_dbl` launch each (the cofactor 4 of ed-on-bls12-377 is one launch
@@ -296,6 +299,11 @@ class EdwardsOps:
         lhs, Z4, dXX = f.mul_list([(f.sub(YY, XX), ZZ), (ZZ, ZZ), (d, XX)])
         rhs = f.add(Z4, f.mul(dXX, YY))
         return f.is_equal(lhs, rhs) & f.is_equal(TZ, XY)
+
+    def is_in_subgroup(self, P: EdwardsBatch) -> torch.Tensor:
+        """Bool over the batch: order P == 0, through `scale` (the unified
+        add is complete, so every point of the curve takes it)."""
+        return self.is_zero(self.scale(self.params.order, P))
 
     def eq(self, P: EdwardsBatch, Q: EdwardsBatch) -> torch.Tensor:
         f = self.f

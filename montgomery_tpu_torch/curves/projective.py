@@ -214,6 +214,14 @@ class ProjectiveOps:
         Z3 = F.add(F.mul(Z3s, t4), F.mul(t0_3, t3))
         return ProjectiveBatch(from16(X3), from16(Y3), from16(Z3))
 
+    def add_mixed(self, P: ProjectiveBatch, A: AffineBatch) -> ProjectiveBatch:
+        """P + an affine point (Z2 = 1): for a = 0 the complete add of
+        `from_affine(A)`, as in the JAX package; an infinite A gives P."""
+        return self.add(P, self.from_affine(A))
+
+    def sub_mixed(self, P: ProjectiveBatch, A: AffineBatch) -> ProjectiveBatch:
+        return self.add_mixed(P, AffineBatch(A.x, self.f.neg(A.y), A.inf))
+
     def double(self, P: ProjectiveBatch) -> ProjectiveBatch:
         return self.double_n(P, 1)
 
@@ -299,6 +307,40 @@ class ProjectiveOps:
         JAX package's double-and-add with selects."""
         return scale_by(self, k, P)
 
+    # ------------------------------------------------------------ predicates
+
+    def is_on_curve(self, P: ProjectiveBatch) -> torch.Tensor:
+        """Bool over the batch: Y^2 Z == X^3 + b Z^3, or the point at
+        infinity; three batched `mul`s and one more (`mont_mul` on the card)."""
+        f = self.f
+        YY, XX, ZZ = f.mul_list([(P.Y, P.Y), (P.X, P.X), (P.Z, P.Z)])
+        b = f.const_plane(self.b_mont, ZZ)
+        lhs, X3, bZZ = f.mul_list([(YY, P.Z), (XX, P.X), (b, ZZ)])
+        rhs = f.add(X3, f.mul(bZZ, P.Z))
+        return f.is_equal(lhs, rhs) | self.is_zero(P)
+
+    def is_in_subgroup(self, P: ProjectiveBatch) -> torch.Tensor:
+        """Bool over the batch: order P == 0, through `scale` (one
+        `double_n` launch per run of doublings, one `add` per set bit). The
+        RCB add is complete only where no two operands differ by a point of
+        order 2; a curve with even cofactor (BLS12-377) has such points, and
+        there the add returns (0 : 0 : 0), which every later add and doubling
+        keeps. A point of the subgroup never meets that case (its multiples
+        have odd order), so a result with Y == 0 marks a point outside it:
+        only a true infinity (Z == 0, Y != 0) passes."""
+        R = self.scale(self.params.order, P)
+        return self.is_zero(R) & ~self.f.is_zero(R.Y)
+
+    def eq(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> torch.Tensor:
+        """Bool over the batch: both at infinity, or neither with
+        X1 Z2 == X2 Z1 and Y1 Z2 == Y2 Z1."""
+        f = self.f
+        zp, zq = self.is_zero(P), self.is_zero(Q)
+        a1, a2, b1, b2 = f.mul_list([(P.X, Q.Z), (Q.X, P.Z), (P.Y, Q.Z), (Q.Y, P.Z)])
+        return (zp & zq) | (~(zp | zq) & f.is_equal(a1, a2) & f.is_equal(b1, b2))
+
+    # ------------------------------------------------------------ conversion
+
     def to_affine(self, P: ProjectiveBatch) -> AffineBatch:
         """Batch normalisation on the device: one batch inversion of Z
         (zeros map to zero) and one batched product; infinity gives
@@ -337,6 +379,8 @@ class ProjectiveOps:
         return list(zip(*[f.unpack(a.reshape(f.n, -1), from_mont=True) for a in P]))
 
     def to_host(self, P: ProjectiveBatch) -> list[AffinePoint]:
-        """Affine points, normalised on the host with one inversion."""
-        X, Y, Z = zip(*self.to_host_raw(P)) if P.X.numel() else ((), (), ())
-        return normalize_host(list(X), list(Y), list(Z), self.f.p)
+        """Affine points, normalised on the device (`to_affine`: one batch
+        inversion), as in the JAX package."""
+        if not P.X.numel():
+            return []
+        return self.affine_to_host(self.to_affine(P))

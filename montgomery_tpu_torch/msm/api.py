@@ -8,6 +8,12 @@ in the JAX package) or the unsafe one (affine=True, unsafe=True: `bench.py`'s
 configuration). `EdwardsMsm` is the Twisted Edwards engine: non-GLV signed
 digits, packed accumulation rounds of the unified add, and the bucket
 reduction in extended coordinates.
+
+Both contexts have the JAX package's host entries: `digits` (numpy signed
+digits of Python ints, no GLV), `msm` (those digits, one copy to the
+device, then `msm_device`), and on `WeierstrassMsm` `digits_glv` and
+`msm_glv`; `digits_device` computes the digits on the device from scalar
+limbs. `window_chunk` accumulates that many windows at a time.
 """
 
 from __future__ import annotations
@@ -26,11 +32,11 @@ from ..ops import kernels
 from ..ops.field import FieldOps, create_field_ops
 from ..ops.limbs import bytes_to_words, words_to_limbs
 from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np, signed_digits_device
-from ..scalar.glv import glv_params
-from ..scalar.slicing import num_windows
+from ..scalar.glv import glv_params, signed_digits_glv
+from ..scalar.slicing import num_windows, signed_digits
 from ..utils.timing import PhaseLog
 from .adapters import AffineAccumAdapter, EdwardsAdapter, ProjectiveAdapter
-from .pippenger import bucket_accumulate, msm_digits, reduce_buckets, window_size
+from .pippenger import bucket_accumulate, msm_digits, msm_digits_affine, reduce_buckets, window_size
 
 SCALAR_W = 13  # scalar limb size, as montgomery_tpu's (api.py:159)
 
@@ -154,27 +160,53 @@ class WeierstrassMsm:
         E = self.proj.endomorphism_affine(A)
         return AffineBatch(*[torch.cat([a, e], dim=-1) for a, e in zip(A, E)])
 
-    def digits(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+    def digits_device(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
         """(ns, N) scalar limbs -> (K, 2N) GLV signed digits (kernel 4)."""
         if self.glv_dev is None:
             raise ValueError("curve has no endomorphism")
         return digits_glv_device(self.glv_dev, scalar_limbs, c)
 
-    def msm_device(self, points_affine: AffineBatch, digits: torch.Tensor, c: int) -> ProjectiveBatch:
-        """sum_i s_i P_i from GLV-expanded points and their signed digits."""
+    def digits(self, scalars, c: int, scalar_bits: int | None = None) -> np.ndarray:
+        """Host digits without GLV: Python ints -> (K, N) int32 signed c-bit
+        digits of the scalars mod q, K = ceil((b + 1) / c) for b = scalar_bits
+        (the order's bits unless given); ValueError if a reduced scalar has
+        more than b bits."""
+        return _host_digits(self.params.order, scalars, c, scalar_bits or self.scalar_bits)
+
+    def digits_glv(self, scalars, c: int) -> np.ndarray:
+        """Host GLV digits: Python ints -> (K, 2N) int32 signed digits of
+        [k1..., k2...] (`scalar.glv.signed_digits_glv`)."""
+        if self.glv is None:
+            raise ValueError("curve has no endomorphism")
+        return signed_digits_glv(self.glv, scalars, c)
+
+    def msm_device(self, points_affine: AffineBatch, digits: torch.Tensor, c: int,
+                   window_chunk: int | None = None, affine: bool = False,
+                   unsafe: bool = False) -> ProjectiveBatch:
+        """sum_i s_i P_i from affine points and their signed digits (K, N):
+        the projective engine, or with affine the batched-affine one on the
+        points' packed rows, with the safe add or with unsafe the unsafe one
+        (whose contract is the caller's: within a bucket no two operands share
+        x, and no point is infinite). `window_chunk` accumulates that many
+        windows at a time."""
+        if affine:
+            group = self.aff_adapter_unsafe if unsafe else self.aff_adapter
+            return msm_digits_affine(group, self.adapter, points_affine, digits, c, window_chunk)
         P = self.adapter.from_points(points_affine)
-        return msm_digits(self.adapter, P, digits, c)
+        return msm_digits(self.adapter, P, digits, c, window_chunk)
 
     def msm_device_full(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
-                        affine: bool = False, unsafe: bool = False) -> ProjectiveBatch:
+                        affine: bool = False, window_chunk: int | None = None,
+                        unsafe: bool = False) -> ProjectiveBatch:
         """GLV digits, GLV point expansion and the MSM, all on the device.
         points_affine: AffineBatch (N); scalar_limbs: (ns, N). With affine,
         the expansion is fused with the packed-row layout (kernel `pack_glv`)
         and the buckets accumulate with the batched-affine add: the safe one
         (any input), or with unsafe the unsafe one, whose contract is the
         caller's: within a bucket no two operands share x, and no point is
-        infinite (distinct random points meet it)."""
-        return self._stages(points_affine, scalar_limbs, c, affine, unsafe)
+        infinite (distinct random points meet it). `window_chunk`
+        accumulates that many windows at a time."""
+        return self._stages(points_affine, scalar_limbs, c, affine, unsafe, window_chunk=window_chunk)
 
     def msm_phases(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
                    affine: bool = True, unsafe: bool = False):
@@ -184,7 +216,8 @@ class WeierstrassMsm:
         return self._stages(points_affine, scalar_limbs, c, affine, unsafe, log), log
 
     def _stages(self, points_affine: AffineBatch, scalar_limbs: torch.Tensor, c: int,
-                affine: bool, unsafe: bool, log: PhaseLog | None = None) -> ProjectiveBatch:
+                affine: bool, unsafe: bool, log: PhaseLog | None = None,
+                window_chunk: int | None = None) -> ProjectiveBatch:
         """The MSM's four stages; each is synchronized and timed into `log`
         when one is given."""
         dev = self.device
@@ -196,7 +229,7 @@ class WeierstrassMsm:
         if affine:
             group = self.aff_adapter_unsafe if unsafe else self.aff_adapter
         with phase("digits (GLV+slice)"):
-            digits = self.digits(scalar_limbs, c)
+            digits = self.digits_device(scalar_limbs, c)
         if affine:
             with phase("expand (pack_glv)"):
                 P = self.affine.pack_rows_glv(points_affine)
@@ -204,7 +237,7 @@ class WeierstrassMsm:
             with phase("expand (endo) + from_affine"):
                 P = self.adapter.from_points(self.expand_points_glv(points_affine))
         with phase("accumulate"):
-            buckets, K, L = bucket_accumulate(group, P, digits, c)
+            buckets, K, L = bucket_accumulate(group, P, digits, c, window_chunk)
         with phase("reduce+combine"):
             if affine:
                 buckets = group.to_projective(buckets)
@@ -221,11 +254,7 @@ class WeierstrassMsm:
         which takes any input; affine=False is the projective engine,
         unsafe=True the unsafe add under its contract (see
         `msm_device_full`)."""
-        if isinstance(points, AffineBatch):
-            A, N = points, points.count
-        else:
-            N = len(points)
-            A = self.affine_to_device(points)
+        A, N = self._host_points(points)
         if N == 0:
             raise ValueError("empty MSM")
         limbs = scalars if isinstance(scalars, torch.Tensor) else self.scalars_to_limbs(scalars)
@@ -233,6 +262,35 @@ class WeierstrassMsm:
             raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
         S = self.msm_device_full(A, limbs, c or self.default_c(N), affine=affine, unsafe=unsafe)
         return self.proj.to_host(S)[0]
+
+    def _host_points(self, points) -> tuple[AffineBatch, int]:
+        """Oracle points or an AffineBatch -> (AffineBatch on the device, N)."""
+        if isinstance(points, AffineBatch):
+            return points, points.count
+        return self.affine_to_device(points), len(points)
+
+    def msm(self, scalars, points, c: int | None = None, affine: bool = False,
+            unsafe: bool = False, scalar_bits: int | None = None) -> AffinePoint:
+        """Host entry without GLV: Python ints and points (oracle points or an
+        AffineBatch) -> sum s_i P_i, from host digits (`digits`, one copy to
+        the device) through `msm_device`'s engines (projective by default;
+        affine, unsafe as there)."""
+        A, N = self._host_points(points)
+        if N == 0 or len(scalars) != N:
+            raise ValueError(f"{len(scalars)} scalars for {N} points (N > 0)")
+        c = c or self.default_c(N)
+        d = torch.from_numpy(self.digits(scalars, c, scalar_bits=scalar_bits)).to(self.device)
+        return self.proj.to_host(self.msm_device(A, d, c, affine=affine, unsafe=unsafe))[0]
+
+    def msm_glv(self, scalars, points, c: int | None = None) -> AffinePoint:
+        """Host entry with GLV digits from the host (`digits_glv`): the
+        projective engine on the expanded points [P..., phi(P)...]."""
+        A, N = self._host_points(points)
+        if N == 0 or len(scalars) != N:
+            raise ValueError(f"{len(scalars)} scalars for {N} points (N > 0)")
+        c = c or self.default_c(N)
+        d = torch.from_numpy(self.digits_glv(scalars, c)).to(self.device)
+        return self.proj.to_host(self.msm_device(self.expand_points_glv(A), d, c))[0]
 
 
 class EdwardsMsm:
@@ -285,13 +343,20 @@ class EdwardsMsm:
     def num_windows(self, c: int) -> int:
         return num_windows(self.scalar_bits, c)
 
-    def digits(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
+    def digits_device(self, scalar_limbs: torch.Tensor, c: int) -> torch.Tensor:
         """(ns, N) scalar limbs -> (K, N) signed c-bit digits (no GLV)."""
         return signed_digits_device(scalar_limbs, SCALAR_W, self.scalar_bits, c)
 
-    def msm_device(self, points: EdwardsBatch, digits: torch.Tensor, c: int) -> EdwardsBatch:
-        """sum_i s_i P_i from extended points and their signed digits."""
-        return msm_digits(self.adapter, self.adapter.pack_rows(points), digits, c)
+    def digits(self, scalars, c: int, scalar_bits: int | None = None) -> np.ndarray:
+        """Host digits: Python ints -> (K, N) int32 signed c-bit digits of the
+        scalars mod q (see `WeierstrassMsm.digits`)."""
+        return _host_digits(self.params.order, scalars, c, scalar_bits or self.scalar_bits)
+
+    def msm_device(self, points: EdwardsBatch, digits: torch.Tensor, c: int,
+                   window_chunk: int | None = None) -> EdwardsBatch:
+        """sum_i s_i P_i from extended points and their signed digits;
+        `window_chunk` accumulates that many windows at a time."""
+        return msm_digits(self.adapter, self.adapter.pack_rows(points), digits, c, window_chunk)
 
     def msm_device_full(self, points: EdwardsBatch, scalar_limbs: torch.Tensor,
                         c: int) -> EdwardsBatch:
@@ -313,7 +378,7 @@ class EdwardsMsm:
             return log.phase(label, self.device) if log is not None else nullcontext()
 
         with phase("digits (signed windows)"):
-            digits = self.digits(scalar_limbs, c)
+            digits = self.digits_device(scalar_limbs, c)
         with phase("pack rows"):
             rows = self.adapter.pack_rows(points)
         with phase("accumulate"):
@@ -340,6 +405,31 @@ class EdwardsMsm:
             raise ValueError(f"{limbs.shape[-1]} scalars for {N} points")
         S = self.msm_device_full(P, limbs, c or self.default_c(N))
         return self.ed.to_host(S)[0]
+
+    def msm(self, scalars, points, c: int | None = None,
+            scalar_bits: int | None = None) -> EdwardsPoint:
+        """Host entry: Python ints and points (oracle points or an
+        EdwardsBatch) -> sum s_i P_i, from host digits (`digits`, one copy to
+        the device) through `msm_device`."""
+        if isinstance(points, EdwardsBatch):
+            P, N = points, points.count
+        else:
+            P, N = self.to_device(points), len(points)
+        if N == 0 or len(scalars) != N:
+            raise ValueError(f"{len(scalars)} scalars for {N} points (N > 0)")
+        c = c or self.default_c(N)
+        d = torch.from_numpy(self.digits(scalars, c, scalar_bits=scalar_bits)).to(self.device)
+        return self.ed.to_host(self.msm_device(P, d, c))[0]
+
+
+def _host_digits(q: int, scalars, c: int, bits: int) -> np.ndarray:
+    """Signed c-bit digits (K, N) of the scalars mod q on the host; the
+    JAX package asserts where this raises ValueError (a reduced scalar above
+    `bits` bits)."""
+    sc = [s % q for s in scalars]
+    if any(v.bit_length() > bits for v in sc):
+        raise ValueError(f"a scalar mod q exceeds scalar_bits = {bits}")
+    return signed_digits(sc, bits, c)
 
 
 def _sub_if_ge(words: np.ndarray, v: int) -> np.ndarray:

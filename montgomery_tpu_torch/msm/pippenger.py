@@ -22,6 +22,8 @@ Both paths:
   combine the windows in one Horner launch each (`combine`);
   `combine_halving`, log2(K) levels of one `double_n` launch and one add
   each, serves any group without one.
+- `window_chunk` accumulates a few windows at a time, as the JAX package's
+  scan over window chunks does: the same launches per chunk, less memory.
 """
 
 from __future__ import annotations
@@ -77,21 +79,24 @@ def _round_sizes(M0: int, G: int, max_python_rounds: int = 8):
     return sizes
 
 
-def msm_digits(group, points, digits: torch.Tensor, c: int):
+def msm_digits(group, points, digits: torch.Tensor, c: int, window_chunk: int | None = None):
     """sum_i s_i P_i from signed digits (K, N) in [-2^(c-1), 2^(c-1)];
     returns a batch of the group's type with trailing shape (1,). `points`
-    is the group's point batch, or its packed rows for a packed group."""
-    buckets, K, L = bucket_accumulate(group, points, digits, c)
-    return reduce_buckets(group, buckets, c, K, L)
+    is the group's point batch, or its packed rows for a packed group;
+    `window_chunk` as in `bucket_accumulate`."""
+    buckets, K_pad, L = bucket_accumulate(group, points, digits, c, window_chunk)
+    return reduce_buckets(group, buckets, c, K_pad, L)
 
 
-def msm_digits_affine(aff_group, proj_group, rows: torch.Tensor, digits: torch.Tensor,
-                      c: int) -> ProjectiveBatch:
-    """MSM with batched-affine accumulation on packed rows (2n+1, N)
-    (`AffineAccumAdapter`); the bucket reduction runs in projective
-    coordinates (`proj_group`)."""
-    buckets, K, L = bucket_accumulate(aff_group, rows, digits, c)
-    return reduce_buckets(proj_group, aff_group.to_projective(buckets), c, K, L)
+def msm_digits_affine(aff_group, proj_group, points, digits: torch.Tensor, c: int,
+                      window_chunk: int | None = None, prepacked: bool = False) -> ProjectiveBatch:
+    """MSM with batched-affine accumulation (`AffineAccumAdapter`); the
+    bucket reduction runs in projective coordinates (`proj_group`).
+    points: an AffineBatch, packed here with `pack_rows`, or with prepacked
+    its packed rows (2n+1, N) (a fused packing kernel's, `pack_rows_glv`)."""
+    rows = points if prepacked else aff_group.pack_rows(points)
+    buckets, K_pad, L = bucket_accumulate(aff_group, rows, digits, c, window_chunk)
+    return reduce_buckets(proj_group, aff_group.to_projective(buckets), c, K_pad, L)
 
 
 def _sort_slots(digits: torch.Tensor, L: int):
@@ -137,14 +142,37 @@ def _bucket_slots(counts, starts, K: int, L: int):
     return counts[gid] == 1, starts[gid]
 
 
-def bucket_accumulate(group, points, digits: torch.Tensor, c: int):
-    """Sort and pair-halving bucket accumulation over all K windows at
-    once. Returns (buckets with planes (n, K, L), K, L); position j of a
-    window is bucket j+1. A group with `add_packed` takes the packed path,
-    with `points` its packed rows (the JAX package packs inside; here the
-    caller does, so a fused packing kernel can feed it)."""
+def bucket_accumulate(group, points, digits: torch.Tensor, c: int,
+                      window_chunk: int | None = None):
+    """Sort and pair-halving bucket accumulation. Returns (buckets with
+    planes (n, K_pad, L), K_pad, L); position j of a window is bucket j+1. A
+    group with `add_packed` takes the packed path, with `points` its packed
+    rows (the JAX package packs inside; here the caller does, so a fused
+    packing kernel can feed it). Without `window_chunk` all K windows
+    accumulate at once; with it, KC = min(window_chunk, K) windows at a time
+    (less memory per round), the K windows padded with zero-digit windows to
+    K_pad = ceil(K / KC) KC, whose buckets are empty, and the chunks' bucket
+    grids joined along the window axis (the JAX package's meaning)."""
+    K, N = digits.shape
+    KC = min(window_chunk or K, K)
+    K_pad = -(-K // KC) * KC
+    if K_pad != K:
+        digits = torch.cat([digits, digits.new_zeros((K_pad - K, N))])
     if hasattr(group, "add_packed"):
-        return _accumulate_packed(group, points, digits, c)
+        group.rounds.clear()
+        accumulate = _accumulate_packed
+    else:
+        accumulate = _accumulate_planes
+    grids = [accumulate(group, points, digits[k:k + KC], c) for k in range(0, K_pad, KC)]
+    if len(grids) > 1:
+        grids = [type(grids[0])(*[torch.cat(planes, dim=-2) for planes in zip(*grids)])]
+    return grids[0], K_pad, 1 << (c - 1)
+
+
+def _accumulate_planes(group, points, digits: torch.Tensor, c: int):
+    """Tree-of-planes path of `bucket_accumulate` (the complete projective
+    group): all windows of `digits` at once; returns the bucket grid with
+    planes (n, K, L)."""
     K, N = digits.shape
     L = 1 << (c - 1)
     dev = digits.device
@@ -184,7 +212,7 @@ def bucket_accumulate(group, points, digits: torch.Tensor, c: int):
     valid, pos = _bucket_slots(counts, starts, K, L)
     Bpt = group.gather(P_cur, pos.clamp(max=P_cur.count - 1))
     Bpt = group.select(valid, Bpt, group.zero_like((K * L,), dev))
-    return _map(lambda a: a.reshape(a.shape[0], K, L), Bpt), K, L
+    return _map(lambda a: a.reshape(a.shape[0], K, L), Bpt)
 
 
 def _bitrev_order(F: int) -> list[int]:
@@ -195,7 +223,8 @@ def _bitrev_order(F: int) -> list[int]:
 
 
 def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
-    """Packed path of `bucket_accumulate` (montgomery_tpu's, :136-395):
+    """Packed path of `bucket_accumulate` (montgomery_tpu's, :136-395), all
+    windows of `digits` at once:
     points stay one (2n+1, M) array, so a round is one column gather and
     one `add_packed` (pre kernel, shared batch inversion, post kernel) that
     folds in the signs and the pass-through of unpaired lanes. Once a window
@@ -203,16 +232,15 @@ def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
     super-round: ONE gather of its 8 operand blocks, then three add levels
     on contiguous halves. The rounds are recorded in `group.rounds` as
     (kind, fan-in, output width), kind "super", "pair" (a shrinking round)
-    or "tail" (a round of the fixed-width loop). Returns (the batch that
-    `group.buckets_from_packed` gives, each plane reshaped from (..., K L) to
-    (..., K, L), K, L)."""
+    or "tail" (a round of the fixed-width loop), appended chunk after chunk.
+    Returns the batch that `group.buckets_from_packed` gives, each plane
+    reshaped from (..., K L) to (..., K, L)."""
     K, N = digits.shape
     L = 1 << (c - 1)
     dev = digits.device
     G = K * L
     M0 = K * N
     perm_flat, counts, starts = _sort_slots(digits, L)
-    group.rounds.clear()
 
     def read_sorted(pos):
         # round-0 operands: the points through the sort order, and their signs
@@ -273,7 +301,7 @@ def _accumulate_packed(group, rows: torch.Tensor, digits: torch.Tensor, c: int):
 
     valid, pos = _bucket_slots(counts, starts, K, L)
     B = group.buckets_from_packed(P_cur.index_select(1, pos.clamp(max=P_cur.shape[1] - 1)), valid)
-    return _map(lambda a: a.reshape(*a.shape[:-1], K, L), B), K, L
+    return _map(lambda a: a.reshape(*a.shape[:-1], K, L), B)
 
 
 def _suffix_scan(group, P, size: int, batch_shape):

@@ -136,9 +136,16 @@ class Plain16:
     """Field arithmetic on (L, *B) int64 tensors of 16-bit limbs (L = 2n).
     Values are taken mod R = 2^(16L); bounds as in `FieldOps`."""
 
+    # CPU products of at most this many lanes run on Python ints (`_mul_ints`;
+    # the two are equally fast near 900 lanes on one core):
+    # the row loop's hundred-odd tensor operations cost about a millisecond at
+    # any width, a lane's ints a few microseconds
+    INT_LANES = 512
+
     def __init__(self, p: int, L: int):
         self.p, self.L = p, L
         self.mu = (-pow(p, -1, 1 << 16)) & _M16
+        self.mu_R = -pow(p, -1, 1 << (16 * L)) % (1 << (16 * L))
         self._consts: dict = {}
 
     def const(self, value: int, ref: torch.Tensor) -> torch.Tensor:
@@ -167,6 +174,10 @@ class Plain16:
         """x - y + 4p, for y < 4p."""
         return self.carry(x + self.const(4 * self.p, x) - y)[0]
 
+    def sub_positive(self, x, y):
+        """x - y + 2p, for y < 2p."""
+        return self.carry(x + self.const(2 * self.p, x) - y)[0]
+
     def add(self, x, y):
         z = self.carry(x + y)[0]
         d, c = self.carry(z - self.const(2 * self.p, z))
@@ -193,6 +204,10 @@ class Plain16:
         (a limb sums at most 2L products below 2^32, far below 2^63)."""
         L = self.L
         x, y = torch.broadcast_tensors(x, y)
+        if x.device.type == "cpu" and x[0].numel() <= self.INT_LANES:
+            out = self._mul_ints(x, y)
+            if out is not None:
+                return out
         pl = self.const(self.p, x)
         T = torch.zeros((2 * L, *x.shape[1:]), dtype=torch.int64, device=x.device)
         for i in range(L):
@@ -202,6 +217,26 @@ class Plain16:
             row.addcmul_(m[None], pl)
             T[i + 1] += T[i] >> 16
         return self.carry(T[L:])[0]
+
+    def _mul_ints(self, x, y):
+        """`mul` on Python ints, lane by lane: (x y + m p) / R mod R with
+        m = -x y p^-1 mod R, the one value the row loop computes (it keeps
+        limb i of x y + m p at 0 for every i < L). None where a limb lies
+        outside [0, 2^16)."""
+        L = self.L
+        xa, ya = x.reshape(L, -1).numpy(), y.reshape(L, -1).numpy()
+        if xa.min() < 0 or ya.min() < 0 or xa.max() > _M16 or ya.max() > _M16:
+            return None
+        xb = xa.T.astype("<u2").tobytes()
+        yb = ya.T.astype("<u2").tobytes()
+        w, mask, p, mu = 2 * L, (1 << (16 * L)) - 1, self.p, self.mu_R
+        out = bytearray()
+        for j in range(0, len(xb), w):
+            t = int.from_bytes(xb[j:j + w], "little") * int.from_bytes(yb[j:j + w], "little")
+            r = (t + (t * mu & mask) * p) >> (16 * L) & mask
+            out += r.to_bytes(w, "little")
+        limbs = np.ascontiguousarray(np.frombuffer(bytes(out), dtype="<u2").reshape(-1, L).T, dtype=np.int64)
+        return torch.from_numpy(limbs).reshape(x.shape)
 
     def mul_const(self, x, value: int):
         return self.mul(x, self.const(value, x))
@@ -257,9 +292,18 @@ class FieldOps:
         """x + y, no reduction: bound(x) + bound(y)."""
         return self._apply(self.plain.add_lazy, x, y)
 
+    def add_no_reduce(self, x, y):
+        """x + y, no reduction: the JAX package's name for `add_lazy`."""
+        return self.add_lazy(x, y)
+
     def sub_lazy(self, x, y):
         """x - y + 4p, no reduction; y < 4p."""
         return self._apply(self.plain.sub_lazy, x, y)
+
+    def sub_positive(self, x, y):
+        """x - y + 2p, no reduction: in [0, 4p) for x, y in [0, 2p), and no
+        underflow for any y < 2p."""
+        return self._apply(self.plain.sub_positive, x, y)
 
     def sub(self, x, y):
         """x - y mod 2p, in [0, 2p)."""
@@ -356,6 +400,13 @@ class FieldOps:
                              kernels.words(codec.to_words(c_mont, self.n)),
                              self.field_words(MUL_CONST), N, n=self.n, device=out.device)
         return out.reshape(shape)
+
+    def left_shift(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """x 2^k mod p for any k >= 0, in [0, 2p): a `mul_const` by the
+        Montgomery form of 2^k mod p (kernel `mul_const` on a CUDA tensor)."""
+        if k < 0:
+            raise ValueError("left_shift needs k >= 0")
+        return self.mul_const(x, pow(2, k, self.p) * self.R % self.p)
 
     def to_montgomery(self, x):
         """x -> x R mod p (a product by R^2 mod p)."""
@@ -632,6 +683,11 @@ class FieldOps:
     def pack_raw(self, values, device="cuda") -> torch.Tensor:
         """Ints in [0, R) -> planes, unreduced."""
         return torch.from_numpy(codec.pack(values, self.n)).to(device)
+
+    @property
+    def n_packed_bytes(self) -> int:
+        """Bytes of one element in the packed byte codec (`limbs.pack_bytes`)."""
+        return codec.n_packed_bytes(self.p)
 
     def unpack(self, arr: torch.Tensor, from_mont: bool = False) -> list[int]:
         """Planes -> canonical ints mod p (Montgomery form undone on the host)."""

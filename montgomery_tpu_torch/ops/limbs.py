@@ -71,6 +71,34 @@ def unpack(arr) -> list[int]:
             for j in range(a.shape[0])]
 
 
+def n_packed_bytes(p: int) -> int:
+    """Bytes of one packed element of F_p: ceil(bits(p) / 8)."""
+    return -(-p.bit_length() // 8)
+
+
+def pack_bytes(data, f, count: int) -> np.ndarray:
+    """Packed little-endian bytes (count elements of ceil(bits(p) / 8)
+    bytes each) -> (n, count) int32 planes of 32-bit limbs, unreduced (the
+    reference's fromPackedBytes). f: the field's FieldOps (its p and n)."""
+    nb = n_packed_bytes(f.p)
+    if len(data) != count * nb:
+        raise ValueError(f"{len(data)} bytes for {count} elements of {nb} bytes")
+    return bytes_to_limbs(bytes(data), nb, W, f.n)
+
+
+def to_bytes(arr, f) -> bytes:
+    """(n, N) planes of 32-bit limbs -> packed little-endian bytes,
+    ceil(bits(p) / 8) an element (the reference's toPackedBytes); raises
+    OverflowError for a value that does not fit in them."""
+    if isinstance(arr, torch.Tensor):
+        arr = arr.detach().cpu().numpy()
+    nb = n_packed_bytes(f.p)
+    B = np.ascontiguousarray(np.asarray(arr, dtype=np.int32).T).astype("<i4").view(np.uint8)
+    if B[:, nb:].any():
+        raise OverflowError(f"a value does not fit in {nb} bytes")
+    return np.ascontiguousarray(B[:, :nb]).tobytes()
+
+
 def pack_scalar(value: int, n: int) -> np.ndarray:
     """One int as an (n, 1) constant plane."""
     return pack([value], n)

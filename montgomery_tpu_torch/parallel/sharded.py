@@ -38,8 +38,8 @@ from ..msm.pippenger import _map, bucket_accumulate, combine_windows, window_sum
 @dataclass(frozen=True)
 class Mesh:
     """An ordered tuple of devices, one shard each (a device may repeat).
-    `axis` names its one axis as the JAX package's mesh does; nothing here
-    reads it (the signature of `make_mesh` matches the JAX package's)."""
+    `axis` names its one axis as the JAX package's mesh does; the MSMs'
+    `axis` argument must name it (their signatures match the JAX package's)."""
 
     devices: tuple[torch.device, ...]
     axis: str = "dp"
@@ -193,40 +193,48 @@ def _reduce_scatter_windows(rg, grids: list, c: int, mesh: Mesh, K: int, L: int)
         return combine_windows(rg, W, c, K2)
 
 
-def msm_sharded(group, points: list, digits: list, c: int, mesh: Mesh, reduce_group=None,
-                to_reduce=None):
+def _check_axis(mesh: Mesh, axis: str) -> None:
+    if axis != mesh.axis:
+        raise ValueError(f"the mesh's axis is {mesh.axis!r}, not {axis!r}")
+
+
+def msm_sharded(group, points: list, digits: list, c: int, mesh: Mesh, axis: str = "dp",
+                window_chunk: int | None = None, reduce_group=None, to_reduce=None):
     """MSM over the shards of `shard_points`: each shard's bucket grid
-    (`bucket_accumulate` with `group`, whose packed rows a packed group
-    makes here from the shard's points), then the window reduce-scatter
-    with `reduce_group` (default `group`) after `to_reduce` (the affine
-    accumulation reduces in complete projective coordinates:
+    (`bucket_accumulate` with `group` and `window_chunk`, whose packed rows
+    a packed group makes here from the shard's points), then the window
+    reduce-scatter with `reduce_group` (default `group`) after `to_reduce`
+    (the affine accumulation reduces in complete projective coordinates:
     reduce_group=ctx.adapter, to_reduce=ctx.aff_adapter.to_projective).
-    Returns a point of the reduce group (planes (n, 1)) on mesh.devices[0]."""
+    `axis` must name the mesh's one axis. Returns a point of the reduce
+    group (planes (n, 1)) on mesh.devices[0]."""
     _check_shards(mesh, points, digits)
+    _check_axis(mesh, axis)
     rg = reduce_group if reduce_group is not None else group
     grids = []
     for dev, P, dg in zip(mesh.devices, points, digits):
         with _scope(dev):
             src = group.pack_rows(P) if hasattr(group, "add_packed") else P
-            B, K, L = bucket_accumulate(group, src, dg, c)
+            B, K, L = bucket_accumulate(group, src, dg, c, window_chunk)
             if to_reduce is not None:
                 B = to_reduce(B)
         grids.append(B)
     return _reduce_scatter_windows(rg, grids, c, mesh, K, L)
 
 
-def msm_full_sharded(ctx, points: list, scalar_limbs: list, c: int, mesh: Mesh,
-                     affine: bool = True, unsafe: bool = False):
+def msm_full_sharded(ctx, points: list, scalar_limbs: list, c: int, mesh: Mesh, axis: str = "dp",
+                     affine: bool = True, unsafe: bool = False, window_chunk: int | None = None):
     """The whole MSM over the shards of `shard_points` (AffineBatch points,
     (ns, N / D) scalar limbs each): per shard the GLV digits, the GLV
     expansion (`pack_rows_glv`, or `expand_points_glv` for the projective
     engine), the bucket accumulation of `WeierstrassMsm.msm_device_full`'s
-    engine (affine, unsafe as there) and the move to projective
-    coordinates; then the reduce-scatter in the complete projective group,
-    each shard's window sums, the gather and the combine. ctx:
-    WeierstrassMsm. Returns a ProjectiveBatch of one point on
+    engine (affine, unsafe and window_chunk as there) and the move to
+    projective coordinates; then the reduce-scatter in the complete
+    projective group, each shard's window sums, the gather and the combine.
+    ctx: WeierstrassMsm. Returns a ProjectiveBatch of one point on
     mesh.devices[0]."""
     _check_shards(mesh, points, scalar_limbs)
+    _check_axis(mesh, axis)
     group = ctx.adapter
     if affine:
         group = ctx.aff_adapter_unsafe if unsafe else ctx.aff_adapter
@@ -234,12 +242,12 @@ def msm_full_sharded(ctx, points: list, scalar_limbs: list, c: int, mesh: Mesh,
     grids = []
     for dev, A, limbs in zip(mesh.devices, points, scalar_limbs):
         with _scope(dev):
-            digits = ctx.digits(limbs, c)
+            digits = ctx.digits_device(limbs, c)
             if affine:
                 src = ctx.affine.pack_rows_glv(A)
             else:
                 src = rg.from_points(ctx.expand_points_glv(A))
-            B, K, L = bucket_accumulate(group, src, digits, c)
+            B, K, L = bucket_accumulate(group, src, digits, c, window_chunk)
             if affine:
                 B = group.to_projective(B)
         grids.append(B)

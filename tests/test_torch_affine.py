@@ -223,7 +223,7 @@ def test_affine_unsafe_msm_matches_oracle(ctx, N, c, first):
     assert E.equal(got, oracle_msm(E, sc, P))
 
     c = c or msm.default_c(N)
-    A, digits = msm.affine_to_device(P), msm.digits(msm.scalars_to_limbs(sc), c)
+    A, digits = msm.affine_to_device(P), msm.digits_device(msm.scalars_to_limbs(sc), c)
     aff, K, L = bucket_accumulate(msm.aff_adapter_unsafe, msm.affine.pack_rows_glv(A), digits, c)
     proj, _, _ = bucket_accumulate(msm.adapter, msm.adapter.from_points(msm.expand_points_glv(A)),
                                    digits, c)

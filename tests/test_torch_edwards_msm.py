@@ -71,7 +71,7 @@ def test_msm_matches_oracle(ctx, N, first):
         assert [label for label, _ in log.entries] == [
             "digits (signed windows)", "pack rows", "accumulate", "reduce+combine"]
         (got,) = msm.ed.to_host(S)
-    assert msm.digits(msm.scalars_to_limbs(sc), 4).shape == (msm.num_windows(4), N) == (63, N)
+    assert msm.digits_device(msm.scalars_to_limbs(sc), 4).shape == (msm.num_windows(4), N) == (63, N)
     rounds = msm.adapter.rounds
     assert rounds[0][:2] == first
     assert {kind for kind, _, _ in rounds[1:]} <= {"pair", "tail"}

@@ -16,7 +16,9 @@ from montgomery_tpu.ops.field import create_field_ops as jax_field_ops
 from montgomery_tpu.scalar.device import ints_to_limbs_np as jax_ints_to_limbs
 from montgomery_tpu_torch import interop
 from montgomery_tpu_torch.ops import limbs as codec
-from montgomery_tpu_torch.ops.field import create_field_ops
+from montgomery_tpu_torch.concrete import example_fields
+from montgomery_tpu_torch.ops.field import (EXP_LADDER, MONT_MUL, MONT_SQR, MUL_CONST, SQR_N, SQRT_WIN,
+                                            Plain16, create_field_ops)
 from montgomery_tpu_torch.scalar.device import ints_to_limbs_np
 
 # several test workers share few cores; these small tensors gain nothing
@@ -154,3 +156,112 @@ def test_mul_const(ctx, const):
         got_t = [v * f.R % P for v in codec.unpack(tres)]
         expect = [x % P for x in xs]
     assert got_t == got_j == expect
+
+
+# ---------------------------------------------------------------- example fields
+
+EXAMPLE_FIELDS = example_fields()
+SHIFTS = (0, 1, 31, 255)
+
+
+def _example_inputs(p: int, seed: int) -> tuple[list[int], list[int]]:
+    """x and y in [0, 2p): 0, 1, p - 1 and the unreduced range [p, 2p)
+    (p, p + 1, 2p - 1 and random values there), then random values below p."""
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, p - 1, p, p + 1, 2 * p - 1]
+    xs = edge + [p + v for v in _rand_below(rng, p, 4)] + _rand_below(rng, p, 6)
+    ys = edge[::-1] + _rand_below(rng, 2 * p, 10)
+    return xs, ys
+
+
+@pytest.mark.parametrize("name", list(EXAMPLE_FIELDS))
+def test_example_field_ops(name):
+    """add_no_reduce, sub_positive and left_shift on each of the thirteen
+    example fields (n = 1 to 13 limbs), against Python ints: exact values
+    for the unreduced sums and differences, canonical values below 2p for
+    the shifts."""
+    p = EXAMPLE_FIELDS[name].p
+    f = create_field_ops(p)
+    assert f.n == -(-(p.bit_length() + 6) // 32)
+    xs, ys = _example_inputs(p, 97)
+    X, Y = (torch.from_numpy(codec.pack(v, f.n)) for v in (xs, ys))
+    assert codec.unpack(f.add_no_reduce(X, Y)) == [x + y for x, y in zip(xs, ys)]
+    assert codec.unpack(f.sub_positive(X, Y)) == [x - y + 2 * p for x, y in zip(xs, ys)]
+    assert all(v < 4 * p for v in codec.unpack(f.sub_positive(X, Y)))
+    for k in SHIFTS:
+        out = codec.unpack(f.left_shift(X, k))
+        assert [v % p for v in out] == [x * pow(2, k, p) % p for x in xs], k
+        assert all(v < 2 * p for v in out)
+    with pytest.raises(ValueError):
+        f.left_shift(X, -1)
+
+
+@pytest.mark.parametrize("name", ["small", "secp256k1", "bls12377"])
+def test_example_field_ops_match_jax(name):
+    """The same ops equal, as canonical values, the JAX package's jitted
+    create_field_ops(p, w=13) functions (one program a field: each compiles
+    its own kernels)."""
+    import jax
+
+    p = EXAMPLE_FIELDS[name].p
+    f, jf = create_field_ops(p), jax_field_ops(p, w=W_JAX)
+    xs, ys = _example_inputs(p, 98)
+    run = jax.jit(lambda x, y: (jf.add_no_reduce(x, y), jf.sub_positive(x, y),
+                                *[jf.left_shift(x, k) for k in SHIFTS]))
+    jout = run(jcodec.pack(xs, jf.mp), jcodec.pack(ys, jf.mp))
+    X, Y = (torch.from_numpy(codec.pack(v, f.n)) for v in (xs, ys))
+    tout = [f.add_no_reduce(X, Y), f.sub_positive(X, Y), *[f.left_shift(X, k) for k in SHIFTS]]
+    for t, j in zip(tout, jout, strict=True):
+        assert [v % p for v in codec.unpack(t)] == [v % p for v in _jax_ints(j)]
+
+
+@pytest.mark.parametrize("name", ["small", "goldilocks", "f25519", "bls12381"])
+def test_byte_codec_matches_jax(name):
+    """pack_bytes / to_bytes: the reference's packed little-endian bytes,
+    ceil(bits(p) / 8) an element, round-trip and agree with the JAX codec;
+    a wrong length and a value too wide for the bytes raise."""
+    p = EXAMPLE_FIELDS[name].p
+    f, jf = create_field_ops(p), jax_field_ops(p, w=W_JAX)
+    nb = f.n_packed_bytes
+    assert nb == jf.mp.n_packed_bytes == -(-p.bit_length() // 8)
+    vals = [0, 1, p - 1] + _rand_below(np.random.default_rng(99), p, 9)
+    data = b"".join(v.to_bytes(nb, "little") for v in vals)
+    planes = codec.pack_bytes(data, f, len(vals))
+    assert planes.shape == (f.n, len(vals)) and codec.unpack(planes) == vals
+    assert _jax_ints(jcodec.pack_bytes(data, jf.mp, len(vals))) == vals
+    assert codec.to_bytes(planes, f) == codec.to_bytes(torch.from_numpy(planes), f) == data
+    assert jcodec.to_bytes(jcodec.pack_bytes(data, jf.mp, len(vals)), jf.mp) == data
+    with pytest.raises(ValueError):
+        codec.pack_bytes(data[:-1], f, len(vals))
+    with pytest.raises(OverflowError):
+        codec.to_bytes(codec.pack([1 << (8 * nb)], f.n), f)
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 512, 513])
+def test_plain_product_int_path(lanes):
+    """Plain16.mul runs CPU products of up to INT_LANES lanes on Python ints:
+    bit for bit the row loop's values (which wider products and CUDA tensors
+    take), on random limbs and all-ones limbs, for 1 to 13 limbs."""
+    rng = np.random.default_rng(lanes)
+    for name in ("small", "goldilocks", "pastaFp", "bls12377", "bls12381"):
+        F = create_field_ops(EXAMPLE_FIELDS[name].p).plain
+        x = torch.from_numpy(rng.integers(0, 1 << 16, size=(F.L, lanes)))
+        y = torch.from_numpy(rng.integers(0, 1 << 16, size=(F.L, lanes)))
+        x[:, 0] = y[:, 0] = 0xFFFF
+        row_loop = Plain16(F.p, F.L)
+        row_loop.INT_LANES = 0
+        assert torch.equal(F.mul(x, y), row_loop.mul(x, y))
+        assert torch.equal(F.mul(x[:, :1], y), row_loop.mul(x[:, :1], y))  # broadcast
+        assert F.mul(x, y).is_contiguous()
+
+
+def test_kernels_refuse_small_fields():
+    """No kernel is instantiated at 1, 2 or 3 limbs (small, babybear,
+    goldilocks): their launch parameters raise before any launch, so a CUDA
+    tensor of such a field raises instead of running elsewhere."""
+    for name in ("small", "babybear", "goldilocks"):
+        f = create_field_ops(EXAMPLE_FIELDS[name].p)
+        assert f.n in (1, 2, 3)
+        for kernel in (MONT_MUL, MONT_SQR, MUL_CONST, EXP_LADDER, SQR_N, SQRT_WIN):
+            with pytest.raises(NotImplementedError):
+                f.field_words(kernel)
