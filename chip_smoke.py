@@ -12,7 +12,8 @@ on the card by sqrt trial and runs MSMs on them, runs the micro-benchmark
 with the baselines' kernels (the divstep inverse of plain values, the
 Barrett product), runs the rest of the JAX package's API (host and non-GLV
 MSM entries, window_chunk, the curve predicates, the example fields' ops),
-and times them.
+runs curves with a != 0 (NIST P-256 and P-384: the general-a group law and
+the safe triage kernels' a term), and times them.
 
     python3 chip_smoke.py
 
@@ -30,19 +31,13 @@ Phases, each printed as it runs:
      fe_sqr, the carry-chain fe_sqr_cc, fe_mul_cc(a, a); `square_rates`,
      equal bit for bit), from which exp_ladder takes its square; the SASS
      opcode histograms of one product and one square (the one-thread
-     chains) and of
-     proj_dbl_rcb's wide body and ed_add_packed beside the bodies they
-     replaced (`csrc/rates/proj_dbl_rcb_cios.cu`, built once per limb
-     count, and `csrc/rates/ed_add_packed_cios.cu`), with the
-     two pairs' ptxas registers and spills, and those of exp_ladder and
-     ed_add/ed_dbl beside the parents' bodies kept as probes
-     (`csrc/rates/exp_ladder_2bit.cu`, once per limb count, and
-     `csrc/rates/ed_add_cios.cu`), and of aff_post_packed_u and
-     aff_post_unsafe beside the chord's CIOS bodies
-     (`csrc/rates/aff_post_packed_u_cios.cu`, `aff_post_unsafe_cios.cu`,
-     once per limb count); the
-     bit-by-bit sqrt window (`csrc/rates/sqrt_win_bitwise.cu`) that phase 1
-     times the table window against; the latency of
+     chains) and of proj_dbl_rcb's wide body, ed_add_packed and the chord's
+     two kernels, with the redesigned bodies' ptxas registers and spills
+     (the CIOS bodies those redesigns replaced, kept under `csrc/rates/`,
+     are no longer built: their turns stand in PERF.md); the parent's
+     aff_pre and aff_pre_packed before the a term
+     (`csrc/rates/aff_pre_parent.cu`, 12 limbs) that phase 8 times the
+     a = 0 instantiation against; the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
      and of a whole batch on a warp (`csrc/rates/divstep_latency.cu`),
      which the divstep inverses' floors multiply; ptxas of every
@@ -80,7 +75,7 @@ Phases, each printed as it runs:
      at 1 lane and every width window_sums launches at 2^20 (10 to 2,560
      lanes), 10 fresh inputs each with identities, P == Q, P == -Q and
      unreduced values, bit for bit against add_plain and each other, then
-     both swept (device time a launch) from 1 to 2^20 lanes; glv_digits
+     both timed (device time a launch) at 20 and 80 lanes; glv_digits
      at 2^16 and 2^20 for every c of the window table, bit for bit against
      digits_glv_plain with the edge scalars (0, 1, q - 1, q - 2, 2^252 and
      near-integer s g / 2^m) in the first lanes, BLS12-381's and Pallas's
@@ -97,21 +92,16 @@ Phases, each printed as it runs:
      wide body on the carry-chain product (`redesign_dbl`, here at 12
      limbs, and for BLS12-381 and Pallas in their phase 1) at 1, 3,072,
      2^16 + 17 and 2^20 lanes for k = 1, 5 and 92 on the bench points with
-     random Z, infinity and [p, 2p) values, bit for bit against the
-     parent's CIOS body on every lane and the plain version (on every
-     lane, or 1,024 at each end); at 12 and 13 limbs both timed in turns
-     (new, parent, parent, new: events and the profiler's device time) at
-     2^20 lanes for k = 1 and 92, and the wide and the few-lane body swept
-     at 10 to 8,192 lanes (the few-lane threshold); then the cofactor stage of
-     the random points at 2^20 (`profile_cofactor`), each launch's device
-     time with its k, lanes and bound, on either doubling body. Then the
+     random Z, infinity and [p, 2p) values, bit for bit against the plain
+     version (on every lane, or 1,024 at each end); then the cofactor stage
+     of the random points at 2^20 (`profile_cofactor`), each launch's device
+     time with its k, lanes and bound. Then the
      unsafe chord on carry chains (`redesign_chord`, here at 12 limbs and
      for BLS12-381 and Pallas in their phase 1): aff_post_packed_u at the
      first super-round level of the 2^16 and 2^20 paths and aff_post_unsafe
      at 2^20 lanes, flag classes and 0, 1, p - 1, [p, 2p) values in the
-     first lanes, bit for bit on every lane against the plain version and
-     the CIOS body it replaced (`csrc/rates/aff_post_packed_u_cios.cu`,
-     `csrc/rates/aff_post_unsafe_cios.cu`), both timed in turns; then
+     first lanes, bit for bit on every lane against the plain version, both
+     timed; then
      mul_const's device time at 2^20 and 2,621,456 lanes
      (`mul_const_widths`).
      Then the Twisted Edwards path's kernels
@@ -127,14 +117,12 @@ Phases, each printed as it runs:
      ed_add a level), timed beside it (events, and the profiler's device ms
      with the host ms), with its bound and dependent-chain floor; ed_add and
      ed_dbl (k = 1 and 6) on both bodies (one thread a lane; the
-     narrow-launch body below EdwardsOps.FEW_ADD_LANES / FEW_DBL_LANES) and
-     the parent's CIOS body at 1 to 2^20 lanes (`redesign_ed_add`), bit for
-     bit against the plain version, then swept (device time a launch) with
-     the bound and dependent-chain floor; and
-     ed_add_packed on the carry-chain product (`redesign_ed_packed`) at 1
-     lane and at the 2^20 path's first level (10,813,448 lanes), bit for
-     bit against the plain version and the parent's body, both timed in
-     turns at that level. Then
+     narrow-launch body below EdwardsOps.FEW_ADD_LANES / FEW_DBL_LANES) at
+     1 to 2^20 lanes (`redesign_ed_add`), bit for bit against the plain
+     version; and ed_add_packed on the carry-chain product
+     (`redesign_ed_packed`) at 1 lane, bit for bit against the plain
+     version, and timed at the 2^20 path's first level (10,813,448 lanes).
+     Then
      the sqrt slice's kernels (`phase_sqrt_kernels`) at 12 and 9 limbs:
      exp_ladder (e = p - 2 and (q - 1) / 2), sqr_n (m = 1, 42, 43 and every
      chain) and every sqrt_win window of one whole sqrt, bit for bit, at
@@ -142,14 +130,12 @@ Phases, each printed as it runs:
      squares and known non-squares in the first lanes, and sqrt_win at every
      window and the whole sqrt at the 2,621,456 candidates of a 2^20-point
      generation (1,024 sampled lanes against pow() and Euler's criterion);
-     inv against inv_root; each timed at 2,621,456 lanes, sqrt_win also in
-     turns with the bit-by-bit window it replaced; exp_ladder (the sliding
-     window on carry chains, `ladder_checks`; here and for BLS12-381 and
-     Pallas at 2^20 in their phase 1) at e = (q - 1) / 2 and p - 2 on 1, 17,
-     2^16 + 17 lanes and the path's width, bit for bit against its plain
-     version and in canonical values against the parent's 2-bit ladder, in
-     turns with it (new, parent, parent, new) at the path's width, with the
-     new and the old bound, and at every window w = 2-5. Then the
+     inv against inv_root; each timed at 2,621,456 lanes; exp_ladder (the
+     sliding window on carry chains, `ladder_checks`; here and for
+     BLS12-381 and Pallas at 2^20 in their phase 1) at e = (q - 1) / 2 and
+     p - 2 on 1, 17, 2^16 + 17 lanes and the path's width, bit for bit
+     against its plain version, timed at the path's width with the new and
+     the old bound. Then the
      planar adds' kernels (`planar_kernels`: aff_pre, aff_post,
      aff_pre_unsafe with and without its validity mask, aff_post_unsafe)
      bit for bit at 2^16, 2^16 + 17 and 2^20 lanes, every flag class in the
@@ -199,10 +185,9 @@ Phases, each printed as it runs:
      "ed-on-bls12-377") at 2^20 from packed bytes; then the Twisted Edwards
      MSM at 2^20 profiled on either ed_add_packed body
      (`profile_te_packed`: each launch's device time, lanes and bound), and
-     on ed_add's and ed_dbl's bodies in turns with the parent's CIOS body
-     (`profile_te_add`: each of the 37 ed_add and the ed_dbl launch's device
-     time, lanes and body, summed beside the bound and dependent-chain
-     floor);
+     on ed_add's and ed_dbl's bodies (`profile_te_add`: each of the 37
+     ed_add and the ed_dbl launch's device time, lanes and body, summed
+     beside the bound and dependent-chain floor);
   4. random_points_weierstrass (BLS12-377) and random_points_edwards
      (ed-on-bls12-377) at 2^20 points (`phase_points`): launch counts of one
      generation (exp_ladder 1, sqr_n 11, sqrt_win 12, every launch at the
@@ -255,9 +240,24 @@ Between phases 4 and 6, BLS12-381 and Pallas (`phase_new_curves`), each on
   engine at 2^16 and 2^20 (BLS12-381's unsafe one also at 2^18) against
   the closed form, every launch at the curve's limb count and none at 12,
   with the main path's profile, and compute_msm at 2^20 from bytes; phase
-  4, random_points_weierstrass at 2^16; and aff_post_packed_u at 12, 13
-  and 9 limbs built at other __launch_bounds__ minimums and timed beside
-  its own (`post_u_minimums`).
+  4, random_points_weierstrass at 2^16.
+  8. (after them, before phase 6) curves with a != 0 (`phase_general_a`,
+     montgomery_tpu_torch/testing/curves.py): the a = 0 instantiation of
+     aff_pre and aff_pre_packed must keep the parent's ptxas registers at
+     9, 12 and 13 limbs, and is timed against the parent's body in turns
+     at 12 limbs; both kernels with the a term bit for bit with their plain
+     versions at 1, 17, 640, 2^16 and 2^16 + 17 lanes (every flag class
+     first) and timed at 9 (P-256) and 13 (P-384) limbs; P-256's engines
+     through msm (host digits) against the bigint oracle at N = 16 and 512
+     (duplicates, negations, infinity, zero scalars; the unsafe one on
+     distinct points), and through msm_device on signed_digits_device
+     digits at 2^16 and 2^20 on random_points_fast(seed=42) points against
+     the closed form (no RCB kernel may launch; medians of 5, peak memory
+     and the stages' split at 2^20); the adversarial safe set at 2^16; the
+     projective predicates at 2^16 lanes with off-curve and infinite
+     lanes; the planar batch_add and batch_double at 2^20 lanes (1,024
+     sampled lanes against the oracle); random_points_weierstrass at 2^16
+     (`phase_points`). P-384: the engines at 2^16 and the oracle at N = 16.
 The last lines are a JSON object of per-kernel details, the JSON object of
 per-kernel results (13- and 9-limb measurements under "n13" and "n9" or
 "n9_weierstrass"), the card's name and power limit, and a JSON object
@@ -291,23 +291,6 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 RATE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "imad_rate.cu"
 LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "mul_latency.cu"
 DIVSTEP_LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "divstep_latency.cu"
-# the bit-by-bit sqrt window that the table lookup replaced, built apart and
-# timed in turns with it (phase 1)
-SQRT_BITWISE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "sqrt_win_bitwise.cu"
-# the CIOS bodies that proj_dbl_rcb's wide body and ed_add_packed on the
-# carry-chain product replaced, built apart (the first once per limb count)
-# and timed in turns with them
-DBL_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "proj_dbl_rcb_cios.cu"
-EDP_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_packed_cios.cu"
-# the bodies that exp_ladder's sliding window on carry chains and ed_add's
-# and ed_dbl's bodies replaced: the 2-bit CIOS ladder (built once per limb
-# count) and the one-thread CIOS add and doubling
-LADDER_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "exp_ladder_2bit.cu"
-EDA_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "ed_add_cios.cu"
-# the CIOS bodies that the unsafe chord on carry chains replaced in
-# aff_post_packed_u and aff_post_unsafe, each built once per limb count
-POST_U_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_post_packed_u_cios.cu"
-POST_UNSAFE_PROBE_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_post_unsafe_cios.cu"
 CHORD_TURN_REPS = 10  # launches a turn of the chord's two kernels (CUDA events, then the profiler)
 CHORD_PLANAR_LANES = 1 << 20  # aff_post_unsafe's checks and turns
 MUL_CONST_WIDTHS = (1 << 20, 2_621_456)  # mul_const's widths on its paths at 12 limbs: expand, points
@@ -375,16 +358,12 @@ SQRT_CHAINS = (1, 42, 43)  # sqr_n's m: the shortest chain, and the first of eac
 # the sqrt slice's widths: the kernels bit for bit at 1 lane and at
 # KERNEL_LANES, sqrt_win and the whole sqrt also at the candidates of a 2^20
 # generation (SQRT_SAMPLE sampled lanes against pow()); sqrt_win timed there
-# against the bit-by-bit window in SQRT_TURNS
 SQRT_LANES = (1, *KERNEL_LANES)
 SQRT_WIDE = int(GEN_OVERSAMPLE * (1 << GEN_LOG2N)) + 16
 SQRT_SAMPLE = 1024
-SQRT_TURNS = ("table", "bitwise", "bitwise", "table", "table", "bitwise")
 # exp_ladder: its check widths below the path's (one lane, a ragged warp, a
-# ragged 2^16), the windows swept at the path's width, back-to-back calls a
-# timing (about 40-70 ms each)
+# ragged 2^16), back-to-back calls a timing (about 40-70 ms each)
 LADDER_LANES = (1, 17, (1 << 16) + 17)
-LADDER_WINDOWS = (2, 3, 4, 5)
 LADDER_TURN_REPS = 3
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
@@ -393,14 +372,12 @@ TE_COMBINE_K = 208  # ed_dbl's k on the halving combine's first level at 2^20: c
 # path's launches at 2^20 of the kernels the combine changed
 TE_COMBINE_CASES = ((20, 13), (23, 11))
 TE_PATH_LAUNCHES = {"ed_combine": 1, "ed_dbl": 1, "ed_add": 37}
-# ed_add's and ed_dbl's bodies: checked and swept at these widths (one lane,
-# the window sums' launches at 2^20 from 20 to 40,960 lanes, the kernel
-# table's 2^16 and the cofactor scale's 2^20), the doubling at k of
-# ED_DBL_K and swept at ED_SWEEP_K (the window sums' k = log2 S = 6)
+# ed_add's and ed_dbl's bodies: checked at these widths (one lane, the
+# window sums' launches at 2^20 from 20 to 40,960 lanes, the kernel table's
+# 2^16 and the cofactor scale's 2^20), the doubling at k of ED_DBL_K (6: the
+# window sums' k = log2 S)
 ED_WIDTHS = (1, 20, 640, 1280, 5120, 20480, 40960, 1 << 16, 1 << 20)
 ED_DBL_K = (1, 6)
-ED_SWEEP_K = 6
-ED_SWEEP_REPS = 20
 # the redesigned kernels at the main paths' shapes: the combine's (K, c) at
 # 2^20 and 2^16; window_sums' doublings at 2^20 (k = log2 S = 6 on K = 10
 # lanes); fresh-input checks of the combine and the fused post (the widest
@@ -411,11 +388,10 @@ DBL_CHAIN = 600  # doublings on one lane, for the time of one
 REDESIGN_REPS = 10
 # proj_add_rcb's bodies: checked at the widths window_sums launches at 2^20
 # (the tree levels and scans of 640 lanes and below, the row and column
-# trees' 1,280 and 2,560) and at 1 lane; swept at 1 and 10 2^k lanes up to
-# 20,480 (the widest window_sums level), at 65,536 (the kernel table's), and
-# at 2^18 and 2^20 (the projective engine's rounds, the cofactor scale)
+# trees' 1,280 and 2,560) and at 1 lane; timed at one width each side of
+# FEW_ADD_LANES (the threshold's sweep from 1 to 2^20 lanes is in PERF.md)
 ADD_CHECK_LANES = (1, 10, 20, 40, 80, 160, 320, 640, 1280, 2560)
-ADD_SWEEP_LANES = (1, *(10 << k for k in range(12)), 1 << 16, 1 << 18, 1 << 20)
+ADD_SWEEP_LANES = (20, 80)
 ADD_SWEEP_REPS = 20  # launches of each body at each width, under the profiler
 # glv_digits: (log2 N, c) of the main paths at 2^16 and 2^20; every c of
 # the window table is checked at both
@@ -429,14 +405,10 @@ DIVSTEP_TIMING_REPS = 20
 # proj_dbl_rcb's wide body: checked at these widths (3,072 above the
 # few-lane threshold, 2^20 the cofactor stage's) and k (92 the cofactor stage's
 # longest launch), against the plain version on every lane up to 2
-# DBL_PLAIN_LANES lanes and on that many at each end beyond; timed in turns
-# at 2^20 lanes for each k of DBL_TURN_K; both bodies swept at FEW_SWEEP
-# lanes (from the window sums' 10 up) for the few-lane threshold
+# DBL_PLAIN_LANES lanes and on that many at each end beyond
 DBL_CHECK_LANES = (1, 3072, (1 << 16) + 17, 1 << 20)
 DBL_CHECK_K = (1, 5, 92)
 DBL_PLAIN_LANES = 1024
-DBL_TURN_K = (1, 92)
-FEW_SWEEP = (10, 20, 40, 80, 160, 320, 640, 1024, 2048, 3072, 4096, 8192)
 # the main path's launches (affine-unsafe at 2^20) of the kernels this
 # script's redesign phase holds to their new shapes
 MAIN_PATH_LAUNCHES = {"proj_combine_rcb": 1, "proj_dbl_rcb": 1, "proj_add_rcb": 37, "mont_mul": 236,
@@ -475,6 +447,21 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def timed_once(fn):
+    """(fn(), its device time in ms by CUDA events): one run timed, so that
+    a slow plain version checked against its kernel is not run again to be
+    timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def device_times(fn, trace: str | None = None) -> tuple[dict, float, float, dict, list]:
@@ -666,11 +653,7 @@ def phase_env() -> dict:
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
     probes = {key: start_probe_build(*key) if isinstance(key, tuple) else start_probe_build(key)
-              for key in ((DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 9), (LADDER_PROBE_SRC, 13),
-                          (LADDER_PROBE_SRC, 12), (LADDER_PROBE_SRC, 9), (POST_U_PROBE_SRC, 13),
-                          (POST_U_PROBE_SRC, 12), (POST_U_PROBE_SRC, 9), (POST_UNSAFE_PROBE_SRC, 13),
-                          (POST_UNSAFE_PROBE_SRC, 12), (POST_UNSAFE_PROBE_SRC, 9), RATE_SRC, LATENCY_SRC,
-                          DIVSTEP_LATENCY_SRC, SQRT_BITWISE_SRC, EDP_PROBE_SRC, EDA_PROBE_SRC)}
+              for key in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC, (AFF_PRE_PARENT_SRC, 12))}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -698,7 +681,7 @@ def phase_env() -> dict:
             probe_ptxas.update(ptxas_by_limbs(log))
     PROBES.update({key: lib for key, (_, lib) in probes.items()})
     say(f"[{time.perf_counter() - t0:.1f} s] probes built")
-    redesigned_ptxas(ptxas_by_limbs(kernels.LIBRARY.build_log), probe_ptxas)
+    redesigned_ptxas(ptxas_by_limbs(kernels.LIBRARY.build_log))
     redesigned_sass(probes)
     say(f"[{time.perf_counter() - t0:.1f} s] SASS read")
     rates = multiply_rates(probes[RATE_SRC][1], clock)
@@ -708,27 +691,25 @@ def phase_env() -> dict:
     return rates
 
 
-def redesigned_ptxas(new: dict, parent: dict) -> None:
+def redesigned_ptxas(new: dict) -> None:
     """ptxas (registers, stack frame, spill stores, spill loads, shared
-    memory bytes) of the two bodies redesigned on the carry-chain product
-    beside the parent's (the probes); `parent` is empty where the probes
-    were built before this run."""
-    say("ptxas of the redesigned bodies (registers, stack, spill stores, spill loads, smem): new / parent")
+    memory bytes) of the bodies redesigned on the carry-chain product. The
+    CIOS bodies they replaced are no longer built: PERF.md keeps their
+    numbers."""
+    say("ptxas of the redesigned bodies (registers, stack, spill stores, spill loads, smem)")
     for name, nl in (("proj_dbl_rcb", 12), ("proj_dbl_rcb", 13), ("proj_dbl_rcb", 9), ("ed_add_packed", 9),
                      ("exp_ladder", 12), ("exp_ladder", 13), ("exp_ladder", 9), ("aff_post_packed_u", 12),
                      ("aff_post_packed_u", 13), ("aff_post_packed_u", 9), ("aff_post_unsafe", 12),
                      ("aff_post_unsafe", 13), ("aff_post_unsafe", 9)):
-        say(f"  {name} n={nl}: {new.get((name, nl))} / {parent.get((name, nl), 'built before this run')}")
-    for name in ("ed_add", "ed_dbl"):  # the parent had the one-thread body alone
-        say(f"  {name} n=9: wide {new.get((name, 9))}, narrow {new.get((name + '_few', 9))} / "
-            f"{parent.get((name, 9), 'built before this run')}")
+        say(f"  {name} n={nl}: {new.get((name, nl))}")
+    for name in ("ed_add", "ed_dbl"):
+        say(f"  {name} n=9: wide {new.get((name, 9))}, narrow {new.get((name + '_few', 9))}")
 
 
 def redesigned_sass(probes: dict) -> None:
     """The SASS mix of one product, fe_mul against fe_mul_cc (the one-thread
     chains of csrc/rates/mul_latency.cu, whose loop body is one product),
-    and of the redesigned bodies against the parent's, from the built
-    libraries."""
+    and of the redesigned bodies, from the built libraries."""
     from montgomery_tpu_torch.ops import kernels
 
     chains = sass_histograms(probes[LATENCY_SRC][1], r"one_thread_chain|cc_chain|sqr_chain")
@@ -741,10 +722,6 @@ def redesigned_sass(probes: dict) -> None:
     names = [f for f in ptxas_functions(kernels.LIBRARY.build_log) if re.search(only, f)]
     for name, ops in sorted(sass_histograms(kernels.LIBRARY.path, only, names).items()):
         say_sass_mix(f"new {name}", ops)
-    for key in ((DBL_PROBE_SRC, 12), (DBL_PROBE_SRC, 13), (DBL_PROBE_SRC, 9), EDP_PROBE_SRC, (POST_U_PROBE_SRC, 12),
-                (POST_UNSAFE_PROBE_SRC, 12)):
-        for name, ops in sass_histograms(probes[key][1], r"_kernel").items():
-            say_sass_mix(f"parent {name}", ops)
 
 
 def ptxas_functions(log: str) -> dict:
@@ -1529,7 +1506,7 @@ def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
     combine = {}
     for K, c in COMBINE_CASES:
         Wall, host = _window_sums(ctx, pts, K, rng, lanes=REDESIGN_REPS)
-        want = proj.combine_plain(Wall, c)
+        want, plain_ms = timed_once(lambda: proj.combine_plain(Wall, c))  # the inputs in one run
         err = 0
         for rep in range(REDESIGN_REPS):
             Wk = ProjectiveBatch(*[a[:, rep:rep + 1].contiguous() for a in Wall])
@@ -1548,7 +1525,6 @@ def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
                     raise AssertionError(f"proj_combine_rcb K={K} c={c} differs from Python's ints")
         ms = cuda_time_ms(lambda: proj.combine(Wk, c), 20)
         half_ms = cuda_time_ms(lambda: combine_halving(one_thread, flat, c, K), 10)
-        plain_ms = cuda_time_ms(lambda: proj.combine_plain(Wk, c), 1, 0)
         products = (K - 1) * (c * DBL_MULS + ADD_MULS)
         bms, by = bound_of((K + 1) * 3 * W, products * 2 * n * n, products * n, 1, rates)
         serial = 3 * (K - 1) * (c + 1)  # warp products on the critical path
@@ -1557,7 +1533,8 @@ def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
                                floor_ms=floor, serial_products=serial, max_abs_err=err)
         say(f"proj_combine_rcb K={K} c={c}: {REDESIGN_REPS} fresh inputs bit for bit with the plain "
             f"Horner and equal to the halving combine; kernel {ms:.4f} ms, halving (one-thread "
-            f"double_n) {half_ms:.4f} ms, plain {plain_ms:.1f} ms; bound {bms * 1e3:.3f} us "
+            f"double_n) {half_ms:.4f} ms, plain {plain_ms:.1f} ms (the {REDESIGN_REPS} inputs in one run); "
+            f"bound {bms * 1e3:.3f} us "
             f"({by}, share {bms / ms:.4f}); floor {serial} x {rates['lat_warp'] * 1e6:.3f} us = "
             f"{floor:.4f} ms (share {floor / ms:.3f})")
     main = combine[COMBINE_CASES[0]]
@@ -1593,7 +1570,7 @@ def phase_redesign(ctx, pts, pts_full, rates: dict) -> dict:
     out["proj_dbl_rcb"] = dict(main_path=dict(
         k=k, lanes=lanes, ms=few_ms, one_thread_ms=wide_ms, bound_ms=bms, bound_by=by,
         us_a_doubling=per_dbl, us_a_doubling_one_thread=per_dbl_wide, max_abs_err=err,
-        few_lanes=proj.FEW_LANES), carry_chain=redesign_dbl(ctx, pts_full, rates, turns=True))
+        few_lanes=proj.FEW_LANES), carry_chain=redesign_dbl(ctx, pts_full, rates))
 
     # -- the fused post
     gen = torch.Generator(device=dev).manual_seed(11)
@@ -1984,39 +1961,16 @@ def kernel_body(kernel, n: int, fn):
             kernel._fns[n] = own
 
 
-def bodies_of(name: str, n: int) -> dict:
-    """{label: entry point or None} of a redesigned kernel's bodies timed in
-    turns: "new", the library's, and "parent", the probe of the body it
-    replaced."""
-    from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED
-    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB
-
-    if name == "proj_dbl_rcb":
-        return {"new": None, "parent": probe_fn(DBL_PROBE_SRC, n, f"probe_proj_dbl_rcb_n{n}",
-                                                PROJ_DBL_RCB.argtypes)}
-    if name == "exp_ladder":
-        from montgomery_tpu_torch.ops.field import EXP_LADDER
-
-        return {"new": None, "parent": probe_fn(LADDER_PROBE_SRC, n, "probe_exp_ladder_2bit"
-                                                + ("" if n == 12 else f"_n{n}"), EXP_LADDER.argtypes)}
-    if name in ("ed_add", "ed_dbl"):
-        from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL
-
-        return {"new": None, "parent": probe_fn(EDA_PROBE_SRC, None, f"probe_{name}_n9",
-                                                (ED_ADD if name == "ed_add" else ED_DBL).argtypes)}
-    if name in ("aff_post_packed_u", "aff_post_unsafe"):
-        from montgomery_tpu_torch.curves.affine import AFF_POST_PACKED_U, AFF_POST_UNSAFE
-
-        src, kern = ((POST_U_PROBE_SRC, AFF_POST_PACKED_U) if name == "aff_post_packed_u"
-                     else (POST_UNSAFE_PROBE_SRC, AFF_POST_UNSAFE))
-        return {"new": None, "parent": probe_fn(src, n, f"probe_{name}_n{n}", kern.argtypes)}
-    return {"new": None, "parent": probe_fn(EDP_PROBE_SRC, None, "probe_ed_add_packed_n9",
-                                            ED_ADD_PACKED.argtypes)}
+# in_turns' bodies of a kernel whose parent is not built: the library's
+# alone (the CIOS bodies that the carry-chain redesigns of PRs 13-16
+# replaced stay under csrc/rates/, unbuilt; their turns stand in PERF.md)
+LIBRARY_BODY = {"new": None}
 
 
 def in_turns(kernel, n: int, bodies: dict, run, reps: int) -> dict:
-    """Each body of `bodies` (`bodies_of`) running run() in turns: the
-    labels in order, then reversed (new, parent, parent, new). A turn is
+    """Each body of `bodies` ({label: entry point, None for the library's})
+    running run() in turns: the labels in order, then reversed (new,
+    parent, parent, new). A turn is
     the CUDA-event mean of `reps` back-to-back runs and the profiler's
     device time a launch over `reps` more. Returns {label: {"ms": [...],
     "device_ms": [...]}}, one value a turn."""
@@ -2063,23 +2017,19 @@ def _dbl_inputs(ctx, pts_full, N: int, gen):
     return ProjectiveBatch(*[torch.where(up, f.add_lazy(f.reduce(a), p), a).contiguous() for a in (X, Y, Z)])
 
 
-def redesign_dbl(ctx, pts_full, rates: dict, turns: bool) -> dict:
+def redesign_dbl(ctx, pts_full, rates: dict) -> dict:
     """proj_dbl_rcb's wide body (few=False) at the curve's limb count: at
     every width of DBL_CHECK_LANES and k of DBL_CHECK_K, on `_dbl_inputs`,
-    bit for bit against the parent's CIOS body on every lane and
-    against the plain version on every lane up to 2 DBL_PLAIN_LANES lanes,
-    else on the first and the last DBL_PLAIN_LANES. Where `turns`: the new
-    and the parent's body in turns (`in_turns`) at 2^20 lanes for each k of
-    DBL_TURN_K, with the bound of k doublings. Then the wide and the
-    few-lane body's device time a launch at k = FEW_DBL[0] on each width of
-    FEW_SWEEP (the few-lane threshold ProjectiveOps.FEW_LANES)."""
+    bit for bit against the plain version on every lane up to 2
+    DBL_PLAIN_LANES lanes, else on the first and the last DBL_PLAIN_LANES.
+    (The turns against the parent's CIOS body and the few-lane threshold's
+    sweep of the finished redesign are in PERF.md.)"""
     import torch
 
-    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB, ProjectiveBatch
+    from montgomery_tpu_torch.curves.projective import ProjectiveBatch
 
-    f, proj, n = ctx.fops, ctx.proj, ctx.fops.n
+    proj, n = ctx.proj, ctx.fops.n
     t0 = time.perf_counter()
-    bodies = bodies_of("proj_dbl_rcb", n)
     gen = torch.Generator(device=ctx.device).manual_seed(14)
     err = 0
     for N in DBL_CHECK_LANES:
@@ -2091,37 +2041,12 @@ def redesign_dbl(ctx, pts_full, rates: dict, turns: bool) -> dict:
         Ps = ProjectiveBatch(*[a[:, sel] for a in P])
         for k in DBL_CHECK_K:
             got = proj.double_n(P, k, few=False)
-            with kernel_body(PROJ_DBL_RCB, n, bodies["parent"]):
-                err = max(err, _raw_err(got, proj.double_n(P, k, few=False)))
             err = max(err, _raw_err([a[:, sel] for a in got], proj.double_n_plain(Ps, k)))
-            say(f"proj_dbl_rcb wide body n={n} k={k} N={N}: raw err {err} (parent: every lane; plain: "
-                f"{len(sel)} lanes)")
+            say(f"proj_dbl_rcb wide body n={n} k={k} N={N}: raw err {err} (plain: {len(sel)} lanes)")
             if err:
                 raise AssertionError(f"proj_dbl_rcb's wide body disagrees at {n} limbs, k={k}, N={N}")
         del P, Ps, got
     row = {"checks": dict(lanes=list(DBL_CHECK_LANES), k=list(DBL_CHECK_K), max_abs_err=err)}
-    if turns:
-        N = DBL_CHECK_LANES[-1]
-        P = ProjectiveBatch(*_random_planes(f, 3 * n, N, gen).split(n))
-        for k in DBL_TURN_K:
-            times = in_turns(PROJ_DBL_RCB, n, bodies, lambda k=k: proj.double_n(P, k, few=False),
-                             20 if k == 1 else 3)
-            bms, by = bound(ctx, "proj_dbl_rcb", N, rates, k=k)
-            say_turns(f"proj_dbl_rcb n={n} k={k} N={N}", times, bms, by)
-            row[f"turns_k{k}"] = dict(times, bound_ms=bms, bound_by=by, lanes=N)
-    sweep = {}
-    for N in FEW_SWEEP:
-        P = ProjectiveBatch(*_random_planes(f, 3 * n, N, gen).split(n))
-        sweep[N] = {}
-        for body, few in (("few", True), ("wide", False)):
-            per = device_times_whole(lambda: [proj.double_n(P, FEW_DBL[0], few=few) for _ in range(10)],
-                                     lambda r: r[0].get("proj_dbl_rcb", (0,))[0] == 10)[0]
-            count, ms = per.get("proj_dbl_rcb", (0, 0.0))
-            sweep[N][body] = ms / count * 1e3 if count else None
-        say(f"proj_dbl_rcb n={n} k={FEW_DBL[0]} {N} lanes, device us a launch: few "
-            f"{sweep[N]['few']}, wide {sweep[N]['wide']} (FEW_LANES {proj.FEW_LANES})")
-    row["few_sweep_us"] = sweep
-    del P
     torch.cuda.empty_cache()
     say(f"proj_dbl_rcb redesign checks at {n} limbs: {time.perf_counter() - t0:.1f} s")
     return row
@@ -2142,8 +2067,7 @@ def scale_launches(k: int) -> list[tuple[str, int]]:
 def profile_cofactor(ctx, pts_full, rates: dict) -> dict:
     """The cofactor stage of random_points_weierstrass at 2^20 points
     (ProjectiveOps.scale by the cofactor, as curves/random.py runs it) on
-    the bench points, with proj_dbl_rcb's new body and with the parent's:
-    each launch's device time (torch.profiler) beside its k, its lanes and
+    the bench points: each launch's device time (torch.profiler) beside its k, its lanes and
     its bound, the device time by kernel and the host ms of one stage
     (median of 3)."""
     import statistics
@@ -2161,7 +2085,7 @@ def profile_cofactor(ctx, pts_full, rates: dict) -> dict:
         return proj.scale(h, P)
 
     out = {}
-    for label, fn in bodies_of("proj_dbl_rcb", n).items():
+    for label, fn in LIBRARY_BODY.items():
         with kernel_body(PROJ_DBL_RCB, n, fn):
             per, busy, wall, others, traced = device_times_whole(
                 run, lambda r: len(r[4]) == len(plan), r"proj_(dbl|add)_rcb(_few)?_kernel")
@@ -2198,16 +2122,15 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
     lanes (oracle points `host`; every sign and pair flag, the identity on
     either side, P + P,
     P + (-P), unreduced values) and random planes after them, bit for bit
-    against the plain version (1 lane) and the parent's CIOS body
-    (both widths); then the new and the parent's CIOS body in turns at the
-    level's width (`in_turns`). Its 2^16 + 17 and 847,880-lane checks
-    against the plain version are phase_te_kernels'."""
+    against the plain version (1 lane); then timed at the level's width
+    (`in_turns`, one body). Its 2^16 + 17 and 847,880-lane checks against
+    the plain version are phase_te_kernels'."""
     import torch
 
     from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED
 
     f, ed, dev = te.fops, te.ed, te.device
-    bodies = bodies_of("ed_add_packed", 9)
+    bodies = LIBRARY_BODY
     gen = torch.Generator(device=dev).manual_seed(15)
     rng = random.Random(15)
     out, err = {}, 0
@@ -2221,12 +2144,9 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
         sg[:, :K], sg[:, M:M + K], hp[:, :K] = fsa, fsb, fhp
         ops = (C[:, :M], C[:, M:], sg[:, :M], sg[:, M:], hp)
         got = ed.add_packed(*ops)
-        with kernel_body(ED_ADD_PACKED, 9, bodies["parent"]):
-            err = max(err, _raw_err([got], [ed.add_packed(*ops)]))
         if M == 1:
             err = max(err, _raw_err([got], [ed.add_packed_plain(*ops)]))
-        say(f"ed_add_packed N={M}: raw err {err} against the parent's body" + (" and the plain version"
-                                                                               if M == 1 else ""))
+            say(f"ed_add_packed N={M}: raw err {err} against the plain version")
         if err:
             raise AssertionError(f"ed_add_packed disagrees at {M} lanes")
     turns = in_turns(ED_ADD_PACKED, 9, bodies, lambda: ed.add_packed(*ops), 10)
@@ -2249,10 +2169,8 @@ def _chord_adversarial(f, t, rows: list[int], start: int, adv: list[int]) -> Non
 
 def redesign_chord(ctx, pts, rates: dict) -> dict:
     """aff_post_packed_u and aff_post_unsafe on the carry-chain chord at the
-    curve's limb count, against their plain versions and the parent's CIOS
-    bodies (`bodies_of`: the probes csrc/rates/aff_post_packed_u_cios.cu and
-    aff_post_unsafe_cios.cu) on every lane, bit for bit, then timed in turns
-    (new, parent, parent, new; `in_turns`).
+    curve's limb count, against their plain versions on every lane, bit
+    for bit, then timed (`in_turns`, one body).
 
     - aff_post_packed_u at the first super-round level of the 2^16 and the
       2^20 path (first_level_width): A and B column slices of one random
@@ -2282,17 +2200,14 @@ def redesign_chord(ctx, pts, rates: dict) -> dict:
         def planes(r):
             return r if isinstance(r, tuple) else (r,)
 
-        got = planes(run())
-        with kernel_body(kernel, n, bodies_of(kernel.name, n)["parent"]):
-            parent = planes(run())
-        err = max(_raw_err(got, parent), _raw_err(got, planes(plain())))
-        say(f"{label}: raw err {err} against the CIOS body and the plain version (every lane)")
+        err = _raw_err(planes(run()), planes(plain()))
+        say(f"{label}: raw err {err} against the plain version (every lane)")
         if err:
             raise AssertionError(f"{label} disagrees")
         return err
 
     def timed(kernel, label, M, run):
-        turns = in_turns(kernel, n, bodies_of(kernel.name, n), run, CHORD_TURN_REPS)
+        turns = in_turns(kernel, n, LIBRARY_BODY, run, CHORD_TURN_REPS)
         bms, by = bound(ctx, kernel.name, M, rates)
         say_turns(label, turns, bms, by)
         return dict(turns, bound_ms=bms, bound_by=by)
@@ -2382,24 +2297,18 @@ def redesign_ed_add(te, host, rates: dict) -> dict:
     bodies (`few=False`: one thread a lane; `few=True`: the narrow-launch
     body) at every width of ED_WIDTHS, on `_te_flag_lanes`' classes in the
     first lanes and random planes after them, bit for bit against the plain
-    version and the parent's CIOS body (csrc/rates/ed_add_cios.cu); then each
-    body and the parent swept at those widths (the profiler's device time a
-    launch over ED_SWEEP_REPS launches; ed_dbl at k = 6), with the bound and
-    the dependent-chain floor of a launch: 9 dependent products on one
-    thread (the wide body and the parent: lat_cc_n9, lat_thread_n9) or 3 on
-    the narrow body, k times for the doubling. Returns {"ed_add": ...,
-    "ed_dbl": ...}, each {"max_abs_err", "sweep": {lanes: {body: us}},
-    "bound_us", "floor_us"}."""
+    version. (The bodies' sweep against the parent's CIOS body, a finished
+    redesign, is in PERF.md.) Returns {"ed_add": ..., "ed_dbl": ...}, each
+    {"max_abs_err", "widths"}."""
     import torch
 
-    from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL, EdwardsBatch
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
 
     f, ed, dev = te.fops, te.ed, te.device
     n = f.n
     gen = torch.Generator(device=dev).manual_seed(16)
     rng = random.Random(16)
-    par = {name: bodies_of(name, 9)["parent"] for name in ("ed_add", "ed_dbl")}
-    out = {name: {"max_abs_err": 0, "sweep": {}, "bound_us": {}} for name in ("ed_add", "ed_dbl")}
+    out = {name: {"max_abs_err": 0, "widths": list(ED_WIDTHS)} for name in ("ed_add", "ed_dbl")}
     for M in ED_WIDTHS:
         C = _random_planes(f, 4 * n, 2 * M, gen)
         K = min(M, 1200)
@@ -2407,54 +2316,30 @@ def redesign_ed_add(te, host, rates: dict) -> dict:
         C[:, :K], C[:, M:M + K] = FA, FB
         PA, PB = (EdwardsBatch(*[a.contiguous() for a in ed.unpack_rows(t)]) for t in (C[:, :M], C[:, M:]))
         del C
-        cases = {"ed_add": (lambda few: ed.add(PA, PB, few=few), lambda: ed.add_plain(PA, PB), ED_ADD)}
+        cases = {"ed_add": (lambda few: ed.add(PA, PB, few=few), lambda: ed.add_plain(PA, PB))}
         for k in ED_DBL_K:
             cases[f"ed_dbl k={k}"] = (lambda few, k=k: ed.double_n(PA, k, few=few),
-                                      lambda k=k: ed.double_n_plain(PA, k), ED_DBL)
-        for label, (kern, plain, K_) in cases.items():
+                                      lambda k=k: ed.double_n_plain(PA, k))
+        for label, (kern, plain) in cases.items():
             want = plain()
-            with kernel_body(K_, 9, par[K_.name]):
-                got = {"parent": kern(None)}
-            got.update({"wide": kern(False), "narrow": kern(True)})
+            got = {"wide": kern(False), "narrow": kern(True)}
             err = max(_raw_err(list(g), list(want)) for g in got.values())
             if err:
                 raise AssertionError(f"{label} at {M} lanes: a body differs from the plain version "
                                      f"({ {b: _raw_err(list(g), list(want)) for b, g in got.items()} })")
             del want, got
-        say(f"ed_add, ed_dbl k={ED_DBL_K} N={M}: both bodies and the parent's bit for bit with the plain version")
-        for name, K_, call in (("ed_add", ED_ADD, lambda few: ed.add(PA, PB, few=few)),
-                               ("ed_dbl", ED_DBL, lambda few: ed.double_n(PA, ED_SWEEP_K, few=few))):
-            row = {}
-            for body, few in (("wide", False), ("narrow", True), ("parent", None)):
-                with kernel_body(K_, 9, par[name] if body == "parent" else None):
-                    per = device_times_whole(lambda: [call(few) for _ in range(ED_SWEEP_REPS)],
-                                             lambda r: r[0].get(name, (0,))[0] == ED_SWEEP_REPS)[0]
-                count, ms = per.get(name, (0, 0.0))
-                row[body] = ms / count * 1e3 if count == ED_SWEEP_REPS else None
-            k = 1 if name == "ed_add" else ED_SWEEP_K
-            out[name]["sweep"][M] = row
-            out[name]["bound_us"][M] = bound(te, name, M, rates, k=k)[0] * 1e3
-            say(f"  {name} N={M}{'' if name == 'ed_add' else f' k={k}'} device us a launch: " + ", ".join(
-                f"{b} {v:.2f}" if v else f"{b} not measured" for b, v in row.items())
-                + f"; bound {out[name]['bound_us'][M]:.3f} us")
+        say(f"ed_add, ed_dbl k={ED_DBL_K} N={M}: both bodies bit for bit with the plain version")
         del PA, PB
         torch.cuda.empty_cache()
-    for name, k in (("ed_add", 1), ("ed_dbl", ED_SWEEP_K)):
-        out[name]["floor_us"] = {"wide": 9 * k * rates["lat_cc_n9"] * 1e6, "narrow": 3 * k * rates["lat_cc_n9"] * 1e6,
-                                 "parent": 9 * k * rates["lat_thread_n9"] * 1e6}
-        say(f"{name} dependent-chain floor a launch (k = {k}): " + ", ".join(
-            f"{b} {v:.3f} us" for b, v in out[name]["floor_us"].items())
-            + f"; thresholds: narrow body below {ed.FEW_ADD_LANES if name == 'ed_add' else ed.FEW_DBL_LANES} lanes")
     return out
 
 
 def profile_te_add(te, pts_full, rates: dict) -> dict:
     """The Twisted Edwards MSM at 2^20 (msm_device_full) with ed_add's and
-    ed_dbl's bodies and with the parent's (csrc/rates/ed_add_cios.cu), in
-    turns new, parent, parent, new: each launch's device time (the
-    profiler) beside its lanes and body (recorded at the wrapper), summed,
-    with the summed bound and dependent-chain floor."""
-    from montgomery_tpu_torch.curves.edwards import ED_ADD, ED_DBL, EdwardsBatch
+    ed_dbl's bodies: each launch's device time (the profiler) beside its
+    lanes and body (recorded at the wrapper), summed, with the summed bound
+    and dependent-chain floor."""
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
 
     N = 1 << max(MSM_LOG2N)
     c = te.default_c(N)
@@ -2476,15 +2361,12 @@ def profile_te_add(te, pts_full, rates: dict) -> dict:
         widths.clear()
         return te.msm_device_full(P, limbs, c)
 
-    par = {name: bodies_of(name, 9)["parent"] for name in ("ed_add", "ed_dbl")}
-    out = {"new": [], "parent": []}
+    out = {"new": []}
     ed.add, ed.double_n = add, dbl
     try:
-        for label in ("new", "parent", "parent", "new"):
-            with kernel_body(ED_ADD, 9, par["ed_add"] if label == "parent" else None), \
-                    kernel_body(ED_DBL, 9, par["ed_dbl"] if label == "parent" else None):
-                per, busy, wall, others, traced = device_times_whole(
-                    run, lambda r: len(r[4]) == len(widths), r"ed_(add|dbl)(_few)?_kernel\b")
+        for label in ("new",):
+            per, busy, wall, others, traced = device_times_whole(
+                run, lambda r: len(r[4]) == len(widths), r"ed_(add|dbl)(_few)?_kernel\b")
             if len(traced) != len(widths):
                 say(f"  Twisted Edwards MSM 2^20 ({label} ed_add/ed_dbl bodies) by launch: not measured (the "
                     f"profiler kept {len(traced)} of {len(widths)} launches in every try)")
@@ -2493,14 +2375,13 @@ def profile_te_add(te, pts_full, rates: dict) -> dict:
             for (name, M, k), (kname, ms) in zip(widths, traced):
                 if not kname.split("<")[0].split()[-1].startswith(name):
                     raise AssertionError(f"launch order: {name} recorded, {kname} traced")
-                body = "parent" if label == "parent" else "narrow" if "_few_kernel" in kname else "wide"
+                body = "narrow" if "_few_kernel" in kname else "wide"
                 turn["launches"].append((name, M, k, body, ms))
             for name in ("ed_add", "ed_dbl"):
                 ls = [x for x in turn["launches"] if x[0] == name]
                 dev = sum(x[4] for x in ls)
                 bnd = sum(bound(te, name, M, rates, k=k)[0] for _, M, k, _, _ in ls)
-                lat = rates["lat_thread_n9"] if label == "parent" else rates["lat_cc_n9"]
-                flo = sum((9 if b in ("wide", "parent") else 3) * k * lat for _, _, k, b, _ in ls) * 1e3
+                flo = sum((9 if b == "wide" else 3) * k * rates["lat_cc_n9"] for _, _, k, b, _ in ls) * 1e3
                 turn[name] = dict(count=len(ls), device_ms=dev, bound_ms=bnd, floor_ms=flo)
                 say(f"  TE MSM 2^20 ({label}): {name} {len(ls)} launches, device {dev:.4f} ms, bound summed "
                     f"{bnd:.5f} ms, dependent-chain floor summed {flo:.4f} ms; lanes, body, us: " + ", ".join(
@@ -2513,7 +2394,7 @@ def profile_te_add(te, pts_full, rates: dict) -> dict:
 
 def profile_te_packed(te, pts_full, rates: dict) -> dict:
     """The Twisted Edwards MSM at 2^20 (msm_device_full) with ed_add_packed's
-    new body and with the parent's: each ed_add_packed launch's device time
+    body: each ed_add_packed launch's device time
     (torch.profiler) beside its lanes (recorded at the wrapper) and its
     bound, summed, and the device time by kernel."""
     from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED, EdwardsBatch
@@ -2536,7 +2417,7 @@ def profile_te_packed(te, pts_full, rates: dict) -> dict:
     out = {}
     ed.add_packed = recorded
     try:
-        for label, fn in bodies_of("ed_add_packed", 9).items():
+        for label, fn in LIBRARY_BODY.items():
             with kernel_body(ED_ADD_PACKED, 9, fn):
                 per, busy, wall, others, traced = device_times_whole(
                     run, lambda r: len(r[4]) == len(widths), r"ed_add_packed_kernel")
@@ -3591,67 +3472,22 @@ def sqrt_wide(f, N: int, gen, check) -> None:
         f"on {len(lanes)} sampled lanes, to pow() and Euler's criterion ({int(ok.sum())} squares)")
 
 
-def sqrt_win_in_turns(f, t, r, s, lk: int, last: bool) -> dict:
-    """The table window (sqrt_win) and the bit-by-bit window it replaced
-    (csrc/rates/sqrt_win_bitwise.cu, built apart in phase 0) on the same
-    window 0 inputs: equal digits and canonical t', r'; then each timed
-    (CUDA events, 10 launches) in SQRT_TURNS. Returns the times (ms) in
-    turn order under "table" and "bitwise"."""
-    import torch
-
-    from montgomery_tpu_torch.ops import kernels
-    from montgomery_tpu_torch.ops import limbs as codec
-    from montgomery_tpu_torch.ops.field import SQRT_WIN
-
-    n, N = f.n, t.shape[-1]
-    fn = ctypes.CDLL(str(PROBES[SQRT_BITWISE_SRC])).sqrt_win_bitwise
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_uint32)] \
-        + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_uint32), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    g_table = torch.from_numpy(codec.pack(f.sqrt_g_inv_pows, n).T.copy()).to(t.device)
-    one = kernels.words(codec.to_words(f.R_mod_p, n))
-    outs = (torch.empty_like(t), torch.empty_like(r), torch.empty((1, N), dtype=torch.int32, device=t.device))
-
-    def bitwise():
-        rc = fn(n, *[a.data_ptr() for a in (*outs, t, r, s, g_table)], one, 0, lk, f.sqrt_M, int(last),
-                f.field_words(SQRT_WIN), N, torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"sqrt_win_bitwise launch failed, CUDA error {rc}")
-
-    bitwise()
-    new = f.sqrt_window(t, r, s, 0, lk, last)
-    if not (torch.equal(new[2], outs[2]) and all(torch.equal(_canon(f, a), _canon(f, b))
-                                                 for a, b in zip(new[:2], outs[:2]))):
-        raise AssertionError(f"sqrt_win at {n} limbs differs from the bit-by-bit window")
-    times = {"table": [], "bitwise": []}
-    for who in SQRT_TURNS:
-        times[who].append(cuda_time_ms((lambda: f.sqrt_window(t, r, s, 0, lk, last)) if who == "table"
-                                       else bitwise, 10))
-    say(f"sqrt_win n={n} window 0 at {N} lanes, in turns {SQRT_TURNS}: table "
-        + ", ".join(f"{v:.4f}" for v in times["table"]) + " ms; bit by bit "
-        + ", ".join(f"{v:.4f}" for v in times["bitwise"]) + " ms (equal digits and canonical values)")
-    return times
-
-
 def ladder_checks(f, W: int, gen, rates: dict) -> dict:
     """exp_ladder at e = (q - 1) / 2 (sqrt's first launch) and p - 2 (inv)
     on `_sqrt_plane` at LADDER_LANES and W lanes (the path's width): bit for
-    bit against exp_ladder_plain (the same schedule on 16-bit limbs) and, as
-    canonical values, against the parent's 2-bit CIOS ladder (the probe
-    csrc/rates/exp_ladder_2bit.cu, another sequence of products, so another
-    representative in [0, 2p) on some lanes); at W the plain version's time
-    (CUDA events, one call); then at W the new ladder and the parent in
-    turns (`in_turns`: new, parent, parent, new), and the new one at every
-    window of LADDER_WINDOWS (events, the window's own bound beside it).
-    Returns {"max_abs_err", "plain_ms": {exponent: ms}, exponent: {"turns",
-    "bound_ms", "bound_by", "bound_2bit_ms", "window_ms", "window_bound_ms",
-    "raw_differs"}}."""
+    bit against exp_ladder_plain (the same schedule on 16-bit limbs); at W
+    the plain version's time (CUDA events, one call), then the ladder's
+    (`in_turns`, one body), with its bound and the 2-bit ladder's. (The
+    turns against the parent's 2-bit CIOS ladder and the window sweep of
+    that finished redesign are in PERF.md.) Returns {"max_abs_err",
+    "plain_ms": {exponent: ms}, exponent: {"turns", "bound_ms", "bound_by",
+    "bound_2bit_ms"}}."""
     import torch
 
     from montgomery_tpu_torch.ops.field import EXP_LADDER
 
     n, p, q = f.n, f.p, f.sqrt_q_odd
-    bodies = bodies_of("exp_ladder", n)
+    bodies = LIBRARY_BODY
     exps = {"(q-1)/2": (q - 1) // 2, "p-2": p - 2}
     out = {"max_abs_err": 0, "plain_ms": {}, "window": f.ladder_window}
     for N in (*LADDER_LANES, W):
@@ -3663,30 +3499,23 @@ def ladder_checks(f, W: int, gen, rates: dict) -> dict:
             b = f.exp_ladder_plain(x, e)
             t1.record()
             torch.cuda.synchronize()
-            with kernel_body(EXP_LADDER, n, bodies["parent"]):
-                c = f.exp_ladder(x, e)
-            err, perr = _raw_err([a], [b]), _raw_err([_canon(f, a)], [_canon(f, c)])
-            if err or perr:
+            err = _raw_err([a], [b])
+            if err:
                 raise AssertionError(f"exp_ladder at {n} limbs, {N} lanes, e = {tag}: max_abs_err {err} against "
-                                     f"the plain version, {perr} against the 2-bit ladder in canonical values")
+                                     f"the plain version")
             if N == W:
                 out["plain_ms"][tag] = t0.elapsed_time(t1)
-                out.setdefault(tag, {})["raw_differs"] = int((a != c).any(dim=0).sum())
-        del a, b, c
+                out.setdefault(tag, {})
+        del a, b
         say(f"exp_ladder n={n} N={N} (e = (q - 1) / 2, p - 2; w = {f.ladder_window}): bit for bit with the plain "
-            f"version, canonical values equal to the 2-bit ladder's")
+            f"version")
     for tag, e in exps.items():
         turns = in_turns(EXP_LADDER, n, bodies, lambda: f.exp_ladder(x, e), LADDER_TURN_REPS)
         bms, by = bound_of(*sqrt_work(f, "exp_ladder", e=e), W, rates)
         old = bound_of(*sqrt_work(f, "exp_ladder", e=e, two_bit=True), W, rates)[0]
         say_turns(f"exp_ladder n={n} N={W} e={tag}", turns, bms, by)
-        win = {w: cuda_time_ms(lambda w=w: f.exp_ladder(x, e, w=w), LADDER_TURN_REPS, 1) for w in LADDER_WINDOWS}
-        wb = {w: bound_of(*sqrt_work(f, "exp_ladder", e=e, w=w), W, rates)[0] for w in LADDER_WINDOWS}
-        say(f"exp_ladder n={n} N={W} e={tag}: the 2-bit ladder's bound {old:.4f} ms; by window (events ms, "
-            f"bound ms): " + ", ".join(f"w={w} {win[w]:.4f} ({wb[w]:.4f})" for w in LADDER_WINDOWS)
-            + f"; lanes whose raw words differ from the 2-bit ladder's: {out[tag]['raw_differs']}")
-        out[tag].update(turns=turns, bound_ms=bms, bound_by=by, bound_2bit_ms=old, window_ms=win,
-                        window_bound_ms=wb)
+        say(f"exp_ladder n={n} N={W} e={tag}: the 2-bit ladder's bound {old:.4f} ms")
+        out[tag].update(turns=turns, bound_ms=bms, bound_by=by, bound_2bit_ms=old)
     del x
     torch.cuda.empty_cache()
     return out
@@ -3749,7 +3578,6 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
         t = f.exp_ladder(x, q)  # x^q, in the 2-Sylow subgroup
         r = f.mul(x, f.exp_ladder(x, e))
         s = f.sqr_n(t, M - SQRT_WINDOW)
-        turns = sqrt_win_in_turns(f, t, r, s, SQRT_WINDOW, False)
         per, busy, wall, others, _ = device_times_whole(
             lambda: f.sqrt(x), lambda res_: res_[0].get("sqrt_win", (0,))[0] == -(-M // SQRT_WINDOW))
         say_device_times(f"profiled FieldOps.sqrt n={n} at {W} lanes (the solve stage's sqrt)", per, busy,
@@ -3775,8 +3603,6 @@ def phase_sqrt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
             pms = cuda_time_ms(plain, 1, 0)
             bms, by = bound_of(*work, W, rates)
             res[name].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=W, call=call)
-            if name == "sqrt_win":
-                res[name].update(turns_ms=turns["table"], bitwise_turns_ms=turns["bitwise"])
             say(f"{name} n={n} ({call}): kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
                 f"({by}, share {bms / ms:.3f}) per call at {W} lanes")
         del x, t, r, s
@@ -4062,7 +3888,7 @@ def phase_te_msm(te, log2n: int, pts_full, expected: dict):
 # ------------------------------------------------- sqrt slice: random points
 
 
-def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
+def phase_points(c, path: str, log2n: int = GEN_LOG2N, msms: bool = True) -> dict:
     """random_points_weierstrass (a Weierstrass curve, path "points") or
     random_points_edwards (ed-on-bls12-377, "te_points") at 2^log2n points
     on the card: launch counts of one generation with the counts set to 0
@@ -4080,7 +3906,8 @@ def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
     unsafe and projective engines agree at 2^20 and the safe one equals the
     oracle on the first GEN_ORACLE_N points; the Twisted Edwards MSM at the
     default c and at c - 1 agrees at 2^log2n and equals the oracle at
-    GEN_ORACLE_N. Returns the generation's launch counts."""
+    GEN_ORACLE_N (without `msms`, none of these MSMs). Returns the
+    generation's launch counts."""
     import statistics
 
     import numpy as np
@@ -4161,7 +3988,7 @@ def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
         if te:
             den = (1 - params.d * x * x) % p
             return (1 + x * x) * pow(den, -1, p) % p if den else None
-        return (x * x * x + params.b) % p
+        return (x * x * x + params.a * x + params.b) % p
 
     rng = random.Random(5)
     for i in rng.sample(range(M), GEN_SAMPLE_CANDIDATES):
@@ -4187,22 +4014,28 @@ def phase_points(c, path: str, log2n: int = GEN_LOG2N) -> dict:
         f"equal Euler's criterion; {GEN_SAMPLE_POINTS} points equal the oracle's cofactor multiple "
         f"of their candidate (the first {N} successes of {M}); q P = 0 on 8 points")
 
+    if not msms:
+        return counts
+
     # MSMs on the generated points
     scalars = bench_scalars(q, N)
     limbs = c.scalars_to_limbs(scalars)
     cN = c.default_c(N)
+    # a curve without an endomorphism (P-256) through msm: host digits, no GLV
+    glv = te or c.glv is not None
+    msm = c.msm_full if glv else (lambda sc_, pts_, **kw: c.msm(sc_, pts_, **{"affine": True, **kw}))
     if te:
         runs = {f"c={cN}": dict(c=cN), f"c={cN - 1}": dict(c=cN - 1)}
     else:
         runs = {"affine-safe": {}, "affine-unsafe": dict(unsafe=True),
                 "projective": dict(affine=False)}
-    results = {k: c.msm_full(limbs, pts, **kw) for k, kw in runs.items()}
+    results = {k: msm(limbs if glv else scalars, pts, **kw) for k, kw in runs.items()}
     ref = next(iter(results.values()))
     if ref.is_zero or not all(E.equal(v, ref) for v in results.values()):
         raise AssertionError(f"{path}: MSMs on the generated points disagree: {list(results)}")
     head = lanes_of(slice(0, GEN_ORACLE_N))
     sc = scalars[:GEN_ORACLE_N]
-    if not E.equal(c.msm_full(sc, head), oracle_msm(E, sc, to_host(head))):
+    if not E.equal(msm(sc, head), oracle_msm(E, sc, to_host(head))):
         raise AssertionError(f"{path}: MSM of {GEN_ORACLE_N} generated points differs from the oracle")
     say(f"{path}: MSM at N=2^{log2n} on the generated points agrees across {list(results)}; "
         f"at N={GEN_ORACLE_N} equal to the bigint oracle")
@@ -4654,10 +4487,6 @@ WIDE_COMBINE = (3, 2)  # the combine's (K, c) at the other widths
 NEW_MSM_LOG2N = (16, 20)
 NEW_UNSAFE_LOG2N = 18  # BLS12-381's unsafe engine also at the zprize22 size, 2^18
 NEW_GEN_LOG2N = 16
-# post_u_min_blocks of csrc/aff_post_packed_u.cu: the minimums built beside
-# the kernel's own at 13 and 9 limbs, for ptxas and the time at the main
-# paths' widths (0: no minimum)
-POST_U_MINIMUMS = (0, 3, 4, 5, 6, 7)
 
 
 def new_instantiations() -> list[tuple[str, int]]:
@@ -4932,7 +4761,8 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
             work = sqrt_work(f, "sqrt_win", last=last, s_is_t=s is t)
         else:
             raise AssertionError(f"no timing case for {name}")
-        a, b = kern(), plain()
+        a = kern()
+        b, plain_ms = timed_once(plain)
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         if _raw_err(a, b):
             raise AssertionError(f"{name} at {n} limbs and {W} lanes (timing inputs) disagrees")
@@ -4941,7 +4771,6 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
                                  lambda res: res[0].get(name, (0,))[0] == NEW_TIMING_REPS)[0]
         count, dms = per.get(name, (0, 0.0))
         dev_ms = dms / count if count else None
-        plain_ms = cuda_time_ms(plain, 1, 0)
         lanes = 1 if name == "proj_combine_rcb" else W
         batches = divstep_batches(f, x)[0] if name == "divstep_inv_mont" else None
         bms, by = bound_of(*work, lanes, rates) if work else bound(ctx, name, W, rates, batches)
@@ -4957,92 +4786,6 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
     return results
 
 
-def post_u_minimums(ctxs: dict) -> dict:
-    """aff_post_packed_u at the limb counts of `ctxs` ({n: context}) built
-    at each minimum of POST_U_MINIMUMS blocks an SM (a copy of the source
-    with post_u_min_blocks returning it, one nvcc a count and minimum, all
-    at once, under build/post_u/): ptxas registers and spill, and the device
-    time a launch at the first super-round level of the 2^16 and 2^20 paths,
-    each variant bit for bit with the library's build on the same inputs."""
-    import torch
-
-    from montgomery_tpu_torch.curves.affine import AFF_POST_PACKED_U
-    from montgomery_tpu_torch.ops import kernels
-
-    text = (kernels.CSRC / "aff_post_packed_u.cu").read_text()
-    pat = r"constexpr int post_u_min_blocks\(int NL\) \{[^}]*\}"
-    if not re.search(pat, text):
-        raise AssertionError("post_u_min_blocks not found in aff_post_packed_u.cu")
-    out_dir = ROOT / "build" / "post_u" / hashlib.sha256(text.encode()).hexdigest()[:16]
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for m in POST_U_MINIMUMS:
-        var = re.sub(pat, f"constexpr int post_u_min_blocks(int NL) {{ return {m}; }}", text)
-        if m == 0:
-            var = var.replace("__launch_bounds__(LANES_PER_BLOCK, post_u_min_blocks(NL))",
-                              "__launch_bounds__(LANES_PER_BLOCK)")
-        cu = out_dir / f"post_u_m{m}.cu"
-        cu.write_text(var)
-        for n in ctxs:
-            lib = out_dir / f"libpost_u_m{m}_n{n}.so"
-            cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DMSM_LIMBS={n}", "-shared", "-I",
-                   str(kernels.CSRC), "-o", str(lib), str(cu)]
-            procs[m, n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                            text=True), lib)
-    res = {n: {} for n in ctxs}
-    libs = {}
-    for (m, n), (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on the post_u variant {m} at {n} limbs:\n{log[-3000:]}")
-        libs[m, n] = ctypes.CDLL(str(lib))
-        res[n][m] = {"ptxas": ptxas_by_limbs(log)[("aff_post_packed_u", n)]}
-    own = dict(AFF_POST_PACKED_U._fns)
-    try:
-        for n, ctx in ctxs.items():
-            f, aff = ctx.fops, ctx.affine
-            gen = torch.Generator(device=ctx.device).manual_seed(17)
-            for log2n in (16, 20):
-                M = first_level_width(ctx, log2n)
-                C = _random_planes(f, 2 * n + 1, 2 * M, gen)
-                C[2 * n] = 0
-                A, B = C[:, :M], C[:, M:]
-                sA, sB, hp = (torch.randint(0, 2, (1, M), dtype=torch.int32, device=ctx.device, generator=gen)
-                              for _ in range(3))
-                denom = aff.pre_packed_u(A, B, hp)
-                inv1, h = f.batch_inv_parent(denom)
-
-                def run():
-                    return aff.post_packed_u(A, B, sA, sB, inv1, denom, h, hp)
-
-                AFF_POST_PACKED_U._fns.pop(n, None)
-                want = run()
-                for m in POST_U_MINIMUMS:
-                    fn = getattr(libs[m, n], AFF_POST_PACKED_U.symbols[n])
-                    fn.argtypes = [*AFF_POST_PACKED_U.argtypes, ctypes.c_void_p]
-                    fn.restype = ctypes.c_int
-                    AFF_POST_PACKED_U._fns[n] = fn
-                    if _raw_err([run()], [want]):
-                        raise AssertionError(f"aff_post_packed_u min {m} at {n} limbs differs")
-                    per = device_times_whole(lambda: [run() for _ in range(NEW_TIMING_REPS)],
-                                             lambda r: r[0].get("aff_post_packed_u", (0,))[0] == NEW_TIMING_REPS)[0]
-                    count, ms = per.get("aff_post_packed_u", (0, 0.0))
-                    res[n][m][f"device_ms_{M}"] = ms / count if count else None
-                AFF_POST_PACKED_U._fns.pop(n, None)
-                del C, A, B, denom, inv1
-                torch.cuda.empty_cache()
-    finally:
-        AFF_POST_PACKED_U._fns.clear()
-        AFF_POST_PACKED_U._fns.update(own)
-    for n, by_m in res.items():
-        for m, row in sorted(by_m.items()):
-            say(f"aff_post_packed_u n={n} min blocks {m or 'none'}: ptxas (registers, stack, spill stores, "
-                f"spill loads, smem) {row['ptxas']}; device ms a launch " + ", ".join(
-                    f"{k[len('device_ms_'):]} lanes {v:.5f}" if v else f"{k[len('device_ms_'):]} lanes not measured"
-                    for k, v in row.items() if k.startswith("device_ms_")))
-    return res
-
-
 def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: dict, t_start: float) -> dict:
     """BLS12-381 (13 limbs) and Pallas (9 limbs), each on its own 2^20 bench
     points (random_points_fast(seed=42)): phase 1, every kernel at the
@@ -5054,11 +4797,9 @@ def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: d
     median of 5, peak memory and phase split, the profile of affine-unsafe
     at 2^20, and compute_msm at 2^20 from bytes; phase 4,
     random_points_weierstrass at 2^16; phase 1 also holds the chord's two
-    kernels against their CIOS bodies, in turns (`redesign_chord`). Then
-    aff_post_packed_u's minimums at 12 (on `ctx12`, BLS12-377's context),
-    13 and 9 limbs (`post_u_minimums`). Launch counts go into `launches` as
-    "<curve>/<run>_2^<log2 N>"; returns ({curve: kernel results}, the
-    minimums' results)."""
+    kernels against their plain versions at the main paths' shapes
+    (`redesign_chord`). Launch counts go into `launches` as
+    "<curve>/<run>_2^<log2 N>"; returns {curve: kernel results}."""
     import torch
 
     from montgomery_tpu_torch.concrete import WEIERSTRASS_CURVES
@@ -5066,10 +4807,9 @@ def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: d
     from montgomery_tpu_torch.msm import WeierstrassMsm
 
     widths = {name: r["lanes"] for name, r in kres.items() if "lanes" in r}
-    out, ctxs = {}, {ctx12.fops.n: ctx12}
+    out = {}
     for label in NEW_CURVES:
         c = WeierstrassMsm(WEIERSTRASS_CURVES[label], device=torch.device("cuda", 0))
-        ctxs[c.fops.n] = c
         t0 = time.perf_counter()
         pts = random_points_fast(c.proj, 1 << max(NEW_MSM_LOG2N), seed=SEED_POINTS, device=c.device,
                                  cache_dir=ROOT / "build" / "points")
@@ -5078,8 +4818,9 @@ def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: d
             f"{time.perf_counter() - t0:.1f} s")
         host = c.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
         out[label] = phase_curve_kernels(c, host, rates, widths)
+        say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase_curve_kernels done")
         out[label]["divstep_inv_mont"]["main_path"] = redesign_divstep(c, pts, rates)
-        out[label]["proj_dbl_rcb"]["carry_chain"] = redesign_dbl(c, pts, rates, turns=c.fops.n == 13)
+        out[label]["proj_dbl_rcb"]["carry_chain"] = redesign_dbl(c, pts, rates)
         for name, res in redesign_chord(c, host, rates).items():
             out[label][name]["carry_chain"] = res
         say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phase 1 done")
@@ -5096,7 +4837,568 @@ def phase_new_curves(ctx12, rates: dict, kres: dict, launches: dict, expected: d
         torch.cuda.empty_cache()
         launches[f"{label}/points_2^{NEW_GEN_LOG2N}"] = phase_points(c, "points", NEW_GEN_LOG2N)
         say(f"[{time.perf_counter() - t_start:.1f} s] {label}: phases 2-4 done")
-    return out, post_u_minimums(ctxs)
+    return out
+
+
+# ------------------------------------------ phase 8: curves with a != 0
+
+# the general-a witnesses (montgomery_tpu_torch/testing/curves.py): NIST P-256
+# at 9 limbs of 32 bits, its engines at 2^16 and 2^20; NIST P-384 at 13, its
+# engines at 2^16
+GA_CHECK_LANES = (1, 17, 640, 1 << 16, (1 << 16) + 17)
+GA_MSM_LOG2N = (16, 20)
+GA_P384_LOG2N = 16
+GA_ORACLE_N = (16, 512)  # P-256 against the bigint oracle; P-384 at the first
+GA_PRED_LANES = 1 << 16
+GA_PLANAR_LANES = 1 << 20
+GA_SAMPLE = 1024  # planar lanes checked against the oracle
+GA_TIMING_REPS = 20
+GA_TURNS = 2  # rounds of (new, parent, parent, new) of the a = 0 bodies at 12 limbs
+AFF_PRE_PARENT_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_pre_parent.cu"
+# ptxas of aff_pre and aff_pre_packed before the a term (registers, stack
+# frame, spill stores, spill loads, smem bytes; PR 17's build on an H100):
+# the a = 0 instantiation must keep these registers
+PARENT_PRE_PTXAS = {("aff_pre", 9): (96, 0, 0, 0, 0), ("aff_pre", 12): (134, 0, 0, 0, 0),
+                    ("aff_pre", 13): (128, 0, 0, 0, 0), ("aff_pre_packed", 9): (96, 0, 0, 0, 0),
+                    ("aff_pre_packed", 12): (132, 0, 0, 0, 0), ("aff_pre_packed", 13): (128, 8, 4, 4, 0)}
+# the general-a paths: the group law on mont_mul and mont_sqr, never an RCB kernel
+_GA = {"mont_mul", "mont_sqr"}
+PATH_KERNELS.update({
+    "ga_projective": _GA,
+    "ga_affine_safe": _GA | _SAFE | {"divstep_inv_mont"},
+    "ga_affine_unsafe": _GA | _UNSAFE | {"divstep_inv_mont"},
+    "ga_planar": {"aff_pre", "aff_post", "mont_mul", "divstep_inv_mont"},
+    "ga_on_curve": {"mont_mul"},
+    "ga_subgroup": _GA,
+})
+_GA_FORBIDDEN = _NONGLV | _EDWARDS | _PLANAR | _ALT | {"glv_digits", "pack_glv"}
+PATH_FORBIDDEN.update({
+    "ga_projective": _GA_FORBIDDEN | _SAFE | _UNSAFE,
+    "ga_affine_safe": _GA_FORBIDDEN | _UNSAFE,
+    "ga_affine_unsafe": _GA_FORBIDDEN | _SAFE,
+    "ga_planar": (_GA_FORBIDDEN | _SAFE | _UNSAFE) - PATH_KERNELS["ga_planar"],
+    "ga_on_curve": _GA_FORBIDDEN | _SAFE | _UNSAFE,
+    "ga_subgroup": _GA_FORBIDDEN | _SAFE | _UNSAFE,
+})
+
+
+# Plain16's carries on the card (the field ops between the general-a law's
+# products): widths about LOOKAHEAD_LANES (add and sub carry twice their
+# lanes side by side) and the plain checks' 2^20
+GA_PLAIN16_LANES = (1, 17, 640, 1 << 16, (1 << 16) + 17, 1 << 17, (1 << 17) + 1, 1 << 18, (1 << 18) + 1,
+                    1 << 20)
+
+
+def ga_plain16(dev=None, lanes=GA_PLAIN16_LANES) -> dict:
+    """Plain16's carry_up, lookahead_carry, add, sub, neg, reduce, add_lazy,
+    sub_lazy and sub_positive on `dev` (the card) against the same ops on the
+    limb loop (`carry`) alone, bit for bit, at 9, 12 and 13 limbs of 32 bits
+    (P-256, BLS12-377, P-384) and GA_PLAIN16_LANES lanes: values below
+    2^bits(p) < 2p from default_rng(SEED_SCALARS), the first lanes 0, 1,
+    p - 1, p, p + 1 and 2p - 1, y the lanes of x reversed and 4p - 1 in
+    sub_lazy's first lane. Returns the lanes checked by curve."""
+    import numpy as np
+    import torch
+
+    from montgomery_tpu_torch.concrete import BLS12_377
+    from montgomery_tpu_torch.ops.field import Plain16, create_field_ops
+    from montgomery_tpu_torch.testing.curves import P256, P384
+
+    dev = dev or torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED_SCALARS)
+    out = {}
+    for params in (P256, BLS12_377, P384):
+        f = create_field_ops(params.modulus)
+        F, p, L = f.plain, f.p, f.plain.L
+        bits = p.bit_length()
+        C = F.carry
+
+        def k(v, x):
+            return F.const(v, x)
+
+        def lin(t, c=0):
+            return C(t + k(c, t))[0]
+
+        def add(x, y):
+            z = lin(x + y)
+            d, c = C(z - k(2 * p, z))
+            return torch.where((c < 0)[None], z, d)
+
+        def sub(x, y):
+            d, c = C(x - y)
+            return torch.where((c < 0)[None], lin(d, 2 * p), d)
+
+        def neg(x, _):
+            d = lin(k(2 * p, x) - x)
+            d2, c = C(d - k(2 * p, d))
+            return torch.where((c < 0)[None], d, d2)
+
+        def reduce(x, _):
+            d, c = C(x - k(p, x))
+            return torch.where((c < 0)[None], x, d)
+
+        ref = {"add_lazy": lambda x, y: lin(x + y), "sub_lazy": lambda x, y: lin(x - y, 4 * p),
+               "sub_positive": lambda x, y: lin(x - y, 2 * p), "add": add, "sub": sub, "neg": neg,
+               "reduce": reduce}
+        for N in lanes:
+            limbs = rng.integers(0, 1 << 16, size=(L, N), dtype=np.int64)
+            for i in range(L):
+                keep = bits - 16 * i
+                if keep < 16:
+                    limbs[i] &= (1 << max(keep, 0)) - 1
+            for j, v in enumerate((0, 1, p - 1, p, p + 1, 2 * p - 1)[:N]):
+                limbs[:, j] = [(v >> (16 * i)) & 0xFFFF for i in range(L)]
+            x = torch.from_numpy(limbs).to(dev)
+            y = x.flip(-1)
+            y4 = y.clone()
+            y4[:, 0] = torch.tensor([((4 * p - 1) >> (16 * i)) & 0xFFFF for i in range(L)], device=dev)
+            for name, want in ref.items():
+                b = y4 if name == "sub_lazy" else y
+                got = getattr(F, name)(x) if name in ("neg", "reduce") else getattr(F, name)(x, b)
+                if not torch.equal(got, want(x, b)):
+                    raise AssertionError(f"Plain16.{name} ({params.label}, {N} lanes) differs from the limb loop")
+            for name in ("carry_up", "lookahead_carry"):
+                got, want = getattr(Plain16, name)(x + y), C(x + y)
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(f"Plain16.{name} ({params.label}, {N} lanes) differs from the limb loop")
+        out[params.label] = list(lanes)
+        say(f"Plain16 on {dev} ({params.label}, {L} limbs of 16 bits): carry_up, lookahead_carry, add, "
+            f"sub, neg, reduce and the lazy ops equal the limb loop at {list(lanes)} lanes "
+            f"(LOOKAHEAD_LANES = {Plain16.LOOKAHEAD_LANES[dev.type]})")
+    return out
+
+
+def ga_scalars(q: int, N: int) -> list[int]:
+    """N scalars mod q from numpy's default_rng(SEED_SCALARS): 8 bytes above
+    q's own a scalar, so a 384-bit q gets full-width scalars too."""
+    import numpy as np
+
+    nb = (q.bit_length() + 7) // 8 + 8
+    raw = np.random.default_rng(SEED_SCALARS).integers(0, 256, size=N * nb, dtype=np.uint8).tobytes()
+    return [int.from_bytes(raw[nb * i: nb * (i + 1)], "little") % q for i in range(N)]
+
+
+def ga_ptxas() -> dict:
+    """ptxas of aff_pre and aff_pre_packed at 9, 12 and 13 limbs, each
+    instantiation: WITH_A false (the a = 0 curves) must keep the parent's
+    registers, and neither may be missing."""
+    from montgomery_tpu_torch.ops import kernels
+
+    funcs = ptxas_functions(kernels.LIBRARY.build_log)
+    out = {}
+    for name in ("aff_pre", "aff_pre_packed"):
+        for n in (9, 12, 13):
+            row = {}
+            for flag in (0, 1):
+                hit = [v for f_, v in funcs.items() if re.match(rf"_Z\d+{name}_kernelILi{n}ELb{flag}E", f_)]
+                if len(hit) != 1:
+                    raise AssertionError(f"no ptxas record of {name} at {n} limbs, WITH_A {flag}")
+                row["a" if flag else "a0"] = hit[0]
+            parent = PARENT_PRE_PTXAS[name, n]
+            say(f"  {name} n={n}: a = 0 {row['a0']} (parent {parent}), with a {row['a']} (registers, stack, "
+                "spill stores, spill loads, smem)")
+            if row["a0"][0] != parent[0]:
+                raise AssertionError(f"{name} at {n} limbs, a = 0: {row['a0'][0]} registers, the parent "
+                                     f"{parent[0]}")
+            out[f"{name}_n{n}"] = {"a0": row["a0"], "a": row["a"], "parent": parent}
+    return out
+
+
+def ga_kernels(ctx, host, rates: dict, widths: dict) -> dict:
+    """aff_pre and aff_pre_packed with the a term at the context's limb
+    count, bit for bit against their plain versions at GA_CHECK_LANES (the
+    flag classes of `_flag_lanes` first: doublings, cancellations, infinite
+    operands, unpaired lanes; then random planes), then timed at the 12-limb
+    table's widths: CUDA-event mean and the profiler's device time a launch
+    over GA_TIMING_REPS launches, the plain version once, bound and share."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, aff, dev = ctx.fops, ctx.affine, ctx.device
+    n = f.n
+    gen = torch.Generator(device=dev).manual_seed(19)
+    FA, FB, fsa, fsb, fhp = _flag_lanes(ctx, host, POINT_LANES)
+
+    def packed_rand(N):
+        t = _random_planes(f, 2 * n + 1, N, gen)
+        t[2 * n] = (torch.randint(0, 8, (N,), device=dev, generator=gen) == 0).to(torch.int32)
+        return t
+
+    def bits(N):
+        return torch.randint(0, 2, (1, N), dtype=torch.int32, device=dev, generator=gen)
+
+    def operands(N, base=True):
+        if base:
+            C = torch.cat([_widen(FA, N, packed_rand), _widen(FB, N, packed_rand)], dim=1)
+            sA, sB, hp = (_widen(t, N, bits) for t in (fsa, fsb, fhp))
+        else:
+            C = torch.cat([packed_rand(N), packed_rand(N)], dim=1)
+            sA, sB, hp = bits(N), bits(N), bits(N)
+        A, B = C[:, :N], C[:, N:]
+        G = AffineBatch(A[:n], torch.where(sA != 0, f.neg(A[n:2 * n]), A[n:2 * n]), A[2 * n] != 0)
+        H = AffineBatch(B[:n], torch.where(sB != 0, f.neg(B[n:2 * n]), B[n:2 * n]), B[2 * n] != 0)
+        return {"aff_pre_packed": (lambda: aff.pre_packed(A, B, sA, sB, hp),
+                                   lambda: aff.pre_packed_plain(A, B, sA, sB, hp)),
+                "aff_pre": (lambda: aff.pre(G, H), lambda: aff.pre_plain(G, H))}
+
+    out = {name: {"widths": [], "max_abs_err": 0} for name in ("aff_pre", "aff_pre_packed")}
+    for N in GA_CHECK_LANES:
+        for name, (kern, plain) in operands(N).items():
+            err = _raw_err(kern(), plain())
+            if err:
+                raise AssertionError(f"{name} with a at {n} limbs and {N} lanes disagrees with its plain "
+                                     f"version (max_abs_err {err})")
+            out[name]["widths"].append(N)
+    say(f"{ctx.params.label} n={n}: aff_pre and aff_pre_packed with the a term bit for bit with their plain "
+        f"versions at {list(GA_CHECK_LANES)} lanes (every flag class first)")
+    for name in ("aff_pre", "aff_pre_packed"):
+        W = widths[name]
+        kern, plain = operands(W, base=False)[name]
+        got = kern()
+        want, plain_ms = timed_once(plain)
+        if _raw_err(got, want):
+            raise AssertionError(f"{name} with a at {n} limbs and {W} lanes (timing inputs) disagrees")
+        ms = cuda_time_ms(kern, GA_TIMING_REPS)
+        per = device_times_whole(lambda: [kern() for _ in range(GA_TIMING_REPS)],
+                                 lambda res: res[0].get(name, (0,))[0] == GA_TIMING_REPS)[0]
+        count, dms = per.get(name, (0, 0.0))
+        dev_ms = dms / count if count else None
+        bms, by = bound(ctx, name, W, rates)
+        out[name].update(lanes=W, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         share=bms / dev_ms if dev_ms else None)
+        say(f"{name} with a, n={n} at {W} lanes: events {ms:.4f} ms, device "
+            + (f"{dev_ms:.4f} ms" if dev_ms else "not measured") + f", plain {plain_ms:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})" + (f", share {bms / dev_ms:.3f}" if dev_ms else ""))
+    return out
+
+
+def ga_a0_turns(ctx12, rates: dict, widths: dict) -> dict:
+    """The a = 0 instantiation of aff_pre and aff_pre_packed (BLS12-377, 12
+    limbs) against the parent's bodies (csrc/rates/aff_pre_parent.cu, built
+    in phase 0) on the same random inputs: bit for bit, then in turns (new,
+    parent, parent, new; GA_TURNS rounds), CUDA events and device time a
+    launch over GA_TIMING_REPS launches."""
+    import torch
+
+    from montgomery_tpu_torch.curves.affine import AFF_PRE, AFF_PRE_PACKED
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, aff, dev = ctx12.fops, ctx12.affine, ctx12.device
+    n = f.n
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {}
+    for name, kernel in (("aff_pre", AFF_PRE), ("aff_pre_packed", AFF_PRE_PACKED)):
+        W = widths[name]
+        C = _random_planes(f, 2 * (2 * n + 1), W, gen).reshape(2, 2 * n + 1, W)
+        C[:, 2 * n] = (torch.randint(0, 8, (2, W), device=dev, generator=gen) == 0).to(torch.int32)
+        A, B = C[0], C[1]
+        # every fourth lane a doubling: B's point is A's
+        B[:, ::4] = A[:, ::4]
+        sA, sB, hp = (torch.randint(0, 2, (1, W), dtype=torch.int32, device=dev, generator=gen)
+                      for _ in range(3))
+        G = AffineBatch(A[:n], A[n:2 * n], A[2 * n] != 0)
+        H = AffineBatch(B[:n], B[n:2 * n], B[2 * n] != 0)
+        run = (lambda: aff.pre(G, H)) if name == "aff_pre" else (lambda: aff.pre_packed(A, B, sA, sB, hp))
+        parent = probe_fn(AFF_PRE_PARENT_SRC, 12, f"probe_{name}_n12", kernel.argtypes)
+        want = run()
+        with kernel_body(kernel, n, parent):
+            got = run()
+        if _raw_err(got, want):
+            raise AssertionError(f"{name} a = 0 differs from the parent's body at 12 limbs")
+        turns = {"new": {"ms": [], "device_ms": []}, "parent": {"ms": [], "device_ms": []}}
+        for _ in range(GA_TURNS):
+            rnd = in_turns(kernel, n, {"new": None, "parent": parent}, run, GA_TIMING_REPS)
+            for body, t in rnd.items():
+                turns[body]["ms"] += t["ms"]
+                turns[body]["device_ms"] += t["device_ms"]
+        bms, by = bound(ctx12, name, W, rates)
+        say_turns(f"{name} a = 0 n=12 N={W}", turns, bms, by)
+        out[name] = {"lanes": W, "turns": turns, "bound_ms": bms, "bound_by": by}
+    return out
+
+
+def ga_oracle(c, host):
+    """The three engines through `msm` (host digits, no GLV) against the
+    bigint oracle at GA_ORACLE_N (P-384: the first): the projective and the
+    safe engine on `_adversarial_inputs` (duplicates, negations, infinity,
+    scalars 0, 1 and q - 1), the unsafe one on distinct bench points; and
+    the GLV entries refusing a curve without an endomorphism."""
+    from montgomery_tpu_torch.bigint import msm as oracle_msm
+
+    E = oracle_curve(c.params)
+    q = c.params.order
+    rng = random.Random(8)
+    base = [E.random_point(rng) for _ in range(24)]
+    sizes = GA_ORACLE_N if c.fops.n == 9 else GA_ORACLE_N[:1]
+    for N in sizes:
+        pts_adv, sc = _adversarial_inputs(E, base, N, rng)
+        want = oracle_msm(E, sc, pts_adv)
+        clean = host[:N]
+        sc_clean = [rng.randrange(q) for _ in range(N)]
+        sc_clean[0], sc_clean[2], sc_clean[3] = 0, 1, q - 1
+        want_clean = oracle_msm(E, sc_clean, clean)
+        for engine, kw, pts_, sc_, w in (("projective", dict(affine=False), pts_adv, sc, want),
+                                         ("affine-safe", dict(affine=True), pts_adv, sc, want),
+                                         ("affine-unsafe", dict(affine=True, unsafe=True), clean, sc_clean,
+                                          want_clean)):
+            t0 = time.perf_counter()
+            got = c.msm(sc_, pts_, **kw)
+            if not E.equal(got, w):
+                raise AssertionError(f"{c.params.label} {engine} msm at N={N} differs from the oracle")
+            say(f"{c.params.label} {engine} msm N={N} c={c.default_c(N)}: equal to the oracle "
+                f"({time.perf_counter() - t0:.2f} s incl. host digits)")
+    for label, call in (("digits_device", lambda: c.digits_device(c.scalars_to_limbs([1]), 4)),
+                        ("msm_full", lambda: c.msm_full([1], host[:1]))):
+        try:
+            call()
+        except ValueError as e:
+            say(f"{c.params.label} {label}: ValueError ({e})")
+        else:
+            raise AssertionError(f"{c.params.label} {label} accepted a curve without an endomorphism")
+
+
+def ga_msm(c, log2n: int, pts_full, path: str, expected: dict, stats: bool) -> tuple[dict, dict]:
+    """One engine through msm_device on signed_digits_device digits at
+    N = 2^log2n (c = default_c): launches of a run with the counts set to 0
+    just before it (none of an RCB kernel) and its peak memory, the closed
+    form, and with `stats` one run split into msm_device's stages and the
+    median of 5 more (the first run their warm-up: a P-256 MSM takes
+    seconds)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+    from montgomery_tpu_torch.msm.api import SCALAR_W
+    from montgomery_tpu_torch.msm.pippenger import bucket_accumulate, reduce_buckets
+    from montgomery_tpu_torch.scalar.device import signed_digits_device
+    from montgomery_tpu_torch.scalar.slicing import num_windows
+    from montgomery_tpu_torch.utils.timing import PhaseLog, timeit
+
+    N = 1 << log2n
+    cw = c.default_c(N)
+    engine = path.removeprefix("ga_")
+    affine, unsafe = engine != "projective", engine == "affine_unsafe"
+    A = AffineBatch(*[a[..., :N] for a in pts_full])
+    q = c.params.order
+    key = (c.params.label, "ga", N)
+    if key not in expected:
+        expected[key] = closed_form(c.params, ga_scalars(q, N), SEED_POINTS, pts_full.count)
+    limbs = c.scalars_to_limbs(ga_scalars(q, N))
+
+    def run():
+        d = signed_digits_device(limbs, SCALAR_W, c.scalar_bits, cw)
+        return c.msm_device(A, d, cw, affine=affine, unsafe=unsafe)
+
+    group = c.adapter if not affine else (c.aff_adapter_unsafe if unsafe else c.aff_adapter)
+    log = PhaseLog()
+
+    def staged():  # msm_device's stages, each ended by a synchronize
+        with log.phase("digits (signed windows)", c.device):
+            d = signed_digits_device(limbs, SCALAR_W, c.scalar_bits, cw)
+        with log.phase("pack rows" if affine else "from_affine", c.device):
+            P = group.pack_rows(A) if affine else group.from_points(A)
+        with log.phase("accumulate", c.device):
+            buckets, K, L = bucket_accumulate(group, P, d, cw)
+        with log.phase("reduce+combine", c.device):
+            if affine:
+                buckets = group.to_projective(buckets)
+            return reduce_buckets(c.adapter, buckets, cw, K, L)
+
+    torch.cuda.reset_peak_memory_stats(c.device)
+    counts, first, S = counted(run, path, c.fops.n)
+    peak = torch.cuda.max_memory_allocated(c.device) / 2**20
+    E = oracle_curve(c.params)
+    got = c.proj.to_host(S)[0]
+    if got.is_zero or not E.equal(got, expected[key]):
+        raise AssertionError(f"{c.params.label} {engine} at N=2^{log2n} differs from the closed form")
+    res = {"launches": {k: v for k, v in counts.items() if v}, "first_s": first, "peak_mib": peak}
+    if stats:
+        staged()
+        med, times = timeit(run, device=c.device, reps=5, warmup=0)
+        res.update(median_s=med, times_s=times, split=dict(log.entries))
+        say(f"{c.params.label} {engine} N=2^{log2n} c={cw} K={num_windows(c.scalar_bits, cw)}: median "
+            f"{med:.6f} s over 5 runs {['%.6f' % t for t in times]}; peak memory {peak:.1f} MiB; phase "
+            "split:\n" + log.report())
+    say(f"{c.params.label} {engine} N=2^{log2n}: equal to the closed form (first run {first:.3f} s); "
+        f"launches {res['launches']}")
+    return counts, res
+
+
+def ga_adversarial(c, pts_full, log2n: int = 16, log2base: int = 12) -> dict:
+    """phase_adversarial's safe set on P-256 through msm_device on
+    signed_digits_device digits: 2^log2base bench points, each used
+    2^(log2n - log2base) times under one scalar, negated where
+    (j + k) % 5 == 1, infinite where (j + k) % 7 == 3, scalar 0 where
+    j % 11 == 0; the safe and the projective engine equal the closed form.
+    The duplicates double in aff_pre_packed's lanes: its a term."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+    from montgomery_tpu_torch.msm.api import SCALAR_W
+    from montgomery_tpu_torch.scalar.device import signed_digits_device
+
+    N, nb = 1 << log2n, 1 << log2base
+    cw = c.default_c(N)
+    q, f, dev = c.params.order, c.fops, c.device
+    base = [0 if j % 11 == 0 else s for j, s in enumerate(ga_scalars(q, nb))]
+    j = torch.arange(N, device=dev) % nb
+    k = torch.arange(N, device=dev) // nb
+    neg, inf = (j + k) % 5 == 1, (j + k) % 7 == 3
+    x, y = pts_full.x.index_select(1, j), pts_full.y.index_select(1, j)
+    y = torch.where(neg[None], f.neg(y), y)
+    zero = torch.zeros_like(x)
+    A = AffineBatch(torch.where(inf[None], zero, x), torch.where(inf[None], zero, y), inf)
+    sign = torch.where(inf, 0, torch.where(neg, -1, 1)).cpu().tolist()
+    coef = [0] * nb
+    for i, sg in enumerate(sign):
+        coef[i % nb] += sg
+    limbs = c.scalars_to_limbs([base[i % nb] for i in range(N)])
+    d = signed_digits_device(limbs, SCALAR_W, c.scalar_bits, cw)
+    counts, first, S = counted(lambda: c.msm_device(A, d, cw, affine=True), "ga_affine_safe", f.n)
+    E = oracle_curve(c.params)
+    want = closed_form(c.params, [s * cf % q for s, cf in zip(base, coef)], SEED_POINTS, pts_full.count)
+    proj = c.proj.to_host(c.msm_device(A, d, cw, affine=False))[0]
+    if not (E.equal(c.proj.to_host(S)[0], want) and E.equal(proj, want)):
+        raise AssertionError(f"{c.params.label} adversarial safe MSM differs from the closed form")
+    say(f"{c.params.label} adversarial safe MSM N=2^{log2n}: equal to the closed form and the projective "
+        f"engine ({sum(neg.tolist())} negated, {sum(inf.tolist())} infinite); rounds {c.aff_adapter.rounds}; "
+        f"launches {dict((k_, v) for k_, v in counts.items() if v)}")
+    return counts
+
+
+def ga_predicates(c, pts_full, launches: dict) -> dict:
+    """is_on_curve and is_in_subgroup (projective) at GA_PRED_LANES lanes of
+    P-256 bench points, lanes 0 to SUBGROUP_ADV - 2 replaced by off-curve
+    points (x + 1, y) and the last of them by the point at infinity: the
+    flags equal the oracle's there and are True elsewhere."""
+    import torch
+
+    from montgomery_tpu_torch.bigint import AffinePoint
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    E = oracle_curve(c.params)
+    p = E.field.p
+    host = c.proj.affine_to_host(AffineBatch(*[a[..., :SUBGROUP_ADV] for a in pts_full]))
+    adv = [AffinePoint((P.x + 1) % p, P.y) for P in host[:SUBGROUP_ADV - 1]] + [AffinePoint.zero()]
+    head = c.proj.affine_to_device(adv, c.device)
+    N = GA_PRED_LANES
+    Pt = c.proj.from_affine(AffineBatch(*[torch.cat([h, a[..., SUBGROUP_ADV:N]], dim=-1)
+                                          for h, a in zip(head, pts_full)]))
+    out = {}
+    for tag, fn, oracle in (("ga_on_curve", c.proj.is_on_curve, E.is_on_curve),
+                            ("ga_subgroup", c.proj.is_in_subgroup, E.is_in_subgroup)):
+        counts, secs, flags = counted(lambda fn=fn: fn(Pt), tag, c.fops.n)
+        want = [oracle(P) for P in adv]
+        got = flags[:SUBGROUP_ADV].tolist()
+        if got != want or not bool(flags[SUBGROUP_ADV:].all()):
+            raise AssertionError(f"{c.params.label} {tag}: {got} against the oracle's {want}")
+        launches[f"{c.params.label}/{tag}_2^16"] = counts
+        out[tag] = {"seconds": secs, "launches": {k: v for k, v in counts.items() if v}}
+        say(f"{c.params.label} {tag} at {N} lanes: {secs:.4f} s (host clock, one run); adversarial lanes "
+            f"{got} equal the oracle's, the rest True; launches {out[tag]['launches']}")
+    return out
+
+
+def ga_planar(c, pts_full, launches: dict) -> dict:
+    """The planar safe add and batch_double of P-256 at GA_PLANAR_LANES
+    lanes: G the bench points, H rolled by one lane with every 8th lane a
+    doubling (H = G), every 9th a cancellation (H = -G) and every 10th lane
+    of G infinite; GA_SAMPLE sampled lanes of each against the oracle. The
+    add counted (aff_pre with its a term, aff_post, the inversion)."""
+    import torch
+
+    from montgomery_tpu_torch.curves.projective import AffineBatch
+
+    f, dev = c.fops, c.device
+    E = oracle_curve(c.params)
+    N = GA_PLANAR_LANES
+    lane = torch.arange(N, device=dev)
+    dbl, cancel, inf = lane % 8 == 0, lane % 9 == 0, lane % 10 == 0
+    G = AffineBatch(pts_full.x[:, :N], pts_full.y[:, :N], inf)
+    hx, hy = pts_full.x[:, :N].roll(1, -1), pts_full.y[:, :N].roll(1, -1)
+    hx = torch.where((dbl | cancel)[None], G.x, hx)
+    hy = torch.where(dbl[None], G.y, torch.where(cancel[None], f.neg(G.y), hy))
+    H = AffineBatch(hx.contiguous(), hy.contiguous(), torch.zeros(N, dtype=torch.bool, device=dev))
+    counts, secs, S = counted(lambda: c.affine.batch_add(G, H), "ga_planar", f.n)
+    t0 = time.perf_counter()
+    D = c.affine.batch_double(G)
+    torch.cuda.synchronize()
+    dsecs = time.perf_counter() - t0
+    lanes = sorted({0, 8, 9, 10, 72, *random.Random(9).sample(range(N), GA_SAMPLE - 5)})
+    pick = torch.tensor(lanes, device=dev)
+
+    def host(B):
+        return c.proj.affine_to_host(AffineBatch(B.x.index_select(1, pick), B.y.index_select(1, pick),
+                                                 B.inf.index_select(0, pick)))
+
+    g, h, s, d = host(G), host(H), host(S), host(D)
+    for i, a, b, got, dd in zip(lanes, g, h, s, d):
+        if not (E.equal(got, E.add(a, b)) and E.equal(dd, E.double(a))):
+            raise AssertionError(f"{c.params.label} planar add or double differs from the oracle at lane {i}")
+    launches[f"{c.params.label}/ga_planar_2^20"] = counts
+    say(f"{c.params.label} planar batch_add and batch_double at {N} lanes ({int(dbl.sum())} doublings, "
+        f"{int(cancel.sum())} cancellations, {int(inf.sum())} infinite G): {len(lanes)} sampled lanes equal "
+        f"the oracle; add {secs:.4f} s, double {dsecs:.4f} s (host clock, one run each); launches "
+        f"{dict((k, v) for k, v in counts.items() if v)}")
+    return {"add_s": secs, "double_s": dsecs, "launches": {k: v for k, v in counts.items() if v}}
+
+
+def phase_general_a(ctx12, rates: dict, kres: dict, launches: dict, expected: dict, t_start: float) -> dict:
+    """Phase 8, curves with a != 0 (montgomery_tpu_torch/testing/curves.py):
+    ptxas of both instantiations of the safe triage kernels; aff_pre and
+    aff_pre_packed with the a term against their plain versions at 9 and 13
+    limbs and timed, and their a = 0 instantiation against the parent's
+    bodies in turns at 12 limbs; Plain16's carries on the card against the
+    limb loop (`ga_plain16`); P-256's engines against the bigint oracle
+    and, on random_points_fast(seed=42) at 2^16 and 2^20, against the closed
+    form through msm_device on signed_digits_device digits (no RCB launch;
+    medians, peak memory and split at 2^20), the adversarial safe set,
+    random_points_weierstrass, the predicates and the planar adds; P-384's
+    engines at 2^16 and the oracle at 16."""
+    import torch
+
+    from montgomery_tpu_torch.curves.random import random_points_fast
+    from montgomery_tpu_torch.msm import WeierstrassMsm
+    from montgomery_tpu_torch.testing.curves import P256, P384
+
+    say("== phase 8: curves with a != 0 (NIST P-256 at 9 limbs, P-384 at 13)")
+    t8 = time.perf_counter()
+    widths = {name: kres[name]["lanes"] for name in ("aff_pre", "aff_pre_packed")}
+    out = {"ptxas": ga_ptxas(), "a0_turns": ga_a0_turns(ctx12, rates, widths), "plain16": ga_plain16()}
+    dev = torch.device("cuda", 0)
+    for params, log2ns in ((P256, GA_MSM_LOG2N), (P384, (GA_P384_LOG2N,))):
+        c = WeierstrassMsm(params, device=dev)
+        label = params.label
+        t0 = time.perf_counter()
+        pts = random_points_fast(c.proj, 1 << max(log2ns), seed=SEED_POINTS, device=dev,
+                                 cache_dir=ROOT / "build" / "points")
+        torch.cuda.synchronize()
+        say(f"points ({label}): 2^{max(log2ns)} from random_points_fast(seed={SEED_POINTS}) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host = c.proj.affine_to_host(type(pts)(*[a[..., :POINT_LANES] for a in pts]))
+        row = {"kernels": ga_kernels(c, host, rates, widths)}
+        ga_oracle(c, host)
+        for engine in PATHS:
+            for log2n in log2ns:
+                counts, res = ga_msm(c, log2n, pts, f"ga_{engine}", expected, stats=log2n == 20)
+                launches[f"{label}/ga_{engine}_2^{log2n}"] = counts
+                row[f"{engine}_2^{log2n}"] = res
+        if params is P256:
+            launches[f"{label}/ga_adversarial_2^16"] = ga_adversarial(c, pts)
+            row["predicates"] = ga_predicates(c, pts, launches)
+            row["planar"] = ga_planar(c, pts, launches)
+            del pts
+            torch.cuda.empty_cache()
+            # the generation and its checks; the general-a engines ran above
+            launches[f"{label}/points_2^{NEW_GEN_LOG2N}"] = phase_points(c, "points", NEW_GEN_LOG2N,
+                                                                         msms=False)
+        else:
+            del pts
+            torch.cuda.empty_cache()
+        out[label] = row
+        say(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+    say(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    return out
 
 
 def _num(v):
@@ -5107,7 +5409,8 @@ def _num(v):
     return float(f"{v:.6g}") if isinstance(v, float) else v
 
 
-def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx: dict) -> tuple[dict, dict]:
+def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx: dict,
+                 ga: dict) -> tuple[dict, dict]:
     """The {"kernels": [...]} line and the per-kernel details printed before
     it. One entry per registered kernel, its launches read from the first
     run of `home_runs` that runs it (bench.py's configuration, then the
@@ -5116,7 +5419,10 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
     carries its 9-limb measurements under "n9". BLS12-381's (13 limbs) go
     under "n13", Pallas's (9 limbs) under "n9", or "n9_weierstrass" where
     "n9" holds the Twisted Edwards ones, each with its launches from the
-    first of that curve's runs that launched it. The details: every run's
+    first of that curve's runs that launched it. aff_pre and aff_pre_packed
+    carry phase 8's times with the a term under "general_a" (P-256 at 9
+    limbs, P-384 at 13) and their a = 0 turns against the parent's body
+    under "a0_turns_device_ms". The details: every run's
     count of each kernel, the redesign phases' main-path shapes, and ptxas
     of the 13- and 9-limb instantiations."""
     from montgomery_tpu_torch.ops import kernels
@@ -5150,6 +5456,12 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
             e["n13" if n == 13 else "n9_weierstrass" if "n9" in e else "n9"] = {
                 **{key: _num(res_n[name][key]) for key in keys if key in res_n[name]},
                 "launches": launches[run][name] if run else 0, "launches_run": run}
+        if name in ("aff_pre", "aff_pre_packed"):
+            e["general_a"] = {label: {key: _num(v) for key, v in ga[label]["kernels"][name].items()
+                                      if key in keys}
+                              for label in ("p-256", "p-384")}
+            e["a0_turns_device_ms"] = {body: _num(t["device_ms"])
+                                       for body, t in ga["a0_turns"][name]["turns"].items()}
         return e
 
     def detail(name):
@@ -5208,21 +5520,29 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
     te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
+    def stamp(label):
+        say(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
+
     kres = phase_kernels(ctx, host_pts, rates)
+    stamp("phase_kernels")
     for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
         kres.setdefault(name, {}).update(res)
+    stamp("phase_redesign")
     kres["proj_dbl_rcb"]["path_profile"] = profile_cofactor(ctx, pts, rates)
     for name, res in redesign_chord(ctx, host_pts, rates).items():
         kres[name]["carry_chain"] = res
     kres["mul_const"]["path_widths"] = mul_const_widths(ctx, rates)
+    stamp("profile_cofactor, redesign_chord, mul_const_widths")
     te_kres = phase_te_kernels(te, te_host, rates)
     te_kres["ed_add_packed"]["carry_chain"] = redesign_ed_packed(te, te_host, rates)
     te_kres["ed_combine"] = redesign_te_combine(te, te_host, rates)
     for name, res in redesign_ed_add(te, te_host, rates).items():
         te_kres[name]["bodies"] = res
+    stamp("the Twisted Edwards kernels")
     sqrt12, sqrt9 = phase_sqrt_kernels(ctx, te, rates)
     kres.update(sqrt12)
     te_kres.update(sqrt9)
+    stamp("phase_sqrt_kernels")
     alt12, alt9 = phase_alt_kernels(ctx, te, rates)
     kres.update(alt12)
     te_kres.update(alt9)
@@ -5256,12 +5576,13 @@ def main() -> int:
     for c, path in ((ctx, "points"), (te, "te_points")):
         launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
     say(f"[{time.perf_counter() - t_start:.1f} s] phase 4 done")
-    new_kres, post_u = phase_new_curves(ctx, rates, kres, launches, expected, t_start)
+    new_kres = phase_new_curves(ctx, rates, kres, launches, expected, t_start)
+    ga = phase_general_a(ctx, rates, kres, launches, expected, t_start)
+    say(f"[{time.perf_counter() - t_start:.1f} s] phase 8 done")
     launches[f"micro_2^{MICRO_LOG2N}"] = phase_micro(ctx)
-    line, details = kernels_line(kres, te_kres, launches, new_kres, ptx)
-    details["aff_post_packed_u_minimums"] = {f"n{n}": {str(m): row for m, row in by_m.items()}
-                                             for n, by_m in post_u.items()}
+    line, details = kernels_line(kres, te_kres, launches, new_kres, ptx, ga)
     details["api"] = api
+    details["general_a"] = ga
     say(json.dumps(details))
     say(f"total wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(line))

@@ -33,10 +33,9 @@
 // fused level's product on madc.cuh's carry chains (fe_mul_cc, fe_sqr_cc),
 // and __launch_bounds__ with a minimum of resident blocks of 128 threads an
 // SM, so that enough warps are resident for one warp's loads to overlap
-// another's products. The body it replaced, the same on field.cuh's CIOS
-// fe_mul and fe_sqr at that body's minimums (5 blocks at 12 and 9 limbs, 3
-// at 13), is kept as the probe rates/aff_post_packed_u_cios.cu; the two
-// agree bit for bit.
+// another's products. The body it replaced ran the same on field.cuh's
+// CIOS fe_mul and fe_sqr at that body's minimums (5 blocks at 12 and 9
+// limbs, 3 at 13); the two agreed bit for bit.
 //
 // The minimum is chosen per limb count (post_u_min_blocks): the least
 // spill, then the faster of the two highest minimums without it by device

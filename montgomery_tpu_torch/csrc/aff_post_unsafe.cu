@@ -12,9 +12,9 @@
 // products and a square (798 32x32->64 multiplies); the memory bound is a
 // little above the multiply bound. Design: one thread per lane, every plane
 // read in place through its row stride, the chord's products and square on
-// madc.cuh's carry chains (fe_mul_cc, fe_sqr_cc). The body it replaced, the
-// same chord on field.cuh's CIOS fe_mul and fe_sqr, is kept as the probe
-// rates/aff_post_unsafe_cios.cu; the two agree bit for bit.
+// madc.cuh's carry chains (fe_mul_cc, fe_sqr_cc). The body it replaced ran
+// the same chord on field.cuh's CIOS fe_mul and fe_sqr; the two agreed bit
+// for bit.
 #include "affine.cuh"
 
 template <int NL>

@@ -1,9 +1,10 @@
-// The complete affine add around a shared batch inversion, for y^2 = x^3 + b.
+// The complete affine add around a shared batch inversion, for
+// y^2 = x^3 + a x + b.
 //
 // Replaces the formulas that montgomery_tpu/curves/affine.py inlines into its
 // safe batched-affine kernels: _pre_inv_formula (:76-99), the edge-case
 // triage before the inversion, and _post_inv_formula (:101-121), the chord or
-// tangent completion after it, with _slope_numer_dbl (:67-74) for a = 0.
+// tangent completion after it, with _slope_numer_dbl (:67-74), 3 x^2 + a.
 // The packed kernels (aff_pre_packed.cu, aff_post_packed.cu) and the planar
 // ones (aff_pre.cu, aff_post.cu) call them per lane; aff_chord is the
 // completion of the unsafe add, packed (aff_post_packed_u.cu) and planar
@@ -11,7 +12,9 @@
 // the limb count like field.cuh; the kernels instantiate them at the three
 // Weierstrass fields' counts: 12 limbs (BLS12-377), 13 (BLS12-381), 9
 // (Pallas). b enters only through 3b, a run-time argument of the projective
-// kernels; the affine formulas do not use it.
+// kernels; the affine formulas do not use it. a enters only the tangent's
+// numerator, through aff_triage's template flag WITH_A: false for the a = 0
+// curves, whose instantiation leaves its argument unread and adds nothing.
 //
 // Flags of a lane: bit 1 is_dbl (both finite, x1 == x2, y1 == y2), bit 2
 // cancel (both finite, x1 == x2, y1 != y2), bit 4 y1_zero. A lane whose
@@ -20,11 +23,10 @@
 // brings a zero into the shared inversion.
 //
 // aff_chord runs on the product and square of its template argument Mul
-// (madc.cuh): the carry-chain fe_mul_cc and fe_sqr_cc in the kernels,
-// field.cuh's CIOS fe_mul and fe_sqr in the parents' bodies kept as probes
-// under rates/ (the two agree bit for bit). The safe adds' triage and
-// completion stay on CIOS. Both products are exact only for a b < R p, so
-// the chord's operands, each in [0, 2p):
+// (madc.cuh): the carry-chain fe_mul_cc and fe_sqr_cc in the kernels
+// (field.cuh's CIOS fe_mul and fe_sqr agree with them bit for bit). The
+// safe adds' triage and completion stay on CIOS. Both products are exact
+// only for a b < R p, so the chord's operands, each in [0, 2p):
 //   - x1, y1, x2, y2 as loaded: every producer writes [0, 2p) (Montgomery
 //     forms from pack_raw, mont_mul or mul_const; pack_glv's beta x, a
 //     product; the adds' outputs, fe_sub results; the unreduced [p, 2p)
@@ -62,12 +64,14 @@ __device__ __forceinline__ void load_signed(uint32_t (&x)[NL], uint32_t (&y)[NL]
 }
 
 // denominator (2 y1 for a doubling, x2 - x1 otherwise, 1 where poisoned),
-// slope numerator (3 x1^2 for a doubling, y2 - y1 otherwise) and flags
-template <int NL>
+// slope numerator (3 x1^2 + a for a doubling, y2 - y1 otherwise) and flags;
+// ca is a in Montgomery form, read only where WITH_A
+template <int NL, bool WITH_A = false>
 __device__ __forceinline__ int aff_triage(uint32_t (&denom)[NL], uint32_t (&numer)[NL],
                                           const uint32_t (&x1)[NL], const uint32_t (&y1)[NL],
                                           const uint32_t (&x2)[NL], const uint32_t (&y2)[NL], bool inf1,
-                                          bool inf2, const uint32_t (&one)[NL], const FieldParams<NL>& F) {
+                                          bool inf2, const uint32_t (&one)[NL], const uint32_t (&ca)[NL],
+                                          const FieldParams<NL>& F) {
   bool xeq = fe_is_equal(x1, x2, F), yeq = fe_is_equal(y1, y2, F);
   bool finite = !inf1 && !inf2;
   bool is_dbl = xeq && yeq && finite;
@@ -84,6 +88,7 @@ __device__ __forceinline__ int aff_triage(uint32_t (&denom)[NL], uint32_t (&nume
   fe_sqr(xx, x1, F);
   fe_add(a, xx, xx, F);
   fe_add(a, a, xx, F);
+  if constexpr (WITH_A) fe_add(a, a, ca, F);
   fe_sub(b, y2, y1, F);
   fe_select(numer, is_dbl, a, b);
   return (is_dbl ? AFF_DBL : 0) | (cancel ? AFF_CANCEL : 0) | (y1_zero ? AFF_Y1_ZERO : 0);

@@ -20,8 +20,8 @@
 // gathered operands, a super-round level's two halves) read in place
 // through their row strides. On an H100 the carry chains took a launch of
 // 10,813,448 lanes (the 2^20 path's first level) from 4.11 to 2.66 ms,
-// 0.73 of the multiply bound (chip_smoke.py, in turns with the CIOS body,
-// csrc/rates/ed_add_packed_cios.cu); four threads a lane, one product
+// 0.73 of the multiply bound (chip_smoke.py, in turns with the CIOS body
+// it replaced); four threads a lane, one product
 // each of the add's stages 4 | 1 | 4, took 3.88 ms.
 #include "edwards.cuh"
 

@@ -10,9 +10,8 @@
 //   (X3 : Y3 : Z3 : T3) = (E F : G H : F G : E H).
 // 8 products and 1 product by the constant k. ed_add.cu's wide bodies
 // (planar planes, and k-fold doubling) and ed_add_packed.cu (packed rows)
-// call it per lane on madc.cuh's carry-chain fe_mul_cc, the probes under
-// rates/ on field.cuh's CIOS fe_mul (the template argument Mul; the two
-// products agree bit for bit).
+// call it per lane on madc.cuh's carry-chain fe_mul_cc (the template
+// argument Mul; field.cuh's CIOS fe_mul agrees with it bit for bit).
 //
 // Bounds (inputs in [0, 2p), every product's result in [0, 2p)): the sums
 // stay lazy as in the JAX formula. Y - X + 4p < 6p, Y + X < 4p, so A < 2p is

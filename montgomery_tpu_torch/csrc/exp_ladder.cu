@@ -12,8 +12,8 @@
 //
 // Bound on this card: the integer multiply pipe. A lane is a serial chain
 // of about 330 squarings and 60 products at NL = 12 (e = (q - 1) / 2, w = 4)
-// against 8 NL bytes moved. The parent's body (kept as the probe
-// csrc/rates/exp_ladder_2bit.cu) ran fixed 2-bit digits on field.cuh's CIOS
+// against 8 NL bytes moved. The body it replaced ran fixed 2-bit digits
+// on field.cuh's CIOS
 // fe_sqr and fe_mul, whose C-level 64-bit adds wait on each carry (988 other
 // instructions beside 300 multiplies in one product at NL = 12). Design: one
 // thread a lane (2.6 M lanes fill the card); the squarings on madc.cuh's

@@ -333,22 +333,10 @@ __device__ __forceinline__ void fe_sqr_cc(uint32_t (&r)[NL], const uint32_t (&a)
   r[NL - 1] = cc_addc(H[NL - 1], T[2 * NL - 1]);
 }
 
-// the two products and squares as types, for a formula written once over
-// its arithmetic (edwards.cuh's ed_add, projective.cuh's rcb_dbl,
-// affine.cuh's aff_chord): field.cuh's CIOS fe_mul and CIOS-row fe_sqr, and
-// fe_mul_cc and fe_sqr_cc; the two agree bit for bit
-struct CiosMul {
-  template <int NL>
-  __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
-                                             const FieldParams<NL>& F) {
-    fe_mul(r, a, b, F);
-  }
-  template <int NL>
-  __device__ static __forceinline__ void sqr(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
-    fe_sqr(r, a, F);
-  }
-};
-
+// the carry-chain product and square as a type, for a formula written once
+// over its arithmetic (edwards.cuh's ed_add, projective.cuh's rcb_dbl,
+// affine.cuh's aff_chord); they agree bit for bit with field.cuh's CIOS
+// fe_mul and CIOS-row fe_sqr
 struct CarryChainMul {
   template <int NL>
   __device__ static __forceinline__ void mul(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],

@@ -15,8 +15,8 @@
 //   the carry-chain product took the k = 92 launch of the cofactor stage
 //   at 2^20 lanes from 67.9 to 38.5 ms at 12 limbs (0.75 of the multiply
 //   bound of 7 products and 2 squares a doubling) and from 111.4 to 50.3
-//   ms at 13 (chip_smoke.py, in turns with the CIOS body,
-//   csrc/rates/proj_dbl_rcb_cios.cu). Four threads a lane, one product
+//   ms at 13 (chip_smoke.py, in turns with the CIOS body it
+//   replaced). Four threads a lane, one product
 //   each of the formula's stages 4 | 1 | 4, read 0.56-0.60 of that bound:
 //   stage 2's one product costs a warp the issue slots of four.
 // - few (one block of 4 warps a lane, below the wrapper's lane threshold):

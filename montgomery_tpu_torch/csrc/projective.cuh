@@ -23,8 +23,7 @@
 #include "coop.cuh"
 #include "madc.cuh"
 
-// (X, Y, Z) <- 2 (X, Y, Z) on the product Mul (madc.cuh; CiosMul for the
-// parent's body kept as a probe, csrc/rates/proj_dbl_rcb_cios.cu)
+// (X, Y, Z) <- 2 (X, Y, Z) on the product Mul (madc.cuh)
 template <int NL, class Mul = CarryChainMul>
 __device__ __forceinline__ void rcb_dbl(uint32_t (&X)[NL], uint32_t (&Y)[NL], uint32_t (&Z)[NL],
                                         const Fe<NL>& b3, const FieldParams<NL>& F) {

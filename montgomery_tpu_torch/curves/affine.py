@@ -51,11 +51,13 @@ AFF_POST_PACKED_U = kernels.Kernel(
     "montgomery_tpu/curves/affine.py:345",
     [_VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _INT, _VP, _INT, _INT, _VP, _U32P, _INT],
 )
+# the safe pre stages take a in Montgomery form after `one`, or a null
+# pointer for an a = 0 curve (the kernels' body without the a term)
 AFF_PRE_PACKED = kernels.Kernel(
     "aff_pre_packed", kernels.symbols("aff_pre_packed", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/aff_pre_packed.cu",
     "montgomery_tpu/curves/affine.py:350",
-    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _INT],
+    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _VP, _VP, _U32P, _U32P, _U32P, _INT],
 )
 AFF_POST_PACKED = kernels.Kernel(
     "aff_post_packed", kernels.symbols("aff_post_packed", *kernels.WEIERSTRASS_LIMBS),
@@ -68,7 +70,7 @@ AFF_PRE = kernels.Kernel(
     "aff_pre", kernels.symbols("aff_pre", *kernels.WEIERSTRASS_LIMBS),
     "montgomery_tpu_torch/csrc/aff_pre.cu",
     "montgomery_tpu/curves/affine.py:134",
-    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _U32P, _INT],
+    [_VP, _VP, _VP, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _INT, _VP, _VP, _U32P, _U32P, _U32P, _INT],
 )
 AFF_POST = kernels.Kernel(
     "aff_post", kernels.symbols("aff_post", *kernels.WEIERSTRASS_LIMBS),
@@ -108,12 +110,16 @@ def _flat(A: AffineBatch) -> AffineBatch:
 
 
 class AffineOps:
-    """Batched-affine group ops for y^2 = x^3 + b, planar and packed."""
+    """Batched-affine group ops for y^2 = x^3 + a x + b, planar and packed."""
 
     def __init__(self, fops: FieldOps, params: CurveParams):
         p = fops.p
         self.f, self.params = fops, params
+        self.a_is_zero = params.a % p == 0
+        self.a_mont = params.a % p * fops.R % p
         self.b_mont = params.b % p * fops.R % p
+        # a for the safe pre stages' kernels: None (a null pointer) where a = 0
+        self._a_words = None if self.a_is_zero else kernels.words(to_words(self.a_mont, fops.n))
         beta = params.endomorphism.beta if params.endomorphism else 0
         self.beta_mont = beta % p * fops.R % p
         self._beta_words = kernels.words(to_words(self.beta_mont, fops.n))
@@ -200,7 +206,7 @@ class AffineOps:
         if M:
             AFF_PRE_PACKED.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags),
                                   kernels.ptr(Av), sa, kernels.ptr(Bv), sb, kernels.ptr(sAv),
-                                  kernels.ptr(sBv), kernels.ptr(hv), self._one_words,
+                                  kernels.ptr(sBv), kernels.ptr(hv), self._one_words, self._a_words,
                                   self.f.field_words(AFF_PRE_PACKED), M, n=self.f.n,
                                   device=denom.device)
         return denom, numer, flags
@@ -230,10 +236,17 @@ class AffineOps:
         one = F.const(self.f.R_mod_p, x1).expand_as(x1)
         denom = sel(is_dbl, F.add(y1, y1), F.sub(x2, x1))
         denom = sel(cancel | (is_dbl & y1_zero) | ~finite, one, denom)
-        xx = F.mul(x1, x1)
-        numer = sel(is_dbl, F.add(F.add(xx, xx), xx), F.sub(y2, y1))
+        numer = sel(is_dbl, self._tangent16(x1), F.sub(y2, y1))
         flags = DBL * is_dbl.int() + CANCEL * cancel.int() + Y1_ZERO * y1_zero.int()
         return denom, numer, flags
+
+    def _tangent16(self, x):
+        """The tangent's numerator 3 x^2 + a on 16-bit limbs (the JAX
+        package's _slope_numer_dbl)."""
+        F = self.f.plain
+        xx = F.mul(x, x)
+        num = F.add(F.add(xx, xx), xx)
+        return num if self.a_is_zero else F.add(num, F.const(self.a_mont, x))
 
     def post_packed(self, A, B, sA, sB, dinv, numer, flags, hp) -> torch.Tensor:
         """(2n+1, M) packed sums of the safe add, inf row live (pass-through
@@ -400,7 +413,7 @@ class AffineOps:
         if M:
             AFF_PRE.launch(kernels.ptr(denom), kernels.ptr(numer), kernels.ptr(flags), kernels.ptr(x1),
                            sx1, kernels.ptr(y1), sy1, kernels.ptr(x2), sx2, kernels.ptr(y2), sy2,
-                           kernels.ptr(i1), kernels.ptr(i2), self._one_words,
+                           kernels.ptr(i1), kernels.ptr(i2), self._one_words, self._a_words,
                            self.f.field_words(AFF_PRE), M, n=n, device=denom.device)
         return denom, numer, flags
 
@@ -496,23 +509,30 @@ class AffineOps:
         return from16(x3), from16(y3)
 
     def batch_double(self, G: AffineBatch) -> AffineBatch:
-        """Lane-wise 2 G[i] with one shared inversion; infinity and y = 0
-        give infinity."""
+        """Lane-wise 2 G[i] with one shared inversion, tangent slope
+        (3 x^2 + a) / 2y; infinity and y = 0 give infinity."""
         f = self.f
         bad = G.inf | f.is_zero(G.y)
         denom = f._sel(bad, f.const_plane(f.R_mod_p, G.x), f.add(G.y, G.y))
         dinv = f.batch_inv(denom)
         xx = f.square(G.x)
-        lam = f.mul(f.add(f.add(xx, xx), xx), dinv)
+        num = f.add(f.add(xx, xx), xx)
+        if not self.a_is_zero:
+            num = f.add(num, f.const_plane(self.a_mont, num))
+        lam = f.mul(num, dinv)
         x3 = f.sub(f.sub(f.square(lam), G.x), G.x)
         y3 = f.sub(f.mul(lam, f.sub(G.x, x3)), G.y)
         return AffineBatch(x3, y3, bad)
 
     def is_on_curve(self, A: AffineBatch) -> torch.Tensor:
-        """Bool (N,): y^2 == x^3 + b; the point at infinity passes. Two
-        `mont_sqr` launches and one `mont_mul` on CUDA tensors."""
+        """Bool (N,): y^2 == x^3 + a x + b; the point at infinity passes.
+        Two `mont_sqr` launches and one `mont_mul` on CUDA tensors, and a
+        `mul_const` by a where a != 0."""
         f = self.f
-        rhs = f.add(f.mul(f.square(A.x), A.x), f.const_plane(self.b_mont, A.x))
+        rhs = f.mul(f.square(A.x), A.x)
+        if not self.a_is_zero:
+            rhs = f.add(rhs, f.mul_const(A.x, self.a_mont))
+        rhs = f.add(rhs, f.const_plane(self.b_mont, A.x))
         return f.is_equal(f.square(A.y), rhs) | A.inf
 
 

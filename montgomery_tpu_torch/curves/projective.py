@@ -1,11 +1,15 @@
-"""Projective short-Weierstrass curve ops over limb planes (a = 0 curves).
+"""Projective short-Weierstrass curve ops over limb planes.
 
 Counterpart of `montgomery_tpu/curves/projective.py`. Points are
 (X : Y : Z) in Montgomery form, each coordinate an (n, *B) int32 plane; the
-point at infinity is any lane with Z == 0. `add`, `double_n` and `combine`
-run their kernels (`csrc/proj_add_rcb.cu`, `csrc/proj_dbl_rcb.cu`,
+point at infinity is any lane with Z == 0. For a = 0 (every curve of
+`concrete`), `add`, `double_n` and `combine` run the complete RCB formulas
+in their kernels (`csrc/proj_add_rcb.cu`, `csrc/proj_dbl_rcb.cu`,
 `csrc/proj_combine_rcb.cu`) on CUDA tensors and their plain versions on CPU
-tensors.
+tensors. For a != 0 the group law is the JAX package's: dbl-1998-cmo-2 for
+a doubling and the masked add, whose products go through `FieldOps.mul_list`
+(kernel `mont_mul`) and squares through `square` (`mont_sqr`); the JAX
+package has no fused kernel for it, and neither has this port.
 """
 
 from __future__ import annotations
@@ -88,34 +92,30 @@ def scale_by(ops, k: int, P):
     return ops.double_n(R, run)
 
 
-def normalize_host(X: list[int], Y: list[int], Z: list[int], p: int) -> list[AffinePoint]:
-    """Canonical projective ints -> affine points, with Montgomery's trick:
-    one modular inverse for the whole batch."""
-    zs = [z % p or 1 for z in Z]
-    prefix, acc = [], 1
-    for z in zs:
-        prefix.append(acc)
-        acc = acc * z % p
-    inv = pow(acc, -1, p)
-    out = [None] * len(zs)
-    for i in range(len(zs) - 1, -1, -1):
-        zi = inv * prefix[i] % p
-        inv = inv * zs[i] % p
-        if Z[i] % p == 0:
-            out[i] = AffinePoint.zero()
-        else:
-            out[i] = AffinePoint(X[i] * zi % p, Y[i] * zi % p)
-    return out
+def _zero16(f: FieldOps, x16: torch.Tensor) -> torch.Tensor:
+    """FieldOps.is_zero of a value given as 16-bit limbs in [0, 2p)."""
+    return (f.plain.reduce(x16) == 0).all(dim=0)
+
+
+def _horner(W, c: int, add, double_n):
+    """acc = W_{K-1}; acc = add(double_n(acc, c), W_k) for k = K-2 .. 0, over
+    the last axis of W's planes (n, *B, K); planes (n, *B, 1)."""
+    K = W.X.shape[-1]
+    acc = type(W)(*[a[..., K - 1:K] for a in W])
+    for k in range(K - 2, -1, -1):
+        acc = add(double_n(acc, c), type(W)(*[a[..., k:k + 1] for a in W]))
+    return acc
 
 
 class ProjectiveOps:
-    """Projective Weierstrass arithmetic for a = 0 (every concrete curve)."""
+    """Projective Weierstrass arithmetic: the RCB kernels for a = 0, the
+    general-a formulas on field products otherwise."""
 
     def __init__(self, fops: FieldOps, params: CurveParams):
         p = fops.p
-        if params.a % p != 0:
-            raise NotImplementedError("curves with a != 0 (add_masked) are not ported")
         self.f, self.params = fops, params
+        self.a_is_zero = params.a % p == 0
+        self.a_mont = params.a % p * fops.R % p
         self.b_mont = params.b % p * fops.R % p
         self.b3_mont = 3 * params.b % p * fops.R % p
         beta = params.endomorphism.beta if params.endomorphism else 0
@@ -173,9 +173,12 @@ class ProjectiveOps:
     # ------------------------------------------------------------ group law
 
     def add(self, P: ProjectiveBatch, Q: ProjectiveBatch, *, few: bool | None = None) -> ProjectiveBatch:
-        """Complete RCB addition (valid for P == Q, P == -Q and zero), one
-        launch on CUDA tensors: below FEW_ADD_LANES lanes the kernel's
-        few-lane body, with equal values. `few` picks the body instead."""
+        """Complete addition (valid for P == Q, P == -Q and zero). For a = 0
+        the RCB add, one launch on CUDA tensors: below FEW_ADD_LANES lanes
+        the kernel's few-lane body, with equal values; `few` picks the body
+        instead. For a != 0 `add_masked`."""
+        if not self.a_is_zero:
+            return self.add_masked(P, Q)
         MulCounter.record(P.X.shape, ADD_MULS)
         ins = [*P, *Q]
         if not kernels.on_cuda(*ins):
@@ -214,22 +217,91 @@ class ProjectiveOps:
         Z3 = F.add(F.mul(Z3s, t4), F.mul(t0_3, t3))
         return ProjectiveBatch(from16(X3), from16(Y3), from16(Z3))
 
+    def add_masked(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> ProjectiveBatch:
+        """Complete add for any a, the JAX package's add_masked: the chord
+        formula on every lane, then per-lane selects of `double(P)` where
+        P == Q, the identity where P == -Q, and the other operand where one
+        is the identity."""
+        f = self.f
+        Y1Z2, X1Z2, Z1Z2, Y2Z1, X2Z1 = f.mul_list(
+            [(P.Y, Q.Z), (P.X, Q.Z), (P.Z, Q.Z), (Q.Y, P.Z), (Q.X, P.Z)])
+        u, v = f.plain.sub(to16(Y2Z1), to16(Y1Z2)), f.plain.sub(to16(X2Z1), to16(X1Z2))
+        added = self._chord(u, v, X1Z2, Y1Z2, Z1Z2)
+        x_eq, y_eq = _zero16(f, v), _zero16(f, u)
+        res = self.select(x_eq & y_eq, self.double(P), added)
+        res = self.select(x_eq & ~y_eq, self.zero_like(P), res)
+        res = self.select(self.is_zero(P), Q, res)
+        return self.select(self.is_zero(Q), P, res)
+
+    def _chord(self, u16, v16, X1, Y1, Z1) -> ProjectiveBatch:
+        """The chord's sum from u = Y2 Z1 - Y1 Z2 and v = X2 Z1 - X1 Z2 as
+        16-bit limbs (X1, Y1, Z1 the first operand's coordinates scaled by
+        Z2), as the JAX package's add_masked and add_mixed compute it. The
+        sums between products run on `Plain16` limbs, each converted once
+        (the same values as FieldOps' add and sub, which convert on every
+        call: on the card a conversion is several launches)."""
+        f, F = self.f, self.f.plain
+        u, v = from16(u16), from16(v16)
+        uu, vv = f.square(u), f.square(v)
+        vvv, Rq, uuZ = f.mul_list([(v, vv), (vv, X1), (uu, Z1)])
+        Rq16 = to16(Rq)
+        A16 = F.sub(F.sub(to16(uuZ), to16(vvv)), F.add(Rq16, Rq16))
+        X3, t, w1, Z3 = f.mul_list([(v, from16(A16)), (u, from16(F.sub(Rq16, A16))), (vvv, Y1), (vvv, Z1)])
+        return ProjectiveBatch(X3, from16(F.sub(to16(t), to16(w1))), Z3)
+
     def add_mixed(self, P: ProjectiveBatch, A: AffineBatch) -> ProjectiveBatch:
-        """P + an affine point (Z2 = 1): for a = 0 the complete add of
-        `from_affine(A)`, as in the JAX package; an infinite A gives P."""
-        return self.add(P, self.from_affine(A))
+        """P + an affine point (Z2 = 1), complete; an infinite A gives P.
+        For a = 0 the complete add of `from_affine(A)`, for a != 0 the mixed
+        chord with the selects of `add_masked`, both as in the JAX package."""
+        if self.a_is_zero:
+            return self.add(P, self.from_affine(A))
+        f = self.f
+        Y2Z1, X2Z1 = f.mul_list([(A.y, P.Z), (A.x, P.Z)])
+        u, v = f.plain.sub(to16(Y2Z1), to16(P.Y)), f.plain.sub(to16(X2Z1), to16(P.X))
+        added = self._chord(u, v, P.X, P.Y, P.Z)
+        x_eq, y_eq = _zero16(f, v), _zero16(f, u)
+        res = self.select(x_eq & y_eq, self.double(P), added)
+        res = self.select(x_eq & ~y_eq, self.zero_like(P), res)
+        res = self.select(self.is_zero(P), self.from_affine(A), res)
+        return self.select(A.inf, P, res)
 
     def sub_mixed(self, P: ProjectiveBatch, A: AffineBatch) -> ProjectiveBatch:
         return self.add_mixed(P, AffineBatch(A.x, self.f.neg(A.y), A.inf))
 
     def double(self, P: ProjectiveBatch) -> ProjectiveBatch:
-        return self.double_n(P, 1)
+        """2 P, complete: one RCB doubling for a = 0 (`double_n`), the JAX
+        package's dbl-1998-cmo-2 for a != 0 (five batched products, a point
+        with Y == 0 or Z == 0 gives Z3 = 0). The sums between products run
+        on `Plain16` limbs as in `_chord`; the factors w = 3 XX + a ZZ
+        (< 8p), s = 2 YZ and X + R (< 4p) stay unreduced, as a product's
+        factors may (the same canonical values as the JAX package's)."""
+        if self.a_is_zero:
+            return self.double_n(P, 1)
+        f, F = self.f, self.f.plain
+        XX, YZ, ZZ = f.mul_list([(P.X, P.X), (P.Y, P.Z), (P.Z, P.Z)])
+        aZZ, = f.mul_list([(f.const_plane(self.a_mont, ZZ), ZZ)])
+        XX16, YZ16 = to16(XX), to16(YZ)
+        w = from16(F.add_lazy(F.add_lazy(F.add_lazy(XX16, XX16), XX16), to16(aZZ)))
+        s = from16(F.add_lazy(YZ16, YZ16))
+        ss, R = f.mul_list([(s, s), (P.Y, s)])
+        XR = from16(F.add_lazy(to16(P.X), to16(R)))
+        sss, RR, BB, ww = f.mul_list([(s, ss), (R, R), (XR, XR), (w, w)])
+        RR16 = to16(RR)
+        B16 = F.sub(F.sub(to16(BB), XX16), RR16)
+        h16 = F.sub(to16(ww), F.add(B16, B16))
+        X3, t = f.mul_list([(from16(h16), s), (w, from16(F.sub(B16, h16)))])
+        return ProjectiveBatch(X3, from16(F.sub(to16(t), F.add(RR16, RR16))), sss)
 
     def double_n(self, P: ProjectiveBatch, k: int, *, few: bool | None = None) -> ProjectiveBatch:
-        """k complete RCB doublings in one launch (k at run time); below
-        FEW_LANES lanes the kernel's few-lane body, with equal values. `few`
-        picks the body instead (the one-thread body with few=False)."""
+        """k complete doublings. For a = 0 the RCB doublings in one launch
+        (k at run time); below FEW_LANES lanes the kernel's few-lane body,
+        with equal values; `few` picks the body instead (the one-thread body
+        with few=False). For a != 0 k calls of `double`."""
         if k <= 0:
+            return P
+        if not self.a_is_zero:
+            for _ in range(k):
+                P = self.double(P)
             return P
         MulCounter.record(P.X.shape, k * DBL_MULS)
         if not kernels.on_cuda(*P):
@@ -268,11 +340,15 @@ class ProjectiveOps:
     def combine(self, W: ProjectiveBatch, c: int) -> ProjectiveBatch:
         """S = sum_k 2^(c k) W_k over the last axis of planes (n, *B, K), in
         Horner order (acc = W_{K-1}; acc = 2^c acc + W_k for k = K-2 .. 0):
-        one `proj_combine_rcb` launch on CUDA tensors, `combine_plain` on CPU
-        tensors. Returns planes (n, *B, 1); any W_k may be the identity."""
+        for a = 0 one `proj_combine_rcb` launch on CUDA tensors,
+        `combine_plain` on CPU tensors; for a != 0 the same order through
+        `double_n` and `add`. Returns planes (n, *B, 1); any W_k may be the
+        identity."""
         K = W.X.shape[-1]
         if K < 1 or c < 1:
             raise ValueError(f"combine needs K >= 1 windows and c >= 1, got K = {K}, c = {c}")
+        if not self.a_is_zero:
+            return _horner(W, c, self.add, self.double_n)
         MulCounter.record(W.X.shape[:-1], (K - 1) * (c * DBL_MULS + ADD_MULS))
         if not kernels.on_cuda(*W):
             return self.combine_plain(W, c)
@@ -290,14 +366,9 @@ class ProjectiveOps:
         return ProjectiveBatch(*[o.reshape(n, *batch, 1) for o in outs])
 
     def combine_plain(self, W: ProjectiveBatch, c: int) -> ProjectiveBatch:
-        """The Horner combine with `double_n_plain` and `add_plain`, in the
-        kernel's order."""
-        K = W.X.shape[-1]
-        acc = ProjectiveBatch(*[a[..., K - 1:K] for a in W])
-        for k in range(K - 2, -1, -1):
-            acc = self.add_plain(self.double_n_plain(acc, c),
-                                 ProjectiveBatch(*[a[..., k:k + 1] for a in W]))
-        return acc
+        """The Horner combine with `double_n_plain` and `add_plain` (a = 0),
+        in the kernel's order."""
+        return _horner(W, c, self.add_plain, self.double_n_plain)
 
     def scale(self, k: int, P: ProjectiveBatch) -> ProjectiveBatch:
         """k P for a constant k, left to right: each set bit below the top
@@ -310,18 +381,26 @@ class ProjectiveOps:
     # ------------------------------------------------------------ predicates
 
     def is_on_curve(self, P: ProjectiveBatch) -> torch.Tensor:
-        """Bool over the batch: Y^2 Z == X^3 + b Z^3, or the point at
-        infinity; three batched `mul`s and one more (`mont_mul` on the card)."""
+        """Bool over the batch: Y^2 Z == X^3 + a X Z^2 + b Z^3, or the point
+        at infinity; three batched `mul`s and one more (`mont_mul` on the
+        card), two more where a != 0."""
         f = self.f
         YY, XX, ZZ = f.mul_list([(P.Y, P.Y), (P.X, P.X), (P.Z, P.Z)])
         b = f.const_plane(self.b_mont, ZZ)
         lhs, X3, bZZ = f.mul_list([(YY, P.Z), (XX, P.X), (b, ZZ)])
-        rhs = f.add(X3, f.mul(bZZ, P.Z))
+        if self.a_is_zero:
+            rhs = f.add(X3, f.mul(bZZ, P.Z))
+        else:
+            aX = f.mul(f.const_plane(self.a_mont, ZZ), P.X)
+            aXZZ, bZ3 = f.mul_list([(aX, ZZ), (bZZ, P.Z)])
+            rhs = f.add(f.add(X3, aXZZ), bZ3)
         return f.is_equal(lhs, rhs) | self.is_zero(P)
 
     def is_in_subgroup(self, P: ProjectiveBatch) -> torch.Tensor:
         """Bool over the batch: order P == 0, through `scale` (one
-        `double_n` launch per run of doublings, one `add` per set bit). The
+        `double_n` per run of doublings, one `add` per set bit). For a != 0
+        the masked add is complete on every input, and the test is
+        is_zero(scale(order, P)), as in the JAX package. For a = 0 the
         RCB add is complete only where no two operands differ by a point of
         order 2; a curve with even cofactor (BLS12-377) has such points, and
         there the add returns (0 : 0 : 0), which every later add and doubling
@@ -329,6 +408,8 @@ class ProjectiveOps:
         have odd order), so a result with Y == 0 marks a point outside it:
         only a true infinity (Z == 0, Y != 0) passes."""
         R = self.scale(self.params.order, P)
+        if not self.a_is_zero:
+            return self.is_zero(R)
         return self.is_zero(R) & ~self.f.is_zero(R.Y)
 
     def eq(self, P: ProjectiveBatch, Q: ProjectiveBatch) -> torch.Tensor:

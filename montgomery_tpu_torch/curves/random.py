@@ -27,7 +27,7 @@ import torch
 from ..bigint.twisted_edwards import EdwardsParams, TwistedEdwardsCurve
 from ..bigint.weierstrass import WeierstrassCurve
 from .edwards import EdwardsBatch, EdwardsOps
-from .projective import AffineBatch, ProjectiveOps, normalize_host
+from .projective import AffineBatch, ProjectiveOps
 
 
 def table_indices(seed: int, N: int, n_tables: int = 8, table_size: int = 512) -> np.ndarray:
@@ -89,10 +89,11 @@ def _save(cache: Path | None, xs: np.ndarray, ys: np.ndarray) -> None:
 def random_points_fast(proj: ProjectiveOps, N: int, seed: int = 0, device="cuda",
                        n_tables: int = 8, table_size: int = 512,
                        cache_dir: str | Path | None = None) -> AffineBatch:
-    """N random subgroup points as a Montgomery-form AffineBatch on `device`.
-    The tables and their sums run on the device (kernel 2); the sums are
-    normalised on the host with one inversion. With `cache_dir`, the
-    canonical affine points are kept there between runs."""
+    """N random subgroup points as a Montgomery-form AffineBatch on `device`:
+    the same points as montgomery_tpu's random_points_fast. The tables, their
+    sums (the group's add: the RCB kernel for a = 0) and the normalisation
+    (one batch inversion, `to_affine`) run on the device. With `cache_dir`,
+    the canonical affine points are kept there between runs."""
     f = proj.f
     cache = _cache_path(cache_dir, proj.params.label, N, seed, n_tables, table_size)
     if cache is not None and cache.exists():
@@ -104,14 +105,12 @@ def random_points_fast(proj: ProjectiveOps, N: int, seed: int = 0, device="cuda"
     bases = table_bases(proj.params, seed, n_tables)
     B = proj.from_affine(proj.affine_to_device(bases, device))  # (n, n_tables)
     acc = _table_sums(proj, B, N, seed, n_tables, table_size)
-    X, Y, Z = zip(*proj.to_host_raw(acc))
-    pts = normalize_host(list(X), list(Y), list(Z), f.p)
-    if any(P.is_zero for P in pts):
+    if bool(proj.is_zero(acc).any()):
         raise RuntimeError("a random point summed to infinity")
-    xs = f.host_planes([P.x for P in pts])
-    ys = f.host_planes([P.y for P in pts])
-    _save(cache, xs, ys)
-    both = f.to_montgomery(torch.from_numpy(np.concatenate([xs, ys], axis=1)).to(device))
+    A = proj.to_affine(acc)
+    both = f.from_montgomery(torch.cat([A.x, A.y], dim=-1))  # canonical, as the cache keeps them
+    _save(cache, both[:, :N].cpu().numpy(), both[:, N:].cpu().numpy())
+    both = f.to_montgomery(both)
     return AffineBatch(both[:, :N], both[:, N:], torch.zeros(N, dtype=torch.bool, device=device))
 
 
@@ -165,10 +164,13 @@ def _first_successes(ok: torch.Tensor, N: int) -> torch.Tensor:
 
 def solve_weierstrass(proj: ProjectiveOps, X: torch.Tensor):
     """Raw candidate planes X -> (x, y, ok) in Montgomery form: y a root of
-    x^3 + b where ok (y = 0 elsewhere)."""
+    x^3 + a x + b where ok (y = 0 elsewhere); a x is one `mul_const`."""
     f = proj.f
     Xm = f.to_montgomery(X)
-    rhs = f.add(f.mul(f.mul(Xm, Xm), Xm), f.const_plane(proj.b_mont, Xm))
+    rhs = f.mul(f.mul(Xm, Xm), Xm)
+    if not proj.a_is_zero:
+        rhs = f.add(rhs, f.mul_const(Xm, proj.a_mont))
+    rhs = f.add(rhs, f.const_plane(proj.b_mont, Xm))
     Y, ok = f.sqrt(rhs)
     return Xm, Y, ok
 
@@ -192,7 +194,7 @@ def _phase(log, label: str, device):
 
 def random_points_weierstrass(proj: ProjectiveOps, N: int, seed: int = 0, device="cuda",
                               oversample: float = 2.5, log=None) -> AffineBatch:
-    """N random subgroup points of y^2 = x^3 + b (cofactor cleared), as a
+    """N random subgroup points of y^2 = x^3 + a x + b (cofactor cleared), as a
     Montgomery-form AffineBatch on `device`: the JAX package's
     random_points_weierstrass. With `log` (a utils.timing.PhaseLog), each
     stage is synchronised and timed into it."""

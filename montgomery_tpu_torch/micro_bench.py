@@ -8,9 +8,12 @@ sweep (doc/zprize22.md:199).
 
     python -m montgomery_tpu_torch.micro_bench [section ...] [--device cpu] [--log2n 18]
 
-Sections: rtt launch mul altmul gather sort (default: all), at the JAX
-script's sizes: BLS12-377, N = 2^18 lanes, operands from numpy's
-default_rng(1). The operands are drawn below p: the JAX script fed its
+Sections: rtt launch mul altmul gather sort carry (default: all), at the
+JAX script's sizes: BLS12-377, N = 2^18 lanes, operands from numpy's
+default_rng(1). `carry` (the port's own) times `Plain16`'s two carries of
+a sum of two canonical values, the limb loop and the lookahead, at 18 and
+24 limbs of 16 bits (P-256, BLS12-377) and every width 2^0 ... 2^(log2n+4)
+lanes: where they cross is `Plain16.LOOKAHEAD_LANES`. The operands are drawn below p: the JAX script fed its
 Barrett multiply raw 12-bit limbs, values up to 2^384, outside Barrett's
 contract. Gathers, sorts and the round trip are PyTorch's own calls
 (`index_select`, `torch.sort`, `.item()`), as they were XLA's in the JAX
@@ -30,10 +33,11 @@ import torch
 
 from .concrete import BLS12_377
 from .ops.alt_mul import barrett_mul, barrett_params, schoolbook_product
-from .ops.field import create_field_ops
+from .ops.field import Plain16, create_field_ops
 from .utils.timing import sync, timeit
 
-SECTIONS = ("rtt", "launch", "mul", "altmul", "gather", "sort")
+SECTIONS = ("rtt", "launch", "mul", "altmul", "gather", "sort", "carry")
+CARRY_LIMBS = (18, 24)  # 16-bit limbs of P-256 and BLS12-377
 SEED = 1
 
 
@@ -182,6 +186,24 @@ def main(sections=None, device="cuda", log2n: int = 18, log=print) -> dict:
         r["rows_10x2^17_s"] = t
         log(f"torch.sort (10,2^17) rows:   {t * 1e3:8.4f} ms")
         out["sort"] = r
+
+    if "carry" in sections:
+        r = {}
+        for L in CARRY_LIMBS:
+            widths, loop, ahead = [], [], []
+            for k in range(log2n + 5):
+                w = 1 << k
+                t = torch.from_numpy(rng.integers(0, 1 << 17, size=(L, w), dtype=np.int64)).to(dev)
+                widths.append(w)
+                loop.append(tm(Plain16.carry, t))
+                ahead.append(tm(Plain16.lookahead_carry, t))
+            cross = next((w for w, a, b in zip(widths, loop, ahead) if a <= b), None)
+            r[f"L{L}"] = {"widths": widths, "loop_s": loop, "lookahead_s": ahead, "crossover": cross}
+            log(f"Plain16 carry, {L} limbs: loop / lookahead ms by width: " + ", ".join(
+                f"2^{k} {a * 1e3:.4f}/{b * 1e3:.4f}" for k, (a, b) in enumerate(zip(loop, ahead))))
+            log(f"Plain16 carry, {L} limbs: the loop first as fast at {cross} lanes "
+                f"(LOOKAHEAD_LANES[{dev.type!r}] = {Plain16.LOOKAHEAD_LANES.get(dev.type)})")
+        out["carry"] = r
     return out
 
 

@@ -29,7 +29,7 @@ from ..curves.affine import AffineOps
 from ..curves.edwards import ED_ADD_PACKED, EdwardsBatch, EdwardsOps
 from ..curves.projective import PROJ_ADD_RCB, AffineBatch, ProjectiveBatch, ProjectiveOps
 from ..ops import kernels
-from ..ops.field import FieldOps, create_field_ops
+from ..ops.field import MONT_MUL, FieldOps, create_field_ops
 from ..ops.limbs import bytes_to_words, words_to_limbs
 from ..scalar.device import digits_glv_device, glv_device, ints_to_limbs_np, signed_digits_device
 from ..scalar.glv import glv_params, signed_digits_glv
@@ -101,15 +101,23 @@ def _point_planes(f: FieldOps, data) -> tuple[np.ndarray, np.ndarray]:
 
 
 class WeierstrassMsm:
-    """MSM context for a short-Weierstrass curve with a = 0, on `device`
-    (the card unless the caller asks for the CPU). On the card the field
-    must have a limb count the Weierstrass kernels are instantiated at: 12
-    (BLS12-377), 13 (BLS12-381) or 9 (Pallas)."""
+    """MSM context for a short-Weierstrass curve y^2 = x^3 + a x + b, on
+    `device` (the card unless the caller asks for the CPU). On the card the
+    field must have a limb count the Weierstrass kernels are instantiated
+    at: 12 (BLS12-377), 13 (BLS12-381, NIST P-384) or 9 (Pallas, NIST
+    P-256). A curve without an endomorphism (P-256, P-384) takes the engines
+    through `msm_device` on non-GLV digits (`scalar.device.
+    signed_digits_device`, or `digits` on the host) and `msm`; the GLV
+    entries `digits_device`, `msm_device_full` and `msm_full` raise
+    ValueError for it."""
 
     identity_xy = (0, 0)  # the affine encoding of the point at infinity
 
     def __new__(cls, params: CurveParams, device="cuda"):
-        return _context(cls, params, device, PROJ_ADD_RCB)
+        # the kernel every MSM launches: the RCB add for a = 0, the field
+        # product of the general-a group law otherwise
+        guard = PROJ_ADD_RCB if params.a % params.modulus == 0 else MONT_MUL
+        return _context(cls, params, device, guard)
 
     def _build(self, params: CurveParams, device: torch.device):
         self.params, self.device = params, device

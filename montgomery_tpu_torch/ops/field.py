@@ -132,6 +132,34 @@ def from16(t: torch.Tensor) -> torch.Tensor:
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
+def _carry_pass(t: torch.Tensor):
+    """One carry pass over signed limbs: (limbs t & (2^16 - 1) plus the carry
+    of the limb below, the top limb's carry out)."""
+    c = t >> 16
+    u = t & _M16
+    u[1:] += c[:-1]
+    return u, c[-1]
+
+
+_LIMB_INDEX: dict = {}  # (L, device, rank) -> the limb indices, shaped to broadcast
+
+
+def _resolve(u: torch.Tensor, gen: torch.Tensor, prop: torch.Tensor, cout: torch.Tensor):
+    """The last carries of `carry` after a pass that left each limb's carry
+    out either `gen` (where the limb does not propagate) or its carry in
+    (where `prop`): limb i's carry in is `gen` at the last limb below i
+    that does not propagate, 0 if none. Returns (limbs, carry out + cout)."""
+    L = u.shape[0]
+    idx = _LIMB_INDEX.get((L, u.device, u.dim()))
+    if idx is None:
+        idx = torch.arange(L, device=u.device).reshape(L, *([1] * (u.dim() - 1)))
+        _LIMB_INDEX[L, u.device, u.dim()] = idx
+    last = torch.cummax(torch.where(prop, -1, idx), dim=0).values
+    out = torch.where(last >= 0, torch.gather(gen, 0, last.clamp(min=0)), 0)
+    u[1:] += out[:-1]
+    return u & _M16, cout + out[-1]
+
+
 class Plain16:
     """Field arithmetic on (L, *B) int64 tensors of 16-bit limbs (L = 2n).
     Values are taken mod R = 2^(16L); bounds as in `FieldOps`."""
@@ -167,36 +195,78 @@ class Plain16:
             t[i + 1] += t[i] >> 16
         return t & _M16, t[-1] >> 16
 
+    @staticmethod
+    def lookahead_carry(t: torch.Tensor):
+        """`carry` of non-negative limbs below 3 * 2^16 (a sum of at most
+        three canonical values) in a fixed number of tensor operations,
+        whatever L: one pass leaves limbs in [0, 2^16 + 1] and carries of 1
+        that ripple only through limbs 2^16 - 1; the carry into a limb is
+        then the generate bit (limb >= 2^16) of the last limb below it that
+        does not propagate (cummax over their indices). The same limbs and
+        carry out as `carry`."""
+        u, c = _carry_pass(t)
+        return _resolve(u, u >> 16, u == _M16, c)
+
+    # `carry_up` resolves carries of at most this many lanes by lookahead
+    # (about fifteen tensor operations, whatever L) and wider ones by
+    # `carry`'s loop (two small operations a limb, fewer bytes): the widths
+    # where the two take equal time (`micro_bench.py carry`), by device
+    LOOKAHEAD_LANES = {"cuda": 1 << 18, "cpu": 256}
+
+    @staticmethod
+    def carry_up(t: torch.Tensor):
+        """`carry` of non-negative limbs below 3 * 2^16: `lookahead_carry` up
+        to LOOKAHEAD_LANES lanes, else the loop."""
+        if t[0].numel() > Plain16.LOOKAHEAD_LANES.get(t.device.type, 0):
+            return Plain16.carry(t)
+        return Plain16.lookahead_carry(t)
+
+    def _carry_both(self, t1, t2):
+        """`carry_up` of t1 and t2 (one shape) in one call, side by side on
+        the last axis: (limbs of t1, carry out of t1, limbs of t2, carry out
+        of t2)."""
+        N = t1.shape[-1]
+        r, c = self.carry_up(torch.cat([t1, t2], dim=-1))
+        return r[..., :N], c[..., :N], r[..., N:], c[..., N:]
+
+    def _minus(self, x, y):
+        """x - y + 2^(16L) as limbs in [0, 2^17) before their carries: x plus
+        the complement 2^16 - 1 - y of each limb, and 1."""
+        return x + (_M16 - y) + self.const(1, x)
+
     def add_lazy(self, x, y):
-        return self.carry(x + y)[0]
+        return self.carry_up(x + y)[0]
 
     def sub_lazy(self, x, y):
         """x - y + 4p, for y < 4p."""
-        return self.carry(x + self.const(4 * self.p, x) - y)[0]
+        return self.carry_up(self._minus(x, y) + self.const(4 * self.p, x))[0]
 
     def sub_positive(self, x, y):
         """x - y + 2p, for y < 2p."""
-        return self.carry(x + self.const(2 * self.p, x) - y)[0]
+        return self.carry_up(self._minus(x, y) + self.const(2 * self.p, x))[0]
 
     def add(self, x, y):
-        z = self.carry(x + y)[0]
-        d, c = self.carry(z - self.const(2 * self.p, z))
-        return torch.where((c < 0)[None], z, d)
+        """x + y, less 2p where x + y >= 2p: both candidates in one carry;
+        x + y + (2^(16L) - 2p) carries out exactly where x + y >= 2p."""
+        z = x + y
+        r1, _, r2, c2 = self._carry_both(z, z + self.const((1 << 16 * self.L) - 2 * self.p, z))
+        return torch.where((c2 > 0)[None], r2, r1)
 
     def sub(self, x, y):
-        d, c = self.carry(x - y)
-        d2 = self.carry(d + self.const(2 * self.p, d))[0]
-        return torch.where((c < 0)[None], d2, d)
+        """x - y, plus 2p where x < y: both candidates in one carry;
+        x - y + 2^(16L) carries out exactly where x >= y."""
+        t = self._minus(x, y)
+        r1, c1, r2, _ = self._carry_both(t, t + self.const(2 * self.p, t))
+        return torch.where((c1 > 0)[None], r1, r2)
 
     def neg(self, x):
-        p2 = self.const(2 * self.p, x)
-        d = self.carry(p2 - x)[0]
-        d2, c = self.carry(d - p2)
-        return torch.where((c < 0)[None], d, d2)
+        """2p - x for x in (0, 2p], 0 for x = 0: `sub` from 0."""
+        return self.sub(torch.zeros_like(x), x)
 
     def reduce(self, x):
-        d, c = self.carry(x - self.const(self.p, x))
-        return torch.where((c < 0)[None], x, d)
+        """x - p where x >= p: x + (2^(16L) - p) carries out exactly there."""
+        d, c = self.carry_up(x + self.const((1 << 16 * self.L) - self.p, x))
+        return torch.where((c > 0)[None], d, x)
 
     def mul(self, x, y):
         """CIOS Montgomery product (x y + m p) / R, radix 2^16: row i adds
@@ -259,6 +329,7 @@ class FieldOps:
         self.plain = Plain16(p, 2 * n)
         self.sqrt_M, self.sqrt_q_odd, self.sqrt_g_inv_pows = sqrt_constants(p, self.R)
         self._sqrt_tables: dict = {}
+        self._const_planes: dict = {}
 
     def field_words(self, kernel: kernels.Kernel):
         """The FieldParams that `kernel` takes; raises NotImplementedError
@@ -271,9 +342,15 @@ class FieldOps:
         return torch.zeros((self.n, *shape), dtype=torch.int32, device=device)
 
     def const_plane(self, value: int, ref: torch.Tensor) -> torch.Tensor:
-        """A constant broadcast to the shape of `ref` (n, *B)."""
-        c = torch.from_numpy(codec.pack_scalar(value, self.n)).to(ref.device)
-        return c.reshape(self.n, *([1] * (ref.dim() - 1))).expand(ref.shape)
+        """A constant broadcast to the shape of `ref` (n, *B): an expanded
+        view of one column, built once per value, device and rank (a copy
+        to the card each call would wait for the card's queue)."""
+        key = (value, ref.device, ref.dim())
+        c = self._const_planes.get(key)
+        if c is None:
+            c = torch.from_numpy(codec.pack_scalar(value, self.n)).to(ref.device)
+            c = self._const_planes[key] = c.reshape(self.n, *([1] * (ref.dim() - 1)))
+        return c.expand(ref.shape)
 
     @staticmethod
     def _sel(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -319,10 +396,11 @@ class FieldOps:
 
     def is_equal(self, x, y) -> torch.Tensor:
         """Bool over the batch: x == y as field elements (x, y in [0, 2p))."""
-        return (self.reduce(x) == self.reduce(y)).all(dim=0)
+        F = self.plain
+        return (F.reduce(to16(x)) == F.reduce(to16(y))).all(dim=0)
 
     def is_zero(self, x) -> torch.Tensor:
-        return (self.reduce(x) == 0).all(dim=0)
+        return (self.plain.reduce(to16(x)) == 0).all(dim=0)
 
     # --------------------------------------------------- montgomery multiply
 

@@ -56,8 +56,11 @@ def _inside_kernel():
 
 
 def _jax_counts(fn, *shapes):
+    """Trace fn in a fresh wrapper: a bound method that the JAX package has
+    jitted elsewhere (`FieldOps.jitted`, kept alive in its cache) would
+    otherwise hit that trace, and its products would go uncounted."""
     with _inside_kernel(), JaxMulCounter() as mc:
-        jax.eval_shape(fn, *shapes)
+        jax.eval_shape(lambda *args: fn(*args), *shapes)
     return mc.calls, mc.lanes
 
 
@@ -233,3 +236,18 @@ def test_micro_bench_runs_on_cpu():
     assert len(lines) == 9 and lines[0] == "device=cpu (host clock)"
     with pytest.raises(ValueError):
         micro_bench.main(["inverse"], "cpu")
+
+
+def test_micro_bench_carry_section_on_cpu():
+    """The carry sweep times both carries at every width 2^0 .. 2^(log2n+4)
+    for each limb count and names the first width where the loop is as
+    fast (or None)."""
+    lines = []
+    out = micro_bench.main(["carry"], "cpu", log2n=1, log=lines.append)
+    assert set(out["carry"]) == {f"L{L}" for L in micro_bench.CARRY_LIMBS}
+    for r in out["carry"].values():
+        assert r["widths"] == [1, 2, 4, 8, 16, 32]
+        assert len(r["loop_s"]) == len(r["lookahead_s"]) == 6
+        assert all(t > 0 for t in r["loop_s"] + r["lookahead_s"])
+        assert r["crossover"] is None or r["crossover"] in r["widths"]
+    assert len(lines) == 1 + 2 * len(micro_bench.CARRY_LIMBS)

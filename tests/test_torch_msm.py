@@ -153,8 +153,20 @@ def test_affine_engine_raises(ctx):
         "digits (GLV+slice)", "expand (pack_glv)", "accumulate", "reduce+combine"]
 
 
-def test_failed_context_is_not_cached():
-    bad = dataclasses.replace(BLS12_377, a=1)
-    for _ in range(2):
-        with pytest.raises(NotImplementedError):
-            WeierstrassMsm(bad, device="cpu")
+def test_failed_context_is_not_cached(monkeypatch):
+    """A context whose build raises leaves no entry in the cache: the next
+    call builds it anew (curves with a != 0 build since the general-a group
+    law, so the failure is a field whose construction raises)."""
+    from montgomery_tpu_torch.msm import api
+
+    bad = dataclasses.replace(BLS12_377, label="bls12-377-refused")
+
+    def refuse(p):
+        raise NotImplementedError(f"no field for {p}")
+
+    with monkeypatch.context() as m:
+        m.setattr(api, "create_field_ops", refuse)
+        for _ in range(2):
+            with pytest.raises(NotImplementedError):
+                WeierstrassMsm(bad, device="cpu")
+    assert WeierstrassMsm(bad, device="cpu").params is bad
