@@ -34,16 +34,14 @@ Phases, each printed as it runs:
      chains) and of proj_dbl_rcb's wide body, ed_add_packed and the chord's
      two kernels, with the redesigned bodies' ptxas registers and spills
      (the CIOS bodies those redesigns replaced, kept under `csrc/rates/`,
-     are no longer built: their turns stand in PERF.md); the parent's
-     aff_pre and aff_pre_packed before the a term
-     (`csrc/rates/aff_pre_parent.cu`, 12 limbs) that phase 8 times the
-     a = 0 instantiation against; the latency of
+     are no longer built: their turns stand in PERF.md); the latency of
      the safegcd core's 30 divsteps and matrix application in one thread
      and of a whole batch on a warp (`csrc/rates/divstep_latency.cu`),
      which the divstep inverses' floors multiply; ptxas of every
      kernel function (registers, stack frame, spill, shared memory), and
      each instantiation BLS12-381 (13 limbs) and Pallas (9 limbs) brought
-     must be in the log; each of glv_digits' three instantiations must show
+     must be in the log, as must every instantiation at 1, 2 and 3 limbs
+     (`phase_new_ptxas`); each of glv_digits' three instantiations must show
      no stack frame and no spill in ptxas;
   1. each kernel against its plain version on the same tensors, with
      adversarial values in the first lanes (canonical values must be equal;
@@ -144,8 +142,12 @@ Phases, each printed as it runs:
      2^18, 2^18 + 17 and 512 (divstep_inv) or 2^20 (barrett_mul) lanes of
      canonical values with 0, 1, 2, p - 1, p - 2 and the squares nearest p^2
      in the first lanes, 1,024 lanes against Python's ints, barrett_mul
-     against the Montgomery route on every lane, both at 9 limbs too; each
-     timed at 2^18 (9 limbs: 2^16);
+     against the Montgomery route on every lane, at 9 limbs too (2^16), and
+     at 13, 1, 2 and 3 limbs (BLS12-381's field, small, babybear,
+     goldilocks) at 2^18 and 2^16 + 17 with the same checks, each launch
+     counted at its limb count; each timed at 2^18 (9 limbs: 2^16; the new
+     counts also by the profiler, and beside barrett_mul the int64
+     x y % p where p < 2^31);
   2. the MSM at N = 16 and N = 2^9 against the bigint oracle: the projective
      and the safe batched-affine engine with zero scalars, duplicate and
      negated duplicate points and the point at infinity; the unsafe engine
@@ -218,11 +220,16 @@ Phases, each printed as it runs:
      is_on_curve and is_in_subgroup at 2^20 lanes with 18 adversarial
      lanes (BLS12-377's order-2 point (p - 1, 0), points without cofactor
      clearing, infinity; on Twisted Edwards the order-2 and order-4 points)
-     against the oracle; the ten example fields of 9, 12 and 13 limbs at
-     2^20 lanes (mul, square, add_no_reduce, sub_positive, left_shift, inv,
-     batch_inv, sqrt: each kernel bit for bit with its plain version on
-     2^16 lanes, every op against Python's ints on 1,024 lanes, each
-     timed), and the 1-3 limb fields must raise on the card;
+     against the oracle; the thirteen example fields of 1, 2, 3, 9, 12 and
+     13 limbs at 2^20 lanes (mul, square, add_no_reduce, sub_positive,
+     left_shift, inv, batch_inv, sqrt: each kernel bit for bit with its
+     plain version on 2^16 lanes, every op against Python's ints on 1,024
+     lanes, each op's launches at the field's limb count, each timed); at
+     1-3 limbs each field kernel also timed on its own (`small_field_times`:
+     device time a launch, bound, share; mont_mul, mont_sqr and mul_const
+     at 2^24 lanes too, and the int64 x y % p beside mont_mul where
+     p < 2^31); then a 5-limb field (2^127 - 1) must raise
+     NotImplementedError on the card in every kernel op;
   6. (last) the micro-benchmark (`phase_micro`): micro_bench.main with every
      section at 2^18 lanes, the Barrett chain against the plain chain, and
      inv_divstep and inv_mont_divstep at 2^18 against the Fermat ladder on
@@ -244,8 +251,8 @@ Between phases 4 and 6, BLS12-381 and Pallas (`phase_new_curves`), each on
   8. (after them, before phase 6) curves with a != 0 (`phase_general_a`,
      montgomery_tpu_torch/testing/curves.py): the a = 0 instantiation of
      aff_pre and aff_pre_packed must keep the parent's ptxas registers at
-     9, 12 and 13 limbs, and is timed against the parent's body in turns
-     at 12 limbs; both kernels with the a term bit for bit with their plain
+     9, 12 and 13 limbs (the turns against the parent's body stand in
+     PERF.md); both kernels with the a term bit for bit with their plain
      versions at 1, 17, 640, 2^16 and 2^16 + 17 lanes (every flag class
      first) and timed at 9 (P-256) and 13 (P-384) limbs; P-256's engines
      through msm (host digits) against the bigint oracle at N = 16 and 512
@@ -267,7 +274,6 @@ script exits 1 before printing a result.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import json
@@ -294,7 +300,6 @@ DIVSTEP_LATENCY_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "divste
 CHORD_TURN_REPS = 10  # launches a turn of the chord's two kernels (CUDA events, then the profiler)
 CHORD_PLANAR_LANES = 1 << 20  # aff_post_unsafe's checks and turns
 MUL_CONST_WIDTHS = (1 << 20, 2_621_456)  # mul_const's widths on its paths at 12 limbs: expand, points
-PROBES: dict = {}  # probe source, or (source, limbs), -> its built library (phase 0)
 # kernels each path must launch (the affine paths' bucket reduction is
 # projective), and those of the other packed add, which it must not
 _AFFINE = {"glv_digits", "pack_glv", "mont_mul", "divstep_inv_mont", "proj_add_rcb", "proj_dbl_rcb",
@@ -340,6 +345,8 @@ for _path in ("planar_safe", "planar_unsafe"):
 PATH_KERNELS["micro"] = {"mont_mul", "mont_sqr", "mul_const", "divstep_inv_mont", "divstep_inv",
                          "barrett_mul"}
 PATH_FORBIDDEN["micro"] = (_WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR) - PATH_KERNELS["micro"]
+PATH_KERNELS["alt"] = _ALT  # phase_alt_kernels: one of them a run
+PATH_FORBIDDEN["alt"] = _WEIERSTRASS | _EDWARDS | _SOLVE | _PLANAR
 ALT_LANES = (1 << 18, (1 << 18) + 17)  # the micro-bench's width, and a ragged edge
 ALT_SAMPLE = 1024  # lanes of divstep_inv and barrett_mul checked against Python's ints
 MICRO_LOG2N = 18
@@ -365,6 +372,9 @@ SQRT_SAMPLE = 1024
 # ragged 2^16), back-to-back calls a timing (about 40-70 ms each)
 LADDER_LANES = (1, 17, (1 << 16) + 17)
 LADDER_TURN_REPS = 3
+# lanes of the path's width that exp_ladder at e = p - 2 is held on against
+# its plain version (e = (q - 1) / 2 is held on every lane and timed there)
+LADDER_SLICE = 1 << 16
 TE_CURVE = "ed-on-bls12-377"
 TE_LIMBS = 9  # every launch of the Twisted Edwards paths, and none of the others'
 TE_COMBINE_K = 208  # ed_dbl's k on the halving combine's first level at 2^20: c 16 = 13 x 16
@@ -543,22 +553,20 @@ def say_device_times(label: str, per: dict, busy: float, wall: float, others: di
 # ----------------------------------------------------------------- phase 0
 
 
-def start_probe_build(src: Path, limbs: int | None = None):
-    """Start nvcc on a probe (a multiply-rate or latency microbenchmark, or
-    a body a kernel's redesign replaced), which is built apart from the
-    kernels' library (with -DMSM_LIMBS=limbs where given, its entry points
-    at that limb count only); returns (process or None if built, path)."""
+def start_probe_build(src: Path):
+    """Start nvcc on a probe (a multiply-rate or latency microbenchmark),
+    which is built apart from the kernels' library; returns (process or
+    None if built, path)."""
     from montgomery_tpu_torch.ops import kernels
 
     text = b"".join(p.read_bytes() for p in (src, *sorted(kernels.CSRC.glob("*.cuh"))))
     key = hashlib.sha256(text).hexdigest()[:16]
     out = ROOT / "build" / "rates" / key
-    lib = out / f"lib{src.stem}{'' if limbs is None else f'_n{limbs}'}.so"
+    lib = out / f"lib{src.stem}.so"
     if lib.exists():
         return None, lib
     out.mkdir(parents=True, exist_ok=True)
-    defs = [] if limbs is None else [f"-DMSM_LIMBS={limbs}"]
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", "-I",
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-I",
            str(kernels.CSRC), "-o", str(lib), str(src)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
@@ -652,8 +660,7 @@ def phase_env() -> dict:
     say("card:", smi_line())
     clock = max_sm_clock_hz()
     say(f"max SM clock: {clock / 1e6:.0f} MHz")
-    probes = {key: start_probe_build(*key) if isinstance(key, tuple) else start_probe_build(key)
-              for key in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC, (AFF_PRE_PARENT_SRC, 12))}
+    probes = {src: start_probe_build(src) for src in (RATE_SRC, LATENCY_SRC, DIVSTEP_LATENCY_SRC)}
     kernels.LIBRARY.get()
     say(f"kernel build: {kernels.LIBRARY.build_seconds:.1f} s -> {kernels.LIBRARY.path}")
     jobs = re.findall(r"^== (.+) \(ended ([\d.]+) s, ran ([\d.]+) s\)$", kernels.LIBRARY.build_log, re.M)
@@ -668,18 +675,15 @@ def phase_env() -> dict:
     say(f"glv_digits instantiations (stack frame, spill stores, spill loads in bytes): {glv}")
     if len(glv) != 3 or any(any(v) for v in glv.values()):
         raise AssertionError("each of glv_digits' three instantiations must have no stack frame and no spill")
-    probe_ptxas = {}
-    for key, (proc, _) in probes.items():
+    for src, (proc, _) in probes.items():
         if proc is not None:
             log, _ = proc.communicate()
-            name = key[0].name if isinstance(key, tuple) else key.name
+            name = src.name
             if proc.returncode:
                 raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
             for line in log.splitlines():
                 if "registers" in line or "spill" in line:
                     say(f"  ptxas ({name}):", line.strip())
-            probe_ptxas.update(ptxas_by_limbs(log))
-    PROBES.update({key: lib for key, (_, lib) in probes.items()})
     say(f"[{time.perf_counter() - t0:.1f} s] probes built")
     redesigned_ptxas(ptxas_by_limbs(kernels.LIBRARY.build_log))
     redesigned_sass(probes)
@@ -1929,60 +1933,24 @@ def redesign_divstep(ctx, pts_full, rates: dict) -> dict:
     return row
 
 
-# ------------------------------ the carry-chain product: the two redesigned
-# bodies (proj_dbl_rcb's wide body, ed_add_packed) against the parent's
+# ------------------------------ the carry-chain product: the redesigned
+# bodies (proj_dbl_rcb's wide body, ed_add_packed), each timed in turns
 
 
-def probe_fn(src: Path, n: int | None, symbol: str, argtypes: list):
-    """Entry point `symbol` of a probe that phase 0 built (per limb count
-    where n is given), typed like a kernel entry with these arguments."""
-    fn = getattr(ctypes.CDLL(str(PROBES[src if n is None else (src, n)])), symbol)
-    fn.argtypes = [*argtypes, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@contextlib.contextmanager
-def kernel_body(kernel, n: int, fn):
-    """Launches of `kernel` at n limbs go to `fn` (a probe's entry point
-    with the kernel's arguments; None: the library's own) inside the block.
-    The wrapper counts them as the kernel's."""
-    if fn is None:
-        yield
-        return
-    own = kernel._fns.get(n)
-    kernel._fns[n] = fn
-    try:
-        yield
-    finally:
-        if own is None:
-            kernel._fns.pop(n, None)
-        else:
-            kernel._fns[n] = own
-
-
-# in_turns' bodies of a kernel whose parent is not built: the library's
-# alone (the CIOS bodies that the carry-chain redesigns of PRs 13-16
-# replaced stay under csrc/rates/, unbuilt; their turns stand in PERF.md)
-LIBRARY_BODY = {"new": None}
-
-
-def in_turns(kernel, n: int, bodies: dict, run, reps: int) -> dict:
-    """Each body of `bodies` ({label: entry point, None for the library's})
-    running run() in turns: the labels in order, then reversed (new,
-    parent, parent, new). A turn is
+def in_turns(kernel, run, reps: int) -> dict:
+    """run() timed in two turns (the redesigns' parents, which ran in turns
+    with the new bodies, are gone: their turns stand in PERF.md). A turn is
     the CUDA-event mean of `reps` back-to-back runs and the profiler's
-    device time a launch over `reps` more. Returns {label: {"ms": [...],
-    "device_ms": [...]}}, one value a turn."""
-    out = {label: {"ms": [], "device_ms": []} for label in bodies}
-    for label in [*bodies, *reversed(list(bodies))]:
-        with kernel_body(kernel, n, bodies[label]):
-            out[label]["ms"].append(cuda_time_ms(run, reps, 1))
-            per = device_times_whole(lambda: [run() for _ in range(reps)],
-                                     lambda r: r[0].get(kernel.name, (0,))[0] == reps)[0]
-            count, ms = per.get(kernel.name, (0, 0.0))
-            out[label]["device_ms"].append(ms / count if count else None)
-    return out
+    device time a launch of `kernel` over `reps` more. Returns {"new":
+    {"ms": [...], "device_ms": [...]}}, one value a turn."""
+    out = {"ms": [], "device_ms": []}
+    for _ in range(2):
+        out["ms"].append(cuda_time_ms(run, reps, 1))
+        per = device_times_whole(lambda: [run() for _ in range(reps)],
+                                 lambda r: r[0].get(kernel.name, (0,))[0] == reps)[0]
+        count, ms = per.get(kernel.name, (0, 0.0))
+        out["device_ms"].append(ms / count if count else None)
+    return {"new": out}
 
 
 def say_turns(label: str, turns: dict, bound_ms: float, by: str) -> None:
@@ -2074,8 +2042,6 @@ def profile_cofactor(ctx, pts_full, rates: dict) -> dict:
 
     import torch
 
-    from montgomery_tpu_torch.curves.projective import PROJ_DBL_RCB
-
     proj, n = ctx.proj, ctx.fops.n
     P = proj.from_affine(pts_full)
     N, h = P.X.shape[-1], ctx.params.cofactor
@@ -2085,16 +2051,15 @@ def profile_cofactor(ctx, pts_full, rates: dict) -> dict:
         return proj.scale(h, P)
 
     out = {}
-    for label, fn in LIBRARY_BODY.items():
-        with kernel_body(PROJ_DBL_RCB, n, fn):
-            per, busy, wall, others, traced = device_times_whole(
-                run, lambda r: len(r[4]) == len(plan), r"proj_(dbl|add)_rcb(_few)?_kernel")
-            host = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                host.append((time.perf_counter() - t0) * 1e3)
+    for label in ("new",):
+        per, busy, wall, others, traced = device_times_whole(
+            run, lambda r: len(r[4]) == len(plan), r"proj_(dbl|add)_rcb(_few)?_kernel")
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
         say_device_times(f"cofactor stage n={n} ({label} doubling body), 2^20 points", per, busy, wall, others)
         say(f"  host ms of the stage: median {statistics.median(host):.2f} of {['%.2f' % v for v in host]}")
         out[label] = dict(host_ms=host, busy_ms=busy, per_kernel={k: list(v) for k, v in per.items()})
@@ -2130,7 +2095,6 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
     from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED
 
     f, ed, dev = te.fops, te.ed, te.device
-    bodies = LIBRARY_BODY
     gen = torch.Generator(device=dev).manual_seed(15)
     rng = random.Random(15)
     out, err = {}, 0
@@ -2149,7 +2113,7 @@ def redesign_ed_packed(te, host, rates: dict) -> dict:
             say(f"ed_add_packed N={M}: raw err {err} against the plain version")
         if err:
             raise AssertionError(f"ed_add_packed disagrees at {M} lanes")
-    turns = in_turns(ED_ADD_PACKED, 9, bodies, lambda: ed.add_packed(*ops), 10)
+    turns = in_turns(ED_ADD_PACKED, lambda: ed.add_packed(*ops), 10)
     bms, by = bound(te, "ed_add_packed", M, rates)
     say_turns(f"ed_add_packed N={M}", turns, bms, by)
     out["turns"] = dict(turns, bound_ms=bms, bound_by=by, lanes=M, max_abs_err=err)
@@ -2207,7 +2171,7 @@ def redesign_chord(ctx, pts, rates: dict) -> dict:
         return err
 
     def timed(kernel, label, M, run):
-        turns = in_turns(kernel, n, LIBRARY_BODY, run, CHORD_TURN_REPS)
+        turns = in_turns(kernel, run, CHORD_TURN_REPS)
         bms, by = bound(ctx, kernel.name, M, rates)
         say_turns(label, turns, bms, by)
         return dict(turns, bound_ms=bms, bound_by=by)
@@ -2397,7 +2361,7 @@ def profile_te_packed(te, pts_full, rates: dict) -> dict:
     body: each ed_add_packed launch's device time
     (torch.profiler) beside its lanes (recorded at the wrapper) and its
     bound, summed, and the device time by kernel."""
-    from montgomery_tpu_torch.curves.edwards import ED_ADD_PACKED, EdwardsBatch
+    from montgomery_tpu_torch.curves.edwards import EdwardsBatch
 
     N = 1 << max(MSM_LOG2N)
     c = te.default_c(N)
@@ -2417,10 +2381,9 @@ def profile_te_packed(te, pts_full, rates: dict) -> dict:
     out = {}
     ed.add_packed = recorded
     try:
-        for label, fn in LIBRARY_BODY.items():
-            with kernel_body(ED_ADD_PACKED, 9, fn):
-                per, busy, wall, others, traced = device_times_whole(
-                    run, lambda r: len(r[4]) == len(widths), r"ed_add_packed_kernel")
+        for label in ("new",):
+            per, busy, wall, others, traced = device_times_whole(
+                run, lambda r: len(r[4]) == len(widths), r"ed_add_packed_kernel")
             say_device_times(f"Twisted Edwards MSM 2^20 ({label} ed_add_packed body)", per, busy, wall, others)
             out[label] = dict(busy_ms=busy, per_kernel={k: list(v) for k, v in per.items()})
             if len(traced) != len(widths):  # a partial trace would pair launches with the wrong widths
@@ -3475,8 +3438,9 @@ def sqrt_wide(f, N: int, gen, check) -> None:
 def ladder_checks(f, W: int, gen, rates: dict) -> dict:
     """exp_ladder at e = (q - 1) / 2 (sqrt's first launch) and p - 2 (inv)
     on `_sqrt_plane` at LADDER_LANES and W lanes (the path's width): bit for
-    bit against exp_ladder_plain (the same schedule on 16-bit limbs); at W
-    the plain version's time (CUDA events, one call), then the ladder's
+    bit against exp_ladder_plain (the same schedule on 16-bit limbs; at W,
+    e = p - 2 on the first LADDER_SLICE lanes); at W the plain version's
+    time at e = (q - 1) / 2 (CUDA events, one call), then the ladder's
     (`in_turns`, one body), with its bound and the 2-bit ladder's. (The
     turns against the parent's 2-bit CIOS ladder and the window sweep of
     that finished redesign are in PERF.md.) Returns {"max_abs_err",
@@ -3487,30 +3451,29 @@ def ladder_checks(f, W: int, gen, rates: dict) -> dict:
     from montgomery_tpu_torch.ops.field import EXP_LADDER
 
     n, p, q = f.n, f.p, f.sqrt_q_odd
-    bodies = LIBRARY_BODY
     exps = {"(q-1)/2": (q - 1) // 2, "p-2": p - 2}
     out = {"max_abs_err": 0, "plain_ms": {}, "window": f.ladder_window}
     for N in (*LADDER_LANES, W):
         x, _ = _sqrt_plane(f, N, gen)
         for tag, e in exps.items():
             a = f.exp_ladder(x, e)
-            t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0.record()
-            b = f.exp_ladder_plain(x, e)
-            t1.record()
-            torch.cuda.synchronize()
+            sliced = N == W and tag == "p-2"
+            if sliced:
+                a = a[:, :LADDER_SLICE]
+            b, plain_ms = timed_once(lambda e=e: f.exp_ladder_plain(x[:, :LADDER_SLICE] if sliced else x, e))
             err = _raw_err([a], [b])
             if err:
                 raise AssertionError(f"exp_ladder at {n} limbs, {N} lanes, e = {tag}: max_abs_err {err} against "
                                      f"the plain version")
             if N == W:
-                out["plain_ms"][tag] = t0.elapsed_time(t1)
                 out.setdefault(tag, {})
+                if not sliced:
+                    out["plain_ms"][tag] = plain_ms
         del a, b
         say(f"exp_ladder n={n} N={N} (e = (q - 1) / 2, p - 2; w = {f.ladder_window}): bit for bit with the plain "
-            f"version")
+            f"version" + (f" (p - 2 on {LADDER_SLICE} lanes)" if N == W and N > LADDER_SLICE else ""))
     for tag, e in exps.items():
-        turns = in_turns(EXP_LADDER, n, bodies, lambda: f.exp_ladder(x, e), LADDER_TURN_REPS)
+        turns = in_turns(EXP_LADDER, lambda: f.exp_ladder(x, e), LADDER_TURN_REPS)
         bms, by = bound_of(*sqrt_work(f, "exp_ladder", e=e), W, rates)
         old = bound_of(*sqrt_work(f, "exp_ladder", e=e, two_bit=True), W, rates)[0]
         say_turns(f"exp_ladder n={n} N={W} e={tag}", turns, bms, by)
@@ -3622,41 +3585,56 @@ def _canonical_plane(f, M: int, gen, adv: list[int]):
     return t
 
 
-def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
+# the example fields whose divstep_inv and barrett_mul no curve runs: 13
+# limbs (BLS12-381's base field) and the 1-3 limb fields
+ALT_FIELDS = ("bls12381", "small", "babybear", "goldilocks")
+ALT_FIELD_LANES = (ALT_LANES[0], (1 << 16) + 17)  # checked at both, timed and sampled at the first
+
+
+def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict, dict]:
     """divstep_inv and barrett_mul against their plain versions on the same
     tensors, bit for bit: at 12 limbs (BLS12-377) at 2^18 and 2^18 + 17
     lanes, divstep_inv also at 512 and barrett_mul at 2^20; at 9 limbs
-    (ed-on-bls12-377) at 2^16. Operands in [0, p): the first lanes 0, 1, 2,
+    (ed-on-bls12-377) at 2^16; for each field of ALT_FIELDS (13, 1, 2 and 3
+    limbs) at ALT_FIELD_LANES. Operands in [0, p): the first lanes 0, 1, 2,
     p - 1, p - 2, then for barrett_mul the squares (p - 1 - k)^2, k < 16
-    (the largest products below p^2), then random values. At 12 limbs and
-    2^18 lanes, ALT_SAMPLE lanes (the first 21 among them) against Python's
+    (the largest products below p^2), then random values. At 2^18 lanes,
+    ALT_SAMPLE lanes (the first 21 among them) against Python's
     pow(x, -1, p) and x y % p, and barrett_mul against the Montgomery route
-    from_mont(mont_mul(to_mont x, to_mont y)) on every lane. Each timed,
-    with its plain version, at 2^18 lanes (9 limbs: 2^16). Returns the
-    results at 12 and at 9 limbs."""
+    from_mont(mont_mul(to_mont x, to_mont y)) on every lane. Every launch
+    is counted at its field's limb count. Each timed, with its plain
+    version, at 2^18 lanes (9 limbs: 2^16): CUDA events, and at the new
+    counts the profiler's device time a launch too; where p < 2^31 the
+    int64 expression x y % p beside barrett_mul ("library_ms"). Returns the
+    results at 12 limbs, at 9, and {field: results} for ALT_FIELDS."""
     import torch
 
+    from montgomery_tpu_torch.concrete import example_fields
     from montgomery_tpu_torch.ops import alt_mul, divstep
     from montgomery_tpu_torch.ops import limbs as codec
+    from montgomery_tpu_torch.ops.field import create_field_ops
 
     say("== phase 1: divstep_inv and barrett_mul against their plain versions")
     dev = ctx.device
     gen = torch.Generator(device=dev).manual_seed(11)
     rng = random.Random(12)
-    out = ({}, {})
+    fields = [("bls12377", ctx.fops, {"divstep_inv": (*ALT_LANES, ROOT_LANES), "barrett_mul": (*ALT_LANES, 1 << 20)}),
+              ("edBls12377", te.fops, {"divstep_inv": (KERNEL_LANES[0],), "barrett_mul": (KERNEL_LANES[0],)})]
+    fields += [(name, create_field_ops(example_fields()[name].p),
+                {"divstep_inv": ALT_FIELD_LANES, "barrett_mul": ALT_FIELD_LANES}) for name in ALT_FIELDS]
+    out = {}
 
     def diff(a, b):
         return int((a.long() - b.long()).abs().max()) if a.numel() else 0
 
-    for res, c in zip(out, (ctx, te)):
-        f = c.fops
+    for label, f, plan in fields:
         n, p = f.n, f.p
+        res = out.setdefault(label, {})
         dp, bp = f.inv_params, alt_mul.barrett_params(f)
         edge, squares = [0, 1, 2, p - 1, p - 2], [p - 1 - k for k in range(16)]
-        timed_at = ALT_LANES[0] if n == 12 else KERNEL_LANES[0]
-        plan = {"divstep_inv": (*ALT_LANES, ROOT_LANES), "barrett_mul": (*ALT_LANES, 1 << 20)}
+        timed_at = plan["divstep_inv"][0]
         for name, widths in plan.items():
-            for M in (widths if n == 12 else (KERNEL_LANES[0],)):
+            for M in widths:
                 x = _canonical_plane(f, M, gen, edge + squares)
                 if name == "divstep_inv":
                     y = None
@@ -3665,13 +3643,14 @@ def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
                     y = _canonical_plane(f, M, gen, edge[::-1] + squares)
                     kern = lambda: alt_mul.barrett_mul(bp, x, y)  # noqa: E731
                     plain = lambda: alt_mul.barrett_mul_plain(bp, x, y)  # noqa: E731
-                a = kern()
+                counts, _, a = counted(kern, "alt", n, kernels_of={name})
                 err = diff(a, plain())
-                say(f"{name} n={n} N={M}: max_abs_err {err} (raw planes)")
+                say(f"{name} {label} n={n} N={M}: max_abs_err {err} (raw planes), launches {counts[name]}")
                 if err:
                     raise AssertionError(f"{name} at {n} limbs and {M} lanes disagrees with its plain version")
-                r = res.setdefault(name, {"max_abs_err": 0})
-                if n == 12 and M == ALT_LANES[0]:
+                r = res.setdefault(name, {"max_abs_err": 0, "limbs": n})
+                r["launches"] = counts[name]
+                if M == ALT_LANES[0]:
                     lanes = sorted(set(range(21)) | set(rng.sample(range(21, M), ALT_SAMPLE - 21)))
                     sel = torch.tensor(lanes, dtype=torch.long, device=dev)
                     xs, got = codec.unpack(x.index_select(1, sel)), codec.unpack(a.index_select(1, sel))
@@ -3680,26 +3659,36 @@ def phase_alt_kernels(ctx, te, rates: dict) -> tuple[dict, dict]:
                     else:
                         want = [u * v % p for u, v in zip(xs, codec.unpack(y.index_select(1, sel)))]
                     if got != want:
-                        raise AssertionError(f"{name} differs from Python's ints on sampled lanes")
+                        raise AssertionError(f"{name} at {n} limbs differs from Python's ints on sampled lanes")
                     if y is not None:
                         mont = f.from_montgomery(f.mul(f.to_montgomery(x), f.to_montgomery(y)))
                         if diff(a, mont):
-                            raise AssertionError("barrett_mul differs from the Montgomery route")
-                    say(f"{name} N={M}: {ALT_SAMPLE} lanes equal Python's "
+                            raise AssertionError(f"barrett_mul at {n} limbs differs from the Montgomery route")
+                    say(f"{name} {label} N={M}: {ALT_SAMPLE} lanes equal Python's "
                         f"{'pow(x, -1, p)' if y is None else 'x y % p'}"
                         + ("" if y is None else f"; every lane equals from_mont(mont_mul(to_mont x, "
                                                 "to_mont y))"))
                 if M == timed_at:
-                    ms = cuda_time_ms(kern, 20 if name == "divstep_inv" else KERNEL_REPS)
+                    if n in (12, 9):
+                        ms, dev_ms = cuda_time_ms(kern, 20 if name == "divstep_inv" else KERNEL_REPS), None
+                    else:
+                        ms, dev_ms = launch_times(kern, name)
                     pms = cuda_time_ms(plain, 3, 1)
                     batches = divstep_batches(f, x, mont=False)[0] if name == "divstep_inv" else None
-                    bms, by = bound_of(*kernel_work(c, name, batches), M, rates)
-                    r.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=M)
-                    say(f"{name} n={n}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.4f} ms "
-                        f"({by}) per call at {M} lanes")
+                    bms, by = bound_of(*kernel_work(types.SimpleNamespace(fops=f), name, batches), M, rates)
+                    r.update(ms=ms, device_ms=dev_ms, plain_ms=pms, bound_ms=bms, bound_by=by, lanes=M,
+                             share=bms / dev_ms if dev_ms else None)
+                    if y is not None and p < 1 << 31:
+                        xc, yc = x[0].long(), y[0].long()
+                        r["library_ms"] = cuda_time_ms(lambda: xc * yc % p, NEW_TIMING_REPS)
+                    say(f"{name} {label} n={n}: kernel {ms:.4f} ms"
+                        + (f" (device {dev_ms:.4f} ms, share {bms / dev_ms:.3f})" if dev_ms else "")
+                        + f", plain {pms:.4f} ms, bound {bms:.4f} ms ({by})"
+                        + (f", x y % p (int64) {r['library_ms']:.4f} ms" if "library_ms" in r else "")
+                        + f" per call at {M} lanes")
                 del x, y, a
             torch.cuda.empty_cache()
-    return out
+    return out.pop("bls12377"), out.pop("edBls12377"), out
 
 
 def phase_micro(ctx) -> dict:
@@ -4124,7 +4113,7 @@ def _lanes_ints(t, lanes: list[int]) -> list[int]:
 
 
 def example_field(name: str, f, gen, rates: dict) -> dict:
-    """One example field at 9, 12 or 13 limbs on the card: mul, square,
+    """One example field (1 to 13 limbs) on the card: mul, square,
     add_no_reduce, sub_positive, left_shift (k in EXAMPLE_SHIFTS), inv
     (Fermat, exp_ladder), batch_inv (its root divstep_inv_mont) and sqrt at
     EXAMPLE_LANES lanes, the first lanes 0, 1, p - 1, p, p + 1, 2p - 1,
@@ -4232,15 +4221,142 @@ def example_field(name: str, f, gen, rates: dict) -> dict:
     return out
 
 
+# the widest timing of the bytes-bound field kernels at 1-3 limbs: at 2^20
+# lanes their bound (4-11 us) is near a launch's own latency
+EXAMPLE_WIDE = 1 << 24
+# a field whose limb count no kernel has (5 limbs): every kernel op must raise
+UNBUILT_P = (1 << 127) - 1
+
+
+def launch_times(kern, name: str, reps: int | None = None) -> tuple[float, float | None]:
+    """(CUDA-event mean ms a call of kern, the profiler's device ms a launch
+    of kernel `name` over `reps` (NEW_TIMING_REPS) more calls; None where
+    every profile dropped some of them). kern launches `name` once a call."""
+    reps = reps or NEW_TIMING_REPS
+    ms = cuda_time_ms(kern, reps)
+    per = device_times_whole(lambda: [kern() for _ in range(reps)],
+                             lambda res: res[0].get(name, (0,))[0] == reps)[0]
+    count, dms = per.get(name, (0, 0.0))
+    return ms, (dms / count if count == reps else None)
+
+
+def small_field_times(name: str, f, gen, rates: dict) -> dict:
+    """The field kernels at a 1-3 limb field's own instantiation, timed:
+    mont_mul, mont_sqr and mul_const at EXAMPLE_LANES and EXAMPLE_WIDE
+    lanes, exp_ladder (e = p - 2), sqr_n (the sqrt's first chain, where
+    M > SQRT_WINDOW) and sqrt_win (window 0) at EXAMPLE_LANES, and
+    divstep_inv_mont at the batch inversion's ROOT_LANES: on random planes
+    below 2^bits(p), each held against its plain version on the same
+    tensors (one timed call; at EXAMPLE_WIDE on its first EXAMPLE_PLAIN
+    lanes), then `launch_times`, the bound from this run's work and rates,
+    and share = bound / device time. Where p < 2^31 (n = 1, 2), the PyTorch
+    expression x y % p on int64 canonical residues, the same field product
+    in the plain domain, is timed beside mont_mul ("library_ms"; none at
+    n = 3, where the product overflows int64). Returns {kernel: result}."""
+    import torch
+
+    from montgomery_tpu_torch.ops import divstep
+    from montgomery_tpu_torch.ops.field import SQRT_WINDOW
+
+    n, p, M, q = f.n, f.p, f.sqrt_M, f.sqrt_q_odd
+    ctx_f = type("FieldCtx", (), {"fops": f})()
+    out = {}
+
+    def one(kname, label, kern, plain, work, lanes, wide=None):
+        a = kern()
+        b, plain_ms = timed_once(plain)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        cut = (lambda t: t[..., :EXAMPLE_PLAIN]) if wide else (lambda t: t)
+        err = _raw_err([cut(t) for t in a], b)
+        if err:
+            raise AssertionError(f"{name} {kname} ({label}) disagrees with its plain version ({err})")
+        ms, dev_ms = launch_times(kern, kname)
+        bms, by = bound_of(*work, lanes, rates)
+        r = {"lanes": lanes, "call": label, "ms": ms, "device_ms": dev_ms, "bound_ms": bms, "bound_by": by,
+             "share": bms / dev_ms if dev_ms else None, "max_abs_err": err}
+        if wide is None:
+            r["plain_ms"] = plain_ms
+            out[kname] = {**out.get(kname, {}), **r}
+        else:
+            out[kname][wide] = r
+        say(f"{name} {kname} n={n} ({label}) at {lanes} lanes: events {ms:.4f} ms, device "
+            + (f"{dev_ms * 1e3:.2f} us" if dev_ms else "not measured") + f", bound {bms * 1e3:.2f} us ({by})"
+            + (f", share {bms / dev_ms:.3f}" if dev_ms else "") + ("" if wide else f", plain {plain_ms:.4f} ms"))
+        return r
+
+    for N, wide in ((EXAMPLE_LANES, None), (EXAMPLE_WIDE, "wide")):
+        x, y = _random_planes(f, n, N, gen), _random_planes(f, n, N, gen)
+        H = N if wide is None else EXAMPLE_PLAIN
+        xh, yh = x[:, :H], y[:, :H]
+        c = pow(2, 255, p) * f.R % p
+        one("mont_mul", "x y", lambda: f.mul(x, y), lambda: f.mul_plain(xh, yh), kernel_work(ctx_f, "mont_mul"),
+            N, wide)
+        one("mont_sqr", "x^2", lambda: f.square(x), lambda: f.square_plain(xh), kernel_work(ctx_f, "mont_sqr"),
+            N, wide)
+        one("mul_const", "left_shift k=255", lambda: f.mul_const(x, c), lambda: f.mul_const_plain(xh, c),
+            kernel_work(ctx_f, "mul_const"), N, wide)
+        if p < 1 << 31:  # canonical residues fit one word: int64 holds their product
+            xc, yc = f.reduce(x)[0].long(), f.reduce(y)[0].long()
+            lib = cuda_time_ms(lambda: xc * yc % p, NEW_TIMING_REPS)
+            (out["mont_mul"] if wide is None else out["mont_mul"][wide])["library_ms"] = lib
+            say(f"{name} library x y % p (int64, canonical) at {N} lanes: {lib:.4f} ms a call")
+            del xc, yc
+        del x, y, xh, yh
+        torch.cuda.empty_cache()
+    N = EXAMPLE_LANES
+    x = _random_planes(f, n, N, gen)
+    one("exp_ladder", "e = p - 2", lambda: f.exp_ladder(x, p - 2), lambda: f.exp_ladder_plain(x, p - 2),
+        sqrt_work(f, "exp_ladder", e=p - 2), N)
+    lk = min(SQRT_WINDOW, M)
+    t = f.exp_ladder(x, q)  # x^q, in the 2-Sylow subgroup
+    r = f.mul(x, f.exp_ladder(x, (q - 1) // 2))
+    s = f.sqr_n(t, M - lk)
+    if M > lk:
+        one("sqr_n", f"m = {M - lk}", lambda: f.sqr_n(t, M - lk), lambda: f.sqr_n_plain(t, M - lk),
+            sqrt_work(f, "sqr_n", m=M - lk), N)
+    last = lk >= M
+    one("sqrt_win", f"window 0 (lk = {lk})", lambda: f.sqrt_window(t, r, s, 0, lk, last),
+        lambda: f.sqrt_window_plain(t, r, s, 0, lk, last), sqrt_work(f, "sqrt_win", last=last, s_is_t=s is t), N)
+    root = x[:, :ROOT_LANES].contiguous()
+    batches = divstep_batches(f, root)[0]
+    one("divstep_inv_mont", "the batch inversion's root", lambda: f.inv_root(root),
+        lambda: divstep.inv_mont_plain(f, root), kernel_work(ctx_f, "divstep_inv_mont", batches), ROOT_LANES)
+    del x, t, r, s, root
+    torch.cuda.empty_cache()
+    return out
+
+
+def refuse_unbuilt_limbs(dev) -> None:
+    """Every kernel op of a field whose limb count no kernel was built for
+    (UNBUILT_P, 5 limbs) raises NotImplementedError on CUDA tensors: nothing
+    runs a plain version in its place."""
+    from montgomery_tpu_torch.ops import alt_mul, divstep
+    from montgomery_tpu_torch.ops.field import create_field_ops
+
+    f = create_field_ops(UNBUILT_P)
+    x = f.pack_raw([1, 2, UNBUILT_P - 1], dev)
+    for label, fn in (("mul", lambda: f.mul(x, x)), ("square", lambda: f.square(x)),
+                      ("left_shift", lambda: f.left_shift(x, 1)), ("inv", lambda: f.inv(x)),
+                      ("sqr_n", lambda: f.sqr_n(x, 3)), ("batch_inv", lambda: f.batch_inv(x)),
+                      ("sqrt", lambda: f.sqrt(x)), ("sqrt_window", lambda: f.sqrt_window(x, x, x, 0, 1, True)),
+                      ("inv_divstep", lambda: divstep.inv_divstep(f.inv_params, x)),
+                      ("barrett_mul", lambda: alt_mul.barrett_mul(alt_mul.barrett_params(f), x, x))):
+        try:
+            fn()
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"{label} at {f.n} limbs on the card did not raise")
+    say(f"2^127 - 1 (n={f.n}): every kernel op raises NotImplementedError on the card")
+
+
 def phase_example_fields(rates: dict) -> dict:
-    """Every example field of `concrete.example_fields` whose limb count
-    has kernels (9, 12, 13) through `example_field`; the 1-, 2- and 3-limb
-    fields (small, babybear, goldilocks) must raise NotImplementedError on
-    CUDA tensors in every op that launches a kernel."""
+    """Every example field of `concrete.example_fields` (1, 2, 3, 9, 12 and
+    13 limbs) through `example_field`, each with its seconds; the 1-3 limb
+    fields' kernels also timed (`small_field_times`); then a 5-limb field
+    must raise (`refuse_unbuilt_limbs`)."""
     import torch
 
     from montgomery_tpu_torch.concrete import example_fields
-    from montgomery_tpu_torch.ops import kernels
     from montgomery_tpu_torch.ops.field import create_field_ops
 
     say("== phase 7: the example fields' ops on the card")
@@ -4249,23 +4365,14 @@ def phase_example_fields(rates: dict) -> dict:
     out = {}
     for name, F in example_fields().items():
         f = create_field_ops(F.p)
-        if f.n not in kernels.WEIERSTRASS_LIMBS:
-            x = f.pack_raw([1, 2, F.p - 1], dev)
-            for label, fn in (("mul", lambda: f.mul(x, x)), ("square", lambda: f.square(x)),
-                              ("left_shift", lambda: f.left_shift(x, 1)), ("inv", lambda: f.inv(x)),
-                              ("batch_inv", lambda: f.batch_inv(x)), ("sqrt", lambda: f.sqrt(x))):
-                try:
-                    fn()
-                except NotImplementedError:
-                    continue
-                raise AssertionError(f"{name} ({f.n} limbs) {label} on the card did not raise")
-            say(f"{name} (n={f.n}): every kernel op raises NotImplementedError on the card")
-            out[name] = {"n": f.n, "raises": True}
-            continue
         t0 = time.perf_counter()
-        out[name] = {"n": f.n, **example_field(name, f, gen, rates),
-                     "seconds": time.perf_counter() - t0}
+        out[name] = {"n": f.n, **example_field(name, f, gen, rates)}
+        if f.n <= 3:
+            out[name]["kernels"] = small_field_times(name, f, gen, rates)
+        out[name]["seconds"] = time.perf_counter() - t0
+        say(f"{name}: {out[name]['seconds']:.1f} s")
         torch.cuda.empty_cache()
+    refuse_unbuilt_limbs(dev)
     return out
 
 
@@ -4491,24 +4598,27 @@ NEW_GEN_LOG2N = 16
 
 def new_instantiations() -> list[tuple[str, int]]:
     """(kernel, limbs) of every Weierstrass kernel (those with a 13-limb
-    entry point) at BLS12-381's 13 limbs and Pallas's 9."""
-    from montgomery_tpu_torch.ops import kernels
+    entry point) at BLS12-381's 13 limbs and Pallas's 9, and of every
+    kernel built for the 1-3 limb example fields at those counts."""
+    from montgomery_tpu_torch.ops import alt_mul, kernels  # noqa: F401 (alt_mul registers barrett_mul)
 
-    return [(name, n) for name, k in kernels.REGISTRY.items() if 13 in k.symbols for n in (13, 9)]
+    return ([(name, n) for name, k in kernels.REGISTRY.items() if 13 in k.symbols for n in (13, 9)]
+            + [(name, n) for name, k in kernels.REGISTRY.items() for n in kernels.FIELD_LIMBS if n in k.symbols])
 
 
 def phase_new_ptxas() -> dict:
     """Registers, stack frame, spill and shared memory of each kernel
     function of every Weierstrass kernel at 13 and 9 limbs (a kernel with a
-    few-lane body has two), and of the kernels redesigned last (exp_ladder
-    at 12 limbs too, ed_add and ed_dbl at 9), from the build's ptxas log;
-    each must be there."""
+    few-lane body has two), of every kernel at 1, 2 and 3 limbs, and of the
+    kernels redesigned last (exp_ladder at 12 limbs too, ed_add and ed_dbl
+    at 9), from the build's ptxas log; each must be there."""
     from montgomery_tpu_torch.ops import kernels
 
     found = ptxas_by_limbs(kernels.LIBRARY.build_log)
     out = {}
-    say("ptxas of the instantiations for BLS12-381 (13 limbs) and Pallas (9 limbs), and of exp_ladder at 12, "
-        "ed_add and ed_dbl at 9: registers, stack frame, spill stores, spill loads, shared memory (bytes)")
+    say("ptxas of the instantiations for BLS12-381 (13 limbs), Pallas (9 limbs) and the 1-3 limb example fields, "
+        "and of exp_ladder at 12, ed_add and ed_dbl at 9: registers, stack frame, spill stores, spill loads, "
+        "shared memory (bytes)")
     for name, n in [*new_instantiations(), ("exp_ladder", 12), ("ed_add", 9), ("ed_dbl", 9)]:
         funcs = {f: v for (f, nl), v in found.items() if nl == n and f in (name, f"{name}_few")}
         if name not in {f.removesuffix("_few") for f in funcs}:
@@ -4766,11 +4876,7 @@ def phase_curve_kernels(ctx, pts, rates: dict, widths: dict) -> dict:
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         if _raw_err(a, b):
             raise AssertionError(f"{name} at {n} limbs and {W} lanes (timing inputs) disagrees")
-        ms = cuda_time_ms(kern, NEW_TIMING_REPS)
-        per = device_times_whole(lambda: [kern() for _ in range(NEW_TIMING_REPS)],
-                                 lambda res: res[0].get(name, (0,))[0] == NEW_TIMING_REPS)[0]
-        count, dms = per.get(name, (0, 0.0))
-        dev_ms = dms / count if count else None
+        ms, dev_ms = launch_times(kern, name)
         lanes = 1 if name == "proj_combine_rcb" else W
         batches = divstep_batches(f, x)[0] if name == "divstep_inv_mont" else None
         bms, by = bound_of(*work, lanes, rates) if work else bound(ctx, name, W, rates, batches)
@@ -4853,8 +4959,6 @@ GA_PRED_LANES = 1 << 16
 GA_PLANAR_LANES = 1 << 20
 GA_SAMPLE = 1024  # planar lanes checked against the oracle
 GA_TIMING_REPS = 20
-GA_TURNS = 2  # rounds of (new, parent, parent, new) of the a = 0 bodies at 12 limbs
-AFF_PRE_PARENT_SRC = ROOT / "montgomery_tpu_torch" / "csrc" / "rates" / "aff_pre_parent.cu"
 # ptxas of aff_pre and aff_pre_packed before the a term (registers, stack
 # frame, spill stores, spill loads, smem bytes; PR 17's build on an H100):
 # the a = 0 instantiation must keep these registers
@@ -5070,51 +5174,6 @@ def ga_kernels(ctx, host, rates: dict, widths: dict) -> dict:
         say(f"{name} with a, n={n} at {W} lanes: events {ms:.4f} ms, device "
             + (f"{dev_ms:.4f} ms" if dev_ms else "not measured") + f", plain {plain_ms:.4f} ms, bound "
             f"{bms:.4f} ms ({by})" + (f", share {bms / dev_ms:.3f}" if dev_ms else ""))
-    return out
-
-
-def ga_a0_turns(ctx12, rates: dict, widths: dict) -> dict:
-    """The a = 0 instantiation of aff_pre and aff_pre_packed (BLS12-377, 12
-    limbs) against the parent's bodies (csrc/rates/aff_pre_parent.cu, built
-    in phase 0) on the same random inputs: bit for bit, then in turns (new,
-    parent, parent, new; GA_TURNS rounds), CUDA events and device time a
-    launch over GA_TIMING_REPS launches."""
-    import torch
-
-    from montgomery_tpu_torch.curves.affine import AFF_PRE, AFF_PRE_PACKED
-    from montgomery_tpu_torch.curves.projective import AffineBatch
-
-    f, aff, dev = ctx12.fops, ctx12.affine, ctx12.device
-    n = f.n
-    gen = torch.Generator(device=dev).manual_seed(23)
-    out = {}
-    for name, kernel in (("aff_pre", AFF_PRE), ("aff_pre_packed", AFF_PRE_PACKED)):
-        W = widths[name]
-        C = _random_planes(f, 2 * (2 * n + 1), W, gen).reshape(2, 2 * n + 1, W)
-        C[:, 2 * n] = (torch.randint(0, 8, (2, W), device=dev, generator=gen) == 0).to(torch.int32)
-        A, B = C[0], C[1]
-        # every fourth lane a doubling: B's point is A's
-        B[:, ::4] = A[:, ::4]
-        sA, sB, hp = (torch.randint(0, 2, (1, W), dtype=torch.int32, device=dev, generator=gen)
-                      for _ in range(3))
-        G = AffineBatch(A[:n], A[n:2 * n], A[2 * n] != 0)
-        H = AffineBatch(B[:n], B[n:2 * n], B[2 * n] != 0)
-        run = (lambda: aff.pre(G, H)) if name == "aff_pre" else (lambda: aff.pre_packed(A, B, sA, sB, hp))
-        parent = probe_fn(AFF_PRE_PARENT_SRC, 12, f"probe_{name}_n12", kernel.argtypes)
-        want = run()
-        with kernel_body(kernel, n, parent):
-            got = run()
-        if _raw_err(got, want):
-            raise AssertionError(f"{name} a = 0 differs from the parent's body at 12 limbs")
-        turns = {"new": {"ms": [], "device_ms": []}, "parent": {"ms": [], "device_ms": []}}
-        for _ in range(GA_TURNS):
-            rnd = in_turns(kernel, n, {"new": None, "parent": parent}, run, GA_TIMING_REPS)
-            for body, t in rnd.items():
-                turns[body]["ms"] += t["ms"]
-                turns[body]["device_ms"] += t["device_ms"]
-        bms, by = bound(ctx12, name, W, rates)
-        say_turns(f"{name} a = 0 n=12 N={W}", turns, bms, by)
-        out[name] = {"lanes": W, "turns": turns, "bound_ms": bms, "bound_by": by}
     return out
 
 
@@ -5347,8 +5406,7 @@ def phase_general_a(ctx12, rates: dict, kres: dict, launches: dict, expected: di
     """Phase 8, curves with a != 0 (montgomery_tpu_torch/testing/curves.py):
     ptxas of both instantiations of the safe triage kernels; aff_pre and
     aff_pre_packed with the a term against their plain versions at 9 and 13
-    limbs and timed, and their a = 0 instantiation against the parent's
-    bodies in turns at 12 limbs; Plain16's carries on the card against the
+    limbs and timed; Plain16's carries on the card against the
     limb loop (`ga_plain16`); P-256's engines against the bigint oracle
     and, on random_points_fast(seed=42) at 2^16 and 2^20, against the closed
     form through msm_device on signed_digits_device digits (no RCB launch;
@@ -5364,7 +5422,7 @@ def phase_general_a(ctx12, rates: dict, kres: dict, launches: dict, expected: di
     say("== phase 8: curves with a != 0 (NIST P-256 at 9 limbs, P-384 at 13)")
     t8 = time.perf_counter()
     widths = {name: kres[name]["lanes"] for name in ("aff_pre", "aff_pre_packed")}
-    out = {"ptxas": ga_ptxas(), "a0_turns": ga_a0_turns(ctx12, rates, widths), "plain16": ga_plain16()}
+    out = {"ptxas": ga_ptxas(), "plain16": ga_plain16()}
     dev = torch.device("cuda", 0)
     for params, log2ns in ((P256, GA_MSM_LOG2N), (P384, (GA_P384_LOG2N,))):
         c = WeierstrassMsm(params, device=dev)
@@ -5409,8 +5467,38 @@ def _num(v):
     return float(f"{v:.6g}") if isinstance(v, float) else v
 
 
+SMALL_FIELDS = {1: "small", 2: "babybear", 3: "goldilocks"}  # the example fields of 1-3 limbs
+
+
+def small_count_entries(fields: dict, alt: dict, keys: tuple) -> dict:
+    """{kernel: {"n<n>": measurements}} of the instantiations no curve runs:
+    the field kernels at 1-3 limbs (phase 7's `small_field_times`, with
+    EXAMPLE_WIDE's timing under "wide" and the int64 x y % p beside
+    mont_mul), their launches from the first of the field's counted op runs
+    that launched them; divstep_inv and barrett_mul at 13 and 1-3 limbs
+    (`phase_alt_kernels`, with their launches in the counted check run)."""
+    out = {}
+    for n, name in SMALL_FIELDS.items():
+        res = fields[name]
+        for kname, r in res["kernels"].items():
+            runs = [(label, c[kname]) for op in res.values() if isinstance(op, dict) and "launches" in op
+                    for label, c in op["launches"].items() if c.get(kname)]
+            e = {key: _num(v) for key, v in r.items() if key in keys}
+            if "wide" in r:
+                e["wide"] = {key: _num(v) for key, v in r["wide"].items() if key in keys}
+            e["launches"], e["launches_run"] = (runs[0][1], f"fields/{name}: {runs[0][0]}") if runs else (0, None)
+            e.setdefault("library_ms", None)
+            out.setdefault(kname, {})[f"n{n}"] = e
+    for name, res in alt.items():
+        for kname, r in res.items():
+            e = {key: _num(v) for key, v in r.items() if key in keys}
+            e.update(launches=r["launches"], launches_run=f"alt/{name}", library_ms=_num(r.get("library_ms")))
+            out.setdefault(kname, {})[f"n{r['limbs']}"] = e
+    return out
+
+
 def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx: dict,
-                 ga: dict) -> tuple[dict, dict]:
+                 ga: dict, fields: dict, alt: dict) -> tuple[dict, dict]:
     """The {"kernels": [...]} line and the per-kernel details printed before
     it. One entry per registered kernel, its launches read from the first
     run of `home_runs` that runs it (bench.py's configuration, then the
@@ -5421,10 +5509,12 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
     "n9" holds the Twisted Edwards ones, each with its launches from the
     first of that curve's runs that launched it. aff_pre and aff_pre_packed
     carry phase 8's times with the a term under "general_a" (P-256 at 9
-    limbs, P-384 at 13) and their a = 0 turns against the parent's body
-    under "a0_turns_device_ms". The details: every run's
+    limbs, P-384 at 13). The details: every run's
     count of each kernel, the redesign phases' main-path shapes, and ptxas
-    of the 13- and 9-limb instantiations."""
+    of the 13- and 9-limb instantiations. Phase 7's example fields
+    (`fields`) and phase 1's ALT_FIELDS results (`alt`) add the counts no
+    curve runs (`small_count_entries`): "n1", "n2", "n3", and "n13" for
+    divstep_inv and barrett_mul."""
     from montgomery_tpu_torch.ops import kernels
 
     top = max(MSM_LOG2N)
@@ -5436,6 +5526,7 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
                 + [f"{label}/points_2^{NEW_GEN_LOG2N}"] for label in NEW_CURVES}
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "share", "lanes", "max_abs_err",
             "blocks_per_sm", "turns_ms", "bitwise_turns_ms")
+    small = small_count_entries(fields, alt, (*keys, "library_ms", "call"))
 
     def entry(name, k):
         home = next((run for run in home_runs if launches[run][name]), home_runs[0])
@@ -5456,12 +5547,12 @@ def kernels_line(kres: dict, te_kres: dict, launches: dict, new_kres: dict, ptx:
             e["n13" if n == 13 else "n9_weierstrass" if "n9" in e else "n9"] = {
                 **{key: _num(res_n[name][key]) for key in keys if key in res_n[name]},
                 "launches": launches[run][name] if run else 0, "launches_run": run}
+        for count, res_n in small.get(name, {}).items():
+            e.setdefault(count, res_n)
         if name in ("aff_pre", "aff_pre_packed"):
             e["general_a"] = {label: {key: _num(v) for key, v in ga[label]["kernels"][name].items()
                                       if key in keys}
                               for label in ("p-256", "p-384")}
-            e["a0_turns_device_ms"] = {body: _num(t["device_ms"])
-                                       for body, t in ga["a0_turns"][name]["turns"].items()}
         return e
 
     def detail(name):
@@ -5500,9 +5591,16 @@ def main() -> int:
     from montgomery_tpu_torch.ops import kernels
 
     dev = torch.device("cuda", 0)
+    last = [t_start]
+
+    def stamp(label):  # the seconds since the start, and those of this phase
+        now = time.perf_counter()
+        say(f"[{now - t_start:.1f} s] {label} done ({now - last[0]:.1f} s)")
+        last[0] = now
+
     rates = phase_env()
     ptx = phase_new_ptxas()
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 0 done")
+    stamp("phase 0")
     ctx = WeierstrassMsm(BLS12_377, device=dev)
     te = EdwardsMsm(ED_ON_BLS12_377, device=dev)
     npts = 1 << max(MSM_LOG2N)
@@ -5520,9 +5618,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     host_pts = ctx.proj.affine_to_host(type(pts)(*[a[..., :4096] for a in pts]))
     te_host = te.ed.to_host(type(te_pts)(*[a[..., :4096] for a in te_pts]))
-    def stamp(label):
-        say(f"[{time.perf_counter() - t_start:.1f} s] {label} done")
-
+    stamp("the bench points")
     kres = phase_kernels(ctx, host_pts, rates)
     stamp("phase_kernels")
     for name, res in phase_redesign(ctx, host_pts, pts, rates).items():
@@ -5543,13 +5639,14 @@ def main() -> int:
     kres.update(sqrt12)
     te_kres.update(sqrt9)
     stamp("phase_sqrt_kernels")
-    alt12, alt9 = phase_alt_kernels(ctx, te, rates)
+    alt12, alt9, alt_fields = phase_alt_kernels(ctx, te, rates)
     kres.update(alt12)
     te_kres.update(alt9)
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 1 done")
+    stamp("phase_alt_kernels (phase 1)")
     phase_oracle(ctx, host_pts)
     launches, expected = phase_planar_oracle(ctx, pts), {}
     phase_te_oracle(te)
+    stamp("phase 2")
     for path in PATHS:
         for log2n in MSM_LOG2N:
             launches[f"{path}_2^{log2n}"] = phase_msm(ctx, log2n, pts, path, expected)
@@ -5563,24 +5660,26 @@ def main() -> int:
                                                            TE_CURVE, "te_serve")
     te_kres["ed_add_packed"]["path_profile"] = profile_te_packed(te, te_pts, rates)
     te_kres["ed_add"]["te_path"] = profile_te_add(te, te_pts, rates)
-    say(f"[{time.perf_counter() - t_start:.1f} s] phases 2 and 3 done")
+    stamp("phase 3")
     launches.update(phase_sharded(ctx, te, pts, te_pts, host_pts, expected))
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 5 done")
-    t7 = time.perf_counter()
+    stamp("phase 5")
     api_launches, api = phase_api(ctx, te, pts, te_pts, expected)
     launches.update(api_launches)
+    stamp("phase_api (phase 7)")
     api["fields"] = phase_example_fields(rates)
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 7 done ({time.perf_counter() - t7:.1f} s)")
+    stamp("phase_example_fields (phase 7)")
     del pts, te_pts
     torch.cuda.empty_cache()
     for c, path in ((ctx, "points"), (te, "te_points")):
         launches[f"{path}_2^{GEN_LOG2N}"] = phase_points(c, path)
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 4 done")
+    stamp("phase 4")
     new_kres = phase_new_curves(ctx, rates, kres, launches, expected, t_start)
+    stamp("BLS12-381 and Pallas")
     ga = phase_general_a(ctx, rates, kres, launches, expected, t_start)
-    say(f"[{time.perf_counter() - t_start:.1f} s] phase 8 done")
+    stamp("phase 8")
     launches[f"micro_2^{MICRO_LOG2N}"] = phase_micro(ctx)
-    line, details = kernels_line(kres, te_kres, launches, new_kres, ptx, ga)
+    stamp("phase 6")
+    line, details = kernels_line(kres, te_kres, launches, new_kres, ptx, ga, api["fields"], alt_fields)
     details["api"] = api
     details["general_a"] = ga
     say(json.dumps(details))

@@ -5,7 +5,9 @@
 // (barrett_mul, :132-150, over schoolbook_product + barrett_reduce): the
 // alternative multiplier that the micro-benchmark's `altmul` section times
 // against the Montgomery product. Entry points: msm_barrett_mul (NL = 12,
-// BLS12-377) and msm_barrett_mul_n9 (NL = 9). The pipeline is the
+// BLS12-377), msm_barrett_mul_n13 (NL = 13, BLS12-381), msm_barrett_mul_n9
+// (NL = 9), and msm_barrett_mul_n1, _n2, _n3 (the example fields small,
+// babybear and goldilocks). The pipeline is the
 // reference's (wasm/barrett.ts:7-78), on 32-bit words:
 //   T  = x y, all 2 NL words (limbs_mul_wide);
 //   q1 = floor(T / 2^(K - 1)), NL words, K = bits(p);
@@ -25,10 +27,14 @@
 // agree).
 //
 // The shifts straddle words (K = 377 puts q1's cut at bit 376 = 11 x 32 +
-// 24): both shift counts lie in [32 (NL - 2), 32 (NL - 2) + 64), so each
-// output word is a funnel shift of two of three words at compile-time
-// offsets, selected by the run-time count; no register array is indexed at
-// run time, and one binary serves every field of NL words.
+// 24): both shift counts lie in [B, B + 64) with B = 32 barrett_base(NL) =
+// 32 (NL - 2), clamped to 0 at NL = 1 (K - 1 and K + 1 are then below 32),
+// so each output word is a funnel shift of two of three words at
+// compile-time offsets, selected by the run-time count; no register array is
+// indexed at run time, and one binary serves every field of NL words. The
+// counts (K - 1 - B, K + 1 - B): (6, 8) at p = 101 (NL = 1), (30, 32) at
+// 2^31 - 1 (NL = 2), (31, 33) at goldilocks (NL = 3), (56, 58) at BLS12-377,
+// (28, 30) at BLS12-381.
 //
 // Bound on this card: 366 32x32->64 multiplies per lane at NL = 12 (144 for
 // x y, 144 for q1 mu, 78 for the low words of q p) against 144 bytes moved;
@@ -42,9 +48,12 @@ template <int NL>
 struct BarrettConst {  // layout of ops/alt_mul.py BarrettParams.kernel_words
   uint32_t p[NL];
   uint32_t mu[NL];  // floor(2^(2K) / p)
-  int32_t t1;       // K - 1 - 32 (NL - 2), in [0, 64)
-  int32_t t2;       // K + 1 - 32 (NL - 2), in [0, 64)
+  int32_t t1;       // K - 1 - 32 barrett_base(NL), in [0, 64)
+  int32_t t2;       // K + 1 - 32 barrett_base(NL), in [0, 64)
 };
+
+// the word at which the shifts' windows start (ops/alt_mul.py barrett_base)
+__host__ __device__ constexpr int barrett_base(int NL) { return NL > 2 ? NL - 2 : 0; }
 
 // word k of a, 0 past its end (k is a compile-time constant once unrolled)
 template <int N>
@@ -92,9 +101,9 @@ barrett_mul_kernel(int32_t* __restrict__ out, const int32_t* __restrict__ x, int
   fe_load(b, y, sy, i);
   limbs_mul_wide(T, a, b);
   uint32_t q1[NL], P[2 * NL], q[NL];
-  shr_bits<2 * NL, NL, NL - 2>(q1, T, C.t1);
+  shr_bits<2 * NL, NL, barrett_base(NL)>(q1, T, C.t1);
   limbs_mul_wide(P, q1, C.mu);
-  shr_bits<2 * NL, NL, NL - 2>(q, P, C.t2);
+  shr_bits<2 * NL, NL, barrett_base(NL)>(q, P, C.t2);
   uint32_t qp[NL], r[NL], d[NL];
   limbs_mul_lo(qp, q, C.p);
 #pragma unroll
@@ -126,9 +135,37 @@ extern "C" int msm_barrett_mul(void* out, const void* x, int sx, const void* y, 
 }
 #endif
 
+#if MSM_AT(13)
+extern "C" int msm_barrett_mul_n13(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
+                                   int N, void* stream) {
+  return launch<13>(out, x, sx, y, sy, cfg, N, stream);
+}
+#endif
+
 #if MSM_AT(9)
 extern "C" int msm_barrett_mul_n9(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
                                   int N, void* stream) {
   return launch<9>(out, x, sx, y, sy, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_barrett_mul_n1(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
+                                  int N, void* stream) {
+  return launch<1>(out, x, sx, y, sy, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_barrett_mul_n2(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
+                                  int N, void* stream) {
+  return launch<2>(out, x, sx, y, sy, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_barrett_mul_n3(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* cfg,
+                                  int N, void* stream) {
+  return launch<3>(out, x, sx, y, sy, cfg, N, stream);
 }
 #endif

@@ -11,7 +11,8 @@
 //
 // Numbers. The safegcd state (f, g) and the mod-p coefficients (d, e) are
 // signed numbers of DS_L = ceil(32 NL / 30) limbs of 30 bits (13 limbs at
-// NL = 12, 14 at NL = 13, 10 at NL = 9) held in int32. A batch runs 30
+// NL = 12, 14 at NL = 13, 10 at NL = 9; 2, 3 and 4 at NL = 1, 2, 3) held in
+// int32. A batch runs 30
 // divsteps on the low 32-bit words of f and g (f mod 2^30 is limb 0 mod 2^30
 // however the higher limbs are carried), with u, v, q, r in 32 bits
 // (ds_divsteps, branch-free, in divstep_inv_mont's warps; ds_divsteps_var,
@@ -44,10 +45,11 @@
 //     below 2^24 at every limb count, so int32 holds it.
 //   - After at most n_batches = ceil(iterations(bits(p)) / 30) batches
 //     (BY19 Thm 11.2: 37 for the 377- and 381-bit fields, 25 for the 253-
-//     and 255-bit ones) g = 0 and f = +-1, so sign(f) d = x^-1 mod p lies
+//     and 255-bit ones; 1, 4 and 7 for the 7-, 31- and 64-bit small,
+//     babybear and goldilocks) g = 0 and f = +-1, so sign(f) d = x^-1 mod p lies
 //     in (-38p, 38p); the end adds 2^6 p and subtracts 2^j p, j = 6..0, where
 //     it fits (DS_SHIFTS; 2^7 p < 2^(30 DS_L - 1): 388 bits against 419 at
-//     NL = 13).
+//     NL = 13, 71 against 119 at goldilocks, 14 against 59 at p = 101).
 //
 // The exit. Once g = 0 every later divstep takes the even branch: the
 // matrix is diag(2^30, 1), m = 0, and f, d stay as they are. So the batch

@@ -5,7 +5,9 @@
 // (inv_divstep, :231-246, over _inv_formula): the safegcd inverse of plain
 // values, which inv_divstep and inv_mont_divstep (ops/divstep.py) launch and
 // the micro-benchmark times at 2^18 lanes. Entry points: msm_divstep_inv
-// (NL = 12, BLS12-377) and msm_divstep_inv_n9 (NL = 9). The config is the
+// (NL = 12, BLS12-377), msm_divstep_inv_n13 (BLS12-381), msm_divstep_inv_n9
+// (NL = 9), and msm_divstep_inv_n1, _n2, _n3 (the example fields small,
+// babybear and goldilocks). The config is the
 // DivstepConst<NL> of divstep_inv_mont; this kernel does not read its r2.
 //
 // Bound on this card: integer instruction throughput. 2^18 lanes fill the
@@ -58,5 +60,29 @@ extern "C" int msm_divstep_inv(void* out, const void* x, int sx, const int32_t* 
 #if MSM_AT(9)
 extern "C" int msm_divstep_inv_n9(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
   return launch<9>(out, x, sx, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(13)
+extern "C" int msm_divstep_inv_n13(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
+  return launch<13>(out, x, sx, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_divstep_inv_n1(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
+  return launch<1>(out, x, sx, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_divstep_inv_n2(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
+  return launch<2>(out, x, sx, cfg, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_divstep_inv_n3(void* out, const void* x, int sx, const int32_t* cfg, int N, void* stream) {
+  return launch<3>(out, x, sx, cfg, N, stream);
 }
 #endif

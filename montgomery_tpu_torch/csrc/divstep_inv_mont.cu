@@ -9,7 +9,10 @@
 // this port's R = 2^(32 NL)). Entry points: msm_divstep_inv_mont (NL = 12,
 // BLS12-377), msm_divstep_inv_mont_n13 (NL = 13, BLS12-381: 14 limbs of 30
 // bits) and msm_divstep_inv_mont_n9 (NL = 9: Pallas, and ed-on-bls12-377,
-// where it is the root of to_host's batch inversion).
+// where it is the root of to_host's batch inversion), and
+// msm_divstep_inv_mont_n1, _n2, _n3 (the example fields small, babybear and
+// goldilocks: 2, 3 and 4 limbs of 30 bits, 1, 4 and 7 batches at most; the
+// warp's products on 2, 4 and 6 lanes).
 //
 // Bound on this card: latency, not throughput. At most 512 lanes run one
 // serial chain each: about 28 batches of 30 dependent divsteps and a matrix
@@ -94,5 +97,26 @@ extern "C" int msm_divstep_inv_mont_n13(void* out, const void* x, int sx, const 
 extern "C" int msm_divstep_inv_mont_n9(void* out, const void* x, int sx, const int32_t* cfg,
                                        const uint32_t* field, const uint32_t* mu, int N, int blocks, void* stream) {
   return launch<9>(out, x, sx, cfg, field, mu, N, blocks, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_divstep_inv_mont_n1(void* out, const void* x, int sx, const int32_t* cfg,
+                                       const uint32_t* field, const uint32_t* mu, int N, int blocks, void* stream) {
+  return launch<1>(out, x, sx, cfg, field, mu, N, blocks, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_divstep_inv_mont_n2(void* out, const void* x, int sx, const int32_t* cfg,
+                                       const uint32_t* field, const uint32_t* mu, int N, int blocks, void* stream) {
+  return launch<2>(out, x, sx, cfg, field, mu, N, blocks, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_divstep_inv_mont_n3(void* out, const void* x, int sx, const int32_t* cfg,
+                                       const uint32_t* field, const uint32_t* mu, int N, int blocks, void* stream) {
+  return launch<3>(out, x, sx, cfg, field, mu, N, blocks, stream);
 }
 #endif

@@ -8,7 +8,10 @@
 // serves FieldOps.inv (e = p - 2) and the first step of FieldOps.sqrt
 // (e = (q - 1) / 2). Entry points: msm_exp_ladder (12 limbs, BLS12-377's
 // base field), msm_exp_ladder_n13 (13 limbs, BLS12-381's) and
-// msm_exp_ladder_n9 (9 limbs, Pallas's and ed-on-bls12-377's).
+// msm_exp_ladder_n9 (9 limbs, Pallas's and ed-on-bls12-377's), and
+// msm_exp_ladder_n1, _n2, _n3 (the example fields small, babybear and
+// goldilocks: at NL = 1 fe_mul_cc and fe_sqr_cc are field.cuh's CIOS
+// product and square, madc.cuh says why).
 //
 // Bound on this card: the integer multiply pipe. A lane is a serial chain
 // of about 330 squarings and 60 products at NL = 12 (e = (q - 1) / 2, w = 4)
@@ -114,5 +117,26 @@ extern "C" int msm_exp_ladder_n13(void* out, const void* x, const uint32_t* step
 extern "C" int msm_exp_ladder_n9(void* out, const void* x, const uint32_t* steps, int nsteps, int entries,
                                  const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, steps, nsteps, entries, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_exp_ladder_n1(void* out, const void* x, const uint32_t* steps, int nsteps, int entries,
+                                 const uint32_t* field, int N, void* stream) {
+  return launch<1>(out, x, steps, nsteps, entries, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_exp_ladder_n2(void* out, const void* x, const uint32_t* steps, int nsteps, int entries,
+                                 const uint32_t* field, int N, void* stream) {
+  return launch<2>(out, x, steps, nsteps, entries, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_exp_ladder_n3(void* out, const void* x, const uint32_t* steps, int nsteps, int entries,
+                                 const uint32_t* field, int N, void* stream) {
+  return launch<3>(out, x, steps, nsteps, entries, field, N, stream);
 }
 #endif

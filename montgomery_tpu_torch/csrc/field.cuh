@@ -10,7 +10,13 @@
 // 2^7); NL = 13 for the 381-bit BLS12-381 base field (2^384 / p is only
 // about 2^3.3, so R = 2^416, R/p about 2^35); NL = 9 for the 255-bit Pallas
 // base field (R = 2^288, R/p about 2^34) and for ed-on-bls12-377's, the
-// 253-bit BLS12-377 scalar field (R/p about 2^35). A kernel file
+// 253-bit BLS12-377 scalar field (R/p about 2^35); the field kernels also
+// take NL = 1, 2 and 3 for the example fields small (p = 101: R = 2^32, R/p
+// about 2^25.3), babybear (2^31 - 1: R = 2^64, R/p about 2^33) and
+// goldilocks (2^64 - 2^32 + 1: R = 2^96, R/p about 2^32). At NL = 1 every
+// loop over the words above the first (j = 1 .. NL - 1, i + 1 .. NL - 1) is
+// empty: fe_mul is one product and one quotient row, fe_sqr one square and
+// one reduction row, and the bounds below hold as written. A kernel file
 // instantiates the counts its entry points serve.
 //
 // Bound on this card: 32-bit integer multiply throughput (IMAD.WIDE / IMAD.HI)

@@ -36,6 +36,15 @@
 // word order op by op and asserts it). The word count of a product is
 // fe_mul's: 2 NL^2 32x32 products, each as its lo and hi half.
 //
+// Limb counts. The chains hold from NL = 2 up (tests/test_torch_madc.py runs
+// the model at 2, 3, 9, 12 and 13 limbs; with an even NL the last odd
+// product ends at position NL - 1 and H's top word takes only carries). At
+// NL = 1 there is no odd word: H would hold no product, the even chain
+// would open with madc on a carry nothing set, and the end reads L's word
+// 1. So there fe_mul_cc and fe_sqr_cc run field.cuh's CIOS fe_mul and fe_sqr
+// (`if constexpr`): one product and one quotient row, nothing for two chains
+// to overlap, and the same words (both are (a b + m p) / R).
+//
 // Every op that reads or writes the carry flag is one `asm volatile`, so
 // the compiler keeps them in program order; nothing between them touches
 // the flag (plain C never does).
@@ -149,48 +158,52 @@ __device__ __forceinline__ void cc_even_chain(uint32_t (&L)[NL], uint32_t (&H)[N
 template <int NL>
 __device__ __forceinline__ void fe_mul_cc(uint32_t (&r)[NL], const uint32_t (&a)[NL], const uint32_t (&b)[NL],
                                           const FieldParams<NL>& F) {
-  uint32_t L[NL], H[NL], X = 0;
-  // row 0: the products alone
+  if constexpr (NL == 1) {
+    fe_mul(r, a, b, F);  // one word: no odd product to chain (see above)
+  } else {
+    uint32_t L[NL], H[NL], X = 0;
+    // row 0: the products alone
 #pragma unroll
-  for (int j = 0; j + 1 < NL; j += 2) {
-    L[j] = cc_mul_lo(a[j], b[0]);
-    L[j + 1] = cc_mul_hi(a[j], b[0]);
-  }
-#pragma unroll
-  for (int j = 1; j < NL; j += 2) {
-    H[j - 1] = cc_mul_lo(a[j], b[0]);
-    H[j] = cc_mul_hi(a[j], b[0]);
-  }
-  if (NL % 2) {
-    L[NL - 1] = cc_mul_lo(a[NL - 1], b[0]);
-    H[NL - 1] = cc_mul_hi(a[NL - 1], b[0]);
-  }
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    if (i > 0) {
-      // shift one word down: L <- H; H <- L[2..], 0 at position NL - 1 and
-      // X at NL; L's word 1 is folded into L[0], its carry into the chain
-      uint32_t fold = L[1];
-#pragma unroll
-      for (int k = 0; k < NL; k++) {
-        uint32_t h = H[k];
-        H[k] = k + 2 < NL ? L[k + 2] : k == NL - 2 ? 0u : X;
-        L[k] = h;
-      }
-      X = 0;
-      L[0] = cc_add(L[0], fold);
-      cc_odd_chain<NL, true>(H, X, a, b[i]);
-      cc_even_chain(L, H, X, a, b[i]);
+    for (int j = 0; j + 1 < NL; j += 2) {
+      L[j] = cc_mul_lo(a[j], b[0]);
+      L[j + 1] = cc_mul_hi(a[j], b[0]);
     }
-    uint32_t m = L[0] * F.mu;
-    cc_odd_chain<NL, false>(H, X, F.p, m);
-    cc_even_chain(L, H, X, F.p, m);
-  }
-  // (L + H w) / w: L's word 0 is zero, X is zero
-  r[0] = cc_add(H[0], L[1]);
 #pragma unroll
-  for (int k = 1; k < NL - 1; k++) r[k] = cc_addc_cc(H[k], L[k + 1]);
-  r[NL - 1] = cc_addc(H[NL - 1], 0);
+    for (int j = 1; j < NL; j += 2) {
+      H[j - 1] = cc_mul_lo(a[j], b[0]);
+      H[j] = cc_mul_hi(a[j], b[0]);
+    }
+    if (NL % 2) {
+      L[NL - 1] = cc_mul_lo(a[NL - 1], b[0]);
+      H[NL - 1] = cc_mul_hi(a[NL - 1], b[0]);
+    }
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+      if (i > 0) {
+        // shift one word down: L <- H; H <- L[2..], 0 at position NL - 1 and
+        // X at NL; L's word 1 is folded into L[0], its carry into the chain
+        uint32_t fold = L[1];
+#pragma unroll
+        for (int k = 0; k < NL; k++) {
+          uint32_t h = H[k];
+          H[k] = k + 2 < NL ? L[k + 2] : k == NL - 2 ? 0u : X;
+          L[k] = h;
+        }
+        X = 0;
+        L[0] = cc_add(L[0], fold);
+        cc_odd_chain<NL, true>(H, X, a, b[i]);
+        cc_even_chain(L, H, X, a, b[i]);
+      }
+      uint32_t m = L[0] * F.mu;
+      cc_odd_chain<NL, false>(H, X, F.p, m);
+      cc_even_chain(L, H, X, F.p, m);
+    }
+    // (L + H w) / w: L's word 0 is zero, X is zero
+    r[0] = cc_add(H[0], L[1]);
+#pragma unroll
+    for (int k = 1; k < NL - 1; k++) r[k] = cc_addc_cc(H[k], L[k + 1]);
+    r[NL - 1] = cc_addc(H[NL - 1], 0);
+  }
 }
 
 // ------------------------------------------------------------------ square
@@ -273,64 +286,68 @@ __device__ __forceinline__ void cc_cross_rows(uint32_t (&O)[2 * NL], uint32_t (&
 // bit: in [0, 2p) for a^2 < R p
 template <int NL>
 __device__ __forceinline__ void fe_sqr_cc(uint32_t (&r)[NL], const uint32_t (&a)[NL], const FieldParams<NL>& F) {
-  uint32_t O[2 * NL], E[2 * NL], T[2 * NL];
+  if constexpr (NL == 1) {
+    fe_sqr(r, a, F);  // one word: no cross product (see fe_mul_cc)
+  } else {
+    uint32_t O[2 * NL], E[2 * NL], T[2 * NL];
 #pragma unroll
-  for (int k = 0; k < 2 * NL; k++) O[k] = E[k] = 0;
-  cc_cross_rows<NL, 0>(O, E, a);
-  // D = O + E (E has no word below position 2), then T = 2 D
-  uint32_t D[2 * NL];
-  D[0] = 0;
-  D[1] = O[1];
-  D[2] = cc_add(O[2], E[2]);
+    for (int k = 0; k < 2 * NL; k++) O[k] = E[k] = 0;
+    cc_cross_rows<NL, 0>(O, E, a);
+    // D = O + E (E has no word below position 2), then T = 2 D
+    uint32_t D[2 * NL];
+    D[0] = 0;
+    D[1] = O[1];
+    D[2] = cc_add(O[2], E[2]);
 #pragma unroll
-  for (int k = 3; k < 2 * NL - 1; k++) D[k] = cc_addc_cc(O[k], E[k]);
-  D[2 * NL - 1] = cc_addc(O[2 * NL - 1], E[2 * NL - 1]);
+    for (int k = 3; k < 2 * NL - 1; k++) D[k] = cc_addc_cc(O[k], E[k]);
+    D[2 * NL - 1] = cc_addc(O[2 * NL - 1], E[2 * NL - 1]);
 #pragma unroll
-  for (int k = 2 * NL - 1; k > 0; k--) T[k] = __funnelshift_l(D[k - 1], D[k], 1);
-  // the diagonal: T[0] is 0 before it
-  T[0] = cc_mul_lo(a[0], a[0]);
-  T[1] = cc_mad_hi(a[0], a[0], T[1]);
+    for (int k = 2 * NL - 1; k > 0; k--) T[k] = __funnelshift_l(D[k - 1], D[k], 1);
+    // the diagonal: T[0] is 0 before it
+    T[0] = cc_mul_lo(a[0], a[0]);
+    T[1] = cc_mad_hi(a[0], a[0], T[1]);
 #pragma unroll
-  for (int k = 1; k < NL; k++) {
-    T[2 * k] = cc_madc_lo(a[k], a[k], T[2 * k]);
-    T[2 * k + 1] = k < NL - 1 ? cc_madc_hi(a[k], a[k], T[2 * k + 1]) : cc_madc_hi_end(a[k], a[k], T[2 * k + 1]);
-  }
-  // the reduction rows
-  uint32_t L[NL], H[NL], X = 0;
-#pragma unroll
-  for (int k = 0; k < NL; k++) {
-    L[k] = T[k];
-    H[k] = 0;
-  }
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    uint32_t m;
-    if (i > 0) {
-      // fe_mul_cc's shift, with T's word NL + i - 1 coming in at position
-      // NL - 1; L's word 1 is folded into L[0] (m is taken from the sum),
-      // its carry into the odd chain
-      uint32_t fold = L[1];
-#pragma unroll
-      for (int k = 0; k < NL; k++) {
-        uint32_t h = H[k];
-        H[k] = k + 2 < NL ? L[k + 2] : k == NL - 2 ? T[NL + i - 1] : X;
-        L[k] = h;
-      }
-      X = 0;
-      m = (L[0] + fold) * F.mu;
-      L[0] = cc_add(L[0], fold);
-      cc_odd_chain<NL, true>(H, X, F.p, m);
-    } else {
-      m = L[0] * F.mu;
-      cc_odd_chain<NL, false>(H, X, F.p, m);
+    for (int k = 1; k < NL; k++) {
+      T[2 * k] = cc_madc_lo(a[k], a[k], T[2 * k]);
+      T[2 * k + 1] = k < NL - 1 ? cc_madc_hi(a[k], a[k], T[2 * k + 1]) : cc_madc_hi_end(a[k], a[k], T[2 * k + 1]);
     }
-    cc_even_chain(L, H, X, F.p, m);
-  }
-  // (L + H w) / w, and T's top word at position NL - 1
-  r[0] = cc_add(H[0], L[1]);
+    // the reduction rows
+    uint32_t L[NL], H[NL], X = 0;
 #pragma unroll
-  for (int k = 1; k < NL - 1; k++) r[k] = cc_addc_cc(H[k], L[k + 1]);
-  r[NL - 1] = cc_addc(H[NL - 1], T[2 * NL - 1]);
+    for (int k = 0; k < NL; k++) {
+      L[k] = T[k];
+      H[k] = 0;
+    }
+#pragma unroll
+    for (int i = 0; i < NL; i++) {
+      uint32_t m;
+      if (i > 0) {
+        // fe_mul_cc's shift, with T's word NL + i - 1 coming in at position
+        // NL - 1; L's word 1 is folded into L[0] (m is taken from the sum),
+        // its carry into the odd chain
+        uint32_t fold = L[1];
+#pragma unroll
+        for (int k = 0; k < NL; k++) {
+          uint32_t h = H[k];
+          H[k] = k + 2 < NL ? L[k + 2] : k == NL - 2 ? T[NL + i - 1] : X;
+          L[k] = h;
+        }
+        X = 0;
+        m = (L[0] + fold) * F.mu;
+        L[0] = cc_add(L[0], fold);
+        cc_odd_chain<NL, true>(H, X, F.p, m);
+      } else {
+        m = L[0] * F.mu;
+        cc_odd_chain<NL, false>(H, X, F.p, m);
+      }
+      cc_even_chain(L, H, X, F.p, m);
+    }
+    // (L + H w) / w, and T's top word at position NL - 1
+    r[0] = cc_add(H[0], L[1]);
+#pragma unroll
+    for (int k = 1; k < NL - 1; k++) r[k] = cc_addc_cc(H[k], L[k + 1]);
+    r[NL - 1] = cc_addc(H[NL - 1], T[2 * NL - 1]);
+  }
 }
 
 // the carry-chain product and square as a type, for a formula written once

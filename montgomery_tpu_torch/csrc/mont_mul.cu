@@ -8,14 +8,17 @@
 // Entry points: msm_mont_mul (12 limbs, BLS12-377's base field),
 // msm_mont_mul_n13 (13 limbs, BLS12-381's) and msm_mont_mul_n9 (9 limbs:
 // Pallas's, and ed-on-bls12-377's, where it also runs the T = x y of the
-// point ingestion, the on-curve check and the inversion tree of to_host).
+// point ingestion, the on-curve check and the inversion tree of to_host);
+// msm_mont_mul_n1, _n2 and _n3 serve the example fields small (p = 101),
+// babybear (2^31 - 1) and goldilocks (2^64 - 2^32 + 1).
 //
 // Bound on this card: one NL-word CIOS product per lane, 2 NL^2 32x32->64
 // multiplies, against 12 NL bytes moved; at NL = 12 and 1 M lanes that is
 // 0.3 G wide multiplies (about 36 us at the 32 per SM per clock that
 // csrc/rates/imad_rate.cu measures) against 144 MB (about 43 us at
 // 3.35 TB/s), so the two bounds are close; at NL = 9 the multiplies shrink
-// by (9/12)^2 and the bytes by 9/12, so memory bounds it. Design: one
+// by (9/12)^2 and the bytes by 9/12, so memory bounds it, and at NL = 1-3
+// (12 to 36 bytes against 2 to 18 products a lane) far more so. Design: one
 // thread per lane, coalesced limb-plane loads; each operand carries its own
 // row stride, so the tree's contiguous halves (column slices of one plane)
 // are read in place, with no copy, as the TPU read its halves.
@@ -61,5 +64,26 @@ extern "C" int msm_mont_mul_n13(void* out, const void* x, int sx, const void* y,
 extern "C" int msm_mont_mul_n9(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
                                int N, void* stream) {
   return launch<9>(out, x, sx, y, sy, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_mont_mul_n1(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<1>(out, x, sx, y, sy, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_mont_mul_n2(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<2>(out, x, sx, y, sy, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_mont_mul_n3(void* out, const void* x, int sx, const void* y, int sy, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<3>(out, x, sx, y, sy, field, N, stream);
 }
 #endif

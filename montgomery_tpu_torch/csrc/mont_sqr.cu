@@ -3,6 +3,9 @@
 // Replaces the Pallas kernel "mont_sqr" of montgomery_tpu/ops/field.py
 // (FieldOps.square, :525-535, over _sqr_dot, :383-399). On the MSM path it
 // runs in the on-curve check of serve.compute_msm (two launches: x^2, y^2).
+// Entry points: msm_mont_sqr (12 limbs), msm_mont_sqr_n13, msm_mont_sqr_n9,
+// and msm_mont_sqr_n1, _n2, _n3 (the example fields small, babybear and
+// goldilocks, bytes-bound).
 //
 // Bound on this card: per lane 96 bytes moved against one square, 78 + 144
 // 32x32->64 products and 12 low ones (fe_sqr in field.cuh); at 2^20 lanes
@@ -48,5 +51,23 @@ extern "C" int msm_mont_sqr_n13(void* out, const void* x, int sx, const uint32_t
 #if MSM_AT(9)
 extern "C" int msm_mont_sqr_n9(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, sx, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_mont_sqr_n1(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  return launch<1>(out, x, sx, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_mont_sqr_n2(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  return launch<2>(out, x, sx, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_mont_sqr_n3(void* out, const void* x, int sx, const uint32_t* field, int N, void* stream) {
+  return launch<3>(out, x, sx, field, N, stream);
 }
 #endif

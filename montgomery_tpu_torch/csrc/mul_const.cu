@@ -6,7 +6,9 @@
 // and the GLV endomorphism phi(x, y) = (beta x, y). Entry points:
 // msm_mul_const (12 limbs, BLS12-377), msm_mul_const_n13 (13 limbs,
 // BLS12-381) and msm_mul_const_n9 (9 limbs: Pallas, and ed-on-bls12-377's
-// to Montgomery form in EdwardsMsm.points_from_bytes).
+// to Montgomery form in EdwardsMsm.points_from_bytes), and msm_mul_const_n1,
+// _n2, _n3 (the example fields small, babybear and goldilocks, where the
+// bytes bound it).
 //
 // Bound on this card: one NL-word CIOS product per lane, so integer multiply
 // throughput; each lane reads and writes 4 NL bytes, far below the multiply
@@ -53,5 +55,26 @@ extern "C" int msm_mul_const_n13(void* out, const void* x, const uint32_t* c, co
 extern "C" int msm_mul_const_n9(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
                                 void* stream) {
   return launch<9>(out, x, c, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_mul_const_n1(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                                void* stream) {
+  return launch<1>(out, x, c, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_mul_const_n2(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                                void* stream) {
+  return launch<2>(out, x, c, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_mul_const_n3(void* out, const void* x, const uint32_t* c, const uint32_t* field, int N,
+                                void* stream) {
+  return launch<3>(out, x, c, field, N, stream);
 }
 #endif

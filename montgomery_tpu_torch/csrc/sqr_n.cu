@@ -7,7 +7,9 @@
 // down to the window (42, 38, ..., 2 squarings at BLS12-377's M = 46).
 // Entry points: msm_sqr_n (12 limbs), msm_sqr_n_n13 (13 limbs; BLS12-381's
 // M = 1 needs no chain, so its sqrt never launches it) and msm_sqr_n_n9 (9
-// limbs: Pallas, M = 32, and ed-on-bls12-377).
+// limbs: Pallas, M = 32, and ed-on-bls12-377), and msm_sqr_n_n1, _n2, _n3
+// (the example fields small, M = 2, and babybear, M = 1, whose sqrt never
+// launches it; goldilocks, M = 32, seven chains).
 //
 // Bound on this card: m squarings per lane (fe_sqr: NL (NL + 1) / 2 + NL^2
 // 32x32->64 multiplies each) against 8 NL bytes moved, so integer multiply
@@ -50,5 +52,23 @@ extern "C" int msm_sqr_n_n13(void* out, const void* x, int m, const uint32_t* fi
 #if MSM_AT(9)
 extern "C" int msm_sqr_n_n9(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
   return launch<9>(out, x, m, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_sqr_n_n1(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
+  return launch<1>(out, x, m, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_sqr_n_n2(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
+  return launch<2>(out, x, m, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_sqr_n_n3(void* out, const void* x, int m, const uint32_t* field, int N, void* stream) {
+  return launch<3>(out, x, m, field, N, stream);
 }
 #endif

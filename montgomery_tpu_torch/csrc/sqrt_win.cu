@@ -23,7 +23,10 @@
 // windows leave: its digit is -1 and t, r pass through unchanged (the plain
 // version does the same). Entry points: msm_sqrt_win (12 limbs),
 // msm_sqrt_win_n13 (13 limbs: BLS12-381's one window of lk = 1) and
-// msm_sqrt_win_n9 (9 limbs); one binary serves every window of every field.
+// msm_sqrt_win_n9 (9 limbs), and msm_sqrt_win_n1, _n2, _n3 (the example
+// fields small, M = 2: one window of lk = 2; babybear, M = 1: one of lk = 1;
+// goldilocks, M = 32: eight of lk = 4); one binary serves every window of
+// every field.
 //
 // Bound on this card: bytes. Per lane 3 planes in and 2 planes plus the
 // digit out (244 B at NL = 12) against two products (one on the last
@@ -117,5 +120,29 @@ extern "C" int msm_sqrt_win_n9(void* t_out, void* r_out, void* digit_out, const 
                                const void* s, const void* table, int lk, int last, const uint32_t* field,
                                int N, void* stream) {
   return launch<9>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
+}
+#endif
+
+#if MSM_AT(1)
+extern "C" int msm_sqrt_win_n1(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
+                               const void* s, const void* table, int lk, int last, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<1>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
+}
+#endif
+
+#if MSM_AT(2)
+extern "C" int msm_sqrt_win_n2(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
+                               const void* s, const void* table, int lk, int last, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<2>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
+}
+#endif
+
+#if MSM_AT(3)
+extern "C" int msm_sqrt_win_n3(void* t_out, void* r_out, void* digit_out, const void* t, const void* r,
+                               const void* s, const void* table, int lk, int last, const uint32_t* field,
+                               int N, void* stream) {
+  return launch<3>(t_out, r_out, digit_out, t, r, s, table, lk, last, field, N, stream);
 }
 #endif

@@ -30,7 +30,7 @@ from .limbs import to_words
 _M16 = 0xFFFF
 
 BARRETT_MUL = kernels.Kernel(
-    "barrett_mul", {12: "msm_barrett_mul", 9: "msm_barrett_mul_n9"},
+    "barrett_mul", kernels.symbols("barrett_mul", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/barrett_mul.cu",
     "montgomery_tpu/ops/alt_mul.py:150",
     [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
@@ -54,14 +54,22 @@ class BarrettParams:
         return self.f.n
 
 
+def barrett_base(n: int) -> int:
+    """The bit at which the kernel's shifts start reading (32 times the word
+    index barrett_base of csrc/barrett_mul.cu): 32 (n - 2), clamped to 0 for
+    a one-word field."""
+    return 32 * max(n - 2, 0)
+
+
 def barrett_params(f: FieldOps) -> BarrettParams:
     """Constants for the field `f`. FieldOps sizes n so that
     32 (n - 1) < K + 6 <= 32 n, so mu fits n words and both of the
-    kernel's shift counts, K -+ 1 - 32 (n - 2), lie in [0, 64)."""
+    kernel's shift counts, K -+ 1 - `barrett_base(n)`, lie in [0, 64) (at
+    n = 1, K <= 26: 6 and 8 at p = 101)."""
     n, K = f.n, f.p.bit_length()
     mu = (1 << (2 * K)) // f.p
     mu_limbs, p_limbs = tuple(to_words(mu, n)), tuple(to_words(f.p, n))
-    base = 32 * (n - 2)
+    base = barrett_base(n)
     cfg = [*p_limbs, *mu_limbs, (K - 1 - base) & 0xFFFFFFFF, (K + 1 - base) & 0xFFFFFFFF]
     return BarrettParams(f=f, K=K, mu_limbs=mu_limbs, p_limbs=p_limbs,
                          kernel_words=kernels.words(cfg))

@@ -57,14 +57,14 @@ LIMB_LO, LIMB_HI = -2, (1 << LIMB_BITS) + 1
 INV_MONT_LANES_PER_BLOCK = 4
 
 DIVSTEP_INV_MONT = kernels.Kernel(
-    "divstep_inv_mont", kernels.symbols("divstep_inv_mont", *kernels.WEIERSTRASS_LIMBS),
+    "divstep_inv_mont", kernels.symbols("divstep_inv_mont", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/divstep_inv_mont.cu",
     "montgomery_tpu/ops/field.py:761",
     [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.U32P, kernels.U32P,
      kernels.INT, kernels.INT],
 )
 DIVSTEP_INV = kernels.Kernel(
-    "divstep_inv", {12: "msm_divstep_inv", 9: "msm_divstep_inv_n9"},
+    "divstep_inv", kernels.symbols("divstep_inv", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/divstep_inv.cu",
     "montgomery_tpu/ops/divstep.py:245",
     [kernels.VP, kernels.VP, kernels.INT, ctypes.POINTER(ctypes.c_int32), kernels.INT],
@@ -81,7 +81,8 @@ def iterations(d: int) -> int:
 
 def kernel_limbs(n: int) -> int:
     """30-bit limbs of the numbers for a field of n 32-bit words (ds_limbs
-    of csrc/divstep.cuh): 13 at n = 12, 14 at n = 13, 10 at n = 9."""
+    of csrc/divstep.cuh): 13 at n = 12, 14 at n = 13, 10 at n = 9; 2, 3
+    and 4 at n = 1, 2, 3."""
     return -(-32 * n // LIMB_BITS)
 
 

@@ -26,19 +26,19 @@ from . import limbs as codec
 _M16 = 0xFFFF
 
 MUL_CONST = kernels.Kernel(
-    "mul_const", kernels.symbols("mul_const", *kernels.WEIERSTRASS_LIMBS),
+    "mul_const", kernels.symbols("mul_const", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/mul_const.cu",
     "montgomery_tpu/ops/field.py:581",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.U32P, kernels.INT],
 )
 MONT_MUL = kernels.Kernel(
-    "mont_mul", kernels.symbols("mont_mul", *kernels.WEIERSTRASS_LIMBS),
+    "mont_mul", kernels.symbols("mont_mul", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/mont_mul.cu",
     "montgomery_tpu/ops/field.py:443",
     [kernels.VP, kernels.VP, kernels.INT, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 MONT_SQR = kernels.Kernel(
-    "mont_sqr", kernels.symbols("mont_sqr", *kernels.WEIERSTRASS_LIMBS),
+    "mont_sqr", kernels.symbols("mont_sqr", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/mont_sqr.cu",
     "montgomery_tpu/ops/field.py:533",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
@@ -46,7 +46,7 @@ MONT_SQR = kernels.Kernel(
 # out, x, the schedule's steps (`ladder_steps`) and their count, the table's
 # entries, the field words, the lane count
 EXP_LADDER = kernels.Kernel(
-    "exp_ladder", kernels.symbols("exp_ladder", *kernels.WEIERSTRASS_LIMBS),
+    "exp_ladder", kernels.symbols("exp_ladder", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/exp_ladder.cu",
     "montgomery_tpu/ops/field.py:668",
     [kernels.VP, kernels.VP, kernels.U32P, kernels.INT, kernels.INT, kernels.U32P, kernels.INT],
@@ -57,13 +57,13 @@ LADDER_MAX_STEPS = 256
 # one run-time-m kernel for both of the JAX package's call sites: sqr_n_dyn
 # (:839) and the static-m sqr_n_{m} (:850)
 SQR_N = kernels.Kernel(
-    "sqr_n", kernels.symbols("sqr_n", *kernels.WEIERSTRASS_LIMBS),
+    "sqr_n", kernels.symbols("sqr_n", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/sqr_n.cu",
     "montgomery_tpu/ops/field.py:839,850",
     [kernels.VP, kernels.VP, kernels.INT, kernels.U32P, kernels.INT],
 )
 SQRT_WIN = kernels.Kernel(
-    "sqrt_win", kernels.symbols("sqrt_win", *kernels.WEIERSTRASS_LIMBS),
+    "sqrt_win", kernels.symbols("sqrt_win", *kernels.BUILT_LIMBS),
     "montgomery_tpu_torch/csrc/sqrt_win.cu",
     "montgomery_tpu/ops/field.py:955",
     [kernels.VP] * 7 + [kernels.INT] * 2 + [kernels.U32P, kernels.INT],
@@ -565,8 +565,9 @@ class FieldOps:
     # ------------------------------------------------------------------- exp
 
     # exp_ladder's sliding window (bits) by limb count, from the sweep over
-    # w = 2..5 at the random points' width on the card (PERF.md row 22)
-    LADDER_WINDOW = {9: 4, 12: 4, 13: 4}
+    # w = 2..5 at the random points' width on the card (PERF.md row 22); the
+    # 1-3 limb fields keep 4 unswept (their ladders are short and bytes-bound)
+    LADDER_WINDOW = {1: 4, 2: 4, 3: 4, 9: 4, 12: 4, 13: 4}
 
     @property
     def ladder_window(self) -> int:

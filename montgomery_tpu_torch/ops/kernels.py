@@ -16,9 +16,11 @@ The device code is templated over the limb count of a field element
 (`csrc/field.cuh`), and each kernel's source instantiates the counts its
 callers need: every Weierstrass kernel 12 limbs of 32 bits (BLS12-377's base
 field), 13 (BLS12-381's) and 9 (Pallas's), the Twisted Edwards kernels 9
-(ed-on-bls12-377's). A `Kernel` maps each limb count it was built for to its
-C symbol, and a launch at any other count raises `NotImplementedError` before
-it reaches the card.
+(ed-on-bls12-377's), and the field kernels (and the baselines `divstep_inv`,
+`barrett_mul`) also 1, 2 and 3, the example fields small, babybear and
+goldilocks. A `Kernel` maps each limb count it was built for to its C symbol,
+and a launch at any other count raises `NotImplementedError` before it
+reaches the card.
 """
 
 from __future__ import annotations
@@ -111,7 +113,7 @@ class _Library:
         jobs = []
         for cu in cus:
             text = cu.read_text()
-            for n in [n for n in WEIERSTRASS_LIMBS if f"MSM_AT({n})" in text] or [None]:
+            for n in [n for n in BUILT_LIMBS if f"MSM_AT({n})" in text] or [None]:
                 label = cu.name if n is None else f"{cu.name} n={n}"
                 obj = out_dir / f"{cu.stem}{'' if n is None else f'.n{n}'}.{tag}.o"
                 defs = [] if n is None else [f"-DMSM_LIMBS={n}"]
@@ -162,6 +164,13 @@ LIBRARY = _Library()
 # the limb counts of the Weierstrass curves' base fields, at which every
 # Weierstrass kernel is instantiated: BLS12-377 (12), BLS12-381 (13), Pallas (9)
 WEIERSTRASS_LIMBS = (12, 13, 9)
+# the limb counts of the small example fields, at which the field kernels
+# (and divstep_inv, barrett_mul) are instantiated too: small (p = 101, 1),
+# babybear (2^31 - 1, 2), goldilocks (2^64 - 2^32 + 1, 3)
+FIELD_LIMBS = (1, 2, 3)
+# every count a source may instantiate under MSM_AT(n): `_compile` builds
+# each source once per count it names
+BUILT_LIMBS = WEIERSTRASS_LIMBS + FIELD_LIMBS
 
 
 def symbols(stem: str, *counts: int) -> dict:

@@ -135,17 +135,21 @@ def test_alt_mul_against_ints(name):
     assert codec.unpack(alt_mul.barrett_reduce(bp, T)) == [v % p for v in _edge(p)]
 
 
-@pytest.mark.parametrize("p", [BLS12_377.modulus, PALLAS.modulus, (1 << 64) - (1 << 32) + 1])
+@pytest.mark.parametrize("p", [BLS12_377.modulus, PALLAS.modulus, (1 << 64) - (1 << 32) + 1, BLS12_381.modulus,
+                               101, (1 << 31) - 1])
 def test_barrett_kernel_shift_counts(p):
-    """The kernel's shift counts K -+ 1 - 32 (n - 2) lie in [0, 64) and its
-    config is p, mu and the two counts as 2n + 2 words."""
+    """The kernel's shift counts K -+ 1 - 32 (n - 2) (at n = 1 from bit 0:
+    `barrett_base`) lie in [0, 64) and its config is p, mu and the two
+    counts as 2n + 2 words."""
     f = create_field_ops(p)
     bp = alt_mul.barrett_params(f)
     words = list(bp.kernel_words)
     assert len(words) == 2 * f.n + 2
     assert words[:f.n] == list(bp.p_limbs) and words[f.n:2 * f.n] == list(bp.mu_limbs)
     t1, t2 = words[2 * f.n:]
-    assert (t1, t2) == (bp.K - 1 - 32 * (f.n - 2), bp.K + 1 - 32 * (f.n - 2))
+    base = 32 * max(f.n - 2, 0)
+    assert alt_mul.barrett_base(f.n) == base
+    assert (t1, t2) == (bp.K - 1 - base, bp.K + 1 - base)
     assert 0 <= t1 < t2 < 64
 
 
@@ -153,9 +157,10 @@ def test_barrett_kernel_branch_arguments(monkeypatch):
     """A tensor taken for a CUDA one goes to entry point msm_barrett_mul
     with the C arguments it expects: out, x and its row stride, y and its
     row stride (a column slice passes its parent's), the config words, the
-    lane count and the stream of the tensors' device; a field of another
-    limb count raises NotImplementedError (checked with a fake library and
-    recorders in place of torch.cuda)."""
+    lane count and the stream of the tensors' device; BLS12-381's 13 limbs go
+    to msm_barrett_mul_n13; a field of a limb count without an entry point
+    (2^127 - 1, 5 limbs) raises NotImplementedError (checked with a fake
+    library and recorders in place of torch.cuda)."""
     seen = {}
 
     def entry(*args):
@@ -168,7 +173,8 @@ def test_barrett_kernel_branch_arguments(monkeypatch):
         yield
 
     monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
-    monkeypatch.setattr(kernels.LIBRARY, "get", lambda: types.SimpleNamespace(msm_barrett_mul=entry))
+    monkeypatch.setattr(kernels.LIBRARY, "get",
+                        lambda: types.SimpleNamespace(msm_barrett_mul=entry, msm_barrett_mul_n13=entry))
     monkeypatch.setattr(torch.cuda, "device", fake_device)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=77))
@@ -186,5 +192,10 @@ def test_barrett_kernel_branch_arguments(monkeypatch):
     assert cfg is bp.kernel_words and N == 20 and stream == 77 and seen["device"] == out.device
     assert alt_mul.BARRETT_MUL.launches_by_n == {12: 1}
     f381 = create_field_ops(BLS12_381.modulus)
+    bp381 = alt_mul.barrett_params(f381)
+    alt_mul.barrett_mul(bp381, *[f381.pack_raw([1, 2], "cpu")] * 2)
+    assert seen["args"][5] is bp381.kernel_words and seen["args"][6] == 2
+    assert alt_mul.BARRETT_MUL.launches_by_n == {12: 1, 13: 1}
+    f5 = create_field_ops((1 << 127) - 1)
     with pytest.raises(NotImplementedError):
-        alt_mul.barrett_mul(alt_mul.barrett_params(f381), *[f381.pack_raw([1, 2], "cpu")] * 2)
+        alt_mul.barrett_mul(alt_mul.barrett_params(f5), *[f5.pack_raw([1, 2], "cpu")] * 2)

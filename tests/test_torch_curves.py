@@ -57,6 +57,9 @@ ROOT = Path(__file__).resolve().parents[1]
 # every other kernel is a Weierstrass one, built at 12, 13 and 9 limbs
 NOT_WEIERSTRASS = {"ed_add", "ed_dbl", "ed_add_packed", "ed_combine", "glv_digits", "divstep_inv",
                    "barrett_mul"}
+# built at every Weierstrass count and at the 1-3 limb example fields'
+FIELD_KERNELS = {"mont_mul", "mont_sqr", "mul_const", "exp_ladder", "sqr_n", "sqrt_win", "divstep_inv_mont",
+                 "divstep_inv", "barrett_mul"}
 
 
 @pytest.fixture(scope="module", params=sorted(CURVES))
@@ -272,8 +275,9 @@ def test_msm_full_matches_oracle(curve, engine):
 def test_registry_symbols_are_entry_points(name):
     """Each C symbol the kernel's launches look up is defined by its source
     (`extern "C" int <symbol>(`), under MSM_AT(n) for its limb count n, so
-    the per-count builds define it once; a Weierstrass kernel has all three
-    counts."""
+    the per-count builds define it once; a Weierstrass curve kernel has all
+    three counts, the field kernels (and divstep_inv, barrett_mul) those and
+    the 1-3 limb example fields'."""
     k = kernels.REGISTRY[name]
     src = (ROOT / k.source).read_text()
     for n, sym in k.symbols.items():
@@ -281,5 +285,7 @@ def test_registry_symbols_are_entry_points(name):
         if n is not None and "MSM_AT(" in src:
             head = src[:src.index(f'extern "C" int {sym}(')]
             assert head.rstrip().endswith(f"#if MSM_AT({n})"), (name, sym)
-    if name not in NOT_WEIERSTRASS:
+    if name in FIELD_KERNELS:
+        assert sorted(k.symbols) == [1, 2, 3, 9, 12, 13], name
+    elif name not in NOT_WEIERSTRASS:
         assert sorted(k.symbols) == [9, 12, 13], name

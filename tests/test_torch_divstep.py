@@ -239,12 +239,17 @@ def fake_card(monkeypatch):
 
 
 def test_divstep_inv_kernel_branch_arguments(fake_card):
-    """A CUDA tensor goes to msm_divstep_inv (12 limbs) or
-    msm_divstep_inv_n9 (9 limbs) with out, x and its row stride (a column
-    slice passes its parent's), the DivstepConst words, the lane count and
-    the stream; `inv_mont_divstep` launches mul_const, divstep_inv,
-    mul_const; 13 limbs (BLS12-381) raise NotImplementedError."""
-    for p, symbol in ((P, "msm_divstep_inv"), (ED_ON_BLS12_377.modulus, "msm_divstep_inv_n9")):
+    """A CUDA tensor goes to msm_divstep_inv (12 limbs), msm_divstep_inv_n13
+    (BLS12-381), msm_divstep_inv_n1, _n2, _n3 (the example fields small,
+    babybear, goldilocks) or msm_divstep_inv_n9 (9 limbs) with out, x and its
+    row stride (a column slice passes its parent's), the DivstepConst words,
+    the lane count and the stream; `inv_mont_divstep` launches mul_const,
+    divstep_inv, mul_const; a 5-limb field (2^127 - 1) raises
+    NotImplementedError."""
+    cases = ((P, "msm_divstep_inv"), (BLS12_381.modulus, "msm_divstep_inv_n13"), (101, "msm_divstep_inv_n1"),
+             ((1 << 31) - 1, "msm_divstep_inv_n2"), ((1 << 64) - (1 << 32) + 1, "msm_divstep_inv_n3"),
+             (ED_ON_BLS12_377.modulus, "msm_divstep_inv_n9"))
+    for p, symbol in cases:
         f = create_field_ops(p)
         wide = f.pack_raw(list(range(1, 31)), "cpu")
         x = wide[:, 10:]
@@ -252,21 +257,22 @@ def test_divstep_inv_kernel_branch_arguments(fake_card):
         out = divstep.inv_divstep(f.inv_params, x)
         ((name, (out_p, x_p, sx, cfg, M, stream)),) = fake_card
         assert name == symbol and out.shape == (f.n, 20) and out_p.value == out.data_ptr()
-        assert (x_p.value, sx, M, stream) == (x.data_ptr(), 30, 20, 55)
+        # one row: its lanes are the plane, the stride is the lane count
+        assert (x_p.value, sx, M, stream) == (x.data_ptr(), 30 if f.n > 1 else 20, 20, 55)
         assert cfg is f.inv_params.kernel_words
     fake_card.clear()
     divstep.inv_mont_divstep(f.inv_params, x)
     assert [name for name, _ in fake_card] == ["msm_mul_const_n9", "msm_divstep_inv_n9",
                                                "msm_mul_const_n9"]
-    assert divstep.DIVSTEP_INV.launches_by_n == {12: 1, 9: 2}
-    f381 = create_field_ops(BLS12_381.modulus)
+    assert divstep.DIVSTEP_INV.launches_by_n == {12: 1, 13: 1, 1: 1, 2: 1, 3: 1, 9: 2}
+    f5 = create_field_ops((1 << 127) - 1)
     with pytest.raises(NotImplementedError):
-        divstep.inv_divstep(f381.inv_params, f381.pack_raw([3], "cpu"))
+        divstep.inv_divstep(f5.inv_params, f5.pack_raw([3], "cpu"))
 
 
 def test_divstep_inv_mont_kernel_branch_arguments(fake_card):
     """A CUDA tensor goes to divstep_inv_mont's entry point at its limb count
-    (msm_divstep_inv_mont, _n13, _n9) with out, x and its row stride (a
+    (msm_divstep_inv_mont, _n13, _n9, _n1, _n2, _n3) with out, x and its row stride (a
     column slice passes its parent's), the DivstepConst words, the field's
     FieldParams, mu = -p^-1 mod R for the warp products, the lane count, and
     the grid: one warp a lane, INV_MONT_LANES_PER_BLOCK lanes a block, the
@@ -275,23 +281,24 @@ def test_divstep_inv_mont_kernel_branch_arguments(fake_card):
     assert re.search(r"#define INV_WARPS (\d+)", src).group(1) == str(divstep.INV_MONT_LANES_PER_BLOCK)
     assert "<<<blocks, 32 * INV_WARPS," in src
     cases = ((P, "msm_divstep_inv_mont"), (BLS12_381.modulus, "msm_divstep_inv_mont_n13"),
-             (PALLAS.modulus, "msm_divstep_inv_mont_n9"))
+             (PALLAS.modulus, "msm_divstep_inv_mont_n9"), (101, "msm_divstep_inv_mont_n1"),
+             ((1 << 31) - 1, "msm_divstep_inv_mont_n2"), ((1 << 64) - (1 << 32) + 1, "msm_divstep_inv_mont_n3"))
     for p, symbol in cases:
         f = create_field_ops(p)
-        wide = f.pack_raw(list(range(1, 531)), "cpu")
+        wide = f.pack_raw([v % p for v in range(1, 531)], "cpu")
         for x in (wide[:, 10:523], wide[:, 7:8]):  # 513 lanes and 1, column slices
             fake_card.clear()
             out = f.inv_root(x)
             ((name, (out_p, x_p, sx, cfg, field, mu, M, blocks, stream)),) = fake_card
             lanes = x.shape[1]
             assert name == symbol and out.shape == (f.n, lanes) and out_p.value == out.data_ptr()
-            assert (x_p.value, sx, M, stream) == (x.data_ptr(), 530, lanes, 55)
+            assert (x_p.value, sx, M, stream) == (x.data_ptr(), 530 if f.n > 1 else lanes, lanes, 55)
             assert cfg is f.inv_params.kernel_words
             assert list(field) == codec.to_words(p, f.n) + codec.to_words(2 * p, f.n) + \
                 codec.to_words(4 * p, f.n) + [f.mu]
             assert list(mu) == codec.to_words(-pow(p, -1, f.R) % f.R, f.n)
             assert blocks == -(-lanes // divstep.INV_MONT_LANES_PER_BLOCK)
-    assert divstep.DIVSTEP_INV_MONT.launches_by_n == {12: 2, 13: 2, 9: 2}
+    assert divstep.DIVSTEP_INV_MONT.launches_by_n == {12: 2, 13: 2, 9: 2, 1: 2, 2: 2, 3: 2}
 
 
 # ------------------------------------------- the 32-bit core's plain version
@@ -359,7 +366,7 @@ EXTREME_MATRICES = ((T30, 0, 0, T30), (-T30, 0, 0, -T30), (0, T30, T30, 0), (0, 
 EXTREME_LIMBS = ("high", "low", "alternating", "high-low")
 
 
-@pytest.mark.parametrize("n", (12, 13, 9))
+@pytest.mark.parametrize("n", (12, 13, 9, 1, 2, 3))
 @pytest.mark.parametrize("matrix", EXTREME_MATRICES)
 def test_batch_bounds(n, matrix):
     """One matrix application (`_shift` of the limb sums u a + v b + m p,
@@ -371,7 +378,8 @@ def test_batch_bounds(n, matrix):
     u, v, q, r = matrix
     assert abs(u) + abs(v) <= T30 and abs(q) + abs(r) <= T30
     dl = divstep.kernel_limbs(n)
-    ps = {12: [P], 13: [BLS12_381.modulus], 9: [PALLAS.modulus, ED_ON_BLS12_377.modulus]}[n]
+    ps = {12: [P], 13: [BLS12_381.modulus], 9: [PALLAS.modulus, ED_ON_BLS12_377.modulus], 1: [101],
+          2: [(1 << 31) - 1], 3: [(1 << 64) - (1 << 32) + 1]}[n]
     hi, lo, top = divstep.LIMB_HI, divstep.LIMB_LO, 1 << 24
     cols = {"high": [hi] * dl, "low": [lo] * dl, "alternating": [hi, lo] * dl,
             "high-low": [hi] * (dl // 2) + [lo] * dl}

@@ -306,19 +306,21 @@ def test_random_points_fast_edwards():
 
 def test_launch_guard_by_kernel():
     """kernels.field_params accepts 9 limbs for the kernels the TE path runs
-    and for every Weierstrass kernel (Pallas), 12 for every field kernel but
-    the Edwards ones, 13 (BLS12-381) for the Weierstrass kernels alone, and
-    15 for none: no launch can hand planes of another width to a kernel."""
+    and for every Weierstrass kernel (Pallas), 12 and 13 (BLS12-381) for
+    every kernel but the Edwards ones, 1, 2 and 3 (the example fields small,
+    babybear, goldilocks) for the field kernels, divstep_inv and barrett_mul
+    alone, and 15 for none: no launch can hand planes of another width to a
+    kernel."""
     nine = {"mont_mul", "mul_const", "divstep_inv_mont", "ed_add", "ed_dbl", "ed_add_packed", "ed_combine",
             "exp_ladder", "sqr_n", "sqrt_win", divstep.DIVSTEP_INV.name, alt_mul.BARRETT_MUL.name}
+    small = {"mont_mul", "mont_sqr", "mul_const", "exp_ladder", "sqr_n", "sqrt_win", "divstep_inv_mont",
+             divstep.DIVSTEP_INV.name, alt_mul.BARRETT_MUL.name}
     field_kernels = {k for k in kernels.REGISTRY.values() if None not in k.symbols}
     assert {k.name for k in field_kernels} >= nine | {"proj_add_rcb", "aff_pre_packed", "mont_sqr"}
     for k in field_kernels:
-        weierstrass = not k.name.startswith("ed_") and k.name not in (divstep.DIVSTEP_INV.name,
-                                                                      alt_mul.BARRETT_MUL.name)
-        for n in (9, 12, 13, 15):
-            ok = (n == 9 and (k.name in nine or weierstrass) or n == 12 and not k.name.startswith("ed_")
-                  or n == 13 and weierstrass)
+        edwards_only = k.name.startswith("ed_")
+        for n in (1, 2, 3, 9, 12, 13, 15):
+            ok = (n == 9 or n in (12, 13) and not edwards_only or n in (1, 2, 3) and k.name in small)
             if ok:
                 assert len(kernels.field_params(k, P, n, 1)) == 3 * n + 1
             else:
@@ -329,7 +331,7 @@ def test_launch_guard_by_kernel():
         with pytest.raises(NotImplementedError):
             k.launch(n=15, device=torch.device("cuda"))  # refused before the library is touched
     assert set(edwards.ED_ADD.symbols) == {9}
-    assert set(MONT_MUL.symbols) == set(MUL_CONST.symbols) == set(MONT_SQR.symbols) == {9, 12, 13}
+    assert set(MONT_MUL.symbols) == set(MUL_CONST.symbols) == set(MONT_SQR.symbols) == {1, 2, 3, 9, 12, 13}
 
 
 def test_weierstrass_guard_on_cuda(monkeypatch):

@@ -6,6 +6,9 @@ values; results are compared as canonical integers (tolerance zero). The
 JAX side runs eagerly in the suite's callback kernel mode.
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -17,8 +20,10 @@ from montgomery_tpu.scalar.device import ints_to_limbs_np as jax_ints_to_limbs
 from montgomery_tpu_torch import interop
 from montgomery_tpu_torch.ops import limbs as codec
 from montgomery_tpu_torch.concrete import example_fields
+from montgomery_tpu_torch.ops import alt_mul, divstep, kernels
 from montgomery_tpu_torch.ops.field import (EXP_LADDER, MONT_MUL, MONT_SQR, MUL_CONST, SQR_N, SQRT_WIN,
-                                            Plain16, create_field_ops)
+                                            SQRT_WINDOW, Plain16, create_field_ops, ladder_schedule,
+                                            ladder_steps)
 from montgomery_tpu_torch.scalar.device import ints_to_limbs_np
 
 # several test workers share few cores; these small tensors gain nothing
@@ -27,6 +32,9 @@ torch.set_num_threads(1)
 
 P = BLS12_377.modulus
 W_JAX = 13
+# the field kernels (every one with FieldParams but divstep_inv_mont's mu),
+# instantiated at 1, 2 and 3 limbs too
+SMALL_FIELD_KERNELS = (MONT_MUL, MONT_SQR, MUL_CONST, EXP_LADDER, SQR_N, SQRT_WIN)
 
 
 def _rand_below(rng: np.random.Generator, bound: int, n: int) -> list[int]:
@@ -256,12 +264,89 @@ def test_plain_product_int_path(lanes):
 
 
 def test_kernels_refuse_small_fields():
-    """No kernel is instantiated at 1, 2 or 3 limbs (small, babybear,
-    goldilocks): their launch parameters raise before any launch, so a CUDA
-    tensor of such a field raises instead of running elsewhere."""
-    for name in ("small", "babybear", "goldilocks"):
-        f = create_field_ops(EXAMPLE_FIELDS[name].p)
-        assert f.n in (1, 2, 3)
-        for kernel in (MONT_MUL, MONT_SQR, MUL_CONST, EXP_LADDER, SQR_N, SQRT_WIN):
+    """A field whose limb count no kernel was built for (2^127 - 1 at 5
+    limbs, a 100-bit prime at 4) gets no launch parameters: a CUDA tensor of
+    such a field raises NotImplementedError before any launch instead of
+    running elsewhere. The 1-3 limb example fields have their kernels."""
+    for p in ((1 << 127) - 1, (1 << 100) - 15):
+        f = create_field_ops(p)
+        assert f.n in (4, 5)
+        for kernel in SMALL_FIELD_KERNELS:
             with pytest.raises(NotImplementedError):
                 f.field_words(kernel)
+        with pytest.raises(NotImplementedError):
+            kernels.check_limbs(divstep.DIVSTEP_INV, f.n)
+        with pytest.raises(NotImplementedError):
+            kernels.check_limbs(alt_mul.BARRETT_MUL, f.n)
+    for name in ("small", "babybear", "goldilocks"):
+        f = create_field_ops(EXAMPLE_FIELDS[name].p)
+        assert f.n in kernels.FIELD_LIMBS and all(f.n in k.symbols for k in SMALL_FIELD_KERNELS)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """Tensors taken for CUDA ones, a fake kernel library that records each
+    entry point's name and arguments, and recorders in place of torch.cuda's
+    device scope and stream; launch counts start at 0."""
+    calls = []
+
+    class Library:
+        def __getattr__(self, name):
+            def entry(*args):
+                calls.append((name, args))
+                return 0
+            return entry
+
+    monkeypatch.setattr(kernels, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(kernels.LIBRARY, "get", lambda: Library())
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: types.SimpleNamespace(cuda_stream=66))
+    for k in kernels.REGISTRY.values():
+        monkeypatch.setattr(k, "_fns", {})
+        monkeypatch.setattr(k, "launches", 0)
+        monkeypatch.setattr(k, "launches_by_n", {})
+    return calls
+
+
+@pytest.mark.parametrize("name", ["small", "babybear", "goldilocks"])
+def test_small_field_launches_reach_their_entry_points(fake_card, name):
+    """On a 1-3 limb field each of the nine kernels' launches reaches
+    msm_<stem>_n<n> with its planes, the field's FieldParams (p, 2p, 4p and
+    mu: 3n + 1 words) where the kernel takes them, its other constants
+    (mul_const's c, the ladder's steps, sqr_n's m, the sqrt window's lk,
+    divstep's and Barrett's configs), the lane count and the stream; each
+    launch is counted under n limbs."""
+    p = EXAMPLE_FIELDS[name].p
+    f = create_field_ops(p)
+    n, N = f.n, 7
+    fw = codec.to_words(p, n) + codec.to_words(2 * p, n) + codec.to_words(4 * p, n) + [f.mu]
+    x = f.pack_raw([1, 2, 3, p - 1, p, p + 1, 2 * p - 1], "cpu")
+    y = f.pack_raw([5] * N, "cpu")
+    sched = ladder_schedule(p - 2, f.ladder_window)
+    lk = min(SQRT_WINDOW, f.sqrt_M)
+    bp = alt_mul.barrett_params(f)
+    xp = x.data_ptr()
+    runs = [
+        ("mont_mul", lambda: f.mul(x, y), lambda a: (a[1].value, a[2], a[3].value, a[4]) == (xp, N, y.data_ptr(), N)),
+        ("mont_sqr", lambda: f.square(x), lambda a: (a[1].value, a[2]) == (xp, N)),
+        ("mul_const", lambda: f.left_shift(x, 3), lambda a: list(a[2]) == codec.to_words(8 * f.R % p, n)),
+        ("exp_ladder", lambda: f.inv(x), lambda a: list(a[2])[:a[3]] == ladder_steps(sched)),
+        ("sqr_n", lambda: f.sqr_n(x, 5), lambda a: a[2] == 5),
+        ("sqrt_win", lambda: f.sqrt_window(x, x, x, 0, lk, lk >= f.sqrt_M),
+         lambda a: (a[7], a[8]) == (lk, int(lk >= f.sqrt_M))),
+        ("divstep_inv_mont", lambda: f.inv_root(x), lambda a: a[3] is f.inv_params.kernel_words),
+        ("divstep_inv", lambda: divstep.inv_divstep(f.inv_params, x), lambda a: a[3] is f.inv_params.kernel_words),
+        ("barrett_mul", lambda: alt_mul.barrett_mul(bp, x, y), lambda a: a[5] is bp.kernel_words),
+    ]
+    field_arg = {"mont_mul": 5, "mont_sqr": 3, "mul_const": 3, "exp_ladder": 5, "sqr_n": 3, "sqrt_win": 9,
+                 "divstep_inv_mont": 4}
+    for stem, run, check in runs:
+        fake_card.clear()
+        run()
+        ((symbol, args),) = fake_card
+        assert symbol == f"msm_{stem}_n{n}", stem
+        assert args[-1] == 66 and args[-2 if stem != "divstep_inv_mont" else -3] == N, stem
+        if stem in field_arg:
+            assert len(args[field_arg[stem]]) == 3 * n + 1 and list(args[field_arg[stem]]) == fw, stem
+        assert check(args), stem
+        assert kernels.REGISTRY[stem].launches_by_n == {n: 1}, stem

@@ -7,7 +7,9 @@ high words in. Each op that the header issues without a carry out asserts
 that none was lost. The product model is held bit for bit against `fe_mul`'s
 plain version (`FieldOps.mul_plain`, the CIOS product on 16-bit halves that
 the card's kernels are held to) and against (a b + m p) / R in Python ints,
-at 9, 12 and 13 limbs: 0, 1, p - 1, values in [p, 2p) and up to 8p, pairs at
+at 2, 3, 9, 12 and 13 limbs (babybear and goldilocks beside the curves; at
+one limb the header runs field.cuh's CIOS product instead): 0, 1, p - 1,
+values in [p, 2p) and up to 8p, pairs at
 the a b < R p limit with either operand near R, and seeded random operands;
 the square model against `mul_plain(a, a)` and (a^2 + m p) / R on 0, 1,
 p - 1, [p, 2p), up to 8p, the largest a with a^2 < R p and seeded random
@@ -30,6 +32,12 @@ torch.set_num_threads(1)
 M32 = 0xFFFFFFFF
 CURVES = {"ed-on-bls12-377": ED_ON_BLS12_377, "pallas": PALLAS, "bls12-377": BLS12_377,
           "bls12-381": BLS12_381}
+# the moduli the product and square models run at: the curves' base fields
+# and the example fields of 2 and 3 limbs
+MODULI = {**{name: c.modulus for name, c in CURVES.items()}, "babybear": (1 << 31) - 1,
+          "goldilocks": (1 << 64) - (1 << 32) + 1}
+LIMBS = {"ed-on-bls12-377": 9, "pallas": 9, "bls12-377": 12, "bls12-381": 13, "babybear": 2, "goldilocks": 3}
+BY_LIMBS = {2: "babybear", 3: "goldilocks", 9: "pallas", 12: "bls12-377", 13: "bls12-381"}
 
 
 class Ptx:
@@ -238,13 +246,13 @@ def _operands(f, rng: np.random.Generator, count: int):
     return pairs
 
 
-@pytest.mark.parametrize("curve", list(CURVES))
+@pytest.mark.parametrize("curve", list(MODULI))
 def test_model_equals_plain_product(curve):
     """fe_mul_cc's word order gives fe_mul's words: against mul_plain on
     the same planes and against (a b + m p) / R."""
-    f = create_field_ops(CURVES[curve].modulus)
+    f = create_field_ops(MODULI[curve])
     n, p, R = f.n, f.p, f.R
-    assert n == {"ed-on-bls12-377": 9, "pallas": 9, "bls12-377": 12, "bls12-381": 13}[curve]
+    assert n == LIMBS[curve]
     pairs = _operands(f, np.random.default_rng(14), 300)
     pw, mu = _words(p, n), f.mu
     got = [_value(fe_mul_cc_model(_words(x, n), _words(y, n), pw, mu)) for x, y in pairs]
@@ -257,12 +265,12 @@ def test_model_equals_plain_product(curve):
         assert g < 2 * p
 
 
-@pytest.mark.parametrize("n", (9, 12, 13))
+@pytest.mark.parametrize("n", (2, 3, 9, 12, 13))
 def test_model_issues_the_products_of_fe_mul(n):
     """One product issues the 2 n^2 32x32 products of fe_mul (each as its
     lo and hi half) and n quotient digits; the chains' extra adds are the
     fold and the tails: at most 3 a chain."""
-    f = create_field_ops({9: PALLAS, 12: BLS12_377, 13: BLS12_381}[n].modulus)
+    f = create_field_ops(MODULI[BY_LIMBS[n]])
     P = Ptx()
     fe_mul_cc_model(_words(f.p - 1, n), _words(f.p - 2, n), _words(f.p, n), f.mu, P)
     lo = P.ops["mul.lo"] + P.ops["mad.lo.cc"] + P.ops["madc.lo.cc"]
@@ -278,7 +286,7 @@ def _square_operands(f, rng: np.random.Generator, count: int) -> list[int]:
     p, R = f.p, f.R
     top = math.isqrt(R * p - 1)
     vals = [0, 1, 2, p - 1, p, p + 1, 2 * p - 1, 8 * p - 1, f.R_mod_p, top, top - 1, top - (1 << 32)]
-    vals += [top >> k for k in (1, 32, 33)] + [(1 << (32 * f.n // 2 + 16)) - 1]
+    vals += [top >> k for k in (1, 32, 33)] + [v for v in [(1 << (32 * f.n // 2 + 16)) - 1] if v * v < R * p]
     nb = (top.bit_length() + 7) // 8 + 8
     raw = rng.bytes(2 * count * nb)
     draws = [int.from_bytes(raw[i * nb:(i + 1) * nb], "little") for i in range(2 * count)]
@@ -287,12 +295,12 @@ def _square_operands(f, rng: np.random.Generator, count: int) -> list[int]:
     return vals
 
 
-@pytest.mark.parametrize("curve", list(CURVES))
+@pytest.mark.parametrize("curve", list(MODULI))
 def test_square_model_equals_plain_square(curve):
     """fe_sqr_cc's word order gives fe_sqr's (and fe_mul's) words: against
     mul_plain(a, a) on the same planes and against (a^2 + m p) / R, with no
     carry lost on any op."""
-    f = create_field_ops(CURVES[curve].modulus)
+    f = create_field_ops(MODULI[curve])
     n, p, R = f.n, f.p, f.R
     vals = _square_operands(f, np.random.default_rng(15), 200)
     pw = _words(p, n)
@@ -305,12 +313,12 @@ def test_square_model_equals_plain_square(curve):
         assert g < 2 * p
 
 
-@pytest.mark.parametrize("n", (9, 12, 13))
+@pytest.mark.parametrize("n", (2, 3, 9, 12, 13))
 def test_square_model_issues_fewer_products(n):
     """One square issues n (n - 1) / 2 cross products, n diagonal squares
     and n^2 reduction products (each as its lo and hi half): 222 at 12
     limbs against the product's 288."""
-    f = create_field_ops({9: PALLAS, 12: BLS12_377, 13: BLS12_381}[n].modulus)
+    f = create_field_ops(MODULI[BY_LIMBS[n]])
     P = Ptx()
     fe_sqr_cc_model(_words(f.p - 1, n), _words(f.p, n), f.mu, P)
     lo = P.ops["mul.lo"] + P.ops["mad.lo.cc"] + P.ops["madc.lo.cc"]

@@ -279,8 +279,9 @@ def test_safe_msm_matches_oracle(ctx, N, c, first):
 def test_cuda_limb_guard(monkeypatch):
     """On the card, a field whose limb count no kernel is built for (a
     448-bit prime: 15 limbs) raises before any launch, while BLS12-381 (13)
-    and Pallas (9) construct; checked without a device."""
-    with pytest.raises(NotImplementedError, match=r"compiled for \[9, 12, 13\] limbs.*needs 15"):
+    and Pallas (9) construct; checked without a device. (The field kernels
+    also have the 1-3 limb example fields' counts.)"""
+    with pytest.raises(NotImplementedError, match=r"compiled for \[1, 2, 3, 9, 12, 13\] limbs.*needs 15"):
         FieldOps(P448).field_words(MONT_MUL)
     for p in (P, BLS12_381.modulus, PALLAS.modulus):
         kernels.check_limbs(MONT_MUL, FieldOps(p).n)
